@@ -1,0 +1,41 @@
+"""Seeded synthetic scenes: coloured rectangles on textured noise.
+
+A copy of the image part of the JAX package's `SyntheticDetectionDataset`
+(`mgdt_yolo_tpu/data/dataset.py`), the scenes the committed weights were
+trained on, so a benchmark feeds trained-density inputs. Same seed, same
+pixels.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+# per-class base colours (BGR)
+_BASE = [(40, 40, 200), (200, 60, 40), (40, 200, 60), (200, 200, 40),
+         (200, 40, 200), (40, 200, 200)]
+
+
+def synthetic_scene(i: int, imgsz: int = 320, nc: int = 2, max_objects: int = 6,
+                    seed: int = 0) -> np.ndarray:
+    """Scene `i` as a (imgsz, imgsz, 3) uint8 BGR image."""
+    rng = np.random.default_rng(seed * 100003 + i)
+    s = imgsz
+    img = rng.uniform(90, 150, (s, s, 3)).astype(np.uint8)
+    for _ in range(int(rng.integers(1, max_objects + 1))):
+        w = float(rng.uniform(0.12, 0.4) * s)
+        h = float(rng.uniform(0.12, 0.4) * s)
+        x1 = float(rng.uniform(0, s - w))
+        y1 = float(rng.uniform(0, s - h))
+        c = int(rng.integers(0, nc))
+        color = np.array(_BASE[c % len(_BASE)], float) + rng.uniform(-25, 25, 3)
+        img[int(y1):int(y1 + h), int(x1):int(x1 + w)] = np.clip(color, 0, 255)
+    return img
+
+
+def synthetic_batch(batch: int, imgsz: int = 640, nc: int = 2, n: int = 64,
+                    seed: int = 7) -> np.ndarray:
+    """`n` distinct RGB scenes tiled to `batch` images: (batch, imgsz, imgsz, 3)
+    uint8, as the JAX benchmark builds its input."""
+    tile = np.stack([synthetic_scene(i, imgsz, nc, seed=seed)[..., ::-1]
+                     for i in range(min(n, batch))])
+    reps = -(-batch // len(tile))
+    return np.ascontiguousarray(np.tile(tile, (reps, 1, 1, 1))[:batch])

@@ -1,0 +1,60 @@
+"""Convolution primitives (NCHW), the counterparts of
+`mgdt_yolo_tpu/nn/modules/conv.py`.
+
+Submodule names follow the JAX package's flax names (`conv`, `norm.bn`), so
+a flax path maps to a state-dict key one to one (see `weights.py`).
+"""
+from __future__ import annotations
+
+import torch.nn as nn
+
+BN_EPS = 1e-3        # the reference's BatchNorm eps
+BN_MOMENTUM = 0.03   # torch convention (flax momentum 0.97)
+
+
+def autopad(k: int, p: int | None = None, d: int = 1) -> int:
+    """'same'-shape padding for odd kernels."""
+    if d > 1:
+        k = d * (k - 1) + 1
+    if p is None:
+        p = k // 2
+    return p
+
+
+def get_act(act) -> nn.Module:
+    """True -> SiLU, False/None -> identity, "silu"/"relu" -> that one (the
+    activations the flagship uses)."""
+    if act is True:
+        return nn.SiLU()
+    if act is False or act is None:
+        return nn.Identity()
+    table = {"silu": nn.SiLU, "relu": nn.ReLU}
+    s = str(act).lower().replace("nn.", "").replace("()", "")
+    if s not in table:
+        raise KeyError(f"activation {act!r} is not ported")
+    return table[s]()
+
+
+class BN(nn.Module):
+    """BatchNorm with the reference's eps, under the flax name `bn`."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.bn = nn.BatchNorm2d(c, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+    def forward(self, x):
+        return self.bn(x)
+
+
+class Conv(nn.Module):
+    """conv2d (no bias, 'same' padding) + BatchNorm + activation
+    (`nn/fuse.py` folds the BatchNorm into the conv for serving)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, act=True):
+        super().__init__()
+        self.conv = nn.Conv2d(c1, c2, k, s, autopad(k), bias=False)
+        self.norm = BN(c2)
+        self.act = get_act(act)
+
+    def forward(self, x):
+        return self.act(self.norm(self.conv(x)))

@@ -1,0 +1,87 @@
+"""Build the package's CUDA sources with nvcc and load them with ctypes.
+
+Each `csrc/<name>.cu` becomes `_build/lib<name>-<digest>.so`: a shared
+library with a plain C interface, compiled for `sm_90a` at first use. The
+digest covers the source and the flags, so an edited source is rebuilt and
+an unchanged one is loaded as it is. `build_all` starts one nvcc per source
+together and waits for all of them.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+PKG_ROOT = Path(__file__).resolve().parents[1]
+CSRC = PKG_ROOT / "csrc"
+BUILD_DIR = PKG_ROOT / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def nvcc_path() -> str:
+    """The nvcc on PATH, else the toolkit's; raises if there is none."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.is_file():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with the "
+                       "CUDA toolkit's nvcc at first use")
+
+
+def library_path(name: str) -> Path:
+    """Where `csrc/<name>.cu` is built to, keyed by source and flags."""
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _start_build(name: str):
+    """Start nvcc for one source unless its library exists; returns
+    (process or None, temporary output, final output)."""
+    out = library_path(name)
+    if out.is_file():
+        return None, None, out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, tmp, out
+
+
+def build_all(names=None) -> dict:
+    """Build every named source (default: all of `csrc/*.cu`) in parallel.
+
+    Returns {name: compiler output ('' where the library was already built)}.
+    Raises RuntimeError with the compiler's output if any build fails.
+    """
+    names = names or sorted(p.stem for p in CSRC.glob("*.cu"))
+    started = {n: _start_build(n) for n in names}
+    logs, failed = {}, []
+    for name, (proc, tmp, out) in started.items():
+        if proc is None:
+            logs[name] = ""
+            continue
+        text, _ = proc.communicate()
+        logs[name] = text
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{text}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return logs
+
+
+@functools.cache
+def load_library(name: str) -> ctypes.CDLL:
+    """Build `csrc/<name>.cu` if needed and load it (once per process)."""
+    build_all([name])
+    return ctypes.CDLL(str(library_path(name)))
