@@ -9,14 +9,27 @@ Phases, each of which passes or ends the script with a non-zero exit:
 2. build: nvcc builds every `mgdt_yolo_tpu_torch/csrc/*.cu` (one process per
    source, all started together);
 3. kernels: each hand-written kernel against its plain PyTorch version on the
-   card, at the main path's shapes, with the stated tolerance, then timed;
-4. main path: the flagship MGDT-n from `weights/mgdt_n_synth.npz`, Conv+BN
+   card, at the main paths' shapes (batch 8 in 8 cases; K2 also at the
+   training batch, 32), with the stated tolerance, then timed;
+4. serving path: the flagship MGDT-n from `weights/mgdt_n_synth.npz`, Conv+BN
    fused, bf16, 640 px, answers requests of batch 1, 8 and 32 through
-   `predict` on synthetic scenes; every kernel must have launched on it;
-5. throughput (images/s) at batch 1, 32 and 128;
-6. the same model in float32 on the card and on the CPU (plain DCN): raw
-   maps and NMS results must agree. It runs last because the CPU forward
-   leaves the host's threads busy, which slows the host-bound batch 1.
+   `predict` on synthetic scenes; K1 must have launched once per forward;
+5. serving throughput (images/s) at batch 1, 32 and 128;
+6. training path: the same weights unfused in `train()` mode, bf16 autocast,
+   640 px, the `Trainer` with the JAX defaults (SGD, accumulate 2) over a
+   loader of labelled synthetic scenes at batch 32: a few optimizer updates
+   and a checkpoint; K1 and K2 must each launch once per micro-step, every
+   loss be finite and the DCN weight get a finite, non-zero gradient;
+7. training on one fixed batch: the loss must fall; train images/s at b32;
+8. serving in float32 on the card and on the CPU (plain DCN): raw maps and
+   NMS results must agree;
+9. one training step in float32 on the card and on the CPU (plain DCN
+   forward and backward), on two seeds' scenes: loss parts and gradients
+   must agree; then K2's output with one term planted wrong (d x, the x
+   half of d offset, tap 0 of d offset, or d mask dropped) must break the
+   gradients' limit.
+   Phases 8 and 9 run last because the CPU work leaves the host's threads
+   busy, which slows the host-bound batch 1.
 
 The last lines are the kernel table as JSON, the card's name and power
 limit, and `{"ok": true, "device": {...}}`. Without a CUDA device the script
@@ -25,19 +38,24 @@ exits non-zero before printing any result.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import torch
 
-from mgdt_yolo_tpu_torch.data.synthetic import synthetic_batch
+from mgdt_yolo_tpu_torch.data.build import DataLoader, collate, to_device
+from mgdt_yolo_tpu_torch.data.synthetic import SyntheticDetectionDataset, synthetic_batch
 from mgdt_yolo_tpu_torch.engine import predictor
 from mgdt_yolo_tpu_torch.engine.predictor import predict
+from mgdt_yolo_tpu_torch.engine.trainer import Trainer
 from mgdt_yolo_tpu_torch.nn.tasks import DetectionModel
 from mgdt_yolo_tpu_torch.ops import cuda_deform
-from mgdt_yolo_tpu_torch.ops.deform import modulated_deform_conv2d_plain
+from mgdt_yolo_tpu_torch.ops.deform import (modulated_deform_conv2d_plain,
+                                            modulated_deform_conv2d_plain_bwd)
 from mgdt_yolo_tpu_torch.ops.nms import non_max_suppression
 from mgdt_yolo_tpu_torch.utils.build import build_all, nvcc_path
 from mgdt_yolo_tpu_torch.utils.measure import cuda_time_ms, gpu_name_and_power
@@ -48,8 +66,22 @@ IMGSZ = 640
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12                             # H100 SXM device memory
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, per type
-# each kernel's launch counter, set to 0 just before the main path
-COUNTERS = {"deform_fwd": cuda_deform}
+TRAIN_BATCH = 32
+# the JAX trainer's defaults, with SGD chosen explicitly; batch 32 gives
+# accumulate = round(64 / 32) = 2
+TRAIN_OVERRIDES = {"optimizer": "SGD", "batch": TRAIN_BATCH, "epochs": 1}
+# each kernel's launch counter (module, attribute), set to 0 just before a path
+COUNTERS = {"deform_fwd": (cuda_deform, "launches"),
+            "deform_bwd": (cuda_deform, "bwd_launches")}
+
+
+def reset_counts():
+    for mod, attr in COUNTERS.values():
+        setattr(mod, attr, 0)
+
+
+def read_counts():
+    return {name: getattr(mod, attr) for name, (mod, attr) in COUNTERS.items()}
 
 
 def log(msg=""):
@@ -105,9 +137,14 @@ def _deform_inputs(B, H, W, C, O, off_range, dtype, seed=0):
     return [t.to(DEVICE, dtype).contiguous() for t in (x, off, mask, w)]
 
 
+def _deform_grad(B, H, W, O, dtype, seed=1):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(B, H, W, O, generator=g).to(DEVICE, dtype).contiguous()
+
+
 def _deform_bound_ms(B, H, W, C, O, dtype_name):
-    """Least time for the work: each input read once and the output written
-    once, against the contraction plus the bilinear sampling operations."""
+    """K1's least time: each input read once and the output written once,
+    against the contraction plus the bilinear sampling operations."""
     esize = 2 if dtype_name == "bfloat16" else 4
     P = H * W
     nbytes = (B * P * (C + 18 + 9 + O) + 9 * C * O) * esize
@@ -116,11 +153,22 @@ def _deform_bound_ms(B, H, W, C, O, dtype_name):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_kernels():
-    """K1 (DCNv2 forward) against its plain version at the main path's
-    shape: 80x80 map, C_in = C_out = 32, batch 8."""
-    log("== phase 3: kernels against their plain versions")
-    B, H, W, C, O = 8, 80, 80, 32, 32
+def _deform_bwd_bound_ms(B, H, W, C, O, dtype_name):
+    """K2's least time: read x, offset, mask, weight and the output gradient,
+    write d x, d offset, d mask and d weight, each once; against the two
+    contractions with the weight (tap gradient, weight gradient) plus the
+    sampling work per (pixel, tap, channel, corner): the recomputed sample,
+    the corner-weight gradient and the scatter into d x, 2 operations each."""
+    esize = 2 if dtype_name == "bfloat16" else 4
+    P = H * W
+    nbytes = (B * P * ((C + 18 + 9 + O) + (C + 18 + 9)) + 2 * 9 * C * O) * esize
+    flops = 2 * (2 * B * P * 9 * C * O) + 4 * 6 * B * P * 9 * C
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _check_fwd(B, H, W, C, O):
+    """K1 in the 8 cases; times it in the serving path's case."""
     # float32: both sides accumulate 288 products in float32 in different
     # orders (~1e-6 on outputs of magnitude ~1), so 1e-4 is far above
     # rounding and far below any sampling mistake. bf16: both compute in
@@ -152,42 +200,118 @@ def phase_kernels():
                     bound_ms, bound_by = _deform_bound_ms(B, H, W, C, O, "bfloat16")
                     log(f"deform_fwd bf16 windowed B={B}: kernel {ms:.4f} ms, "
                         f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
-    return [{"name": "deform_fwd", "route": "cuda",
-             "source": "mgdt_yolo_tpu_torch/csrc/deform_fwd.cu",
-             "replaces": "mgdt_yolo_tpu/ops/pallas_deform.py:79",
-             "shape": f"x ({B},{H},{W},{C}) bf16, weight (3,3,{C},{O}), windowed",
-             "launches": None, "max_abs_err": main_err, "max_err": main_err,
-             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-             "bound_by": bound_by, "library_ms": None}]
+    return {"name": "deform_fwd", "route": "cuda",
+            "source": "mgdt_yolo_tpu_torch/csrc/deform_fwd.cu",
+            "replaces": "mgdt_yolo_tpu/ops/pallas_deform.py:79",
+            "shape": f"x ({B},{H},{W},{C}) bf16, weight (3,3,{C},{O}), windowed",
+            "launches": None, "max_abs_err": main_err, "max_err": main_err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
-def phase_main_path():
-    log("== phase 4: main path (MGDT-n, fused, bf16, 640 px)")
+def _compare_bwd(args, g, semantics, case):
+    """K2 against the plain backward on the same inputs, all four gradients;
+    returns the largest error, and ends the script on a disagreement."""
+    # float32: the kernel's atomics and its per-tile sums reorder float32
+    # sums of up to 204800 terms (the weight gradient at batch 32), so each
+    # gradient is held to 1e-4 of its largest value, far above rounding and
+    # far below any mistake in the sampling. bf16: both sides round the tap
+    # gradient and the samples to bf16 before contracting them and round the
+    # results once, so a tap-gradient element on a rounding boundary may
+    # round the other way; four bf16 roundings (2^-8 relative) of the
+    # largest value.
+    with float32_exact():
+        got = cuda_deform.deform_bwd(*args, g, semantics)
+        want = modulated_deform_conv2d_plain_bwd(*args, g, semantics)
+        torch.cuda.synchronize()
+    errs = []
+    for name, a, b in zip(("dx", "d_offset", "d_mask", "d_weight"), got, want):
+        err = (a.float() - b.float()).abs().max().item()
+        scale = b.float().abs().max().item()
+        tol = (1e-4 if g.dtype == torch.float32 else 4 * 2 ** -8) * scale
+        ok = bool(torch.isfinite(a).all()) and a.dtype == b.dtype and err <= tol
+        errs.append(err)
+        log(f"deform_bwd {case} {name:8s}: max_abs_err {err:.3e} "
+            f"(tol {tol:.3e}, max {scale:.3f}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("deform_bwd disagrees with its plain version")
+    return max(errs)
+
+
+def _check_bwd(B, H, W, C, O):
+    """K2 in the 8 cases at batch B and in the training path's case at the
+    training batch; times it in both."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for semantics in ("windowed", "exact"):
+            for off_range in (1.5, 4.0):
+                args = _deform_inputs(B, H, W, C, O, off_range, dtype)
+                g = _deform_grad(B, H, W, O, dtype)
+                err = _compare_bwd(args, g, semantics, f"{str(dtype)[6:]:9s} {semantics:8s} "
+                                   f"offsets +-{off_range} B={B}")
+                if dtype == torch.bfloat16 and semantics == "windowed" and off_range == 1.5:
+                    main_err = err
+                    ms = cuda_time_ms(lambda: cuda_deform.deform_bwd(*args, g))
+                    plain_ms = cuda_time_ms(
+                        lambda: modulated_deform_conv2d_plain_bwd(*args, g), iters=3)
+                    bound_ms, bound_by = _deform_bwd_bound_ms(B, H, W, C, O, "bfloat16")
+                    log(f"deform_bwd bf16 windowed B={B}: kernel {ms:.4f} ms, "
+                        f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+    del args, g
+    # the training path's own shape: batch 32, bf16, windowed
+    Bt = TRAIN_BATCH
+    args = _deform_inputs(Bt, H, W, C, O, 1.5, torch.bfloat16)
+    g = _deform_grad(Bt, H, W, O, torch.bfloat16)
+    err_t = _compare_bwd(args, g, "windowed", f"bfloat16  windowed offsets +-1.5 B={Bt}")
+    ms_t = cuda_time_ms(lambda: cuda_deform.deform_bwd(*args, g), iters=10)
+    plain_t = cuda_time_ms(lambda: modulated_deform_conv2d_plain_bwd(*args, g), iters=2,
+                           windows=3)
+    bound_t, _ = _deform_bwd_bound_ms(Bt, H, W, C, O, "bfloat16")
+    log(f"deform_bwd bf16 windowed B={Bt}: kernel {ms_t:.4f} ms, plain {plain_t:.4f} ms, "
+        f"bound {bound_t:.5f} ms")
+    return {"name": "deform_bwd", "route": "cuda",
+            "source": "mgdt_yolo_tpu_torch/csrc/deform_bwd.cu",
+            "replaces": "mgdt_yolo_tpu/ops/pallas_deform.py:195",
+            "shape": f"x ({B},{H},{W},{C}) bf16, weight (3,3,{C},{O}), windowed",
+            "launches": None, "max_abs_err": main_err, "max_err": main_err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, f"max_abs_err_b{Bt}": err_t,
+            f"ms_b{Bt}": ms_t, f"plain_ms_b{Bt}": plain_t, f"bound_ms_b{Bt}": bound_t}
+
+
+def phase_kernels():
+    """K1 (DCNv2 forward) and K2 (DCNv2 backward) against their plain
+    versions at the main paths' shape: 80x80 map, C_in = C_out = 32, batch 8."""
+    log("== phase 3: kernels against their plain versions")
+    B, H, W, C, O = 8, 80, 80, 32, 32
+    return [_check_fwd(B, H, W, C, O), _check_bwd(B, H, W, C, O)]
+
+
+def phase_serving():
+    log("== phase 4: serving path (MGDT-n, fused, bf16, 640 px)")
     model = DetectionModel.from_npz(WEIGHTS, device=DEVICE).fuse().to(torch.bfloat16)
     log(f"deform semantics {model.deform_semantics}, fused {model.n_fused} Conv+BN pairs")
     requests = [synthetic_batch(b, IMGSZ) for b in (1, 8, 32)]
-    for counter in COUNTERS.values():
-        counter.launches = 0
+    reset_counts()
     results = [predict(model, imgs) for imgs in requests]
     torch.cuda.synchronize()
-    launches = {name: counter.launches for name, counter in COUNTERS.items()}
+    launches = read_counts()
     for imgs, (det, counts) in zip(requests, results):
         b = imgs.shape[0]
         log(f"request b{b}: det {tuple(det.shape)}, detections per image "
             f"min {int(counts.min())} max {int(counts.max())}")
         if det.shape != (b, 300, 6) or not bool(torch.isfinite(det).all()):
-            raise SystemExit("main path gave malformed or non-finite detections")
+            raise SystemExit("serving path gave malformed or non-finite detections")
     # at 640 px (twice the weights' training size) some scenes have none
     if sum(int(counts.sum()) for _, counts in results) == 0:
-        raise SystemExit("main path found no detections")
-    log(f"launches during the main path: {launches}")
+        raise SystemExit("serving path found no detections")
+    log(f"launches during the serving path: {launches}")
     if launches["deform_fwd"] != len(requests):
         raise SystemExit("deform_fwd did not launch exactly once per forward")
     return model, launches
 
 
 def phase_throughput(model):
-    log("== phase 5: throughput (bf16, fused, 640 px, input resident on the card)")
+    log("== phase 5: serving throughput (bf16, fused, 640 px, input resident on the card)")
     rates = {}
     for b in (1, 32, 128):
         x = torch.from_numpy(synthetic_batch(b, IMGSZ)).to(DEVICE)
@@ -197,8 +321,80 @@ def phase_throughput(model):
     log("throughput images/s: " + json.dumps(rates))
 
 
+def _dcn_weight_grad(trainer, batch):
+    """The DCN weight's gradient from one forward and backward of `batch`
+    (no optimizer step); every gradient is cleared afterwards."""
+    model = trainer.model
+    with torch.autocast("cuda", dtype=torch.bfloat16, enabled=trainer.amp):
+        feats = model.forward_feats(batch["img"].float() / 255.0)
+    trainer.criterion(feats, batch, trainer.step).total.backward()
+    grad = model.model_16.DyDCNV2.weight.grad.detach().clone()
+    for p in model.parameters():
+        p.grad = None
+    return grad
+
+
+def phase_training():
+    n_steps = 6
+    log(f"== phase 6: training path (MGDT-n, unfused, train(), bf16 autocast, "
+        f"b{TRAIN_BATCH}, {IMGSZ} px, {n_steps} micro-steps)")
+    model = DetectionModel.from_npz(WEIGHTS, device=DEVICE)
+    ds = SyntheticDetectionDataset(n=TRAIN_BATCH * n_steps, imgsz=IMGSZ, seed=0)
+    loader = DataLoader(ds, TRAIN_BATCH, IMGSZ)
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(model, loader, overrides=TRAIN_OVERRIDES, save_dir=tmp)
+        log(f"optimizer {trainer.optimizer.name}, accumulate {trainer.accumulate}, "
+            f"deform semantics {model.deform_semantics}, bf16 autocast {trainer.amp}, "
+            f"max_gt {loader.max_gt}")
+        reset_counts()
+        t0 = time.perf_counter()
+        history = trainer.train()
+        torch.cuda.synchronize()
+        launches = read_counts()
+        wall = time.perf_counter() - t0
+        meta = json.loads((Path(tmp) / "weights" / "last_metadata.json").read_text())
+        back = DetectionModel.from_npz(Path(tmp) / "weights" / "last.npz", device=DEVICE)
+    for i, m in enumerate(history):
+        log(f"micro-step {i}: " + ", ".join(f"{k} {float(v):.4f}" for k, v in m.items()))
+    log(f"{n_steps} micro-steps (data made on the host included) in {wall:.2f} s; "
+        f"optimizer updates {trainer.optimizer.count}, EMA updates {trainer.ema.updates}")
+    log(f"launches during the training path: {launches}")
+    if not all(math.isfinite(float(m["loss"])) for m in history):
+        raise SystemExit("a training loss is not finite")
+    if launches != {"deform_fwd": n_steps, "deform_bwd": n_steps}:
+        raise SystemExit("deform_fwd and deform_bwd did not launch once per micro-step")
+    if trainer.optimizer.count != n_steps // trainer.accumulate:
+        raise SystemExit("the optimizer did not step once per accumulation")
+    log(f"checkpoint: deform_semantics {meta['deform_semantics']}, step {meta['step']}, "
+        f"reloaded pinned {back.deform_semantics}")
+    if meta["deform_semantics"] != "windowed" or back.deform_semantics != "windowed":
+        raise SystemExit("the checkpoint lost the deform semantics pin")
+    batch = to_device(collate([ds[i] for i in range(TRAIN_BATCH)], IMGSZ, loader.max_gt),
+                      DEVICE)
+    grad = _dcn_weight_grad(trainer, batch)
+    gnorm = grad.float().norm().item()
+    log(f"DCN weight gradient: norm {gnorm:.4e}, max |g| {grad.abs().max().item():.4e}")
+    if not (math.isfinite(gnorm) and gnorm > 0):
+        raise SystemExit("the DCN weight got no finite, non-zero gradient")
+    return trainer, batch, launches
+
+
+def phase_fixed_batch(trainer, batch):
+    log(f"== phase 7: training on one fixed batch (b{TRAIN_BATCH}, bf16 autocast)")
+    losses = [float(trainer.train_step(batch)["loss"]) for _ in range(16)]
+    log("losses: " + ", ".join(f"{v:.4f}" for v in losses))
+    first, last = sum(losses[:4]) / 4, sum(losses[-4:]) / 4
+    log(f"mean loss of the first 4 micro-steps {first:.4f}, of the last 4 {last:.4f}")
+    if not (all(math.isfinite(v) for v in losses) and last < first):
+        raise SystemExit("the loss did not fall on a fixed batch")
+    ms = cuda_time_ms(lambda: trainer.train_step(batch), iters=4, windows=3)
+    log(f"train b{TRAIN_BATCH}: {ms:.3f} ms per micro-step "
+        f"(an optimizer update every {trainer.accumulate}), "
+        f"{TRAIN_BATCH / ms * 1e3:.2f} train images/s")
+
+
 def phase_card_vs_cpu():
-    log("== phase 6: float32 on the card against float32 on the CPU")
+    log("== phase 8: serving in float32 on the card against float32 on the CPU")
     # scenes 4 and 5: two that have detections at 640 px
     x = torch.from_numpy(synthetic_batch(6, IMGSZ)[4:]).float() / 255.0
     outs = []
@@ -224,6 +420,102 @@ def phase_card_vs_cpu():
         raise SystemExit("the card and the CPU disagree")
 
 
+# gradients compared in phase 9: the DCN weight, the two tensors that take
+# K2's other gradients first (the offset/mask conv: d offset and d mask; the
+# regression branch's reduction: d x), and backbone kernels from the stem
+# to the deepest stage
+GRAD_NAMES = ("model_16.DyDCNV2.weight", "model_16.spatial_conv_offset.weight",
+              "model_16.reg_decomp.reduction_weight", "model_0.conv.weight",
+              "model_1.conv.weight", "model_3.conv.weight", "model_7.conv.weight",
+              "model_9.cv2.conv.weight")
+# float32, TF32 off: ~60 layers of convolutions and norms reordered by cuDNN
+# and the CPU, and the DCN backward's atomics. Loss parts to 1e-4 of their
+# value; each gradient to 5e-3 of its tensor's largest value: the backward
+# through the backbone compounds cuDNN's float32 rounding (a sound step
+# reaches 1.5e-3 at model_7). Phase 9 also plants faults in K2's output and
+# fails unless each one breaks this limit somewhere.
+PARTS_TOL, GRAD_TOL = 1e-4, 5e-3
+
+
+def _planted(fault):
+    """K2's four gradients with one term of `fault` dropped."""
+    def wrong(dx, doff, dmask, dw):
+        if fault == "dx":
+            dx = torch.zeros_like(dx)
+        elif fault == "d_offset x":      # offsets are (y, x) per tap
+            doff = doff.clone()
+            doff[..., 1::2] = 0
+        elif fault == "d_offset tap 0":
+            doff = doff.clone()
+            doff[..., 0:2] = 0
+        elif fault == "d_mask":
+            dmask = torch.zeros_like(dmask)
+        return dx, doff, dmask, dw
+    return wrong
+
+
+def _float32_train_step(dev, batch, fault=None):
+    """Loss parts and the GRAD_NAMES gradients of one float32 training
+    forward and backward on `dev`; `fault` plants `_planted(fault)` into
+    the DCN's backward."""
+    model = DetectionModel.from_npz(WEIGHTS, device=dev).train()
+    crit = Trainer(model, overrides={**TRAIN_OVERRIDES, "amp": False},
+                   steps_per_epoch=1).criterion
+    b = to_device(batch, dev)
+    real = cuda_deform.deform_bwd
+    if fault:
+        cuda_deform.deform_bwd = lambda *a: _planted(fault)(*real(*a))
+    try:
+        with float32_exact():
+            out = crit(model.forward_feats(b["img"].float() / 255.0), b, 0)
+            out.total.backward()
+    finally:
+        cuda_deform.deform_bwd = real
+    params = dict(model.named_parameters())
+    return out.parts.cpu(), {n: params[n].grad.cpu() for n in GRAD_NAMES}
+
+
+def _grad_gaps(got, want):
+    """Each gradient's largest difference over its tensor's largest value."""
+    return {n: (got[n] - want[n]).abs().max().item() / want[n].abs().max().item()
+            for n in GRAD_NAMES}
+
+
+def phase_train_card_vs_cpu():
+    log("== phase 9: one float32 training step on the card against the CPU")
+    ok, sound = True, {}
+    for seed in (0, 1):
+        ds = SyntheticDetectionDataset(n=2, imgsz=IMGSZ, seed=seed)
+        batch = collate([ds[0], ds[1]], IMGSZ, 24)
+        (pg, gg), (pc, gc) = (_float32_train_step(dev, batch) for dev in (DEVICE, "cpu"))
+        log(f"seed {seed}: loss parts card {pg.tolist()} cpu {pc.tolist()}")
+        ok &= bool(((pg - pc).abs() <= PARTS_TOL * pc.abs()).all())
+        for n, gap in _grad_gaps(gg, gc).items():
+            good = gap <= GRAD_TOL and gc[n].abs().max().item() > 0
+            ok &= good
+            sound[n] = max(sound.get(n, 0.0), gap)
+            log(f"seed {seed}: gradient of {n}: max |diff| / max |g| {gap:.3e} "
+                f"(max |g| {gc[n].abs().max().item():.3e}) {'ok' if good else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the card's training step disagrees with the CPU's")
+    worst = max(sound, key=sound.get)
+    log(f"largest sound gap {sound[worst]:.3e} ({worst}), limit {GRAD_TOL:.0e}")
+    # the limit's other reading: K2's output with one term dropped, card
+    # against the sound CPU step of the last seed
+    for fault in ("dx", "d_offset x", "d_offset tap 0", "d_mask"):
+        _, gf = _float32_train_step(DEVICE, batch, fault)
+        gaps = _grad_gaps(gf, gc)
+        caught = {n: g for n, g in gaps.items() if g > GRAD_TOL}
+        log(f"planted fault, {fault} dropped: caught by {len(caught)} of {len(gaps)} "
+            "gradients; gaps " + ", ".join(f"{n} {g:.3e}" for n, g in gaps.items()))
+        if not caught:
+            raise SystemExit(f"phase 9's limit does not catch K2 with {fault} dropped")
+
+
+# which paths run each kernel (its launches must be counted on each)
+KERNEL_PATHS = {"deform_fwd": ("serving", "training"), "deform_bwd": ("training",)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -232,13 +524,23 @@ def main() -> int:
     phase_environment()
     phase_build()
     kernels = phase_kernels()
-    model, launches = phase_main_path()
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
-        if not k["launches"]:
-            raise SystemExit(f"kernel {k['name']} never launched on the main path")
+    model, serving = phase_serving()
     phase_throughput(model)
+    del model
+    trainer, batch, training = phase_training()
+    phase_fixed_batch(trainer, batch)
+    del trainer, batch
+    torch.cuda.empty_cache()
     phase_card_vs_cpu()
+    phase_train_card_vs_cpu()
+    paths = {"serving": serving, "training": training}
+    for k in kernels:
+        k["launches_by_path"] = {p: paths[p][k["name"]] for p in KERNEL_PATHS[k["name"]]}
+        for p, n in k["launches_by_path"].items():
+            if not n:
+                raise SystemExit(f"kernel {k['name']} never launched on the {p} path")
+        # K1's own path is serving; K2's is training
+        k["launches"] = k["launches_by_path"][KERNEL_PATHS[k["name"]][0]]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(gpu_name_and_power())

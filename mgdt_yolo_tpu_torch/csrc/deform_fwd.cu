@@ -33,20 +33,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "deform_common.cuh"
+
 namespace {
 
-constexpr int KT = 9;         // 3x3 taps
+using deform::from_f32;
+using deform::KT;
+using deform::to_f32;
+
 constexpr int TILE = 32;      // output pixels per block
 constexpr int THREADS = 256;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -75,41 +71,20 @@ deform_fwd_kernel(const T* __restrict__ x, const T* __restrict__ offset,
     int ci[4] = {-1, -1, -1, -1};
     if (pl < np) {
       const int p = p0 + pl, i = p / W, j = p % W;
-      const int ty = k / 3, tx = k % 3;
       const size_t pix = (size_t)b * P + p;
-      const float oy = to_f32(offset[pix * (2 * KT) + 2 * k]);
-      const float ox = to_f32(offset[pix * (2 * KT) + 2 * k + 1]);
       const float m = to_f32(mask[pix * KT + k]);
-      const float py = (float)(i - 1 + ty) + oy;
-      const float px = (float)(j - 1 + tx) + ox;
-      const bool valid = py > -1.f && py < (float)H && px > -1.f && px < (float)W;
-      float y0, x0, fy, fx;
-      if (windowed) {
-        // window-relative position r = t + off + 2, floor clamped to [t, t+4]
-        const float ry = ((float)ty + oy) + 2.f;
-        const float rx = ((float)tx + ox) + 2.f;
-        const float ry0 = fminf(fmaxf(floorf(ry), (float)ty), (float)ty + 4.f);
-        const float rx0 = fminf(fmaxf(floorf(rx), (float)tx), (float)tx + 4.f);
-        fy = fminf(fmaxf(ry - ry0, 0.f), 1.f);
-        fx = fminf(fmaxf(rx - rx0, 0.f), 1.f);
-        y0 = ry0 + (float)(i - 3);
-        x0 = rx0 + (float)(j - 3);
-      } else {
-        y0 = floorf(py);
-        x0 = floorf(px);
-        fy = py - y0;
-        fx = px - x0;
-      }
-      const float wv = valid ? m : 0.f;
+      const deform::Tap t = deform::tap_fields(i, j, k, to_f32(offset[pix * (2 * KT) + 2 * k]),
+                                               to_f32(offset[pix * (2 * KT) + 2 * k + 1]),
+                                               H, W, windowed);
+      const float wv = t.valid ? m : 0.f;
       if (wv != 0.f) {
-        const int yi = (int)y0, xi = (int)x0;
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const int dy = q >> 1, dx = q & 1;
-          const int yy = yi + dy, xx = xi + dx;
+          const int yy = t.y0 + dy, xx = t.x0 + dx;
           if (yy >= 0 && yy < H && xx >= 0 && xx < W) {
             ci[q] = yy * W + xx;
-            cw[q] = (dy ? fy : 1.f - fy) * (dx ? fx : 1.f - fx) * wv;
+            cw[q] = (dy ? t.fy : 1.f - t.fy) * (dx ? t.fx : 1.f - t.fx) * wv;
           }
         }
       }

@@ -1,11 +1,14 @@
-"""Seeded synthetic scenes: coloured rectangles on textured noise.
+"""Seeded synthetic scenes: coloured rectangles on textured noise, with their
+labels.
 
-A copy of the image part of the JAX package's `SyntheticDetectionDataset`
-(`mgdt_yolo_tpu/data/dataset.py`), the scenes the committed weights were
-trained on, so a benchmark feeds trained-density inputs. Same seed, same
-pixels.
+A copy of the JAX package's `SyntheticDetectionDataset`
+(`mgdt_yolo_tpu/data/dataset.py`, unaugmented), the scenes the committed
+weights were trained on, so a benchmark feeds trained-density inputs and the
+trainer has labelled data. Same seed, same pixels, same boxes.
 """
 from __future__ import annotations
+
+from typing import Dict
 
 import numpy as np
 
@@ -14,12 +17,14 @@ _BASE = [(40, 40, 200), (200, 60, 40), (40, 200, 60), (200, 200, 40),
          (200, 40, 200), (40, 200, 200)]
 
 
-def synthetic_scene(i: int, imgsz: int = 320, nc: int = 2, max_objects: int = 6,
-                    seed: int = 0) -> np.ndarray:
-    """Scene `i` as a (imgsz, imgsz, 3) uint8 BGR image."""
+def synthetic_item(i: int, imgsz: int = 320, nc: int = 2, max_objects: int = 6,
+                   seed: int = 0) -> Dict:
+    """Scene `i`: {"img": (imgsz, imgsz, 3) uint8 BGR, "boxes": (n, 4)
+    float32 xyxy pixels, "cls": (n,) float32}."""
     rng = np.random.default_rng(seed * 100003 + i)
     s = imgsz
     img = rng.uniform(90, 150, (s, s, 3)).astype(np.uint8)
+    boxes, cls = [], []
     for _ in range(int(rng.integers(1, max_objects + 1))):
         w = float(rng.uniform(0.12, 0.4) * s)
         h = float(rng.uniform(0.12, 0.4) * s)
@@ -28,7 +33,16 @@ def synthetic_scene(i: int, imgsz: int = 320, nc: int = 2, max_objects: int = 6,
         c = int(rng.integers(0, nc))
         color = np.array(_BASE[c % len(_BASE)], float) + rng.uniform(-25, 25, 3)
         img[int(y1):int(y1 + h), int(x1):int(x1 + w)] = np.clip(color, 0, 255)
-    return img
+        boxes.append([x1, y1, x1 + w, y1 + h])
+        cls.append(c)
+    return {"img": img, "boxes": np.asarray(boxes, np.float32),
+            "cls": np.asarray(cls, np.float32)}
+
+
+def synthetic_scene(i: int, imgsz: int = 320, nc: int = 2, max_objects: int = 6,
+                    seed: int = 0) -> np.ndarray:
+    """Scene `i` as a (imgsz, imgsz, 3) uint8 BGR image."""
+    return synthetic_item(i, imgsz, nc, max_objects, seed)["img"]
 
 
 def synthetic_batch(batch: int, imgsz: int = 640, nc: int = 2, n: int = 64,
@@ -39,3 +53,22 @@ def synthetic_batch(batch: int, imgsz: int = 640, nc: int = 2, n: int = 64,
                      for i in range(min(n, batch))])
     reps = -(-batch // len(tile))
     return np.ascontiguousarray(np.tile(tile, (reps, 1, 1, 1))[:batch])
+
+
+class SyntheticDetectionDataset:
+    """`n` labelled scenes at `imgsz`, unaugmented; items as the JAX
+    dataset's (`img` BGR uint8, `boxes` xyxy pixels, `cls`)."""
+
+    def __init__(self, n: int = 64, imgsz: int = 320, nc: int = 2,
+                 max_objects: int = 6, seed: int = 0):
+        self.n, self.imgsz, self.nc = n, imgsz, nc
+        self.max_objects, self.seed = max_objects, seed
+
+    def __len__(self) -> int:
+        return self.n
+
+    def max_labels(self) -> int:
+        return self.max_objects
+
+    def __getitem__(self, i: int) -> Dict:
+        return synthetic_item(i, self.imgsz, self.nc, self.max_objects, self.seed)

@@ -14,7 +14,7 @@ import torch.nn.functional as F
 
 from ...ops.common import (adaptive_avg_pool2d, h_sigmoid, interpolate_bilinear,
                            max_pool2d_same)
-from ...ops.cuda_deform import deform_fwd
+from ...ops.cuda_deform import deform_conv
 from ...ops.deform import check_semantics
 from .conv import Conv
 
@@ -280,7 +280,9 @@ class InjectionMultiSum_Auto_pool(nn.Module):
 
 class DyDCNv2(nn.Module):
     """Modulated deformable conv (no bias) + GroupNorm(16); offsets and mask
-    come from the caller. `semantics` is the model's deform pin."""
+    come from the caller. `semantics` is the model's deform pin. The DCN is
+    `ops.cuda_deform.deform_conv`: K1 forward, K2 backward on the card, the
+    weight cast to x's type as the JAX module casts it."""
 
     def __init__(self, c1: int, c2: int, semantics: str = "windowed"):
         super().__init__()
@@ -292,6 +294,5 @@ class DyDCNv2(nn.Module):
         """x (b, c1, h, w), offset (b, 18, h, w), mask (b, 9, h, w) -> NCHW."""
         def nhwc(t):
             return t.permute(0, 2, 3, 1).contiguous()
-        y = deform_fwd(nhwc(x), nhwc(offset), nhwc(mask), self.weight, None,
-                       self.semantics)
+        y = deform_conv(nhwc(x), nhwc(offset), nhwc(mask), self.weight, self.semantics)
         return self.gn(y.permute(0, 3, 1, 2))

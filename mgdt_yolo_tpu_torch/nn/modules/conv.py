@@ -6,7 +6,9 @@ a flax path maps to a state-dict key one to one (see `weights.py`).
 """
 from __future__ import annotations
 
+import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 BN_EPS = 1e-3        # the reference's BatchNorm eps
 BN_MOMENTUM = 0.03   # torch convention (flax momentum 0.97)
@@ -36,14 +38,31 @@ def get_act(act) -> nn.Module:
 
 
 class BN(nn.Module):
-    """BatchNorm with the reference's eps, under the flax name `bn`."""
+    """BatchNorm with the reference's eps, under the flax name `bn`.
+
+    In training, the running variance follows flax: it moves toward the
+    *biased* batch variance, where `nn.BatchNorm2d` would use the unbiased
+    one. Both normalise with the biased variance.
+    """
 
     def __init__(self, c: int):
         super().__init__()
         self.bn = nn.BatchNorm2d(c, eps=BN_EPS, momentum=BN_MOMENTUM)
 
     def forward(self, x):
-        return self.bn(x)
+        bn = self.bn
+        if not self.training:
+            return bn(x)
+        # the batch norm updates copies (autograd keeps them); torch stores
+        # new = (1-m) old + m u, u the unbiased variance over n values, and
+        # flax's (1-m) old + m u (n-1)/n is new - m u/n with m u = new - (1-m) old
+        mean, var = bn.running_mean.clone(), bn.running_var.clone()
+        y = F.batch_norm(x, mean, var, bn.weight, bn.bias, True, bn.momentum, bn.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            bn.running_mean.copy_(mean)
+            bn.running_var.copy_(var - (var - (1.0 - bn.momentum) * bn.running_var) / n)
+        return y
 
 
 class Conv(nn.Module):

@@ -85,7 +85,8 @@ class TOODHead(nn.Module):
         self.cv3 = _head_conv(half, nc, 1)
 
     def forward(self, xs):
-        """Returns (decoded (B, 4+nc, A), [raw map (B, no, h, w)])."""
+        """Returns (decoded (B, 4+nc, A), [raw map (B, no, h, w)]); in
+        training (None, [raw map]), without the decode."""
         feats = []
         for x in xs:
             s1 = self.share_conv_0(x)
@@ -99,4 +100,6 @@ class TOODHead(nn.Module):
             cls_prob = torch.sigmoid(self.cls_prob_conv2(F.relu(self.cls_prob_conv1(feat))))
             feats.append(torch.cat([self.cv2(F.relu(reg_feat)),
                                     self.cv3(cls_feat * cls_prob)], dim=1))
+        if self.training:
+            return None, feats
         return decode_detections(feats, self.strides, self.nc, self.reg_max), feats

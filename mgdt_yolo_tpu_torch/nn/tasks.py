@@ -137,7 +137,9 @@ class DetectionModel(nn.Module):
     Layers are the attributes `model_0` ... `model_N`, named as the flax
     graph names them. `forward` takes an NHWC float image batch and returns
     (decoded (B, 4+nc, A), [raw map (B, h, w, no) per level]), as the JAX
-    `DetectionModel.predict` does.
+    `DetectionModel.predict` does; in `train()` mode decoded is None and
+    BatchNorm uses and updates batch statistics (`forward_feats`). A new
+    model is in `eval()` mode.
     """
 
     def __init__(self, cfg: Optional[Dict] = None, scale: str = "n", device=None):
@@ -145,10 +147,13 @@ class DetectionModel(nn.Module):
         if cfg is None:
             from ..models.mspa_c2f_gd_tood_yolov8 import CONFIG
             cfg = CONFIG
+        # the config a checkpoint's metadata names, as the JAX exporter does
+        self.model_yaml = cfg.get("yaml_file", "mspa_c2f_gd_tood_yolov8.yaml")
         self.specs, self.save, self.nc = parse_model(cfg, scale=scale)
         self.stride = tuple(self.specs[j].stride for j in self.specs[-1].f)
         for spec in self.specs:
             self.add_module(f"model_{spec.i}", build_module(spec, self.stride))
+        self.reg_max = getattr(self, f"model_{self.specs[-1].i}").reg_max
         self.deform_semantics = "windowed"
         self._init_weights()
         self.to(resolve_device(device))
@@ -197,6 +202,11 @@ class DetectionModel(nn.Module):
                 saved[spec.i] = out
         decoded, feats = out
         return decoded, [f.permute(0, 2, 3, 1) for f in feats]
+
+    def forward_feats(self, x: torch.Tensor):
+        """Training forward: the raw NHWC maps, as the JAX `forward_feats`
+        returns them (call `train()` first for batch statistics)."""
+        return self(x)[1]
 
     @torch.no_grad()
     def _init_weights(self):

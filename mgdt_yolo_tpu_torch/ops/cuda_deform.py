@@ -1,11 +1,13 @@
-"""Wrapper of the hand-written DCNv2 forward kernel (`csrc/deform_fwd.cu`),
-the model's one entry to DCNv2.
+"""Wrappers of the hand-written DCNv2 kernels, forward (`csrc/deform_fwd.cu`)
+and backward (`csrc/deform_bwd.cu`), and `deform_conv`, the model's one entry
+to DCNv2: a `torch.autograd.Function` that pairs the two.
 
-`deform_fwd` launches the kernel on the current stream for CUDA tensors. A
-CPU tensor goes to the plain version (`ops.deform.modulated_deform_conv2d_plain`);
-any other input the kernel does not take raises, and no failure falls back.
-`launches` counts the kernel's launches, so a run can show that its main
-path went through the kernel.
+`deform_fwd` and `deform_bwd` launch their kernels on the current stream for
+CUDA tensors. A CPU tensor goes to the plain versions in `ops/deform.py`
+(`modulated_deform_conv2d_plain` and `modulated_deform_conv2d_plain_bwd`);
+any other input the kernels do not take raises, and no failure falls back.
+`launches` and `bwd_launches` count the two kernels' launches, so a run can
+show that its path went through them.
 """
 from __future__ import annotations
 
@@ -14,24 +16,29 @@ import functools
 
 import torch
 
-from .deform import check_semantics, modulated_deform_conv2d_plain
+from .deform import (check_semantics, modulated_deform_conv2d_plain,
+                     modulated_deform_conv2d_plain_bwd)
 
-# launches of the kernel since the count was last set to 0
-launches = 0
+# launches of each kernel since its count was last set to 0
+launches = 0        # deform_fwd
+bwd_launches = 0    # deform_bwd
 
 # shared memory one block may use on Hopper (227 KB)
 _MAX_SMEM = 232448
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
-    """Build (first use) and load the kernel's library, with its C signatures."""
+def _library(name: str, n_ptrs: int) -> ctypes.CDLL:
+    """Build (first use) and load the library of kernel `name`, with its C
+    signatures: `name(n_ptrs pointers, B, H, W, Cin, Cout, windowed, bf16,
+    stream)` and `name_smem_bytes(Cin, Cout)`."""
     from ..utils.build import load_library
-    lib = load_library("deform_fwd")
-    lib.deform_fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    lib.deform_fwd.restype = ctypes.c_int
-    lib.deform_fwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.deform_fwd_smem_bytes.restype = ctypes.c_longlong
+    lib = load_library(name)
+    launch, smem = getattr(lib, name), getattr(lib, f"{name}_smem_bytes")
+    launch.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    launch.restype = ctypes.c_int
+    smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    smem.restype = ctypes.c_longlong
     return lib
 
 
@@ -81,7 +88,7 @@ def deform_fwd(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     if not x.is_cuda:
         raise ValueError(f"deform_fwd takes CUDA or CPU tensors, got {x.device}")
     B, H, W, Cin, Cout = _check(x, offset, mask, weight, bias)
-    lib = _library()
+    lib = _library("deform_fwd", 6)
     smem = lib.deform_fwd_smem_bytes(Cin, Cout)
     if smem > _MAX_SMEM:
         raise ValueError(f"Cin={Cin}, Cout={Cout} needs {smem} B of shared "
@@ -100,3 +107,82 @@ def deform_fwd(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
         raise RuntimeError(f"deform_fwd kernel launch failed: CUDA error {err}")
     launches += 1
     return out
+
+
+def deform_bwd(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+               weight: torch.Tensor, grad_out: torch.Tensor,
+               semantics: str = "windowed"):
+    """DCNv2 backward (3x3, stride 1, padding 1, no bias), NHWC.
+
+    x, offset, mask, weight as for `deform_fwd`; grad_out (B, H, W, Cout) in
+    x's type. Returns (dx, d offset, d mask, d weight) in the inputs' type.
+    """
+    global bwd_launches
+    windowed = check_semantics(semantics) == "windowed"
+    if x.device.type == "cpu":
+        return modulated_deform_conv2d_plain_bwd(x, offset, mask, weight, grad_out,
+                                                 semantics)
+    if not x.is_cuda:
+        raise ValueError(f"deform_bwd takes CUDA or CPU tensors, got {x.device}")
+    B, H, W, Cin, Cout = _check(x, offset, mask, weight, None)
+    if tuple(grad_out.shape) != (B, H, W, Cout):
+        raise ValueError(f"grad_out must be {(B, H, W, Cout)}, got {tuple(grad_out.shape)}")
+    if grad_out.device != x.device or grad_out.dtype != x.dtype:
+        raise TypeError(f"grad_out is {grad_out.dtype} on {grad_out.device}, "
+                        f"x {x.dtype} on {x.device}")
+    if not grad_out.is_contiguous():
+        raise ValueError("grad_out must be contiguous")
+    lib = _library("deform_bwd", 9)
+    smem = lib.deform_bwd_smem_bytes(Cin, Cout)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"Cin={Cin}, Cout={Cout} needs {smem} B of shared "
+                         f"memory per block, more than {_MAX_SMEM}")
+    f32 = torch.float32
+    dx = torch.zeros((B, H, W, Cin), dtype=f32, device=x.device)
+    dweight = torch.zeros(weight.shape, dtype=f32, device=x.device)
+    doffset, dmask = torch.empty_like(offset), torch.empty_like(mask)
+    if x.numel() == 0:
+        return dx.to(x.dtype), doffset, dmask, dweight.to(weight.dtype)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.deform_bwd(x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
+                             weight.data_ptr(), grad_out.data_ptr(), dx.data_ptr(),
+                             doffset.data_ptr(), dmask.data_ptr(), dweight.data_ptr(),
+                             B, H, W, Cin, Cout, int(windowed),
+                             int(x.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"deform_bwd kernel launch failed: CUDA error {err}")
+    bwd_launches += 1
+    return dx.to(x.dtype), doffset, dmask, dweight.to(weight.dtype)
+
+
+class DeformConv(torch.autograd.Function):
+    """DCNv2 (no bias) with K1 as its forward and K2 as its backward; saves
+    x, offset, mask and weight, as the JAX custom VJP does. Under autocast
+    the backward runs in the forward's autocast state."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, x, offset, mask, weight, semantics):
+        ctx.semantics = semantics
+        ctx.save_for_backward(x, offset, mask, weight)
+        return deform_fwd(x, offset, mask, weight, None, semantics)
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, grad_out):
+        x, offset, mask, weight = ctx.saved_tensors
+        grads = deform_bwd(x, offset, mask, weight, grad_out.contiguous(), ctx.semantics)
+        return (*grads, None)
+
+
+def deform_conv(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+                weight: torch.Tensor, semantics: str = "windowed") -> torch.Tensor:
+    """Differentiable DCNv2, NHWC: offset, mask and weight are cast to x's
+    type first (the JAX module casts its weight to the compute type), so the
+    kernels see one type and the casts' own backward restores the
+    parameters' type."""
+    dt = x.dtype
+    return DeformConv.apply(x.contiguous(), offset.to(dt).contiguous(),
+                            mask.to(dt).contiguous(), weight.to(dt).contiguous(),
+                            check_semantics(semantics))

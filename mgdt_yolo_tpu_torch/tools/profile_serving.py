@@ -24,14 +24,9 @@ from ..device import resolve_device
 from ..engine import predictor
 from ..nn.tasks import DetectionModel
 from ..ops.nms import non_max_suppression
-from ..utils.measure import cuda_time_ms, gpu_name_and_power
+from ..utils.measure import cuda_time_ms, device_us, gpu_name_and_power
 
 ROOT = Path(__file__).resolve().parents[2]
-
-
-def _device_us(e) -> float:
-    v = getattr(e, "self_device_time_total", None)
-    return float(v if v is not None else e.self_cuda_time_total)
 
 
 def main(argv=None):
@@ -67,18 +62,18 @@ def main(argv=None):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0]
-    kernels.sort(key=_device_us, reverse=True)
-    busy_us = sum(_device_us(e) for e in kernels)
-    deform_us = sum(_device_us(e) for e in kernels if "deform_fwd" in e.key)
+               if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0]
+    kernels.sort(key=device_us, reverse=True)
+    busy_us = sum(device_us(e) for e in kernels)
+    deform_us = sum(device_us(e) for e in kernels if "deform_fwd" in e.key)
     lines.append(f"profiled {args.iters} requests: wall {wall_us / 1e3:.3f} ms, device busy "
                  f"{busy_us / 1e3:.3f} ms ({busy_us / wall_us:.1%}), idle share "
                  f"{1 - busy_us / wall_us:.1%}; deform_fwd {deform_us / 1e3:.3f} ms "
                  f"({deform_us / max(busy_us, 1e-9):.1%} of device time)")
     lines.append(f"{'device ms/request':>18} {'share':>7} {'calls':>7}  kernel")
     for e in kernels[:40]:
-        lines.append(f"{_device_us(e) / 1e3 / args.iters:18.4f} "
-                     f"{_device_us(e) / busy_us:7.1%} {e.count // args.iters:7d}  {e.key[:110]}")
+        lines.append(f"{device_us(e) / 1e3 / args.iters:18.4f} "
+                     f"{device_us(e) / busy_us:7.1%} {e.count // args.iters:7d}  {e.key[:110]}")
     print("\n".join(lines))
 
 

@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` becomes `_build/lib<name>-<digest>.so`: a shared
 library with a plain C interface, compiled for `sm_90a` at first use. The
-digest covers the source and the flags, so an edited source is rebuilt and
-an unchanged one is loaded as it is. `build_all` starts one nvcc per source
+digest covers the source, the shared headers (`csrc/*.cuh`) and the flags,
+so an edited source or header is rebuilt and an unchanged one is loaded as
+it is. `build_all` starts one nvcc per source
 together and waits for all of them.
 """
 from __future__ import annotations
@@ -36,10 +37,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where `csrc/<name>.cu` is built to, keyed by source and flags."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where `csrc/<name>.cu` is built to, keyed by the source, every shared
+    header of `csrc/` and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start_build(name: str):

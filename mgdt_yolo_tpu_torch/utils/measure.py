@@ -32,3 +32,10 @@ def cuda_time_ms(fn, iters: int = 20, windows: int = 5) -> float:
         torch.cuda.synchronize()
         best = min(best, start.elapsed_time(end) / iters)
     return best
+
+
+def device_us(event) -> float:
+    """Device time of a `torch.profiler` key-average entry, in microseconds
+    (the attribute's name differs between PyTorch versions)."""
+    v = getattr(event, "self_device_time_total", None)
+    return float(v if v is not None else event.self_cuda_time_total)

@@ -10,6 +10,10 @@ state-dict key one to one: the collection prefix (`params.`,
   batch_stats `mean`/`var` -> `running_mean`/`running_var`;
 * everything else (the DCN's HWIO `weight`, TaskDecomposition's
   `reduction_weight`/`reduction_bias`, GRN's `gamma`/`beta`) as it is.
+
+`flax_keys` and `save_npz` go the other way: a model's state (optionally
+with other parameter values, such as an EMA) back to the flat flax-keyed
+npz the JAX package reads, with `<stem>_metadata.json` beside it.
 """
 from __future__ import annotations
 
@@ -20,9 +24,11 @@ from typing import Mapping
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 _LEAF = {"scale": "weight", "mean": "running_mean", "var": "running_var"}
 COLLECTIONS = ("params", "batch_stats")
+_NORMS = (nn.BatchNorm2d, nn.GroupNorm, nn.LayerNorm)
 
 
 def flatten_variables(tree: Mapping, prefix: str = "") -> dict:
@@ -104,3 +110,57 @@ def load_npz(model, path) -> None:
     sem = read_semantics(path)
     if sem:
         model.set_deform_semantics(sem)
+
+
+def flax_keys(module: nn.Module) -> "OrderedDict[str, str]":
+    """{state-dict key: flat flax key} for every parameter and statistic of
+    a module (BatchNorm's step counters have none): the inverse of
+    `translate`'s naming."""
+    keys = OrderedDict()
+    for prefix, mod in module.named_modules():
+        tensors = list(mod.named_parameters(recurse=False)) + \
+            list(mod.named_buffers(recurse=False))
+        for leaf, _ in tensors:
+            if leaf == "num_batches_tracked":
+                continue
+            coll, flax_leaf = "params", leaf
+            if leaf == "weight" and isinstance(mod, (nn.Conv2d, nn.Linear)):
+                flax_leaf = "kernel"
+            elif leaf == "weight" and isinstance(mod, _NORMS):
+                flax_leaf = "scale"
+            elif leaf in ("running_mean", "running_var"):
+                coll, flax_leaf = "batch_stats", leaf[len("running_"):]
+            name = f"{prefix}.{leaf}" if prefix else leaf
+            keys[name] = ".".join([coll, *prefix.split("."), flax_leaf] if prefix
+                                  else [coll, flax_leaf])
+    return keys
+
+
+def export_variables(module: nn.Module, params: Mapping | None = None) -> dict:
+    """A module's state as {flat flax key: float32 array} in flax layouts.
+    `params` ({state-dict key: tensor}) replaces parameter values, e.g. an
+    EMA of them."""
+    state = module.state_dict()
+    if params:
+        state.update(params)
+    return {key: to_flax_layout(key, state[name]) for name, key in flax_keys(module).items()}
+
+
+def to_flax_layout(key: str, t: torch.Tensor) -> np.ndarray:
+    """A port tensor as the float32 array flax keeps under `key` (conv
+    kernels OIHW -> HWIO, Dense kernels (out, in) -> (in, out))."""
+    a = t.detach().float().cpu().numpy()
+    if key.endswith(".kernel"):
+        a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+    return np.ascontiguousarray(a)
+
+
+def save_npz(module: nn.Module, path, metadata: Mapping,
+             params: Mapping | None = None) -> Path:
+    """Write `path` (.npz, flat flax keys) and `<stem>_metadata.json`."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(str(path), **export_variables(module, params))
+    (path.parent / f"{path.stem}_metadata.json").write_text(
+        json.dumps(dict(metadata), indent=1))
+    return path

@@ -1,0 +1,131 @@
+"""The port's DCNv2 backward against autograd and the JAX package, and the
+differentiable DCN (`ops.cuda_deform.deform_conv`) on the CPU, in float32.
+
+`modulated_deform_conv2d_plain_bwd` is the plain version the CUDA backward
+kernel (`csrc/deform_bwd.cu`) is held against on the card by
+`chip_smoke.py`. Here it is held:
+
+* against autograd through the port's plain forward, in both semantics:
+  the two compute the same sums in another order, so they agree to float32
+  rounding; the tolerance is 1e-5 absolute plus 1e-5 of the value (the
+  weight gradient sums 512 products and reaches ~50);
+* against the JAX package's own backward: windowed against `jax.vjp` of
+  `modulated_deform_conv2d_pallas_vjp` in interpret mode (the custom VJP
+  with the TPU backward kernel), exact against `jax.vjp` of
+  `modulated_deform_conv2d(method="exact")`, at 1e-4 absolute and relative,
+  the tolerance `tests/test_pallas_deform.py` uses for the same gradients.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mgdt_yolo_tpu.ops.deform import modulated_deform_conv2d as jax_dcn
+from mgdt_yolo_tpu.ops.pallas_deform import modulated_deform_conv2d_pallas_vjp
+from mgdt_yolo_tpu_torch.ops import cuda_deform
+from mgdt_yolo_tpu_torch.ops.deform import (modulated_deform_conv2d_plain,
+                                            modulated_deform_conv2d_plain_bwd)
+
+TOL_AUTOGRAD = 1e-5
+TOL_JAX = 1e-4
+NAMES = ("x", "offset", "mask", "weight")
+
+# (B, H, W, Cin, Cout, offset range): within the +/-2 px reach and beyond
+# it (many taps clamped), square and rectangular
+CASES = [(2, 16, 16, 4, 6, 1.5), (2, 16, 16, 4, 6, 4.0),
+         (1, 8, 24, 8, 4, 1.5), (1, 8, 24, 8, 4, 4.0)]
+IDS = ["16x16-near", "16x16-far", "8x24-near", "8x24-far"]
+
+
+def _case(B, H, W, C, O, off_range, seed=3):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, H, W, C)).astype(np.float32)
+    off = rng.uniform(-off_range, off_range, (B, H, W, 18)).astype(np.float32)
+    mask = rng.uniform(0, 1, (B, H, W, 9)).astype(np.float32)
+    w = (rng.standard_normal((3, 3, C, O)) * 0.2).astype(np.float32)
+    g = rng.standard_normal((B, H, W, O)).astype(np.float32)
+    return (x, off, mask, w), g
+
+
+def _plain_bwd(args, g, semantics):
+    t = [torch.from_numpy(a) for a in args]
+    grads = modulated_deform_conv2d_plain_bwd(*t, torch.from_numpy(g), semantics)
+    return [gr.numpy() for gr in grads]
+
+
+def _check(got, want, tol):
+    for name, a, b in zip(NAMES, got, want):
+        np.testing.assert_allclose(a, np.asarray(b), rtol=tol, atol=tol,
+                                   err_msg=f"gradient of {name}")
+
+
+@pytest.mark.parametrize("semantics", ["windowed", "exact"])
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_plain_bwd_matches_autograd(case, semantics):
+    args, g = _case(*case)
+    t = [torch.from_numpy(a).requires_grad_() for a in args]
+    out = modulated_deform_conv2d_plain(*t, semantics=semantics)
+    out.backward(torch.from_numpy(g))
+    _check(_plain_bwd(args, g, semantics), [a.grad.numpy() for a in t], TOL_AUTOGRAD)
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_windowed_bwd_matches_jax_pallas_vjp(case):
+    args, g = _case(*case)
+    _, vjp = jax.vjp(lambda *a: modulated_deform_conv2d_pallas_vjp(*a, interpret=True),
+                     *[jnp.asarray(a) for a in args])
+    _check(_plain_bwd(args, g, "windowed"), vjp(jnp.asarray(g)), TOL_JAX)
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_exact_bwd_matches_jax_exact(case):
+    args, g = _case(*case)
+    _, vjp = jax.vjp(lambda *a: jax_dcn(*a, method="exact"),
+                     *[jnp.asarray(a) for a in args])
+    _check(_plain_bwd(args, g, "exact"), vjp(jnp.asarray(g)), TOL_JAX)
+
+
+def test_offset_gradient_stops_where_clamped():
+    """Beyond a tap's reach the windowed offset gradient is 0 (the clip-pass
+    indicator), while the exact one is not."""
+    args, g = _case(*CASES[1])
+    off = args[1]
+    win = _plain_bwd(args, g, "windowed")[1]
+    ex = _plain_bwd(args, g, "exact")[1]
+    far = np.abs(off) > 3.5          # past the +/-2..3 px reach on that axis
+    assert far.any() and np.all(win[far] == 0)
+    assert np.abs(ex[far]).max() > 1e-3
+
+
+@pytest.mark.parametrize("semantics", ["windowed", "exact"])
+def test_function_on_cpu_routes_to_plain(semantics):
+    """`deform_conv` on CPU tensors: the plain forward and the explicit
+    plain backward, no kernel launch counted, and gradients reach all four
+    inputs (the weight through its cast to x's type)."""
+    args, g = _case(*CASES[2])
+    t = [torch.from_numpy(a).requires_grad_() for a in args]
+    fwd, bwd = cuda_deform.launches, cuda_deform.bwd_launches
+    out = cuda_deform.deform_conv(*t, semantics=semantics)
+    out.backward(torch.from_numpy(g))
+    assert (cuda_deform.launches, cuda_deform.bwd_launches) == (fwd, bwd)
+    want_out = modulated_deform_conv2d_plain(*[torch.from_numpy(a) for a in args],
+                                             semantics=semantics)
+    torch.testing.assert_close(out.detach(), want_out, rtol=0, atol=0)
+    want = _plain_bwd(args, g, semantics)
+    for name, a, b in zip(NAMES, t, want):
+        assert a.grad is not None and np.abs(a.grad.numpy()).max() > 0, name
+        np.testing.assert_array_equal(a.grad.numpy(), b, err_msg=name)
+
+
+def test_function_casts_inputs_to_x_type():
+    """A bf16 x takes float32 offset, mask and weight (the weight stays a
+    float32 parameter); the weight's gradient comes back in float32."""
+    args, g = _case(*CASES[2])
+    x = torch.from_numpy(args[0]).bfloat16().requires_grad_()
+    rest = [torch.from_numpy(a).requires_grad_() for a in args[1:]]
+    out = cuda_deform.deform_conv(x, *rest)
+    assert out.dtype == torch.bfloat16
+    out.backward(torch.from_numpy(g).bfloat16())
+    assert x.grad.dtype == torch.bfloat16
+    assert all(r.grad.dtype == torch.float32 and torch.isfinite(r.grad).all() for r in rest)
