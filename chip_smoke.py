@@ -9,27 +9,44 @@ Phases, each of which passes or ends the script with a non-zero exit:
 2. build: nvcc builds every `mgdt_yolo_tpu_torch/csrc/*.cu` (one process per
    source, all started together);
 3. kernels: each hand-written kernel against its plain PyTorch version on the
-   card, at the main paths' shapes (batch 8 in 8 cases; K2 also at the
-   training batch, 32), with the stated tolerance, then timed;
+   card, at the main paths' shapes (the DCN kernels at batch 8 in 8 cases, K2
+   also at the training batch, 32; K3 at (32, 640, 640, 3) with planted grey,
+   saturated and one-channel pixels, hue-wrapping gains and all four flips),
+   with the stated tolerance, then timed;
 4. serving path: the flagship MGDT-n from `weights/mgdt_n_synth.npz`, Conv+BN
    fused, bf16, 640 px, answers requests of batch 1, 8 and 32 through
    `predict` on synthetic scenes; K1 must have launched once per forward;
 5. serving throughput (images/s) at batch 1, 32 and 128;
-6. training path: the same weights unfused in `train()` mode, bf16 autocast,
-   640 px, the `Trainer` with the JAX defaults (SGD, accumulate 2) over a
-   loader of labelled synthetic scenes at batch 32: a few optimizer updates
-   and a checkpoint; K1 and K2 must each launch once per micro-step, every
-   loss be finite and the DCN weight get a finite, non-zero gradient;
+6. training path, unaugmented (`cfg.default.UNAUGMENTED`, no validation):
+   the same weights unfused in `train()` mode, bf16 autocast, 640 px, the
+   `Trainer` with the JAX defaults (SGD, accumulate 2) over a loader of
+   labelled synthetic scenes at batch 32: a few optimizer updates and a
+   checkpoint; K1 and K2 must each launch once per micro-step, every loss be
+   finite and the DCN weight get a finite, non-zero gradient;
 7. training on one fixed batch: the loss must fall; train images/s at b32;
+10. augmented training path: `Trainer.train()` with the JAX defaults
+   (`device_augment=True`: mosaic 1.0, scale 0.5, translate 0.1, HSV
+   0.015/0.7/0.4; validation with the EMA weights after every epoch), SGD,
+   b32, 640 px, 2 epochs of 2 micro-steps, `close_mosaic=1`: K3 and K2 once
+   per micro-step, K1 once per micro-step and once per validation forward;
+   mosaic in epoch 1 only; augmented boxes inside the image with survivors
+   in every batch; finite losses; `results.csv` with 2 finite rows;
+   `last.npz` and `best.npz` with the deform pin. Then times the augmented
+   against the unaugmented micro-step, `apply_augment` alone and one
+   validation pass;
 8. serving in float32 on the card and on the CPU (plain DCN): raw maps and
    NMS results must agree;
 9. one training step in float32 on the card and on the CPU (plain DCN
    forward and backward), on two seeds' scenes: loss parts and gradients
    must agree; then K2's output with one term planted wrong (d x, the x
    half of d offset, tap 0 of d offset, or d mask dropped) must break the
-   gradients' limit.
-   Phases 8 and 9 run last because the CPU work leaves the host's threads
-   busy, which slows the host-bound batch 1.
+   gradients' limit;
+11. `apply_augment` on the card against the CPU with the same draws, two
+   640 px scenes, mosaic on, HSV off and on: labels equal, boxes and
+   pixels within the stated tolerance.
+   Phase 10 runs before phase 8, and phases 8, 9 and 11 run last, because
+   the CPU work leaves the host's threads busy, which slows the host-bound
+   steps.
 
 The last lines are the kernel table as JSON, the card's name and power
 limit, and `{"ok": true, "device": {...}}`. Without a CUDA device the script
@@ -47,15 +64,18 @@ from pathlib import Path
 
 import torch
 
-from mgdt_yolo_tpu_torch.data.build import DataLoader, collate, to_device
+from mgdt_yolo_tpu_torch.cfg.default import UNAUGMENTED
+from mgdt_yolo_tpu_torch.data.build import DataLoader, collate, collate_raw, to_device
 from mgdt_yolo_tpu_torch.data.synthetic import SyntheticDetectionDataset, synthetic_batch
 from mgdt_yolo_tpu_torch.engine import predictor
 from mgdt_yolo_tpu_torch.engine.predictor import predict
 from mgdt_yolo_tpu_torch.engine.trainer import Trainer
 from mgdt_yolo_tpu_torch.nn.tasks import DetectionModel
-from mgdt_yolo_tpu_torch.ops import cuda_deform
+from mgdt_yolo_tpu_torch.ops import cuda_deform, cuda_image
 from mgdt_yolo_tpu_torch.ops.deform import (modulated_deform_conv2d_plain,
                                             modulated_deform_conv2d_plain_bwd)
+from mgdt_yolo_tpu_torch.ops.device_augment import apply_augment, augment_draws
+from mgdt_yolo_tpu_torch.ops.image import fused_augment_plain
 from mgdt_yolo_tpu_torch.ops.nms import non_max_suppression
 from mgdt_yolo_tpu_torch.utils.build import build_all, nvcc_path
 from mgdt_yolo_tpu_torch.utils.measure import cuda_time_ms, gpu_name_and_power
@@ -68,11 +88,18 @@ HBM_BYTES_PER_S = 3.35e12                             # H100 SXM device memory
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, per type
 TRAIN_BATCH = 32
 # the JAX trainer's defaults, with SGD chosen explicitly; batch 32 gives
-# accumulate = round(64 / 32) = 2
-TRAIN_OVERRIDES = {"optimizer": "SGD", "batch": TRAIN_BATCH, "epochs": 1}
+# accumulate = round(64 / 32) = 2. Phases 6, 7 and 9 train on unaugmented
+# scenes without validation, as they did before the augmented path existed
+TRAIN_OVERRIDES = {"optimizer": "SGD", "batch": TRAIN_BATCH, "epochs": 1, "val": False,
+                   **UNAUGMENTED}
+# phase 10: the JAX defaults (device augment, validation every epoch)
+AUG_EPOCHS, AUG_STEPS = 2, 2
+AUG_OVERRIDES = {"optimizer": "SGD", "batch": TRAIN_BATCH, "epochs": AUG_EPOCHS,
+                 "close_mosaic": 1}
 # each kernel's launch counter (module, attribute), set to 0 just before a path
 COUNTERS = {"deform_fwd": (cuda_deform, "launches"),
-            "deform_bwd": (cuda_deform, "bwd_launches")}
+            "deform_bwd": (cuda_deform, "bwd_launches"),
+            "fused_augment": (cuda_image, "launches")}
 
 
 def reset_counts():
@@ -278,12 +305,81 @@ def _check_bwd(B, H, W, C, O):
             f"ms_b{Bt}": ms_t, f"plain_ms_b{Bt}": plain_t, f"bound_ms_b{Bt}": bound_t}
 
 
+# K3's float32 operations per pixel, from csrc/fused_augment.cu: 3
+# divisions by 255; max and min of three (4); delta (2); the hue branch (3)
+# and /6 (1); s (2); the hue gain and its floor-mod (2); the saturation and
+# value gains and their clips (6); h6 and c (2); xx (5); m (1); the sector
+# (2); the zero (1); three 5-step picks (15); the three + m (3); the two
+# branch compares (2)
+K3_OPS_PER_PIXEL = 54
+
+
+def _augment_inputs(B, H, W, seed=0):
+    """K3's inputs on the card: random uint8 with planted grey, black,
+    white, saturated and one-channel-max pixels; gains drawn as the trainer
+    draws them for even images and pushing hue across the wrap (gain 1.5 to
+    3.7) for odd ones; the four flip combinations in turn."""
+    g = torch.Generator().manual_seed(seed)
+    imgs = torch.randint(0, 256, (B, H, W, 3), generator=g, dtype=torch.uint8)
+    planted = [(v, v, v) for v in (0, 1, 17, 128, 254, 255)] + [
+        (255, 0, 0), (0, 255, 0), (0, 0, 255), (255, 255, 0), (0, 255, 255), (255, 0, 255),
+        (200, 200, 10), (10, 200, 200), (200, 10, 200), (255, 1, 0), (255, 0, 1), (1, 0, 255)]
+    for j, px in enumerate(planted):
+        rows = torch.arange(j, H, len(planted))
+        imgs[:, rows, (7 * j) % W] = torch.tensor(px, dtype=torch.uint8)
+        imgs[:, (3 * j) % H, j::len(planted)] = torch.tensor(px, dtype=torch.uint8)
+    gains = augment_draws(B, W, g)["gains"]
+    gains[1::2] = 1.0 + torch.rand(B // 2, 3, generator=g) * torch.tensor([2.7, 0.7, 0.4])
+    gains[1::2, 0] += 0.5
+    flips = torch.tensor([[0, 0], [1, 0], [0, 1], [1, 1]], dtype=torch.int32).repeat(B, 1)[:B]
+    return [t.to(DEVICE).contiguous() for t in (imgs, gains, flips)]
+
+
+def _check_augment(B, H, W):
+    """K3 against its plain version at the augmented training path's shape;
+    times both."""
+    imgs, gains, flips = _augment_inputs(B, H, W)
+    got = cuda_image.fused_augment(imgs, gains, flips)
+    want = fused_augment_plain(imgs, gains, flips)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    # both compute float32 from the same uint8 values in the same order; the
+    # kernel rounds every operation (no FMA contraction), PyTorch may divide
+    # by 255 as a product with 1/255 (a last bit apart) and moves nothing
+    # else; the output is continuous across the hue sectors, so a last-bit
+    # move of h6 at a sector edge stays a last-bit move: 1e-5 absolute
+    tol = 1e-5
+    ok = bool(torch.isfinite(got).all()) and got.dtype == torch.float32 and err <= tol
+    log(f"fused_augment ({B},{H},{W},3) uint8: max_abs_err {err:.3e} (tol {tol:.0e}), "
+        f"hue gains {gains[:, 0].min().item():.3f} to {gains[:, 0].max().item():.3f}, "
+        f"output in [{got.min().item():.4f}, {got.max().item():.4f}] {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("fused_augment disagrees with its plain version")
+    ms = cuda_time_ms(lambda: cuda_image.fused_augment(imgs, gains, flips))
+    plain_ms = cuda_time_ms(lambda: fused_augment_plain(imgs, gains, flips), iters=5)
+    nbytes = imgs.numel() + got.numel() * 4 + gains.numel() * 4 + flips.numel() * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = B * H * W * K3_OPS_PER_PIXEL / PEAK_FLOPS["float32"]
+    bound_ms, bound_by = max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    log(f"fused_augment B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.5f} ms ({bound_by}; {nbytes / 1e6:.1f} MB)")
+    return {"name": "fused_augment", "route": "cuda",
+            "source": "mgdt_yolo_tpu_torch/csrc/fused_augment.cu",
+            "replaces": "mgdt_yolo_tpu/ops/pallas_image.py:93",
+            "shape": f"images ({B},{H},{W},3) uint8 -> float32, gains ({B},3), flips ({B},2)",
+            "launches": None, "max_abs_err": err, "max_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
 def phase_kernels():
     """K1 (DCNv2 forward) and K2 (DCNv2 backward) against their plain
-    versions at the main paths' shape: 80x80 map, C_in = C_out = 32, batch 8."""
+    versions at the main paths' shape: 80x80 map, C_in = C_out = 32, batch 8;
+    K3 (flip + HSV + normalise) at the augmented training batch."""
     log("== phase 3: kernels against their plain versions")
     B, H, W, C, O = 8, 80, 80, 32, 32
-    return [_check_fwd(B, H, W, C, O), _check_bwd(B, H, W, C, O)]
+    return [_check_fwd(B, H, W, C, O), _check_bwd(B, H, W, C, O),
+            _check_augment(TRAIN_BATCH, IMGSZ, IMGSZ)]
 
 
 def phase_serving():
@@ -348,8 +444,9 @@ def phase_training():
             f"max_gt {loader.max_gt}")
         reset_counts()
         t0 = time.perf_counter()
-        history = trainer.train()
+        trainer.train()
         torch.cuda.synchronize()
+        history = trainer.history
         launches = read_counts()
         wall = time.perf_counter() - t0
         meta = json.loads((Path(tmp) / "weights" / "last_metadata.json").read_text())
@@ -361,8 +458,9 @@ def phase_training():
     log(f"launches during the training path: {launches}")
     if not all(math.isfinite(float(m["loss"])) for m in history):
         raise SystemExit("a training loss is not finite")
-    if launches != {"deform_fwd": n_steps, "deform_bwd": n_steps}:
-        raise SystemExit("deform_fwd and deform_bwd did not launch once per micro-step")
+    if launches != {"deform_fwd": n_steps, "deform_bwd": n_steps, "fused_augment": 0}:
+        raise SystemExit("deform_fwd and deform_bwd did not launch once per micro-step "
+                         "(and fused_augment never) on unaugmented training")
     if trainer.optimizer.count != n_steps // trainer.accumulate:
         raise SystemExit("the optimizer did not step once per accumulation")
     log(f"checkpoint: deform_semantics {meta['deform_semantics']}, step {meta['step']}, "
@@ -512,8 +610,158 @@ def phase_train_card_vs_cpu():
             raise SystemExit(f"phase 9's limit does not catch K2 with {fault} dropped")
 
 
-# which paths run each kernel (its launches must be counted on each)
-KERNEL_PATHS = {"deform_fwd": ("serving", "training"), "deform_bwd": ("training",)}
+def _box_stats(out):
+    """(survivors per batch, smallest and largest surviving coordinate) of
+    one augmented batch."""
+    boxes = out["gt_bboxes"][out["mask_gt"]]
+    n = int(out["mask_gt"].sum())
+    return n, (boxes.min().item() if n else 0.0), (boxes.max().item() if n else 0.0)
+
+
+def phase_augmented_training():
+    log(f"== phase 10: augmented training path (MGDT-n, device augment with K3, "
+        f"validation every epoch, bf16 autocast, b{TRAIN_BATCH}, {IMGSZ} px, "
+        f"{AUG_EPOCHS} epochs of {AUG_STEPS} micro-steps, close_mosaic 1)")
+    model = DetectionModel.from_npz(WEIGHTS, device=DEVICE)
+    ds = SyntheticDetectionDataset(n=TRAIN_BATCH * AUG_STEPS, imgsz=IMGSZ, seed=0)
+    loader = DataLoader(ds, TRAIN_BATCH, IMGSZ, device_augment=True)
+    seen = []       # per micro-step: (step, mosaic share, survivors, min, max)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(model, loader, overrides=AUG_OVERRIDES, save_dir=tmp)
+        a = trainer.args
+        log(f"device_augment {a['device_augment']}, mosaic {a['mosaic']}, scale {a['scale']}, "
+            f"translate {a['translate']}, hsv {a['hsv_h']}/{a['hsv_s']}/{a['hsv_v']}, "
+            f"fliplr {a['fliplr']}, val {a['val']}, max_gt {loader.max_gt}, "
+            f"mosaic off from micro-step {trainer.mosaic_off_step}")
+
+        def recording_augment(batch, step):
+            out = trainer.augment(batch, step)
+            seen.append((step, trainer.draws["use_mosaic"].float().mean().item(),
+                         *_box_stats(out)))
+            return out
+        trainer.augment_fn = recording_augment
+        reset_counts()
+        t0 = time.perf_counter()
+        results = trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        rows = (Path(tmp) / "results.csv").read_text().splitlines()
+        metas = {n: json.loads((Path(tmp) / "weights" / f"{n}_metadata.json").read_text())
+                 for n in ("last", "best")}
+        pins = {n: DetectionModel.from_npz(Path(tmp) / "weights" / f"{n}.npz",
+                                           device=DEVICE).deform_semantics for n in metas}
+    n_val = AUG_EPOCHS * len(trainer.val_loader)
+    n_steps = AUG_EPOCHS * AUG_STEPS
+    for i, m in enumerate(trainer.history):
+        log(f"micro-step {i}: " + ", ".join(f"{k} {float(v):.4f}" for k, v in m.items()))
+    for step, mosaic, n, lo, hi in seen:
+        log(f"augmented micro-step {step}: mosaic share {mosaic:.2f}, {n} boxes survive, "
+            f"coordinates in [{lo:.3f}, {hi:.3f}]")
+    log("results.csv:\n  " + "\n  ".join(rows))
+    log("validation: " + ", ".join(f"{k} {v:.6f}" for k, v in results.items()))
+    log(f"{n_steps} micro-steps and {AUG_EPOCHS} validations ({n_val} forwards) in "
+        f"{wall:.2f} s; launches {launches}")
+    log(f"checkpoints: last epoch {metas['last']['epoch']}, best_fitness "
+        f"{metas['best']['best_fitness']:.6f}, pins {pins}")
+    want = {"deform_fwd": n_steps + n_val, "deform_bwd": n_steps, "fused_augment": n_steps}
+    if launches != want:
+        raise SystemExit(f"the augmented path launched {launches}, not {want}")
+    if [s[1] for s in seen] != [1.0] * AUG_STEPS + [0.0] * (n_steps - AUG_STEPS):
+        raise SystemExit("mosaic was not on in epoch 1 and off in epoch 2")
+    if not all(n > 0 and lo >= 0 and hi <= IMGSZ for _, _, n, lo, hi in seen):
+        raise SystemExit("an augmented batch has no box, or a box outside the image")
+    if not all(math.isfinite(float(m["loss"])) for m in trainer.history):
+        raise SystemExit("an augmented training loss is not finite")
+    cells = [r.split(",") for r in rows[1:]]
+    if rows[0] != "epoch,box_loss,cls_loss,dfl_loss,precision,recall,map50,map,fitness" or \
+            len(cells) != AUG_EPOCHS or \
+            not all(math.isfinite(float(v)) for r in cells for v in r):
+        raise SystemExit("results.csv does not hold one finite row per epoch")
+    if set(pins.values()) != {"windowed"} or \
+            {m["deform_semantics"] for m in metas.values()} != {"windowed"}:
+        raise SystemExit("a checkpoint lost the deform semantics pin")
+
+    # times: the augmented against the unaugmented micro-step on the same
+    # trainer, in turns; mosaic kept on so the augmented step is epoch 1's
+    trainer.mosaic_off_step = None
+    raw = to_device(next(iter(loader)), DEVICE)
+    plain = to_device(collate([ds[i] for i in range(TRAIN_BATCH)], IMGSZ, loader.max_gt),
+                      DEVICE)
+    times = {"augmented": [], "unaugmented": []}
+    for _ in range(2):
+        for name, fn, batch in (("augmented", trainer.augment, raw),
+                                ("unaugmented", None, plain)):
+            trainer.augment_fn = fn
+            times[name].append(cuda_time_ms(lambda: trainer.train_step(batch), iters=4,
+                                            windows=3))
+    step_ms = {k: min(v) for k, v in times.items()}
+    draws = augment_draws(TRAIN_BATCH, IMGSZ, torch.Generator().manual_seed(0))
+    aug_ms = cuda_time_ms(lambda: apply_augment(raw, draws, IMGSZ, loader.max_gt), iters=5,
+                          windows=3)
+    val_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.validate()
+        torch.cuda.synchronize()
+        val_s.append(time.perf_counter() - t0)
+    for k in ("augmented", "unaugmented"):
+        log(f"train b{TRAIN_BATCH} {k}: " + " / ".join(f"{t:.3f}" for t in times[k]) +
+            f" ms per micro-step, best {step_ms[k]:.3f} ms, "
+            f"{TRAIN_BATCH / step_ms[k] * 1e3:.2f} train images/s")
+    log(f"apply_augment b{TRAIN_BATCH}: {aug_ms:.3f} ms "
+        f"({aug_ms / step_ms['augmented']:.1%} of the augmented micro-step)")
+    log(f"validation pass ({len(trainer.val_loader.dataset)} images, "
+        f"{len(trainer.val_loader)} batch): " + " / ".join(f"{t:.3f}" for t in val_s) + " s")
+    return launches, aug_ms
+
+
+def phase_augment_card_vs_cpu():
+    log("== phase 11: apply_augment on the card against the CPU, the same draws")
+    ds = SyntheticDetectionDataset(n=2, imgsz=IMGSZ, seed=3)
+    raw = collate_raw([ds[0], ds[1]], IMGSZ, 24)
+    # the warp's bf16 products are reduced in float32 on both sides: no
+    # split reduction rounded to bf16 on the card
+    saved = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        for hsv in (False, True):
+            h = (0.015, 0.7, 0.4) if hsv else (0.0, 0.0, 0.0)
+            draws = augment_draws(2, IMGSZ, torch.Generator().manual_seed(5), mosaic_p=1.0,
+                                  fliplr=0.5, hsv_h=h[0], hsv_s=h[1], hsv_v=h[2])
+            got = {k: v.cpu() for k, v in
+                   apply_augment(to_device(raw, DEVICE), draws, IMGSZ, 24).items()}
+            want = apply_augment(to_device(raw, "cpu"), draws, IMGSZ, 24)
+            diff = (got["img"] - want["img"]).abs()
+            share = (diff > 1e-6).float().mean().item()
+            box_err = (got["gt_bboxes"] - want["gt_bboxes"]).abs().max().item()
+            same = torch.equal(got["mask_gt"], want["mask_gt"]) and \
+                torch.equal(got["gt_labels"], want["gt_labels"])
+            # as tests/test_torch_augment.py holds the port to JAX: a bf16
+            # product or sum rounded the other way moves a uint8 pixel by one
+            # level per rounding (2/255 in all), and HSV's value gain (<= 1.4)
+            # and the hue it carries can widen that to 4/255; boxes are float32
+            # affine maps of pixel coordinates
+            tol = (4 if hsv else 2) / 255 + 1e-6
+            ok = same and box_err <= 1e-4 and diff.max().item() <= tol and share < 0.01 and \
+                int(want["mask_gt"].sum()) > 0
+            log(f"HSV {'on' if hsv else 'off'}: labels equal {same} "
+                f"({int(want['mask_gt'].sum())} boxes), box max |diff| {box_err:.3e}, pixel "
+                f"max |diff| {diff.max().item() * 255:.3f}/255 (tol {tol * 255:.0f}/255), "
+                f"values more than 1e-6 apart {share:.4%} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit("apply_augment on the card disagrees with the CPU")
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = saved
+
+
+# which paths run each kernel (its launches must be counted on each); the
+# first is the kernel's own main path
+KERNEL_PATHS = {"deform_fwd": ("serving", "training", "augmented training"),
+                "deform_bwd": ("training", "augmented training"),
+                "fused_augment": ("augmented training",)}
 
 
 def main() -> int:
@@ -531,16 +779,21 @@ def main() -> int:
     phase_fixed_batch(trainer, batch)
     del trainer, batch
     torch.cuda.empty_cache()
+    augmented, aug_ms = phase_augmented_training()
+    torch.cuda.empty_cache()
     phase_card_vs_cpu()
     phase_train_card_vs_cpu()
-    paths = {"serving": serving, "training": training}
+    phase_augment_card_vs_cpu()
+    paths = {"serving": serving, "training": training, "augmented training": augmented}
     for k in kernels:
         k["launches_by_path"] = {p: paths[p][k["name"]] for p in KERNEL_PATHS[k["name"]]}
         for p, n in k["launches_by_path"].items():
             if not n:
                 raise SystemExit(f"kernel {k['name']} never launched on the {p} path")
-        # K1's own path is serving; K2's is training
+        # K1's own path is serving, K2's training, K3's augmented training
         k["launches"] = k["launches_by_path"][KERNEL_PATHS[k["name"]][0]]
+        if k["name"] == "fused_augment":
+            k["apply_augment_ms"] = aug_ms
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(gpu_name_and_power())

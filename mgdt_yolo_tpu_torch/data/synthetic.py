@@ -4,7 +4,9 @@ labels.
 A copy of the JAX package's `SyntheticDetectionDataset`
 (`mgdt_yolo_tpu/data/dataset.py`, unaugmented), the scenes the committed
 weights were trained on, so a benchmark feeds trained-density inputs and the
-trainer has labelled data. Same seed, same pixels, same boxes.
+trainer has labelled data. Same seed, same pixels, same boxes. The JAX
+trainer resizes its 320 px training scenes to the train size with cv2; the
+port makes them at the train size instead.
 """
 from __future__ import annotations
 
@@ -72,3 +74,10 @@ class SyntheticDetectionDataset:
 
     def __getitem__(self, i: int) -> Dict:
         return synthetic_item(i, self.imgsz, self.nc, self.max_objects, self.seed)
+
+
+def val_dataset(imgsz: int, nc: int = 2, seed: int = 0) -> SyntheticDetectionDataset:
+    """The validation set the JAX trainer makes when it has no data
+    (`BaseTrainer.get_dataset(train=False)`): 16 scenes at min(imgsz, 320)
+    px from `seed + 1`; the validation loader letterboxes them to imgsz."""
+    return SyntheticDetectionDataset(n=16, imgsz=min(imgsz, 320), nc=nc, seed=seed + 1)

@@ -1,5 +1,5 @@
 """Training engine: the JAX trainer's optimizer, step and loop in PyTorch
-(`mgdt_yolo_tpu/engine/trainer.py`), without validation, augmentation or
+(`mgdt_yolo_tpu/engine/trainer.py`) with `device_augment=True`, without
 resume.
 
 `Optimizer` is the JAX trainer's optax chain step for step: SGD (Nesterov)
@@ -12,13 +12,18 @@ from the parameters' flax names (`weights.flax_keys`), as the JAX trainer
 reads them: BatchNorm's scale gets no decay and the main rate, every `bias`
 (BatchNorm's included) the bias schedule.
 
-`Trainer` runs micro-batches (uint8 images normalised on the device, the
-forward in bf16 autocast on the GPU with float32 parameters, the loss in
-float32), keeps an EMA of the parameters that advances only on batches that
-stepped the optimizer, and writes `weights/last.npz` with its metadata.
+`Trainer` runs micro-batches (raw uint8 batches augmented on the device
+first, mosaic closed for the last `close_mosaic` epochs; the forward in
+bf16 autocast on the GPU with float32 parameters, the loss in float32),
+keeps an EMA of the parameters that advances only on batches that stepped
+the optimizer, and after every epoch validates with the EMA parameters and
+the current BatchNorm statistics, writes `results.csv`, `weights/last.npz`
+and, by fitness, `weights/best.npz`, and stops early on a fitness plateau.
 """
 from __future__ import annotations
 
+import copy
+import logging
 import math
 from pathlib import Path
 from typing import Callable, Dict, Mapping, Optional
@@ -26,13 +31,19 @@ from typing import Callable, Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from ..cfg.default import TRAIN_DEFAULTS
-from ..data.build import to_device
+from ..cfg.default import AUGMENT_KEYS, TRAIN_DEFAULTS
+from ..data.build import DataLoader, to_device
+from ..data.synthetic import val_dataset
+from ..ops.device_augment import apply_augment, augment_draws
 from ..utils.loss import DetectionLoss
 from ..weights import flax_keys, save_npz
+from .validator import DetectionValidator
 
+LOGGER = logging.getLogger(__name__)
 DECAY_LEAVES = ("kernel", "weight", "reduction_weight")
 MAX_GRAD_NORM = 10.0
+CSV_KEYS = ("epoch", "box_loss", "cls_loss", "dfl_loss", "precision", "recall", "map50",
+            "map", "fitness")
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -172,19 +183,75 @@ class EMA:
         return dict(zip(self.names, self.values))
 
 
-class Trainer:
-    """Trains a `DetectionModel` over a loader of collated batches
-    (`data.build.DataLoader`) and writes `<save_dir>/weights/last.npz`
-    after every epoch (EMA parameters, current batch statistics).
+def device_augment_unsupported(args: Mapping) -> Dict[str, float]:
+    """The augmentation keys the device pipeline cannot honour, where set:
+    full random perspective, mixup, copy-paste and the 3x3 mosaic. The JAX
+    trainer falls back to its host pipeline for them; the port has none,
+    so the `Trainer` raises."""
+    return {k: args.get(k, 0) for k in
+            ("degrees", "shear", "perspective", "mixup", "copy_paste", "mosaic9")
+            if args.get(k, 0)}
 
-    `overrides` replace keys of `cfg.default.TRAIN_DEFAULTS`;
-    `steps_per_epoch` defaults to the loader's length.
+
+class EarlyStopping:
+    """Stop when fitness has not risen for `patience` epochs (0: never)."""
+
+    def __init__(self, patience: int = 50):
+        self.best_fitness = 0.0
+        self.best_epoch = 0
+        self.patience = patience or float("inf")
+
+    def __call__(self, epoch: int, fitness: float) -> bool:
+        if fitness >= self.best_fitness:
+            self.best_epoch = epoch
+            self.best_fitness = fitness
+        stop = (epoch - self.best_epoch) >= self.patience
+        if stop:
+            LOGGER.info(f"EarlyStopping: no improvement in last {self.patience} "
+                        f"epochs (best epoch {self.best_epoch})")
+        return stop
+
+
+def check_augment_args(a: Mapping) -> None:
+    """Raise where the keys ask for augmentation the port cannot run:
+    keys outside the device pipeline, or any augmentation key with
+    `device_augment=False` (the host pipeline is not ported)."""
+    if a["device_augment"]:
+        unsupported = device_augment_unsupported(a)
+        if unsupported:
+            raise ValueError(f"device_augment=True cannot honour {unsupported}, and the host "
+                             "augmentation pipeline they need is not ported")
+        return
+    on = {k: a[k] for k in AUGMENT_KEYS if a[k]}
+    if on:
+        raise ValueError(f"device_augment=False with augmentation keys {on}: the host "
+                         "augmentation pipeline is not ported; set them to 0 "
+                         "(cfg.default.UNAUGMENTED) or use device_augment=True")
+
+
+class Trainer:
+    """Trains a `DetectionModel` over a training `data.build.DataLoader`.
+
+    `overrides` replace keys of `cfg.default.TRAIN_DEFAULTS`; the loader's
+    `device_augment` must match theirs. `steps_per_epoch` defaults to the
+    loader's length. With `save_dir`, every epoch writes
+    `<save_dir>/results.csv` and `weights/last.npz` (EMA parameters,
+    current batch statistics), and `weights/best.npz` when its fitness is
+    the best so far. Validation runs on `val_loader`, by default the JAX
+    trainer's synthetic validation set (`data.synthetic.val_dataset`).
+    `augment_fn(batch, step)` replaces the default device augmentation,
+    which draws from a generator seeded from (`seed`, step).
     """
 
     def __init__(self, model, loader=None, overrides: Optional[Dict] = None,
-                 save_dir=None, steps_per_epoch: Optional[int] = None):
+                 save_dir=None, steps_per_epoch: Optional[int] = None, val_loader=None,
+                 augment_fn: Optional[Callable] = None):
         self.args = a = {**TRAIN_DEFAULTS, **(overrides or {})}
-        self.model, self.loader = model.train(), loader
+        check_augment_args(a)
+        if loader is not None and loader.device_augment != bool(a["device_augment"]):
+            raise ValueError(f"the loader's device_augment={loader.device_augment} does not "
+                             f"match the trainer's device_augment={a['device_augment']}")
+        self.model, self.loader, self.val_loader = model.train(), loader, val_loader
         self.device = model.device
         self.save_dir = Path(save_dir) if save_dir is not None else None
         nb = steps_per_epoch or len(loader)
@@ -205,15 +272,42 @@ class Trainer:
         self.step = 0         # micro-batches taken: drives the assigner's anneal
         self.epoch = 0
         self.amp = bool(a["amp"]) and self.device.type == "cuda"
+        # close_mosaic as a step threshold: mosaic off from this micro-step on
+        self.mosaic_off_step = ((a["epochs"] - a["close_mosaic"]) * nb
+                                if a["close_mosaic"] else None)
+        self.augment_fn = augment_fn or (self.augment if a["device_augment"] else None)
+        self.draws = None     # the default augmentation's last draws
+        self.history = []     # every micro-step's metrics (device tensors)
+        self.metrics = {}     # the last validation's results
+        self.best_fitness = 0.0
+        self.stopper = EarlyStopping(a["patience"])
+        self.validator = self._val_model = None
+
+    def augment(self, batch: Dict[str, torch.Tensor], step: int):
+        """The default `augment_fn`: draws seeded from (seed, step), mosaic
+        with probability `mosaic` until the close-mosaic step, then 0."""
+        a = self.args
+        closed = self.mosaic_off_step is not None and step >= self.mosaic_off_step
+        gen = torch.Generator().manual_seed(a["seed"] * 1000003 + step)
+        self.draws = augment_draws(
+            batch["img"].shape[0], a["imgsz"], gen, 0.0 if closed else a["mosaic"],
+            a["scale"], a["translate"], a["fliplr"], a["flipud"], a["hsv_h"], a["hsv_s"],
+            a["hsv_v"])
+        return apply_augment(batch, self.draws, a["imgsz"], batch["gt_bboxes"].shape[1])
 
     def train_step(self, batch: Dict[str, torch.Tensor],
                    mark: Optional[Callable[[str], None]] = None) -> Dict[str, torch.Tensor]:
-        """One micro-batch: forward, loss, backward, optimizer (every
+        """One micro-batch: augmentation (when the trainer has an
+        `augment_fn`), forward, loss, backward, optimizer (every
         `accumulate`-th call) and EMA. Returns loss, box, cls, dfl and the
         micro-batch's gradient norm, as device tensors. `mark(name)`, if
-        given, is called after each of "forward", "loss", "backward" and
-        "optimizer" (the profiling tool records CUDA events there)."""
+        given, is called after each of "augment", "forward", "loss",
+        "backward" and "optimizer" (the profiling tool records CUDA events
+        there; the gradients are still set at "backward")."""
         mark = mark or (lambda name: None)
+        if self.augment_fn is not None:
+            batch = self.augment_fn(batch, self.step)
+        mark("augment")
         img = batch["img"]
         if not img.is_floating_point():
             img = img.float() / 255.0
@@ -236,17 +330,74 @@ class Trainer:
         return {"loss": out.total.detach(), "box": out.parts[0], "cls": out.parts[1],
                 "dfl": out.parts[2], "grad_norm": grad_norm}
 
-    def train(self):
-        """All epochs over the loader; returns every step's metrics."""
-        history = []
-        for epoch in range(self.args["epochs"]):
+    def train(self) -> Dict[str, float]:
+        """All epochs over the loader, as the JAX trainer's loop runs them;
+        returns the last validation's results."""
+        a = self.args
+        for epoch in range(a["epochs"]):
             self.epoch = epoch
             self.loader.set_epoch(epoch)
+            # loss parts summed on the device; one host sync per epoch
+            msum, seen = None, 0
             for batch in self.loader:
-                history.append(self.train_step(to_device(batch, self.device)))
+                m = self.train_step(to_device(batch, self.device))
+                self.history.append(m)
+                part = torch.stack([m["box"], m["cls"], m["dfl"]])
+                msum = part if msum is None else msum + part
+                seen += 1
+            mloss = msum.cpu().numpy() / seen if msum is not None else np.zeros(3)
+            fit = 0.0
+            if a["val"]:
+                self.metrics = self.validate()
+                fit = self.metrics.get("fitness", 0.0)
             if self.save_dir is not None:
-                self.save_checkpoint("last")
-        return history
+                self.save_metrics_csv(epoch, mloss, self.metrics)
+            if a["save"]:
+                is_best = fit >= self.best_fitness
+                if is_best:
+                    self.best_fitness = fit
+                if self.save_dir is not None:
+                    self.save_checkpoint("last")
+                    if is_best:
+                        self.save_checkpoint("best")
+                    if a["save_period"] > 0 and epoch % a["save_period"] == 0:
+                        self.save_checkpoint(f"epoch{epoch}")
+            LOGGER.info(f"epoch {epoch + 1}/{a['epochs']} box {mloss[0]:.4f} "
+                        f"cls {mloss[1]:.4f} dfl {mloss[2]:.4f} fitness {fit:.4f}")
+            if self.stopper(epoch, fit):
+                break
+        return self.metrics
+
+    def validate(self) -> Dict[str, float]:
+        """Validate a copy of the model holding the EMA parameters and the
+        current BatchNorm statistics."""
+        if self.validator is None:
+            a = self.args
+            if self.val_loader is None:
+                self.val_loader = DataLoader(val_dataset(a["imgsz"], self.model.nc, a["seed"]),
+                                             a["batch"], a["imgsz"], train=False)
+            self.validator = DetectionValidator(a)
+            self._val_model = copy.deepcopy(self.model)
+        vm, ema = self._val_model, self.ema.state()
+        with torch.no_grad():
+            for name, p in vm.named_parameters():
+                p.copy_(ema[name])
+            for (_, b), (_, src) in zip(vm.named_buffers(), self.model.named_buffers()):
+                b.copy_(src)
+        return self.validator(vm, self.val_loader)
+
+    def save_metrics_csv(self, epoch: int, mloss, metrics: Mapping):
+        """Append one row to `<save_dir>/results.csv` (header first)."""
+        vals = [epoch, *[float(v) for v in mloss],
+                *[metrics.get(k, 0) for k in CSV_KEYS[4:]]]
+        csv = self.save_dir / "results.csv"
+        header = not csv.exists()
+        csv.parent.mkdir(parents=True, exist_ok=True)
+        with open(csv, "a") as f:
+            if header:
+                f.write(",".join(CSV_KEYS) + "\n")
+            f.write(",".join(f"{v:.6g}" if isinstance(v, float) else str(v)
+                             for v in vals) + "\n")
 
     def save_checkpoint(self, name: str = "last") -> Path:
         """`<save_dir>/weights/<name>.npz` (EMA parameters and the current
@@ -258,6 +409,7 @@ class Trainer:
                 "model_yaml": m.model_yaml,
                 "deform_semantics": m.deform_semantics, "layout": "NHWC",
                 "output": "(1, 4+nc, A) xywh+scores", "epoch": self.epoch,
-                "step": self.step, "ema_updates": self.ema.updates}
+                "step": self.step, "ema_updates": self.ema.updates,
+                "best_fitness": float(self.best_fitness)}
         return save_npz(m, self.save_dir / "weights" / f"{name}.npz", meta,
                         params=self.ema.state())

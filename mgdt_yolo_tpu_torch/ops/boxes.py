@@ -1,9 +1,10 @@
-"""Box geometry for decode, NMS and the training loss (last-dim layouts, as
-in the JAX package)."""
+"""Box geometry for decode, NMS, the training loss and validation (last-dim
+layouts, as in the JAX package)."""
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -47,6 +48,35 @@ def bbox2dist(anchor_points: torch.Tensor, bbox: torch.Tensor,
     x1y1, x2y2 = bbox.chunk(2, dim=-1)
     return torch.cat([anchor_points - x1y1, x2y2 - anchor_points],
                      dim=-1).clamp(0, reg_max - 0.01)
+
+
+def clip_boxes(boxes: np.ndarray, shape) -> np.ndarray:
+    """Clip xyxy boxes (last dim 4, or more with extra columns kept) to an
+    image of `shape` (h, w, ...); returns a copy."""
+    h, w = shape[:2]
+    out = boxes.copy()
+    out[..., [0, 2]] = out[..., [0, 2]].clip(0, w)
+    out[..., [1, 3]] = out[..., [1, 3]].clip(0, h)
+    return out
+
+
+def scale_boxes(img1_shape, boxes: np.ndarray, img0_shape, ratio_pad=None) -> np.ndarray:
+    """Undo a letterbox: xyxy boxes (extra columns kept) from model-input
+    space `img1_shape` back to the original image `img0_shape`, with the
+    JAX package's (and the reference's) rounding. `ratio_pad` ((ratio,
+    ratio), (dw, dh)) is the letterbox's own; without it the gain and pads
+    are recomputed from the shapes."""
+    if ratio_pad is None:
+        gain = min(img1_shape[0] / img0_shape[0], img1_shape[1] / img0_shape[1])
+        pad = (round((img1_shape[1] - img0_shape[1] * gain) / 2 - 0.1),
+               round((img1_shape[0] - img0_shape[0] * gain) / 2 - 0.1))
+    else:
+        gain, pad = ratio_pad[0][0], ratio_pad[1]
+    boxes = boxes.copy()
+    boxes[..., [0, 2]] -= pad[0]
+    boxes[..., [1, 3]] -= pad[1]
+    boxes[..., :4] /= gain
+    return clip_boxes(boxes, img0_shape)
 
 
 def bbox_iou(box1: torch.Tensor, box2: torch.Tensor, xywh: bool = True,

@@ -12,7 +12,6 @@ show that its path went through them.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -27,19 +26,15 @@ bwd_launches = 0    # deform_bwd
 _MAX_SMEM = 232448
 
 
-@functools.cache
 def _library(name: str, n_ptrs: int) -> ctypes.CDLL:
     """Build (first use) and load the library of kernel `name`, with its C
     signatures: `name(n_ptrs pointers, B, H, W, Cin, Cout, windowed, bf16,
     stream)` and `name_smem_bytes(Cin, Cout)`."""
     from ..utils.build import load_library
-    lib = load_library(name)
-    launch, smem = getattr(lib, name), getattr(lib, f"{name}_smem_bytes")
-    launch.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    launch.restype = ctypes.c_int
-    smem.argtypes = [ctypes.c_int, ctypes.c_int]
-    smem.restype = ctypes.c_longlong
-    return lib
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    return load_library(name, (
+        (name, i32, (ptr,) * n_ptrs + (i32,) * 7 + (ptr,)),
+        (f"{name}_smem_bytes", ctypes.c_longlong, (i32, i32))))
 
 
 def _check(x, offset, mask, weight, bias):

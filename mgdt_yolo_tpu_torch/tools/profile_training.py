@@ -1,21 +1,26 @@
 """Where the training step's time goes on the GPU.
 
     python -m mgdt_yolo_tpu_torch.tools.profile_training [--batch 32] [--steps 8]
+        [--device-augment]
 
 Loads the flagship MGDT-n from `weights/mgdt_n_synth.npz`, unfused, in
 `train()` mode, and takes micro-steps of the `Trainer` (the JAX defaults
 with SGD: accumulate = round(64 / batch), bf16 autocast, float32
-parameters) on one resident batch of labelled synthetic 640 px scenes.
+parameters) on one resident batch of labelled synthetic 640 px scenes:
+unaugmented (`cfg.default.UNAUGMENTED`) by default, or, with
+`--device-augment`, a raw batch that every micro-step augments on the card
+first (mosaic, warp, K3's flip + HSV + normalise, at the JAX defaults).
 Prints, with the card's name and power limit:
 
-* the split of a micro-step into forward, loss + assigner, backward and
-  optimizer + EMA, by CUDA events recorded between the four, the mean over
-  `--steps` micro-steps (a multiple of `accumulate`, so the optimizer's
-  share is per micro-step), min over 3 windows; and the micro-step time
-  and train images/s;
+* the split of a micro-step into augment, forward, loss + assigner,
+  backward and optimizer + EMA, by CUDA events recorded between the five,
+  the mean over `--steps` micro-steps (a multiple of `accumulate`, so the
+  optimizer's share is per micro-step), min over 3 windows; and the
+  micro-step time and train images/s;
 * a torch.profiler table of device time by kernel over `--steps`
   micro-steps (the 40 largest), the device's busy and idle share of that
-  window, and the DCNv2 kernels' (K1 `deform_fwd`, K2 `deform_bwd`) shares.
+  window, and the hand-written kernels' (K1 `deform_fwd`, K2 `deform_bwd`,
+  K3 `fused_augment`) shares.
 """
 from __future__ import annotations
 
@@ -25,7 +30,8 @@ from pathlib import Path
 
 import torch
 
-from ..data.build import DataLoader, collate, to_device
+from ..cfg.default import UNAUGMENTED
+from ..data.build import DataLoader, to_device
 from ..data.synthetic import SyntheticDetectionDataset
 from ..device import resolve_device
 from ..engine.trainer import Trainer
@@ -33,7 +39,7 @@ from ..nn.tasks import DetectionModel
 from ..utils.measure import device_us, gpu_name_and_power
 
 ROOT = Path(__file__).resolve().parents[2]
-PARTS = ("forward", "loss", "backward", "optimizer")
+PARTS = ("augment", "forward", "loss", "backward", "optimizer")
 
 
 def _split_ms(trainer, batch, steps: int):
@@ -62,22 +68,28 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--device-augment", action="store_true",
+                    help="augment a raw batch on the card in every micro-step")
     args = ap.parse_args(argv)
 
     dev = resolve_device()
     model = DetectionModel.from_npz(ROOT / "weights" / "mgdt_n_synth.npz", device=dev)
     ds = SyntheticDetectionDataset(n=args.batch, imgsz=640, seed=0)
-    loader = DataLoader(ds, args.batch, 640)
-    trainer = Trainer(model, loader, overrides={"optimizer": "SGD", "batch": args.batch})
+    loader = DataLoader(ds, args.batch, 640, device_augment=args.device_augment)
+    overrides = {"optimizer": "SGD", "batch": args.batch, "val": False,
+                 **({} if args.device_augment else UNAUGMENTED)}
+    trainer = Trainer(model, loader, overrides=overrides)
     steps = max(args.steps // trainer.accumulate, 1) * trainer.accumulate
-    batch = to_device(collate([ds[i] for i in range(args.batch)], 640, loader.max_gt), dev)
+    batch = to_device(next(iter(loader)), dev)
     for _ in range(2 * trainer.accumulate):       # warm-up: cuDNN picks, allocator
         trainer.train_step(batch)
     windows = [_split_ms(trainer, batch, steps) for _ in range(3)]
     split = min(windows, key=lambda w: sum(w.values()))
     total = sum(split.values())
     lines = [f"gpu: {gpu_name_and_power()}",
-             f"batch {args.batch} at 640 px, bf16 autocast, {trainer.optimizer.name}, "
+             f"batch {args.batch} at 640 px, "
+             f"{'device augment' if args.device_augment else 'unaugmented'}, "
+             f"bf16 autocast, {trainer.optimizer.name}, "
              f"accumulate {trainer.accumulate}: micro-step {total:.3f} ms "
              f"({args.batch / total * 1e3:.2f} train images/s); "
              + ", ".join(f"{k} {v:.3f} ms ({v / total:.1%})" for k, v in split.items())]
@@ -95,7 +107,7 @@ def main(argv=None):
     kernels.sort(key=device_us, reverse=True)
     busy_us = sum(device_us(e) for e in kernels)
     share = {name: sum(device_us(e) for e in kernels if name in e.key)
-             for name in ("deform_fwd", "deform_bwd")}
+             for name in ("deform_fwd", "deform_bwd", "fused_augment")}
     lines.append(f"profiled {steps} micro-steps: wall {wall_us / 1e3:.3f} ms, device busy "
                  f"{busy_us / 1e3:.3f} ms ({busy_us / wall_us:.1%}), idle share "
                  f"{1 - busy_us / wall_us:.1%}; " + ", ".join(

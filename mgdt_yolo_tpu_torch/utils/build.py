@@ -85,7 +85,14 @@ def build_all(names=None) -> dict:
 
 
 @functools.cache
-def load_library(name: str) -> ctypes.CDLL:
-    """Build `csrc/<name>.cu` if needed and load it (once per process)."""
+def load_library(name: str, signatures: tuple) -> ctypes.CDLL:
+    """Build `csrc/<name>.cu` if needed and load it (once per process), with
+    the C signatures of its functions set: `signatures` is a tuple of
+    (function name, restype, argtypes tuple). Pointers and the stream are
+    `ctypes.c_void_p`, so ctypes passes them whole."""
     build_all([name])
-    return ctypes.CDLL(str(library_path(name)))
+    lib = ctypes.CDLL(str(library_path(name)))
+    for fn, restype, argtypes in signatures:
+        f = getattr(lib, fn)
+        f.restype, f.argtypes = restype, list(argtypes)
+    return lib

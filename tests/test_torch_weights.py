@@ -95,11 +95,11 @@ def _imports(path: Path):
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
-    """Neither JAX nor the JAX package; nor PyYAML or cv2, which the GPU
-    machine does not have."""
+    """Neither JAX nor the JAX package; nor PyYAML, cv2 or matplotlib, which
+    the GPU machine does not have."""
     files = sorted((ROOT / "mgdt_yolo_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
-    banned = ("jax", "jaxlib", "flax", "optax", "mgdt_yolo_tpu", "yaml", "cv2")
+    banned = ("jax", "jaxlib", "flax", "optax", "mgdt_yolo_tpu", "yaml", "cv2", "matplotlib")
     for path in files:
         for name in _imports(path):
             assert name.split(".")[0] not in banned, \
