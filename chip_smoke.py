@@ -12,7 +12,12 @@ Phases, each of which passes or ends the script with a non-zero exit:
    card, at the main paths' shapes (the DCN kernels at batch 8 in 8 cases, K2
    also at the training batch, 32; K3 at (32, 640, 640, 3) with planted grey,
    saturated and one-channel pixels, hue-wrapping gains and all four flips),
-   with the stated tolerance, then timed;
+   with the stated tolerance, then timed; the five K1 variants V1-V5
+   (`csrc/deform_fwd_variants.cu`) against their plain versions at batch 8
+   (float32 and bf16, offsets +-1.5 and +-4.0) and at the ragged (2, 20, 28,
+   32 -> 32), in bf16 also by the share of elements that differ, with K1's
+   output as the control that must fail V1's limits; V4 and V5 also bitwise
+   against K1, each timed beside K1;
 4. serving path: the flagship MGDT-n from `weights/mgdt_n_synth.npz`, Conv+BN
    fused, bf16, 640 px, answers requests of batch 1, 8 and 32 through
    `predict` on synthetic scenes; K1 must have launched once per forward;
@@ -44,9 +49,17 @@ Phases, each of which passes or ends the script with a non-zero exit:
 11. `apply_augment` on the card against the CPU with the same draws, two
    640 px scenes, mosaic on, HSV off and on: labels equal, boxes and
    pixels within the stated tolerance.
-   Phase 10 runs before phase 8, and phases 8, 9 and 11 run last, because
-   the CPU work leaves the host's threads busy, which slows the host-bound
-   steps.
+12. K1 variant A/B: the `bench()` of the four ported A/B tools
+   (`mgdt_yolo_tpu_torch/tools/proto_deform_*.py`) at their own shapes (b512
+   C 32, b128 C 32, b512 C 64, bf16), then all five variants at the training
+   batch (b32, bf16, windowed, +-1.5) in one table against K1; each variant
+   must launch there, V4 and V5 give K1's bits and V1-V3 stay within bf16
+   rounding of K1; each variant and K1 are held against their plain
+   versions on the first 8 images of each tool's batch (so V5 and K1 at
+   C 64) and on the whole b32 batch, as in phase 3.
+   Phase 10 runs before phase 8, and phases 8, 9 and 11 run after it,
+   because the CPU work leaves the host's threads busy, which slows the
+   host-bound steps; phase 12, which times kernels only, runs last.
 
 The last lines are the kernel table as JSON, the card's name and power
 limit, and `{"ok": true, "device": {...}}`. Without a CUDA device the script
@@ -71,21 +84,25 @@ from mgdt_yolo_tpu_torch.engine import predictor
 from mgdt_yolo_tpu_torch.engine.predictor import predict
 from mgdt_yolo_tpu_torch.engine.trainer import Trainer
 from mgdt_yolo_tpu_torch.nn.tasks import DetectionModel
-from mgdt_yolo_tpu_torch.ops import cuda_deform, cuda_image
+from mgdt_yolo_tpu_torch.ops import cuda_deform, cuda_deform_variants, cuda_image
+from mgdt_yolo_tpu_torch.ops.cuda_deform_variants import VARIANTS
 from mgdt_yolo_tpu_torch.ops.deform import (modulated_deform_conv2d_plain,
                                             modulated_deform_conv2d_plain_bwd)
+from mgdt_yolo_tpu_torch.ops.deform_variants import compare, tolerance, windowed_plain
 from mgdt_yolo_tpu_torch.ops.device_augment import apply_augment, augment_draws
 from mgdt_yolo_tpu_torch.ops.image import fused_augment_plain
 from mgdt_yolo_tpu_torch.ops.nms import non_max_suppression
+from mgdt_yolo_tpu_torch.tools import (deform_ab, proto_deform_bf16_fma, proto_deform_qxhoist,
+                                       proto_deform_slot_skip, proto_deform_tapwalk)
 from mgdt_yolo_tpu_torch.utils.build import build_all, nvcc_path
-from mgdt_yolo_tpu_torch.utils.measure import cuda_time_ms, gpu_name_and_power
+from mgdt_yolo_tpu_torch.utils.measure import (HBM_BYTES_PER_S, PEAK_FLOPS, cuda_time_ms,
+                                               deform_fwd_bound_ms, float32_exact,
+                                               gpu_name_and_power)
 
 ROOT = Path(__file__).resolve().parent
 WEIGHTS = ROOT / "weights" / "mgdt_n_synth.npz"
 IMGSZ = 640
 DEVICE = "cuda"
-HBM_BYTES_PER_S = 3.35e12                             # H100 SXM device memory
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, per type
 TRAIN_BATCH = 32
 # the JAX trainer's defaults, with SGD chosen explicitly; batch 32 gives
 # accumulate = round(64 / 32) = 2. Phases 6, 7 and 9 train on unaugmented
@@ -96,37 +113,39 @@ TRAIN_OVERRIDES = {"optimizer": "SGD", "batch": TRAIN_BATCH, "epochs": 1, "val":
 AUG_EPOCHS, AUG_STEPS = 2, 2
 AUG_OVERRIDES = {"optimizer": "SGD", "batch": TRAIN_BATCH, "epochs": AUG_EPOCHS,
                  "close_mosaic": 1}
-# each kernel's launch counter (module, attribute), set to 0 just before a path
-COUNTERS = {"deform_fwd": (cuda_deform, "launches"),
-            "deform_bwd": (cuda_deform, "bwd_launches"),
-            "fused_augment": (cuda_image, "launches")}
+# each kernel's launch counter (the dict that holds it, its key), set to 0
+# just before a path: a module's globals for K1-K3, the variants' dict
+COUNTERS = {"deform_fwd": (vars(cuda_deform), "launches"),
+            "deform_bwd": (vars(cuda_deform), "bwd_launches"),
+            "fused_augment": (vars(cuda_image), "launches"),
+            **{name: (cuda_deform_variants.launches, name) for name in VARIANTS}}
+# the TPU function each K1 variant replaces
+VARIANT_SITES = {"deform_fwd_bf16_fma": "tools/proto_deform_bf16_fma.py:64",
+                 "deform_fwd_qxhoist": "tools/proto_deform_qxhoist.py:163",
+                 "deform_fwd_cvt1": "tools/proto_deform_qxhoist.py:128",
+                 "deform_fwd_slot_skip": "tools/proto_deform_slot_skip.py:75",
+                 "deform_fwd_tapwalk": "tools/proto_deform_tapwalk.py:116"}
+# the variants whose design keeps K1's order of every float32 sum, so they
+# must give K1's bits (the inputs here are finite)
+BITWISE_TO_K1 = ("deform_fwd_slot_skip", "deform_fwd_tapwalk")
 
 
 def reset_counts():
-    for mod, attr in COUNTERS.values():
-        setattr(mod, attr, 0)
+    for holder, key in COUNTERS.values():
+        holder[key] = 0
 
 
 def read_counts():
-    return {name: getattr(mod, attr) for name, (mod, attr) in COUNTERS.items()}
+    return {name: holder[key] for name, (holder, key) in COUNTERS.items()}
+
+
+def no_launches(**counts):
+    """Every counter at 0 but the named ones."""
+    return {**dict.fromkeys(COUNTERS, 0), **counts}
 
 
 def log(msg=""):
     print(msg, flush=True)
-
-
-class float32_exact:
-    """TF32 off for cuDNN convolutions and matrix products inside the block,
-    so float32 on the card is compared as float32."""
-
-    def __enter__(self):
-        b = torch.backends
-        self.saved = (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32)
-        b.cudnn.allow_tf32 = b.cuda.matmul.allow_tf32 = False
-
-    def __exit__(self, *exc):
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = self.saved
-        return False
 
 
 def phase_environment():
@@ -151,7 +170,7 @@ def phase_build():
     log(f"built {sorted(logs)} in {time.perf_counter() - t0:.2f} s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Function properties" in line:
                 log(f"  {name}: {line.strip()}")
 
 
@@ -167,17 +186,6 @@ def _deform_inputs(B, H, W, C, O, off_range, dtype, seed=0):
 def _deform_grad(B, H, W, O, dtype, seed=1):
     g = torch.Generator().manual_seed(seed)
     return torch.randn(B, H, W, O, generator=g).to(DEVICE, dtype).contiguous()
-
-
-def _deform_bound_ms(B, H, W, C, O, dtype_name):
-    """K1's least time: each input read once and the output written once,
-    against the contraction plus the bilinear sampling operations."""
-    esize = 2 if dtype_name == "bfloat16" else 4
-    P = H * W
-    nbytes = (B * P * (C + 18 + 9 + O) + 9 * C * O) * esize
-    flops = 2 * B * P * 9 * C * O + 8 * B * P * 9 * C
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def _deform_bwd_bound_ms(B, H, W, C, O, dtype_name):
@@ -196,11 +204,10 @@ def _deform_bwd_bound_ms(B, H, W, C, O, dtype_name):
 
 def _check_fwd(B, H, W, C, O):
     """K1 in the 8 cases; times it in the serving path's case."""
-    # float32: both sides accumulate 288 products in float32 in different
-    # orders (~1e-6 on outputs of magnitude ~1), so 1e-4 is far above
-    # rounding and far below any sampling mistake. bf16: both compute in
-    # float32 and round once, so they may differ by one bf16 rounding (2^-8
-    # relative) of the largest output; the tolerance is two of those.
+    # `deform_variants.tolerance`: float32 1e-4 (both sides accumulate 288
+    # products in float32 in different orders, ~1e-6 on outputs of magnitude
+    # ~1); bf16 two bf16 roundings (2^-8 relative) of the largest output,
+    # since both compute in float32 and round once
     for dtype in (torch.float32, torch.bfloat16):
         for semantics in ("windowed", "exact"):
             for off_range in (1.5, 4.0):
@@ -211,7 +218,7 @@ def _check_fwd(B, H, W, C, O):
                     torch.cuda.synchronize()
                 err = (got.float() - want.float()).abs().max().item()
                 scale = want.float().abs().max().item()
-                tol = 1e-4 if dtype == torch.float32 else 2 * 2 ** -8 * scale
+                tol = tolerance(want)
                 ok = bool(torch.isfinite(got).all()) and err <= tol
                 log(f"deform_fwd {str(dtype)[6:]:9s} {semantics:8s} offsets +-{off_range}: "
                     f"max_abs_err {err:.3e} (tol {tol:.3e}, max |out| {scale:.3f}) "
@@ -224,7 +231,7 @@ def _check_fwd(B, H, W, C, O):
                     ms = cuda_time_ms(lambda: cuda_deform.deform_fwd(x, off, mask, w))
                     plain_ms = cuda_time_ms(
                         lambda: modulated_deform_conv2d_plain(x, off, mask, w), iters=5)
-                    bound_ms, bound_by = _deform_bound_ms(B, H, W, C, O, "bfloat16")
+                    bound_ms, bound_by = deform_fwd_bound_ms(B, H, W, C, O, "bfloat16")
                     log(f"deform_fwd bf16 windowed B={B}: kernel {ms:.4f} ms, "
                         f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
     return {"name": "deform_fwd", "route": "cuda",
@@ -372,14 +379,92 @@ def _check_augment(B, H, W):
             "bound_by": bound_by, "library_ms": None}
 
 
+def _check_variant_case(shape, dtype, off_range, bitwise):
+    """V1-V5 in one case against their plain versions, by
+    `deform_variants.compare` (K1's tolerances, and in bf16 the share of
+    elements that may differ), and against K1's own output: V4 and V5 must
+    equal it bit for bit; K1's output must fail V1's limits (the control
+    that they tell V1's function from K1's); V1 prints its largest
+    difference from K1 relative to K1's largest output, the number the JAX
+    tool prints. Returns each variant's error and records in `bitwise`
+    whether it gave K1's bits."""
+    args = _deform_inputs(*shape, off_range, dtype)
+    case = f"{str(dtype)[6:]:9s} offsets +-{off_range} {shape}"
+    errs = {}
+    with float32_exact():
+        k1 = cuda_deform.deform_fwd(*args)
+        wants = {}
+        for name, (fn, plain) in VARIANTS.items():
+            got = fn(*args)
+            if plain not in wants:
+                wants[plain] = plain(*args)
+            want = wants[plain]
+            torch.cuda.synchronize()
+            c = compare(got, want)
+            same = torch.equal(got, k1)
+            rel = (got.float() - k1.float()).abs().max().item() / k1.float().abs().max().item()
+            ok = c["ok"] and (same or name not in BITWISE_TO_K1)
+            text = (f"{name:20s} {case}: max_abs_err {c['max_abs_err']:.3e} "
+                    f"(tol {c['tol']:.3e}), differing {c['mismatch_share']:.3%} "
+                    f"(limit {c['share_limit']:.0%}), "
+                    f"{'bitwise equal to K1' if same else f'max rel diff from K1 {rel:.3e}'}")
+            if plain is not windowed_plain:
+                control = compare(k1, want)
+                ok &= not control["ok"]
+                text += (f"; control, K1 against this plain version: max_abs_err "
+                         f"{control['max_abs_err']:.3e}, differing "
+                         f"{control['mismatch_share']:.3%}, "
+                         f"{'WITHIN the limits' if control['ok'] else 'fails the limits'}")
+            log(f"{text} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"{name} disagrees with its plain version or with K1, or "
+                                 "the limits do not tell it from K1")
+            errs[name] = c["max_abs_err"]
+            bitwise[name] = bitwise.get(name, True) and same
+    return errs
+
+
+def _check_variants(B, H, W, C, O):
+    """The five K1 variants at the main path's shape in 4 cases and at a
+    ragged shape (H, W not multiples of 8) in 4; times each beside K1 in the
+    serving path's case (bf16, offsets +-1.5)."""
+    bitwise = {}
+    for shape in ((B, H, W, C, O), (2, 20, 28, 32, 32)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for off_range in (1.5, 4.0):
+                errs = _check_variant_case(shape, dtype, off_range, bitwise)
+                if shape[0] == B and dtype == torch.bfloat16 and off_range == 1.5:
+                    main_errs = errs    # the serving path's case
+    args = _deform_inputs(B, H, W, C, O, 1.5, torch.bfloat16)
+    # the plain versions of V2-V5 are one function, K1's: timed once
+    plain_ms = {plain: cuda_time_ms(lambda: plain(*args), iters=5)
+                for plain in {p for _, p in VARIANTS.values()}}
+    bound_ms, bound_by = deform_fwd_bound_ms(B, H, W, C, O, "bfloat16")
+    entries = []
+    for name, (fn, plain) in VARIANTS.items():
+        row = deform_ab.ab(f"b{B} serving case", name, fn, plain, args, iters=20, windows=5,
+                           plain_images=B)
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "mgdt_yolo_tpu_torch/csrc/deform_fwd_variants.cu",
+            "replaces": VARIANT_SITES[name],
+            "shape": f"x ({B},{H},{W},{C}) bf16, weight (3,3,{C},{O}), windowed",
+            "launches": None, "max_abs_err": main_errs[name], "max_err": main_errs[name],
+            "ms": row["ms"], "plain_ms": plain_ms[plain], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "k1_ms": row["k1_ms"],
+            "bitwise_to_k1": bitwise[name], "max_rel_diff_from_k1": row["max_rel_diff"]})
+    return entries
+
+
 def phase_kernels():
     """K1 (DCNv2 forward) and K2 (DCNv2 backward) against their plain
     versions at the main paths' shape: 80x80 map, C_in = C_out = 32, batch 8;
-    K3 (flip + HSV + normalise) at the augmented training batch."""
+    K3 (flip + HSV + normalise) at the augmented training batch; the five K1
+    variants as K1."""
     log("== phase 3: kernels against their plain versions")
     B, H, W, C, O = 8, 80, 80, 32, 32
     return [_check_fwd(B, H, W, C, O), _check_bwd(B, H, W, C, O),
-            _check_augment(TRAIN_BATCH, IMGSZ, IMGSZ)]
+            _check_augment(TRAIN_BATCH, IMGSZ, IMGSZ), *_check_variants(B, H, W, C, O)]
 
 
 def phase_serving():
@@ -458,9 +543,9 @@ def phase_training():
     log(f"launches during the training path: {launches}")
     if not all(math.isfinite(float(m["loss"])) for m in history):
         raise SystemExit("a training loss is not finite")
-    if launches != {"deform_fwd": n_steps, "deform_bwd": n_steps, "fused_augment": 0}:
+    if launches != no_launches(deform_fwd=n_steps, deform_bwd=n_steps):
         raise SystemExit("deform_fwd and deform_bwd did not launch once per micro-step "
-                         "(and fused_augment never) on unaugmented training")
+                         "(and no other kernel) on unaugmented training")
     if trainer.optimizer.count != n_steps // trainer.accumulate:
         raise SystemExit("the optimizer did not step once per accumulation")
     log(f"checkpoint: deform_semantics {meta['deform_semantics']}, step {meta['step']}, "
@@ -665,7 +750,7 @@ def phase_augmented_training():
         f"{wall:.2f} s; launches {launches}")
     log(f"checkpoints: last epoch {metas['last']['epoch']}, best_fitness "
         f"{metas['best']['best_fitness']:.6f}, pins {pins}")
-    want = {"deform_fwd": n_steps + n_val, "deform_bwd": n_steps, "fused_augment": n_steps}
+    want = no_launches(deform_fwd=n_steps + n_val, deform_bwd=n_steps, fused_augment=n_steps)
     if launches != want:
         raise SystemExit(f"the augmented path launched {launches}, not {want}")
     if [s[1] for s in seen] != [1.0] * AUG_STEPS + [0.0] * (n_steps - AUG_STEPS):
@@ -757,11 +842,56 @@ def phase_augment_card_vs_cpu():
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = saved
 
 
+AB_TOOLS = (proto_deform_bf16_fma, proto_deform_qxhoist, proto_deform_slot_skip,
+            proto_deform_tapwalk)
+
+
+def _ab_sound(row):
+    """An A/B row's output against K1's: V4 and V5 give K1's bits; V2 and V3
+    (K1's function) stay within two bf16 roundings of K1's largest output,
+    V1 (bf16 weights and products) within four."""
+    if row["variant"] in BITWISE_TO_K1:
+        return row["max_abs_diff"] == 0.0
+    limit = (4 if row["variant"] == "deform_fwd_bf16_fma" else 2) * 2 ** -8
+    return math.isfinite(row["max_rel_diff"]) and row["max_rel_diff"] <= limit
+
+
+def phase_variant_ab():
+    log(f"== phase 12: K1 variant A/B: the four ported A/B tools at their own shapes, then "
+        f"the five variants at b{TRAIN_BATCH} (bf16, windowed, offsets +-1.5)")
+    reset_counts()
+    rows = []
+    for tool in AB_TOOLS:
+        rows += tool.bench()["cases"]
+        torch.cuda.empty_cache()
+    args = _deform_inputs(TRAIN_BATCH, 80, 80, 32, 32, 1.5, torch.bfloat16)
+    rows += [deform_ab.ab(f"b{TRAIN_BATCH} main path", name, fn, plain, args, iters=10,
+                          plain_images=TRAIN_BATCH)
+             for name, (fn, plain) in VARIANTS.items()]
+    torch.cuda.synchronize()
+    launches = read_counts()
+    del args
+    torch.cuda.empty_cache()
+    log(f"launches during the A/B path: {launches}")
+    log("case | variant | shape | K1 ms | variant ms | K1 / variant | max |d| | max rel |d| "
+        "from K1 | images held | max |d| | differing from the plain version")
+    for r in rows:
+        log(f"  {r['case']} | {r['variant']} | {r['shape']} | {r['k1_ms']:.4f} | "
+            f"{r['ms']:.4f} | {r['ratio']:.3f} | {r['max_abs_diff']:.3e} | "
+            f"{r['max_rel_diff']:.3e} | {r['plain_images']} | {r['max_abs_err']:.3e} | "
+            f"{r['mismatch_share']:.3%}")
+    bad = [f"{r['variant']} ({r['case']})" for r in rows if not _ab_sound(r)]
+    if bad:
+        raise SystemExit("an A/B variant strays from K1: " + ", ".join(bad))
+    return launches, rows
+
+
 # which paths run each kernel (its launches must be counted on each); the
 # first is the kernel's own main path
 KERNEL_PATHS = {"deform_fwd": ("serving", "training", "augmented training"),
                 "deform_bwd": ("training", "augmented training"),
-                "fused_augment": ("augmented training",)}
+                "fused_augment": ("augmented training",),
+                **{name: ("K1 variant A/B",) for name in VARIANTS}}
 
 
 def main() -> int:
@@ -784,16 +914,21 @@ def main() -> int:
     phase_card_vs_cpu()
     phase_train_card_vs_cpu()
     phase_augment_card_vs_cpu()
-    paths = {"serving": serving, "training": training, "augmented training": augmented}
+    ab_launches, ab_rows = phase_variant_ab()
+    paths = {"serving": serving, "training": training, "augmented training": augmented,
+             "K1 variant A/B": ab_launches}
     for k in kernels:
         k["launches_by_path"] = {p: paths[p][k["name"]] for p in KERNEL_PATHS[k["name"]]}
         for p, n in k["launches_by_path"].items():
             if not n:
                 raise SystemExit(f"kernel {k['name']} never launched on the {p} path")
-        # K1's own path is serving, K2's training, K3's augmented training
+        # K1's own path is serving, K2's training, K3's augmented training,
+        # each variant's the A/B path
         k["launches"] = k["launches_by_path"][KERNEL_PATHS[k["name"]][0]]
         if k["name"] == "fused_augment":
             k["apply_augment_ms"] = aug_ms
+        if k["name"] in VARIANTS:
+            k["ab"] = [r for r in ab_rows if r["variant"] == k["name"]]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(gpu_name_and_power())

@@ -26,15 +26,22 @@ bwd_launches = 0    # deform_bwd
 _MAX_SMEM = 232448
 
 
-def _library(name: str, n_ptrs: int) -> ctypes.CDLL:
-    """Build (first use) and load the library of kernel `name`, with its C
-    signatures: `name(n_ptrs pointers, B, H, W, Cin, Cout, windowed, bf16,
-    stream)` and `name_smem_bytes(Cin, Cout)`."""
+def _library(name: str, n_ptrs: int, source: str | None = None,
+             smem_args: int = 2) -> ctypes.CDLL:
+    """Build (first use) and load the library of `csrc/<source>.cu` (default:
+    `name`), with the C signatures of kernel `name`: `name(n_ptrs pointers,
+    B, H, W, Cin, Cout, windowed, bf16, stream)` and `name_smem_bytes` of
+    `smem_args` ints (K1 and K2: Cin, Cout)."""
     from ..utils.build import load_library
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    return load_library(name, (
+    return load_library(source or name, (
         (name, i32, (ptr,) * n_ptrs + (i32,) * 7 + (ptr,)),
-        (f"{name}_smem_bytes", ctypes.c_longlong, (i32, i32))))
+        (f"{name}_smem_bytes", ctypes.c_longlong, (i32,) * smem_args)))
+
+
+def smem_bytes(Cin: int, Cout: int) -> int:
+    """The shared memory one block of the forward kernel needs at Cin, Cout."""
+    return _library("deform_fwd", 6).deform_fwd_smem_bytes(Cin, Cout)
 
 
 def _check(x, offset, mask, weight, bias):
@@ -84,7 +91,7 @@ def deform_fwd(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
         raise ValueError(f"deform_fwd takes CUDA or CPU tensors, got {x.device}")
     B, H, W, Cin, Cout = _check(x, offset, mask, weight, bias)
     lib = _library("deform_fwd", 6)
-    smem = lib.deform_fwd_smem_bytes(Cin, Cout)
+    smem = smem_bytes(Cin, Cout)
     if smem > _MAX_SMEM:
         raise ValueError(f"Cin={Cin}, Cout={Cout} needs {smem} B of shared "
                          f"memory per block, more than {_MAX_SMEM}")

@@ -1,9 +1,39 @@
-"""Timing on the GPU, shared by `chip_smoke.py` and the profiling tool."""
+"""Timing on the GPU, the card's bounds and float32 without TF32, shared by
+`chip_smoke.py` and the tools."""
 from __future__ import annotations
 
 import subprocess
 
 import torch
+
+HBM_BYTES_PER_S = 3.35e12                             # H100 SXM device memory
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, per type
+
+
+def deform_fwd_bound_ms(B, H, W, C, O, dtype_name):
+    """The DCNv2 forward's least time on the card, in ms, and what bounds it:
+    each input read once and the output written once, against the
+    contraction plus the bilinear sampling operations."""
+    esize = 2 if dtype_name == "bfloat16" else 4
+    P = H * W
+    nbytes = (B * P * (C + 18 + 9 + O) + 9 * C * O) * esize
+    flops = 2 * B * P * 9 * C * O + 8 * B * P * 9 * C
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+class float32_exact:
+    """TF32 off for cuDNN convolutions and matrix products inside the block,
+    so float32 on the card is compared as float32."""
+
+    def __enter__(self):
+        b = torch.backends
+        self.saved = (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32)
+        b.cudnn.allow_tf32 = b.cuda.matmul.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = self.saved
+        return False
 
 
 def gpu_name_and_power() -> str:
