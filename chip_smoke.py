@@ -9,25 +9,33 @@ Phases, each of which passes or ends the script with a non-zero exit:
 2. build: nvcc builds every `mgdt_yolo_tpu_torch/csrc/*.cu` (one process per
    source, all started together);
 3. kernels: each hand-written kernel against its plain PyTorch version on the
-   card, at the main paths' shapes (the DCN kernels at batch 8 in 8 cases, K2
-   also at the training batch, 32; K3 at (32, 640, 640, 3) with planted grey,
-   saturated and one-channel pixels, hue-wrapping gains and all four flips),
-   with the stated tolerance, then timed; the five K1 variants V1-V5
+   card, at the main paths' shapes, with the stated tolerance: K1 and K2 (the
+   tensor-core designs, `csrc/deform_{fwd,bwd}.cu`) in 8 cases (float32 and
+   bf16, windowed and exact, offsets +-1.5 and +-4.0) at batch 8 and at the
+   training batch, 32, K1 also at b128; in bf16 also by the share of elements
+   that differ; their SIMT baselines (`csrc/deform_{fwd,bwd}_simt.cu`) in the
+   main case; then each against its SIMT baseline in turns (the "DCN A/B"
+   path: K1 at b8, b32 and b128, K2 at b8 and b32), with each time's share
+   of its bound and ptxas's registers and spills; K3 at (32, 640, 640, 3)
+   with planted grey, saturated and one-channel pixels, hue-wrapping gains
+   and all four flips, then timed; the five K1 variants V1-V5
    (`csrc/deform_fwd_variants.cu`) against their plain versions at batch 8
    (float32 and bf16, offsets +-1.5 and +-4.0) and at the ragged (2, 20, 28,
-   32 -> 32), in bf16 also by the share of elements that differ, with K1's
-   output as the control that must fail V1's limits; V4 and V5 also bitwise
-   against K1, each timed beside K1;
+   32 -> 32), in bf16 also by the share of elements that differ, with the
+   SIMT K1's output as the control that must fail V1's limits; V4 and V5
+   also bitwise against the SIMT K1, each timed beside it;
 4. serving path: the flagship MGDT-n from `weights/mgdt_n_synth.npz`, Conv+BN
    fused, bf16, 640 px, answers requests of batch 1, 8 and 32 through
-   `predict` on synthetic scenes; K1 must have launched once per forward;
+   `predict` on synthetic scenes; K1 must have launched once per forward,
+   and no other kernel;
 5. serving throughput (images/s) at batch 1, 32 and 128;
 6. training path, unaugmented (`cfg.default.UNAUGMENTED`, no validation):
    the same weights unfused in `train()` mode, bf16 autocast, 640 px, the
    `Trainer` with the JAX defaults (SGD, accumulate 2) over a loader of
    labelled synthetic scenes at batch 32: a few optimizer updates and a
-   checkpoint; K1 and K2 must each launch once per micro-step, every loss be
-   finite and the DCN weight get a finite, non-zero gradient;
+   checkpoint; K1 and K2 must each launch once per micro-step (the SIMT
+   kernels and the variants never), every loss be finite and the DCN weight
+   get a finite, non-zero gradient;
 7. training on one fixed batch: the loss must fall; train images/s at b32;
 10. augmented training path: `Trainer.train()` with the JAX defaults
    (`device_augment=True`: mosaic 1.0, scale 0.5, translate 0.1, HSV
@@ -52,9 +60,10 @@ Phases, each of which passes or ends the script with a non-zero exit:
 12. K1 variant A/B: the `bench()` of the four ported A/B tools
    (`mgdt_yolo_tpu_torch/tools/proto_deform_*.py`) at their own shapes (b512
    C 32, b128 C 32, b512 C 64, bf16), then all five variants at the training
-   batch (b32, bf16, windowed, +-1.5) in one table against K1; each variant
-   must launch there, V4 and V5 give K1's bits and V1-V3 stay within bf16
-   rounding of K1; each variant and K1 are held against their plain
+   batch (b32, bf16, windowed, +-1.5) in one table against the SIMT K1 (their
+   baseline; the model's K1 must not launch there); each variant must launch
+   there, V4 and V5 give the SIMT K1's bits and V1-V3 stay within bf16
+   rounding of it; each variant and the SIMT K1 are held against their plain
    versions on the first 8 images of each tool's batch (so V5 and K1 at
    C 64) and on the whole b32 batch, as in phase 3.
    Phase 10 runs before phase 8, and phases 8, 9 and 11 run after it,
@@ -69,6 +78,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -88,7 +98,7 @@ from mgdt_yolo_tpu_torch.ops import cuda_deform, cuda_deform_variants, cuda_imag
 from mgdt_yolo_tpu_torch.ops.cuda_deform_variants import VARIANTS
 from mgdt_yolo_tpu_torch.ops.deform import (modulated_deform_conv2d_plain,
                                             modulated_deform_conv2d_plain_bwd)
-from mgdt_yolo_tpu_torch.ops.deform_variants import compare, tolerance, windowed_plain
+from mgdt_yolo_tpu_torch.ops.deform_variants import MISMATCH_LIMIT, compare, windowed_plain
 from mgdt_yolo_tpu_torch.ops.device_augment import apply_augment, augment_draws
 from mgdt_yolo_tpu_torch.ops.image import fused_augment_plain
 from mgdt_yolo_tpu_torch.ops.nms import non_max_suppression
@@ -117,6 +127,8 @@ AUG_OVERRIDES = {"optimizer": "SGD", "batch": TRAIN_BATCH, "epochs": AUG_EPOCHS,
 # just before a path: a module's globals for K1-K3, the variants' dict
 COUNTERS = {"deform_fwd": (vars(cuda_deform), "launches"),
             "deform_bwd": (vars(cuda_deform), "bwd_launches"),
+            "deform_fwd_simt": (vars(cuda_deform), "simt_launches"),
+            "deform_bwd_simt": (vars(cuda_deform), "bwd_simt_launches"),
             "fused_augment": (vars(cuda_image), "launches"),
             **{name: (cuda_deform_variants.launches, name) for name in VARIANTS}}
 # the TPU function each K1 variant replaces
@@ -125,8 +137,8 @@ VARIANT_SITES = {"deform_fwd_bf16_fma": "tools/proto_deform_bf16_fma.py:64",
                  "deform_fwd_cvt1": "tools/proto_deform_qxhoist.py:128",
                  "deform_fwd_slot_skip": "tools/proto_deform_slot_skip.py:75",
                  "deform_fwd_tapwalk": "tools/proto_deform_tapwalk.py:116"}
-# the variants whose design keeps K1's order of every float32 sum, so they
-# must give K1's bits (the inputs here are finite)
+# the variants whose design keeps the SIMT K1's order of every float32 sum,
+# so they must give its bits (the inputs here are finite)
 BITWISE_TO_K1 = ("deform_fwd_slot_skip", "deform_fwd_tapwalk")
 
 
@@ -168,6 +180,7 @@ def phase_build():
     t0 = time.perf_counter()
     logs = build_all()
     log(f"built {sorted(logs)} in {time.perf_counter() - t0:.2f} s")
+    USAGE.update(_ptxas_usage(logs))
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "Function properties" in line:
@@ -202,114 +215,206 @@ def _deform_bwd_bound_ms(B, H, W, C, O, dtype_name):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _check_fwd(B, H, W, C, O):
-    """K1 in the 8 cases; times it in the serving path's case."""
-    # `deform_variants.tolerance`: float32 1e-4 (both sides accumulate 288
-    # products in float32 in different orders, ~1e-6 on outputs of magnitude
-    # ~1); bf16 two bf16 roundings (2^-8 relative) of the largest output,
-    # since both compute in float32 and round once
-    for dtype in (torch.float32, torch.bfloat16):
-        for semantics in ("windowed", "exact"):
-            for off_range in (1.5, 4.0):
-                x, off, mask, w = _deform_inputs(B, H, W, C, O, off_range, dtype)
-                with float32_exact():
-                    got = cuda_deform.deform_fwd(x, off, mask, w, None, semantics)
-                    want = modulated_deform_conv2d_plain(x, off, mask, w, None, semantics)
-                    torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
-                scale = want.float().abs().max().item()
-                tol = tolerance(want)
-                ok = bool(torch.isfinite(got).all()) and err <= tol
-                log(f"deform_fwd {str(dtype)[6:]:9s} {semantics:8s} offsets +-{off_range}: "
-                    f"max_abs_err {err:.3e} (tol {tol:.3e}, max |out| {scale:.3f}) "
-                    f"{'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise SystemExit("deform_fwd disagrees with its plain version")
-                if dtype == torch.bfloat16 and semantics == "windowed" and off_range == 1.5:
-                    # the main path's case: bf16, windowed, offsets in reach
-                    main_err = err
-                    ms = cuda_time_ms(lambda: cuda_deform.deform_fwd(x, off, mask, w))
-                    plain_ms = cuda_time_ms(
-                        lambda: modulated_deform_conv2d_plain(x, off, mask, w), iters=5)
-                    bound_ms, bound_by = deform_fwd_bound_ms(B, H, W, C, O, "bfloat16")
-                    log(f"deform_fwd bf16 windowed B={B}: kernel {ms:.4f} ms, "
-                        f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
-    return {"name": "deform_fwd", "route": "cuda",
-            "source": "mgdt_yolo_tpu_torch/csrc/deform_fwd.cu",
-            "replaces": "mgdt_yolo_tpu/ops/pallas_deform.py:79",
-            "shape": f"x ({B},{H},{W},{C}) bf16, weight (3,3,{C},{O}), windowed",
-            "launches": None, "max_abs_err": main_err, "max_err": main_err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+# phase 3's DCN cases: (dtype, semantics, offset range); the main paths' case
+# is bf16, windowed, offsets within reach
+DCN_CASES = [(dtype, semantics, off_range) for dtype in (torch.float32, torch.bfloat16)
+             for semantics in ("windowed", "exact") for off_range in (1.5, 4.0)]
+MAIN_CASE = (torch.bfloat16, "windowed", 1.5)
+# the batches at which phase 3 holds K1 and K2 in every case (serving's b8
+# and the training batch), and at which it times each against its SIMT
+# baseline in turns (K1 also at serving's b128)
+DCN_BATCHES = (8, TRAIN_BATCH)
+AB_BATCHES = {"deform_fwd": (8, TRAIN_BATCH, 128), "deform_bwd": (8, TRAIN_BATCH)}
+# ptxas's usage of each kernel's bf16 instantiation, read from the build log
+# (phase 2): the name ptxas gives it, registers, spill stores and loads
+USAGE = {}
+KERNEL_SYMBOLS = {"deform_fwd": "deform_fwd_mma_kernel", "deform_fwd_simt": "deform_fwd_kernel",
+                  "deform_bwd": "deform_bwd_mma_kernel", "deform_bwd_simt": "deform_bwd_kernel"}
 
 
-def _compare_bwd(args, g, semantics, case):
-    """K2 against the plain backward on the same inputs, all four gradients;
-    returns the largest error, and ends the script on a disagreement."""
+def _ptxas_usage(logs):
+    """{function: {"registers": n, "spill_stores": b, "spill_loads": b}} from
+    `nvcc -Xptxas -v` output."""
+    usage, current = {}, None
+    for text in logs.values():
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line) or \
+                re.search(r"Function properties for (\S+)", line)
+            if m:
+                current = m.group(1)
+                usage.setdefault(current, {})
+            elif current and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                                             line)):
+                usage[current].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            elif current and (m := re.search(r"Used (\d+) registers", line)):
+                usage[current]["registers"] = int(m.group(1))
+    return usage
+
+
+def _bf16_usage(kernel):
+    """ptxas's registers and spills of `kernel`'s bf16 instantiation (the
+    SIMT backward's and each Hopper kernel's vectorised one)."""
+    sym = KERNEL_SYMBOLS[kernel]
+    found = {f: u for f, u in USAGE.items()
+             if f"{len(sym)}{sym}" in f and "bfloat16" in f and "Li1E" not in f}
+    return next(iter(found.values()), {})
+
+
+def _case_label(dtype, semantics, off_range, B):
+    return f"{str(dtype)[6:]:9s} {semantics:8s} offsets +-{off_range} B={B}"
+
+
+def _hold_fwd(name, fn, args, semantics, case):
+    """A forward kernel against the plain version on the same inputs, by
+    `deform_variants.compare`: float32 1e-4 (both sides accumulate 288
+    products in float32 in different orders, ~1e-6 on outputs of magnitude
+    ~1; K1's bf16 hi/lo samples keep ~16 bits, ~1e-5); bf16 two bf16
+    roundings (2^-8 relative) of the largest output, since both compute in
+    float32 and round once, and at most 1% of the elements differing.
+    Returns the largest error; ends the script on a disagreement."""
+    with float32_exact():
+        got = fn(*args, None, semantics)
+        want = modulated_deform_conv2d_plain(*args, None, semantics)
+        torch.cuda.synchronize()
+    c = compare(got, want)
+    log(f"{name} {case}: max_abs_err {c['max_abs_err']:.3e} (tol {c['tol']:.3e}), differing "
+        f"{c['mismatch_share']:.3%} (limit {c['share_limit']:.0%}) {'ok' if c['ok'] else 'FAIL'}")
+    if not c["ok"]:
+        raise SystemExit(f"{name} disagrees with its plain version")
+    return c["max_abs_err"]
+
+
+def _hold_bwd(name, fn, args, g, semantics, case):
+    """A backward kernel against the plain backward on the same inputs, all
+    four gradients; returns the largest error, and ends the script on a
+    disagreement."""
     # float32: the kernel's atomics and its per-tile sums reorder float32
-    # sums of up to 204800 terms (the weight gradient at batch 32), so each
+    # sums of up to 204800 terms (the weight gradient at batch 32), and K2
+    # carries its float32 operands as bf16 hi/lo pairs (~16 bits), so each
     # gradient is held to 1e-4 of its largest value, far above rounding and
     # far below any mistake in the sampling. bf16: both sides round the tap
     # gradient and the samples to bf16 before contracting them and round the
     # results once, so a tap-gradient element on a rounding boundary may
     # round the other way; four bf16 roundings (2^-8 relative) of the
-    # largest value.
+    # largest value, and at most 1% of each gradient's elements differing
+    # (sums in another order move an element across a bf16 rounding edge
+    # rarely; another function moves about half of them).
     with float32_exact():
-        got = cuda_deform.deform_bwd(*args, g, semantics)
+        got = fn(*args, g, semantics)
         want = modulated_deform_conv2d_plain_bwd(*args, g, semantics)
         torch.cuda.synchronize()
     errs = []
-    for name, a, b in zip(("dx", "d_offset", "d_mask", "d_weight"), got, want):
+    for gname, a, b in zip(("dx", "d_offset", "d_mask", "d_weight"), got, want):
         err = (a.float() - b.float()).abs().max().item()
         scale = b.float().abs().max().item()
-        tol = (1e-4 if g.dtype == torch.float32 else 4 * 2 ** -8) * scale
-        ok = bool(torch.isfinite(a).all()) and a.dtype == b.dtype and err <= tol
+        share = (a != b).float().mean().item()
+        f32 = g.dtype == torch.float32
+        tol = (1e-4 if f32 else 4 * 2 ** -8) * scale
+        limit = 1.0 if f32 else MISMATCH_LIMIT
+        ok = bool(torch.isfinite(a).all()) and a.dtype == b.dtype and err <= tol and \
+            share <= limit
         errs.append(err)
-        log(f"deform_bwd {case} {name:8s}: max_abs_err {err:.3e} "
-            f"(tol {tol:.3e}, max {scale:.3f}) {'ok' if ok else 'FAIL'}")
+        log(f"{name} {case} {gname:8s}: max_abs_err {err:.3e} (tol {tol:.3e}, max "
+            f"{scale:.3f}), differing {share:.3%} (limit {limit:.0%}) {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise SystemExit("deform_bwd disagrees with its plain version")
+            raise SystemExit(f"{name} disagrees with its plain version")
     return max(errs)
 
 
-def _check_bwd(B, H, W, C, O):
-    """K2 in the 8 cases at batch B and in the training path's case at the
-    training batch; times it in both."""
-    for dtype in (torch.float32, torch.bfloat16):
-        for semantics in ("windowed", "exact"):
-            for off_range in (1.5, 4.0):
-                args = _deform_inputs(B, H, W, C, O, off_range, dtype)
-                g = _deform_grad(B, H, W, O, dtype)
-                err = _compare_bwd(args, g, semantics, f"{str(dtype)[6:]:9s} {semantics:8s} "
-                                   f"offsets +-{off_range} B={B}")
-                if dtype == torch.bfloat16 and semantics == "windowed" and off_range == 1.5:
-                    main_err = err
-                    ms = cuda_time_ms(lambda: cuda_deform.deform_bwd(*args, g))
-                    plain_ms = cuda_time_ms(
-                        lambda: modulated_deform_conv2d_plain_bwd(*args, g), iters=3)
-                    bound_ms, bound_by = _deform_bwd_bound_ms(B, H, W, C, O, "bfloat16")
-                    log(f"deform_bwd bf16 windowed B={B}: kernel {ms:.4f} ms, "
-                        f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
-    del args, g
-    # the training path's own shape: batch 32, bf16, windowed
-    Bt = TRAIN_BATCH
-    args = _deform_inputs(Bt, H, W, C, O, 1.5, torch.bfloat16)
-    g = _deform_grad(Bt, H, W, O, torch.bfloat16)
-    err_t = _compare_bwd(args, g, "windowed", f"bfloat16  windowed offsets +-1.5 B={Bt}")
-    ms_t = cuda_time_ms(lambda: cuda_deform.deform_bwd(*args, g), iters=10)
-    plain_t = cuda_time_ms(lambda: modulated_deform_conv2d_plain_bwd(*args, g), iters=2,
-                           windows=3)
-    bound_t, _ = _deform_bwd_bound_ms(Bt, H, W, C, O, "bfloat16")
-    log(f"deform_bwd bf16 windowed B={Bt}: kernel {ms_t:.4f} ms, plain {plain_t:.4f} ms, "
-        f"bound {bound_t:.5f} ms")
-    return {"name": "deform_bwd", "route": "cuda",
-            "source": "mgdt_yolo_tpu_torch/csrc/deform_bwd.cu",
-            "replaces": "mgdt_yolo_tpu/ops/pallas_deform.py:195",
-            "shape": f"x ({B},{H},{W},{C}) bf16, weight (3,3,{C},{O}), windowed",
-            "launches": None, "max_abs_err": main_err, "max_err": main_err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None, f"max_abs_err_b{Bt}": err_t,
-            f"ms_b{Bt}": ms_t, f"plain_ms_b{Bt}": plain_t, f"bound_ms_b{Bt}": bound_t}
+def _check_dcn(H, W, C, O):
+    """K1 and K2 in the 8 cases at each of DCN_BATCHES, K1 also in the main
+    case at b128; the SIMT kernels in the main case at each batch. Returns
+    the largest error of each kernel in the main case, by batch."""
+    errs = {k: {} for k in KERNEL_SYMBOLS}
+    for B in DCN_BATCHES:
+        for dtype, semantics, off_range in DCN_CASES:
+            args = _deform_inputs(B, H, W, C, O, off_range, dtype)
+            g = _deform_grad(B, H, W, O, dtype)
+            case = _case_label(dtype, semantics, off_range, B)
+            main = (dtype, semantics, off_range) == MAIN_CASE
+            kernels = [("deform_fwd", cuda_deform.deform_fwd, _hold_fwd),
+                       ("deform_bwd", cuda_deform.deform_bwd, _hold_bwd)]
+            if main:
+                kernels += [("deform_fwd_simt", cuda_deform.deform_fwd_simt, _hold_fwd),
+                            ("deform_bwd_simt", cuda_deform.deform_bwd_simt, _hold_bwd)]
+            for name, fn, hold in kernels:
+                extra = (g,) if hold is _hold_bwd else ()
+                err = hold(name, fn, args, *extra, semantics, case)
+                if main:
+                    errs[name][B] = err
+            del args, g
+    args = _deform_inputs(128, H, W, C, O, 1.5, torch.bfloat16)
+    errs["deform_fwd"][128] = _hold_fwd("deform_fwd", cuda_deform.deform_fwd, args, "windowed",
+                                        _case_label(*MAIN_CASE, 128))
+    return errs
+
+
+def _dcn_ab(H, W, C, O):
+    """Each Hopper DCN kernel against its SIMT baseline in the main case, in
+    turns (SIMT, Hopper, Hopper, SIMT; min of each, CUDA events), at
+    AB_BATCHES, with the plain version's time and the bound. Returns
+    {kernel: {B: row}}."""
+    pairs = {"deform_fwd": (cuda_deform.deform_fwd, cuda_deform.deform_fwd_simt,
+                            modulated_deform_conv2d_plain, deform_fwd_bound_ms),
+             "deform_bwd": (cuda_deform.deform_bwd, cuda_deform.deform_bwd_simt,
+                            modulated_deform_conv2d_plain_bwd, _deform_bwd_bound_ms)}
+    rows = {}
+    for name, (new, simt, plain, bound) in pairs.items():
+        usage, simt_usage = _bf16_usage(name), _bf16_usage(f"{name}_simt")
+        rows[name] = {}
+        for B in AB_BATCHES[name]:
+            args = _deform_inputs(B, H, W, C, O, 1.5, torch.bfloat16)
+            if name == "deform_bwd":
+                args.append(_deform_grad(B, H, W, O, torch.bfloat16))
+            iters = max(2, 160 // B)
+            times = {"new": [], "simt": []}
+            for who in ("simt", "new", "new", "simt"):
+                fn = new if who == "new" else simt
+                times[who].append(cuda_time_ms(lambda: fn(*args), iters=iters, windows=3))
+            ms, simt_ms = min(times["new"]), min(times["simt"])
+            plain_ms = cuda_time_ms(lambda: plain(*args), iters=2, windows=2)
+            bound_ms, bound_by = bound(B, H, W, C, O, "bfloat16")
+            rows[name][B] = {"ms": ms, "simt_ms": simt_ms, "ratio": simt_ms / ms,
+                             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+            log(f"A/B {name} b{B} bf16 windowed: SIMT " +
+                " / ".join(f"{t:.4f}" for t in times["simt"]) + " ms, Hopper " +
+                " / ".join(f"{t:.4f}" for t in times["new"]) +
+                f" ms; SIMT / Hopper {simt_ms / ms:.3f}x; bound {bound_ms:.5f} ms ({bound_by}): "
+                f"Hopper at {bound_ms / ms:.2%} of it, SIMT at {bound_ms / simt_ms:.2%}; plain "
+                f"{plain_ms:.4f} ms; registers / spill stores Hopper {usage.get('registers')} / "
+                f"{usage.get('spill_stores')} B, SIMT {simt_usage.get('registers')} / "
+                f"{simt_usage.get('spill_stores')} B")
+            del args
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _dcn_entries(H, W, C, O, errs, rows):
+    """The kernels line's entries of K1, K2 and their SIMT baselines: each
+    timed at b8 (`ms`) and at the other A/B batches (`ms_b<B>`)."""
+    sites = {"deform_fwd": "mgdt_yolo_tpu/ops/pallas_deform.py:79",
+             "deform_bwd": "mgdt_yolo_tpu/ops/pallas_deform.py:195"}
+    entries = []
+    for name in ("deform_fwd", "deform_bwd"):
+        for kernel, key in ((name, "ms"), (f"{name}_simt", "simt_ms")):
+            by_b = rows[name]
+            e = {"name": kernel, "route": "cuda",
+                 "source": f"mgdt_yolo_tpu_torch/csrc/{kernel}.cu", "replaces": sites[name],
+                 "shape": f"x (8,{H},{W},{C}) bf16, weight (3,3,{C},{O}), windowed",
+                 "launches": None, "max_abs_err": errs[kernel][8], "max_err": errs[kernel][8],
+                 "ms": by_b[8][key], "plain_ms": by_b[8]["plain_ms"],
+                 "bound_ms": by_b[8]["bound_ms"], "bound_by": by_b[8]["bound_by"],
+                 "library_ms": None, **_bf16_usage(kernel)}
+            for B, row in by_b.items():
+                if B != 8:
+                    e.update({f"ms_b{B}": row[key], f"plain_ms_b{B}": row["plain_ms"],
+                              f"bound_ms_b{B}": row["bound_ms"]})
+                if B in errs[kernel] and B != 8:
+                    e[f"max_abs_err_b{B}"] = errs[kernel][B]
+            if kernel == name:
+                e["simt_over_hopper"] = {f"b{B}": row["ratio"] for B, row in by_b.items()}
+            entries.append(e)
+    return entries
 
 
 # K3's float32 operations per pixel, from csrc/fused_augment.cu: 3
@@ -382,17 +487,17 @@ def _check_augment(B, H, W):
 def _check_variant_case(shape, dtype, off_range, bitwise):
     """V1-V5 in one case against their plain versions, by
     `deform_variants.compare` (K1's tolerances, and in bf16 the share of
-    elements that may differ), and against K1's own output: V4 and V5 must
-    equal it bit for bit; K1's output must fail V1's limits (the control
-    that they tell V1's function from K1's); V1 prints its largest
-    difference from K1 relative to K1's largest output, the number the JAX
-    tool prints. Returns each variant's error and records in `bitwise`
-    whether it gave K1's bits."""
+    elements that may differ), and against the SIMT K1's output ("K1"
+    below, the variants' baseline): V4 and V5 must equal it bit for bit;
+    its output must fail V1's limits (the control that they tell V1's
+    function from K1's); V1 prints its largest difference from it relative
+    to its largest output, the number the JAX tool prints. Returns each
+    variant's error and records in `bitwise` whether it gave K1's bits."""
     args = _deform_inputs(*shape, off_range, dtype)
     case = f"{str(dtype)[6:]:9s} offsets +-{off_range} {shape}"
     errs = {}
     with float32_exact():
-        k1 = cuda_deform.deform_fwd(*args)
+        k1 = cuda_deform.deform_fwd_simt(*args)
         wants = {}
         for name, (fn, plain) in VARIANTS.items():
             got = fn(*args)
@@ -458,13 +563,22 @@ def _check_variants(B, H, W, C, O):
 
 def phase_kernels():
     """K1 (DCNv2 forward) and K2 (DCNv2 backward) against their plain
-    versions at the main paths' shape: 80x80 map, C_in = C_out = 32, batch 8;
-    K3 (flip + HSV + normalise) at the augmented training batch; the five K1
-    variants as K1."""
+    versions at the main paths' shape, 80x80 map, C_in = C_out = 32, in the
+    8 cases at b8 and b32, then each against its SIMT baseline in turns (the
+    "DCN A/B" path, counted); K3 (flip + HSV + normalise) at the augmented
+    training batch; the five K1 variants as K1. Returns the kernel entries
+    and the DCN A/B path's launches."""
     log("== phase 3: kernels against their plain versions")
-    B, H, W, C, O = 8, 80, 80, 32, 32
-    return [_check_fwd(B, H, W, C, O), _check_bwd(B, H, W, C, O),
-            _check_augment(TRAIN_BATCH, IMGSZ, IMGSZ), *_check_variants(B, H, W, C, O)]
+    H, W, C, O = 80, 80, 32, 32
+    errs = _check_dcn(H, W, C, O)
+    reset_counts()
+    rows = _dcn_ab(H, W, C, O)
+    torch.cuda.synchronize()
+    ab_launches = read_counts()
+    log(f"launches during the DCN A/B path: {ab_launches}")
+    kernels = [*_dcn_entries(H, W, C, O, errs, rows),
+               _check_augment(TRAIN_BATCH, IMGSZ, IMGSZ), *_check_variants(8, H, W, C, O)]
+    return kernels, ab_launches
 
 
 def phase_serving():
@@ -486,8 +600,9 @@ def phase_serving():
     if sum(int(counts.sum()) for _, counts in results) == 0:
         raise SystemExit("serving path found no detections")
     log(f"launches during the serving path: {launches}")
-    if launches["deform_fwd"] != len(requests):
-        raise SystemExit("deform_fwd did not launch exactly once per forward")
+    if launches != no_launches(deform_fwd=len(requests)):
+        raise SystemExit("deform_fwd did not launch exactly once per forward (and no other "
+                         "kernel)")
     return model, launches
 
 
@@ -873,6 +988,9 @@ def phase_variant_ab():
     del args
     torch.cuda.empty_cache()
     log(f"launches during the A/B path: {launches}")
+    if launches["deform_fwd_simt"] == 0 or \
+            any(launches[k] for k in ("deform_fwd", "deform_bwd", "deform_bwd_simt")):
+        raise SystemExit("the variants' A/B did not run against the SIMT K1 alone")
     log("case | variant | shape | K1 ms | variant ms | K1 / variant | max |d| | max rel |d| "
         "from K1 | images held | max |d| | differing from the plain version")
     for r in rows:
@@ -890,6 +1008,8 @@ def phase_variant_ab():
 # first is the kernel's own main path
 KERNEL_PATHS = {"deform_fwd": ("serving", "training", "augmented training"),
                 "deform_bwd": ("training", "augmented training"),
+                "deform_fwd_simt": ("DCN A/B", "K1 variant A/B"),
+                "deform_bwd_simt": ("DCN A/B",),
                 "fused_augment": ("augmented training",),
                 **{name: ("K1 variant A/B",) for name in VARIANTS}}
 
@@ -901,7 +1021,7 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_environment()
     phase_build()
-    kernels = phase_kernels()
+    kernels, dcn_ab = phase_kernels()
     model, serving = phase_serving()
     phase_throughput(model)
     del model
@@ -916,14 +1036,14 @@ def main() -> int:
     phase_augment_card_vs_cpu()
     ab_launches, ab_rows = phase_variant_ab()
     paths = {"serving": serving, "training": training, "augmented training": augmented,
-             "K1 variant A/B": ab_launches}
+             "DCN A/B": dcn_ab, "K1 variant A/B": ab_launches}
     for k in kernels:
         k["launches_by_path"] = {p: paths[p][k["name"]] for p in KERNEL_PATHS[k["name"]]}
         for p, n in k["launches_by_path"].items():
             if not n:
                 raise SystemExit(f"kernel {k['name']} never launched on the {p} path")
         # K1's own path is serving, K2's training, K3's augmented training,
-        # each variant's the A/B path
+        # the SIMT kernels' the DCN A/B, each variant's the variant A/B
         k["launches"] = k["launches_by_path"][KERNEL_PATHS[k["name"]][0]]
         if k["name"] == "fused_augment":
             k["apply_augment_ms"] = aug_ms

@@ -1,13 +1,31 @@
-"""Wrappers of the hand-written DCNv2 kernels, forward (`csrc/deform_fwd.cu`)
-and backward (`csrc/deform_bwd.cu`), and `deform_conv`, the model's one entry
-to DCNv2: a `torch.autograd.Function` that pairs the two.
+"""Wrappers of the hand-written DCNv2 kernels and `deform_conv`, the model's
+one entry to DCNv2: a `torch.autograd.Function` that pairs the forward and
+the backward.
 
-`deform_fwd` and `deform_bwd` launch their kernels on the current stream for
-CUDA tensors. A CPU tensor goes to the plain versions in `ops/deform.py`
-(`modulated_deform_conv2d_plain` and `modulated_deform_conv2d_plain_bwd`);
-any other input the kernels do not take raises, and no failure falls back.
-`launches` and `bwd_launches` count the two kernels' launches, so a run can
-show that its path went through them.
+* `deform_fwd` (K1, `csrc/deform_fwd.cu`) and `deform_bwd` (K2,
+  `csrc/deform_bwd.cu`): the Hopper designs the main path runs. K1 contracts
+  each tap's samples with the weight on the tensor cores (`mma.sync`, bf16
+  hi/lo terms of the float32 samples), fed by double-buffered `cp.async`
+  corner gathers, in persistent blocks that hold the weight; K2 takes both
+  contractions with the weight on the tensor cores and accumulates dx in a
+  shared-memory window of its tile's rows, which the windowed reach (every
+  corner of output (i, j) lies in rows [i - 3, i + 4] and columns
+  [j - 3, j + 4]) keeps small; corners outside it (exact semantics) go to
+  global atomics.
+* `deform_fwd_simt` and `deform_bwd_simt` (`csrc/deform_{fwd,bwd}_simt.cu`):
+  the first designs, contracting on the CUDA cores, kept as the A/B
+  baseline of the two and, for the forward, as the float32 order that the
+  K1 variants (`ops/cuda_deform_variants.py`) are held to bit for bit. No
+  path of the model reaches them.
+
+For CUDA tensors each wrapper launches its kernel on the current stream;
+a CPU tensor goes to the plain versions in `ops/deform.py`
+(`modulated_deform_conv2d_plain` and `modulated_deform_conv2d_plain_bwd`)
+without counting a launch. Any other input a kernel does not take raises
+(for K1 and K2 also a channel count whose tile does not fit in a block's
+shared memory), and nothing falls back. `launches`, `bwd_launches`,
+`simt_launches` and `bwd_simt_launches` count the four kernels' launches,
+so a run can show which kernels its path went through.
 """
 from __future__ import annotations
 
@@ -19,8 +37,10 @@ from .deform import (check_semantics, modulated_deform_conv2d_plain,
                      modulated_deform_conv2d_plain_bwd)
 
 # launches of each kernel since its count was last set to 0
-launches = 0        # deform_fwd
-bwd_launches = 0    # deform_bwd
+launches = 0            # deform_fwd (K1)
+bwd_launches = 0        # deform_bwd (K2)
+simt_launches = 0       # deform_fwd_simt
+bwd_simt_launches = 0   # deform_bwd_simt
 
 # shared memory one block may use on Hopper (227 KB)
 _MAX_SMEM = 232448
@@ -31,7 +51,7 @@ def _library(name: str, n_ptrs: int, source: str | None = None,
     """Build (first use) and load the library of `csrc/<source>.cu` (default:
     `name`), with the C signatures of kernel `name`: `name(n_ptrs pointers,
     B, H, W, Cin, Cout, windowed, bf16, stream)` and `name_smem_bytes` of
-    `smem_args` ints (K1 and K2: Cin, Cout)."""
+    `smem_args` ints."""
     from ..utils.build import load_library
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     return load_library(source or name, (
@@ -39,9 +59,29 @@ def _library(name: str, n_ptrs: int, source: str | None = None,
         (f"{name}_smem_bytes", ctypes.c_longlong, (i32,) * smem_args)))
 
 
-def smem_bytes(Cin: int, Cout: int) -> int:
-    """The shared memory one block of the forward kernel needs at Cin, Cout."""
-    return _library("deform_fwd", 6).deform_fwd_smem_bytes(Cin, Cout)
+# each kernel: (its pointer count, the arguments of its `_smem_bytes`)
+_KERNELS = {"deform_fwd": (6, ("Cin", "Cout", "bf16")),
+            "deform_fwd_simt": (6, ("Cin", "Cout")),
+            "deform_bwd": (9, ("W", "Cin", "Cout", "bf16")),
+            "deform_bwd_simt": (9, ("Cin", "Cout"))}
+
+
+def _kernel_lib(kernel: str) -> ctypes.CDLL:
+    n_ptrs, names = _KERNELS[kernel]
+    return _library(kernel, n_ptrs, smem_args=len(names))
+
+
+def _kernel_smem(kernel: str, **shape) -> int:
+    """The shared memory one block of `kernel` needs (-1: no tile fits), from
+    the named sizes of `shape` that the kernel's plan depends on."""
+    names = _KERNELS[kernel][1]
+    return getattr(_kernel_lib(kernel), f"{kernel}_smem_bytes")(
+        *(int(shape[n]) for n in names))
+
+
+def simt_smem_bytes(Cin: int, Cout: int) -> int:
+    """The shared memory one block of the SIMT forward kernel needs."""
+    return _kernel_smem("deform_fwd_simt", Cin=Cin, Cout=Cout)
 
 
 def _check(x, offset, mask, weight, bias):
@@ -74,58 +114,68 @@ def _check(x, offset, mask, weight, bias):
     return B, H, W, Cin, Cout
 
 
-def deform_fwd(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
-               weight: torch.Tensor, bias: torch.Tensor | None = None,
-               semantics: str = "windowed") -> torch.Tensor:
-    """DCNv2 forward (3x3, stride 1, padding 1), NHWC in and out.
+def _shape_smem(kernel: str, Cin: int, Cout: int, **shape) -> None:
+    """Raise where `kernel` does not take these channel counts: no tile of
+    it fits in the shared memory a block may use (K2's tile also depends on
+    the map's width)."""
+    smem = _kernel_smem(kernel, Cin=Cin, Cout=Cout, **shape)
+    if smem < 0 or smem > _MAX_SMEM:
+        need = "no tile fits" if smem < 0 else f"a block needs {smem} B"
+        raise ValueError(f"{kernel} does not take Cin={Cin}, Cout={Cout} ({shape}): {need} "
+                         f"in the {_MAX_SMEM} B of shared memory a block may use")
 
-    x (B, H, W, Cin); offset (B, H, W, 18) y/x per tap; mask (B, H, W, 9);
-    weight (3, 3, Cin, Cout) in x's type; bias float32 (Cout,) or None.
-    """
-    global launches
+
+def _fwd(kernel: str, counter: str, x, offset, mask, weight, bias, semantics):
     windowed = check_semantics(semantics) == "windowed"
     if x.device.type == "cpu":
         return modulated_deform_conv2d_plain(x, offset, mask, weight, bias,
                                              semantics)
     if not x.is_cuda:
-        raise ValueError(f"deform_fwd takes CUDA or CPU tensors, got {x.device}")
+        raise ValueError(f"{kernel} takes CUDA or CPU tensors, got {x.device}")
     B, H, W, Cin, Cout = _check(x, offset, mask, weight, bias)
-    lib = _library("deform_fwd", 6)
-    smem = smem_bytes(Cin, Cout)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"Cin={Cin}, Cout={Cout} needs {smem} B of shared "
-                         f"memory per block, more than {_MAX_SMEM}")
+    _shape_smem(kernel, Cin, Cout, W=W, bf16=x.dtype == torch.bfloat16)
     out = torch.empty((B, H, W, Cout), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
+    launch = getattr(_kernel_lib(kernel), kernel)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.deform_fwd(x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
-                             weight.data_ptr(),
-                             None if bias is None else bias.data_ptr(),
-                             out.data_ptr(), B, H, W, Cin, Cout, int(windowed),
-                             int(x.dtype == torch.bfloat16), stream)
+        err = launch(x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
+                     None if bias is None else bias.data_ptr(), out.data_ptr(),
+                     B, H, W, Cin, Cout, int(windowed), int(x.dtype == torch.bfloat16),
+                     stream)
     if err != 0:
-        raise RuntimeError(f"deform_fwd kernel launch failed: CUDA error {err}")
-    launches += 1
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
+    globals()[counter] += 1
     return out
 
 
-def deform_bwd(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
-               weight: torch.Tensor, grad_out: torch.Tensor,
-               semantics: str = "windowed"):
-    """DCNv2 backward (3x3, stride 1, padding 1, no bias), NHWC.
+def deform_fwd(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+               weight: torch.Tensor, bias: torch.Tensor | None = None,
+               semantics: str = "windowed") -> torch.Tensor:
+    """DCNv2 forward (3x3, stride 1, padding 1), NHWC in and out, by K1.
 
-    x, offset, mask, weight as for `deform_fwd`; grad_out (B, H, W, Cout) in
-    x's type. Returns (dx, d offset, d mask, d weight) in the inputs' type.
+    x (B, H, W, Cin); offset (B, H, W, 18) y/x per tap; mask (B, H, W, 9);
+    weight (3, 3, Cin, Cout) in x's type; bias float32 (Cout,) or None.
     """
-    global bwd_launches
+    return _fwd("deform_fwd", "launches", x, offset, mask, weight, bias, semantics)
+
+
+def deform_fwd_simt(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+                    weight: torch.Tensor, bias: torch.Tensor | None = None,
+                    semantics: str = "windowed") -> torch.Tensor:
+    """`deform_fwd` by the SIMT kernel, the A/B baseline of K1."""
+    return _fwd("deform_fwd_simt", "simt_launches", x, offset, mask, weight, bias,
+                semantics)
+
+
+def _bwd(kernel: str, counter: str, x, offset, mask, weight, grad_out, semantics):
     windowed = check_semantics(semantics) == "windowed"
     if x.device.type == "cpu":
         return modulated_deform_conv2d_plain_bwd(x, offset, mask, weight, grad_out,
                                                  semantics)
     if not x.is_cuda:
-        raise ValueError(f"deform_bwd takes CUDA or CPU tensors, got {x.device}")
+        raise ValueError(f"{kernel} takes CUDA or CPU tensors, got {x.device}")
     B, H, W, Cin, Cout = _check(x, offset, mask, weight, None)
     if tuple(grad_out.shape) != (B, H, W, Cout):
         raise ValueError(f"grad_out must be {(B, H, W, Cout)}, got {tuple(grad_out.shape)}")
@@ -134,28 +184,43 @@ def deform_bwd(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                         f"x {x.dtype} on {x.device}")
     if not grad_out.is_contiguous():
         raise ValueError("grad_out must be contiguous")
-    lib = _library("deform_bwd", 9)
-    smem = lib.deform_bwd_smem_bytes(Cin, Cout)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"Cin={Cin}, Cout={Cout} needs {smem} B of shared "
-                         f"memory per block, more than {_MAX_SMEM}")
+    _shape_smem(kernel, Cin, Cout, W=W, bf16=x.dtype == torch.bfloat16)
     f32 = torch.float32
     dx = torch.zeros((B, H, W, Cin), dtype=f32, device=x.device)
     dweight = torch.zeros(weight.shape, dtype=f32, device=x.device)
     doffset, dmask = torch.empty_like(offset), torch.empty_like(mask)
     if x.numel() == 0:
         return dx.to(x.dtype), doffset, dmask, dweight.to(weight.dtype)
+    launch = getattr(_kernel_lib(kernel), kernel)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.deform_bwd(x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
-                             weight.data_ptr(), grad_out.data_ptr(), dx.data_ptr(),
-                             doffset.data_ptr(), dmask.data_ptr(), dweight.data_ptr(),
-                             B, H, W, Cin, Cout, int(windowed),
-                             int(x.dtype == torch.bfloat16), stream)
+        err = launch(x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
+                     grad_out.data_ptr(), dx.data_ptr(), doffset.data_ptr(),
+                     dmask.data_ptr(), dweight.data_ptr(), B, H, W, Cin, Cout,
+                     int(windowed), int(x.dtype == torch.bfloat16), stream)
     if err != 0:
-        raise RuntimeError(f"deform_bwd kernel launch failed: CUDA error {err}")
-    bwd_launches += 1
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
+    globals()[counter] += 1
     return dx.to(x.dtype), doffset, dmask, dweight.to(weight.dtype)
+
+
+def deform_bwd(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+               weight: torch.Tensor, grad_out: torch.Tensor,
+               semantics: str = "windowed"):
+    """DCNv2 backward (3x3, stride 1, padding 1, no bias), NHWC, by K2.
+
+    x, offset, mask, weight as for `deform_fwd`; grad_out (B, H, W, Cout) in
+    x's type. Returns (dx, d offset, d mask, d weight) in the inputs' type.
+    """
+    return _bwd("deform_bwd", "bwd_launches", x, offset, mask, weight, grad_out, semantics)
+
+
+def deform_bwd_simt(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+                    weight: torch.Tensor, grad_out: torch.Tensor,
+                    semantics: str = "windowed"):
+    """`deform_bwd` by the SIMT kernel, the A/B baseline of K2."""
+    return _bwd("deform_bwd_simt", "bwd_simt_launches", x, offset, mask, weight, grad_out,
+                semantics)
 
 
 class DeformConv(torch.autograd.Function):

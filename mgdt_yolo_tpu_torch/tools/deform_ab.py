@@ -3,6 +3,12 @@ the check of a variant against its plain version, the inputs of the A/B runs
 and the timing of a variant against K1 on the card, with both held against
 their plain versions on the A/B's own inputs.
 
+"K1" here is the SIMT K1, `cuda_deform.deform_fwd_simt`: the variants are
+redesigns of its CUDA-core arithmetic, and V4 and V5 keep its float32 order,
+so it is their baseline and their bitwise reference. The model's K1
+(`cuda_deform.deform_fwd`, the tensor-core design) is A/B'd against the same
+SIMT K1 by `chip_smoke.py` phase 3.
+
 Each tool ports one A/B script of the repo-root `tools/` (JAX on a TPU) and
 keeps that script's shapes and data distributions; the data is made anew
 from a seeded `torch.Generator`, so its values are the port's own.
@@ -82,7 +88,7 @@ def check(variant, plain, device=None, bias_cases=(False,)) -> dict:
         for with_bias in bias_cases:
             args = check_inputs(dtype, dev, with_bias)
             got = variant(*args)
-            held = hold(got, cuda_deform.deform_fwd(*args), plain, args)
+            held = hold(got, cuda_deform.deform_fwd_simt(*args), plain, args)
             case = f"{str(dtype)[6:]}{' bias' if with_bias else ''}"
             print(f"check {case} {tuple(got.shape)} on {dev}: {describe(held)} "
                   f"{'ok' if held['ok'] else 'FAIL'}", flush=True)
@@ -127,7 +133,7 @@ def ab(label: str, name: str, variant, plain, args, iters=5, windows=3,
     x, _, _, w = args
     B, Hx, Wx, C = x.shape
     O = w.shape[3]
-    k1 = cuda_deform.deform_fwd(*args)
+    k1 = cuda_deform.deform_fwd_simt(*args)
     got = variant(*args)
     n = min(plain_images, B)
     held = hold(got[:n], k1[:n], plain, [t[:n] for t in args[:3]] + [w])
@@ -141,7 +147,8 @@ def ab(label: str, name: str, variant, plain, args, iters=5, windows=3,
         raise RuntimeError(f"{name} or K1 disagrees with its plain version ({label})")
     times = {"K1": [], name: []}
     for who in ("K1", name, name, "K1"):
-        fn = (lambda: cuda_deform.deform_fwd(*args)) if who == "K1" else (lambda: variant(*args))
+        fn = (lambda: cuda_deform.deform_fwd_simt(*args)) if who == "K1" else \
+            (lambda: variant(*args))
         times[who].append(cuda_time_ms(fn, iters=iters, windows=windows))
     k1_ms, v_ms = min(times["K1"]), min(times[name])
     bound_ms, bound_by = deform_fwd_bound_ms(B, Hx, Wx, C, O, "bfloat16")

@@ -1,5 +1,6 @@
 """A/B on the card: V1, the DCNv2 forward with bf16 corner weights and bf16
-corner products (`deform_fwd_bf16_fma`), against K1 (`deform_fwd`).
+corner products (`deform_fwd_bf16_fma`), against the SIMT K1
+(`deform_fwd_simt`).
 
     python -m mgdt_yolo_tpu_torch.tools.proto_deform_bf16_fma [check|bench] [--device cpu]
 

@@ -1,6 +1,7 @@
 """A/B on the card: V2, the DCNv2 forward from an input slab staged once per
 block in shared memory (`deform_qxhoist`), and V3, the same slab converted
-to float32 once (`deform_cvt1`), against K1 (`deform_fwd`).
+to float32 once (`deform_cvt1`), against the SIMT K1
+(`deform_fwd_simt`).
 
     python -m mgdt_yolo_tpu_torch.tools.proto_deform_qxhoist [check|bench] [--device cpu]
 

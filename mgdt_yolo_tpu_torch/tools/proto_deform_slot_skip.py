@@ -1,6 +1,6 @@
 """A/B on the card: V4, the DCNv2 forward that skips zero-weight corners and
-dead (pixel, tap) pairs at run time (`deform_fwd_slot_skip`), against K1
-(`deform_fwd`).
+dead (pixel, tap) pairs at run time (`deform_fwd_slot_skip`), against the SIMT K1
+(`deform_fwd_simt`).
 
     python -m mgdt_yolo_tpu_torch.tools.proto_deform_slot_skip [check|bench] [--device cpu]
 

@@ -1,5 +1,6 @@
 """A/B on the card: V5, the DCNv2 forward contracted tap by tap
-(`deform_fwd_tapwalk`), against K1 (`deform_fwd`), at C 64.
+(`deform_fwd_tapwalk`), against the SIMT K1 (`deform_fwd_simt`), at C
+64.
 
     python -m mgdt_yolo_tpu_torch.tools.proto_deform_tapwalk [check|bench] [--device cpu]
 
@@ -39,7 +40,7 @@ def bench() -> dict:
     x = deform_ab.normal(g, (*shape, C), 1.0)
     w = deform_ab.normal(g, (3, 3, C, O), 0.1)
     mask = torch.sigmoid(deform_ab.normal(g, (*shape, 9), 1.0).to(torch.bfloat16))
-    k1_smem = cuda_deform.smem_bytes(C, O)
+    k1_smem = cuda_deform.simt_smem_bytes(C, O)
     v5_smem = cuda_deform_variants.smem_bytes("deform_fwd_tapwalk", deform_ab.W, C, O,
                                               torch.bfloat16)
     occ = {"k1_smem_bytes": k1_smem, "k1_blocks_per_sm": deform_ab.occupancy(k1_smem),

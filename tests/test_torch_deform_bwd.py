@@ -14,6 +14,12 @@ kernel (`csrc/deform_bwd.cu`) is held against on the card by
   with the TPU backward kernel), exact against `jax.vjp` of
   `modulated_deform_conv2d(method="exact")`, at 1e-4 absolute and relative,
   the tolerance `tests/test_pallas_deform.py` uses for the same gradients.
+
+The Hopper backward kernel's two contractions (tap gradient g . W^T and
+weight gradient s^T . g) run on bf16 tensor cores: on the bf16 path their
+operands are bf16-exact, and on the float32 path each operand is split into
+bf16 hi + lo with three products kept (hi.hi, lo.hi, hi.lo); both are held
+here against the float32 products.
 """
 import jax
 import jax.numpy as jnp
@@ -129,3 +135,49 @@ def test_function_casts_inputs_to_x_type():
     out.backward(torch.from_numpy(g).bfloat16())
     assert x.grad.dtype == torch.bfloat16
     assert all(r.grad.dtype == torch.float32 and torch.isfinite(r.grad).all() for r in rest)
+
+
+@pytest.mark.parametrize("kernel,counter", [("deform_bwd", "bwd_launches"),
+                                            ("deform_bwd_simt", "bwd_simt_launches")])
+def test_bwd_cpu_route_uses_plain_and_counts_no_launch(kernel, counter):
+    args, g = _case(*CASES[3])
+    before = getattr(cuda_deform, counter)
+    t = [torch.from_numpy(a) for a in args]
+    got = getattr(cuda_deform, kernel)(*t, torch.from_numpy(g), "exact")
+    assert getattr(cuda_deform, counter) == before
+    for name, a, b in zip(NAMES, got, _plain_bwd(args, g, "exact")):
+        np.testing.assert_array_equal(a.numpy(), b, err_msg=name)
+
+
+def _split(t):
+    hi = t.bfloat16().float()
+    return hi, (t - hi).bfloat16().float()
+
+
+def _three_terms(a, b):
+    """a @ b as the kernel takes float32 operands: bf16 hi/lo of each,
+    hi.hi + lo.hi + hi.lo summed in float32."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    return ah @ bh + al @ bh + ah @ bl
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_contractions_on_bf16_terms(dtype):
+    """The tap gradient g . W^T (C 32 -> 32, 9 taps) and the weight gradient
+    s^T . g over 4096 pixels: in float32 the three-term products stay within
+    1e-4 of each result's largest value (the float32 limit the kernel is
+    held to on the card); in bf16 the operands are bf16-exact: hi is the
+    operand and the lo terms vanish, so one product is the float32 one."""
+    rng = np.random.default_rng(9)
+    g = torch.from_numpy(rng.standard_normal((4096, 32)).astype(np.float32)).to(dtype).float()
+    w = torch.from_numpy((rng.standard_normal((288, 32)) * 0.06).astype(np.float32))
+    w = w.to(dtype).float()
+    s = torch.from_numpy(rng.standard_normal((4096, 288)).astype(np.float32)).to(dtype).float()
+    for a, b in ((g, w.T), (s.T, g)):
+        want = a.double() @ b.double()
+        if dtype == torch.float32:
+            got = _three_terms(a, b)
+            assert (got.double() - want).abs().max() <= 1e-4 * want.abs().max()
+        else:
+            assert all(torch.equal(_split(t)[0], t) and not _split(t)[1].any()
+                       for t in (a, b))
