@@ -7,7 +7,9 @@ Phases, each of which passes or ends the script with a non-zero exit:
 
 1. environment: torch, CUDA, the card's name and power limit, nvcc, triton;
 2. build: nvcc builds every `mgdt_yolo_tpu_torch/csrc/*.cu` (one process per
-   source, all started together);
+   source, all started together: K1, K2 and their SIMT baselines, the K1
+   variants, K3 `fused_augment.cu` and its SIMT baseline
+   `fused_augment_simt.cu`), with ptxas's registers and spills;
 3. kernels: each hand-written kernel against its plain PyTorch version on the
    card, at the main paths' shapes, with the stated tolerance: K1 and K2 (the
    tensor-core designs, `csrc/deform_{fwd,bwd}.cu`) in 8 cases (float32 and
@@ -16,9 +18,19 @@ Phases, each of which passes or ends the script with a non-zero exit:
    that differ; their SIMT baselines (`csrc/deform_{fwd,bwd}_simt.cu`) in the
    main case; then each against its SIMT baseline in turns (the "DCN A/B"
    path: K1 at b8, b32 and b128, K2 at b8 and b32), with each time's share
-   of its bound and ptxas's registers and spills; K3 at (32, 640, 640, 3)
-   with planted grey, saturated and one-channel pixels, hue-wrapping gains
-   and all four flips, then timed; the five K1 variants V1-V5
+   of its bound and ptxas's registers and spills; K1 and K2 at the widths
+   their second plan (the weight staged by tap) takes, C 64 -> 64 at
+   (8, 40, 40) and C 128 -> 128 at (4, 20, 20), in the same 8 cases under
+   the same limits, with the plan that ran, the shared memory of each plan
+   (C 32's must not change) and the widths each kernel documents as its
+   limit, then timed in bf16 and float32; K3 (the Hopper design,
+   `csrc/fused_augment.cu`) and the SIMT K3 at (32, 640, 640, 3) with
+   planted grey, saturated and one-channel pixels, hue-wrapping gains and
+   all four flips against the plain version (1e-5), then the Hopper K3
+   bitwise against the SIMT K3 over all 2^24 RGB triples (a (1, 4096,
+   4096, 3) image) under 4 gain vectors and the 4 flip pairs, and at a
+   ragged width, then the two timed in turns (the "K3 A/B" path, counted)
+   with each time's share of the bound; the five K1 variants V1-V5
    (`csrc/deform_fwd_variants.cu`) against their plain versions at batch 8
    (float32 and bf16, offsets +-1.5 and +-4.0) and at the ragged (2, 20, 28,
    32 -> 32), in bf16 also by the share of elements that differ, with the
@@ -41,7 +53,8 @@ Phases, each of which passes or ends the script with a non-zero exit:
    (`device_augment=True`: mosaic 1.0, scale 0.5, translate 0.1, HSV
    0.015/0.7/0.4; validation with the EMA weights after every epoch), SGD,
    b32, 640 px, 2 epochs of 2 micro-steps, `close_mosaic=1`: K3 and K2 once
-   per micro-step, K1 once per micro-step and once per validation forward;
+   per micro-step (the SIMT K3 never), K1 once per micro-step and once per
+   validation forward;
    mosaic in epoch 1 only; augmented boxes inside the image with survivors
    in every batch; finite losses; `results.csv` with 2 finite rows;
    `last.npz` and `best.npz` with the deform pin. Then times the augmented
@@ -130,6 +143,7 @@ COUNTERS = {"deform_fwd": (vars(cuda_deform), "launches"),
             "deform_fwd_simt": (vars(cuda_deform), "simt_launches"),
             "deform_bwd_simt": (vars(cuda_deform), "bwd_simt_launches"),
             "fused_augment": (vars(cuda_image), "launches"),
+            "fused_augment_simt": (vars(cuda_image), "simt_launches"),
             **{name: (cuda_deform_variants.launches, name) for name in VARIANTS}}
 # the TPU function each K1 variant replaces
 VARIANT_SITES = {"deform_fwd_bf16_fma": "tools/proto_deform_bf16_fma.py:64",
@@ -225,11 +239,19 @@ MAIN_CASE = (torch.bfloat16, "windowed", 1.5)
 # baseline in turns (K1 also at serving's b128)
 DCN_BATCHES = (8, TRAIN_BATCH)
 AB_BATCHES = {"deform_fwd": (8, TRAIN_BATCH, 128), "deform_bwd": (8, TRAIN_BATCH)}
-# ptxas's usage of each kernel's bf16 instantiation, read from the build log
+# ptxas's usage of each kernel's main instantiation, read from the build log
 # (phase 2): the name ptxas gives it, registers, spill stores and loads
 USAGE = {}
-KERNEL_SYMBOLS = {"deform_fwd": "deform_fwd_mma_kernel", "deform_fwd_simt": "deform_fwd_kernel",
-                  "deform_bwd": "deform_bwd_mma_kernel", "deform_bwd_simt": "deform_bwd_kernel"}
+DCN_KERNELS = ("deform_fwd", "deform_fwd_simt", "deform_bwd", "deform_bwd_simt")
+# each kernel's symbol and what its main instantiation's mangled name holds:
+# the DCN kernels' bf16 one (the Hopper designs' resident plan, K2's
+# four-channel lanes), the Hopper K3's four-pixel one
+KERNEL_SYMBOLS = {"deform_fwd": ("deform_fwd_mma_kernel", ("bfloat16", "Lb0E")),
+                  "deform_fwd_simt": ("deform_fwd_kernel", ("bfloat16",)),
+                  "deform_bwd": ("deform_bwd_mma_kernel", ("bfloat16", "Li4E", "Lb0E")),
+                  "deform_bwd_simt": ("deform_bwd_kernel", ("bfloat16",)),
+                  "fused_augment": ("fused_augment_kernel", ("Lb1E",)),
+                  "fused_augment_simt": ("fused_augment_simt_kernel", ())}
 
 
 def _ptxas_usage(logs):
@@ -251,12 +273,11 @@ def _ptxas_usage(logs):
     return usage
 
 
-def _bf16_usage(kernel):
-    """ptxas's registers and spills of `kernel`'s bf16 instantiation (the
-    SIMT backward's and each Hopper kernel's vectorised one)."""
-    sym = KERNEL_SYMBOLS[kernel]
+def _usage(kernel):
+    """ptxas's registers and spills of `kernel`'s main instantiation."""
+    sym, marks = KERNEL_SYMBOLS[kernel]
     found = {f: u for f, u in USAGE.items()
-             if f"{len(sym)}{sym}" in f and "bfloat16" in f and "Li1E" not in f}
+             if f"{len(sym)}{sym}" in f and all(m in f for m in marks)}
     return next(iter(found.values()), {})
 
 
@@ -325,7 +346,7 @@ def _check_dcn(H, W, C, O):
     """K1 and K2 in the 8 cases at each of DCN_BATCHES, K1 also in the main
     case at b128; the SIMT kernels in the main case at each batch. Returns
     the largest error of each kernel in the main case, by batch."""
-    errs = {k: {} for k in KERNEL_SYMBOLS}
+    errs = {k: {} for k in DCN_KERNELS}
     for B in DCN_BATCHES:
         for dtype, semantics, off_range in DCN_CASES:
             args = _deform_inputs(B, H, W, C, O, off_range, dtype)
@@ -349,6 +370,92 @@ def _check_dcn(H, W, C, O):
     return errs
 
 
+# the widths K1's and K2's second plan takes: (B, H, W, C -> C), the thead
+# YAMLs' DCN on the stride-16 map at 640 px and a C 128 map
+WIDE_SHAPES = ((8, 40, 40, 64), (4, 20, 20, 128))
+# what each kernel's resident plan needs at C 32 -> 32 (80-wide map for K2),
+# as it did before the second plan existed: the flagship's plan must not move
+C32_SMEM = {("deform_fwd", 0): 219648, ("deform_fwd", 1): 225280,
+            ("deform_bwd", 0): 186752, ("deform_bwd", 1): 229600}
+# the largest square C each kernel documents (`ops/cuda_deform.py`), by
+# type (bf16 flag), K2's at every map width
+WIDTH_LIMITS = {("deform_fwd", 0): 172, ("deform_fwd", 1): 256,
+                ("deform_bwd", 0): 144, ("deform_bwd", 1): 194}
+
+
+def _check_plans():
+    """The plans' shared memory at C 32 is C32_SMEM's, and each kernel takes
+    its documented largest C and refuses the next (K2 at widths 20, 21,
+    40, 80 and 640)."""
+    for (name, bf16), want in C32_SMEM.items():
+        shape = {"Cin": 32, "Cout": 32, "bf16": bf16, "W": 80}
+        got = cuda_deform._kernel_smem(name, **shape)
+        log(f"{name} C 32 {'bf16' if bf16 else 'float32'}: plan "
+            f"{cuda_deform.plan(name, **shape)}, {got} B of shared memory (expected {want} B)")
+        if got != want or cuda_deform.plan(name, **shape) != "resident":
+            raise SystemExit(f"{name}'s plan at C 32 changed")
+    for (name, bf16), top in WIDTH_LIMITS.items():
+        # K2's limit is its least over widths, reached at width 21
+        widths, edge = ((80,), 80) if name == "deform_fwd" else ((20, 21, 40, 80, 640), 21)
+        for W in widths:
+            smem = cuda_deform._kernel_smem(name, Cin=top, Cout=top, bf16=bf16, W=W)
+            ok = 0 < smem <= cuda_deform._MAX_SMEM
+            log(f"{name} {'bf16' if bf16 else 'float32'} C {top} W {W}: plan "
+                f"{cuda_deform.plan(name, Cin=top, Cout=top, bf16=bf16, W=W)}, {smem} B "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"{name} does not take its documented C {top}")
+        over = cuda_deform._kernel_smem(name, Cin=top + 1, Cout=top + 1, bf16=bf16, W=edge)
+        log(f"{name} {'bf16' if bf16 else 'float32'} C {top + 1} W {edge}: {over} B "
+            f"(refused: {over < 0})")
+        if over >= 0:
+            raise SystemExit(f"{name} takes C {top + 1}, above its documented limit")
+
+
+def _check_dcn_wide():
+    """K1 and K2 at WIDE_SHAPES in the 8 cases, under the same limits, with
+    the plan each ran; then each timed in bf16 and float32 (windowed,
+    offsets +-1.5). Returns {kernel: {"C<C>": row}}."""
+    out = {"deform_fwd": {}, "deform_bwd": {}}
+    for B, H, W, C in WIDE_SHAPES:
+        errs = {"deform_fwd": 0.0, "deform_bwd": 0.0}
+        plans = {}
+        for dtype, semantics, off_range in DCN_CASES:
+            bf16 = int(dtype == torch.bfloat16)
+            for name in errs:
+                plans[(name, bf16)] = cuda_deform.plan(name, Cin=C, Cout=C, bf16=bf16, W=W)
+            args = _deform_inputs(B, H, W, C, C, off_range, dtype)
+            g = _deform_grad(B, H, W, C, dtype)
+            case = f"{_case_label(dtype, semantics, off_range, B)} ({H}x{W}, C {C} -> {C})"
+            errs["deform_fwd"] = max(errs["deform_fwd"], _hold_fwd(
+                "deform_fwd", cuda_deform.deform_fwd, args, semantics, case))
+            errs["deform_bwd"] = max(errs["deform_bwd"], _hold_bwd(
+                "deform_bwd", cuda_deform.deform_bwd, args, g, semantics, case))
+            del args, g
+        bounds = {"deform_fwd": deform_fwd_bound_ms, "deform_bwd": _deform_bwd_bound_ms}
+        for name, fn in (("deform_fwd", cuda_deform.deform_fwd),
+                         ("deform_bwd", cuda_deform.deform_bwd)):
+            row = {"shape": f"({B},{H},{W},{C}->{C})", "max_abs_err": errs[name]}
+            for dtype in (torch.bfloat16, torch.float32):
+                dname, bf16 = str(dtype)[6:], int(dtype == torch.bfloat16)
+                args = _deform_inputs(B, H, W, C, C, 1.5, dtype)
+                if name == "deform_bwd":
+                    args.append(_deform_grad(B, H, W, C, dtype))
+                with float32_exact():
+                    ms = cuda_time_ms(lambda: fn(*args), iters=10, windows=3)
+                bound_ms, bound_by = bounds[name](B, H, W, C, C, dname)
+                smem = cuda_deform._kernel_smem(name, Cin=C, Cout=C, bf16=bf16, W=W)
+                row[dname] = {"plan": plans[(name, bf16)], "smem": smem, "ms": ms,
+                              "bound_ms": bound_ms, "bound_by": bound_by}
+                log(f"{name} ({B},{H},{W},{C}->{C}) {dname} windowed: plan "
+                    f"{plans[(name, bf16)]} ({smem} B), {ms:.4f} ms, bound {bound_ms:.5f} ms "
+                    f"({bound_by}), at {bound_ms / ms:.2%} of it")
+                del args
+            out[name][f"C{C}"] = row
+        torch.cuda.empty_cache()
+    return out
+
+
 def _dcn_ab(H, W, C, O):
     """Each Hopper DCN kernel against its SIMT baseline in the main case, in
     turns (SIMT, Hopper, Hopper, SIMT; min of each, CUDA events), at
@@ -360,7 +467,7 @@ def _dcn_ab(H, W, C, O):
                             modulated_deform_conv2d_plain_bwd, _deform_bwd_bound_ms)}
     rows = {}
     for name, (new, simt, plain, bound) in pairs.items():
-        usage, simt_usage = _bf16_usage(name), _bf16_usage(f"{name}_simt")
+        usage, simt_usage = _usage(name), _usage(f"{name}_simt")
         rows[name] = {}
         for B in AB_BATCHES[name]:
             args = _deform_inputs(B, H, W, C, O, 1.5, torch.bfloat16)
@@ -404,7 +511,7 @@ def _dcn_entries(H, W, C, O, errs, rows):
                  "launches": None, "max_abs_err": errs[kernel][8], "max_err": errs[kernel][8],
                  "ms": by_b[8][key], "plain_ms": by_b[8]["plain_ms"],
                  "bound_ms": by_b[8]["bound_ms"], "bound_by": by_b[8]["bound_by"],
-                 "library_ms": None, **_bf16_usage(kernel)}
+                 "library_ms": None, **_usage(kernel)}
             for B, row in by_b.items():
                 if B != 8:
                     e.update({f"ms_b{B}": row[key], f"plain_ms_b{B}": row["plain_ms"],
@@ -417,7 +524,7 @@ def _dcn_entries(H, W, C, O, errs, rows):
     return entries
 
 
-# K3's float32 operations per pixel, from csrc/fused_augment.cu: 3
+# K3's float32 operations per pixel, the function's own (csrc/fused_augment_simt.cu): 3
 # divisions by 255; max and min of three (4); delta (2); the hue branch (3)
 # and /6 (1); s (2); the hue gain and its floor-mod (2); the saturation and
 # value gains and their clips (6); h6 and c (2); xx (5); m (1); the sector
@@ -447,41 +554,122 @@ def _augment_inputs(B, H, W, seed=0):
     return [t.to(DEVICE).contiguous() for t in (imgs, gains, flips)]
 
 
+K3_KERNELS = {"fused_augment": cuda_image.fused_augment,
+              "fused_augment_simt": cuda_image.fused_augment_simt}
+
+
+def _bits(t):
+    """A float32 tensor's bits, so -0 and +0 (and NaN payloads) differ."""
+    return t.contiguous().view(torch.int32)
+
+
+def _k3_exhaustive():
+    """The Hopper K3 against the SIMT K3, bit for bit, over every RGB triple:
+    a (1, 4096, 4096, 3) image holding the 2^24 triples once, under 4 gain
+    vectors (identity, a trainer draw, (1.015, 1.7, 0.6), the hue-wrapping
+    (3.7, 1.0, 1.0)) and the 4 flip pairs; then at a ragged width (the
+    pixel-per-thread path) under the same gains and flips."""
+    idx = torch.arange(1 << 24, device=DEVICE, dtype=torch.int32)
+    full = torch.stack([idx >> 16, (idx >> 8) & 255, idx & 255], dim=-1).to(torch.uint8)
+    full = full.view(1, 4096, 4096, 3).contiguous()
+    draw = augment_draws(1, IMGSZ, torch.Generator().manual_seed(0))["gains"][0]
+    gain_rows = [torch.ones(3), draw, torch.tensor([1.015, 1.7, 0.6]),
+                 torch.tensor([3.7, 1.0, 1.0])]
+    ragged = torch.randint(0, 256, (4, 37, 41, 3), generator=torch.Generator().manual_seed(1),
+                           dtype=torch.uint8).to(DEVICE)
+    n_checked, worst = 0, 0.0
+    for gains in gain_rows:
+        for flip in ((0, 0), (1, 0), (0, 1), (1, 1)):
+            for imgs in (full, ragged):
+                B = imgs.shape[0]
+                gv = gains.to(DEVICE, torch.float32).reshape(1, 3).repeat(B, 1).contiguous()
+                fv = torch.tensor([flip] * B, dtype=torch.int32, device=DEVICE)
+                new = cuda_image.fused_augment(imgs, gv, fv)
+                old = cuda_image.fused_augment_simt(imgs, gv, fv)
+                same = torch.equal(_bits(new), _bits(old))
+                worst = max(worst, (new - old).abs().max().item())
+                n_checked += 1
+                if not same:
+                    raise SystemExit(f"the Hopper K3 differs from the SIMT K3 at gains "
+                                     f"{gains.tolist()}, flips {flip}, shape "
+                                     f"{tuple(imgs.shape)}: max |d| {worst:.3e}")
+                del new, old
+    log(f"fused_augment vs fused_augment_simt: bitwise equal over all 2^24 RGB triples x "
+        f"{len(gain_rows)} gain vectors x 4 flip pairs, and at (4, 37, 41, 3) "
+        f"({n_checked} launches each, max |d| {worst:.1e})")
+    del full, ragged
+    torch.cuda.empty_cache()
+    return worst
+
+
 def _check_augment(B, H, W):
-    """K3 against its plain version at the augmented training path's shape;
-    times both."""
+    """Both K3 designs against the plain version at the augmented training
+    path's shape, the Hopper K3 bitwise against the SIMT K3 over every RGB
+    triple, then the two timed in turns (SIMT, Hopper, Hopper, SIMT; min of
+    each), the counted "K3 A/B" path. Returns the kernels line's entries
+    and the A/B's launches."""
     imgs, gains, flips = _augment_inputs(B, H, W)
-    got = cuda_image.fused_augment(imgs, gains, flips)
     want = fused_augment_plain(imgs, gains, flips)
-    torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
     # both compute float32 from the same uint8 values in the same order; the
-    # kernel rounds every operation (no FMA contraction), PyTorch may divide
+    # kernels round every operation (no FMA contraction), PyTorch may divide
     # by 255 as a product with 1/255 (a last bit apart) and moves nothing
     # else; the output is continuous across the hue sectors, so a last-bit
     # move of h6 at a sector edge stays a last-bit move: 1e-5 absolute
     tol = 1e-5
-    ok = bool(torch.isfinite(got).all()) and got.dtype == torch.float32 and err <= tol
-    log(f"fused_augment ({B},{H},{W},3) uint8: max_abs_err {err:.3e} (tol {tol:.0e}), "
-        f"hue gains {gains[:, 0].min().item():.3f} to {gains[:, 0].max().item():.3f}, "
-        f"output in [{got.min().item():.4f}, {got.max().item():.4f}] {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise SystemExit("fused_augment disagrees with its plain version")
-    ms = cuda_time_ms(lambda: cuda_image.fused_augment(imgs, gains, flips))
+    errs, outs = {}, {}
+    for name, fn in K3_KERNELS.items():
+        got = outs[name] = fn(imgs, gains, flips)
+        torch.cuda.synchronize()
+        err = errs[name] = (got - want).abs().max().item()
+        ok = bool(torch.isfinite(got).all()) and got.dtype == torch.float32 and err <= tol
+        log(f"{name} ({B},{H},{W},3) uint8: max_abs_err {err:.3e} (tol {tol:.0e}), "
+            f"hue gains {gains[:, 0].min().item():.3f} to {gains[:, 0].max().item():.3f}, "
+            f"output in [{got.min().item():.4f}, {got.max().item():.4f}] "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"{name} disagrees with its plain version")
+    if not torch.equal(_bits(outs["fused_augment"]), _bits(outs["fused_augment_simt"])):
+        raise SystemExit("the Hopper K3 differs from the SIMT K3 on the planted inputs")
+    del outs, want
+    _k3_exhaustive()
+
+    reset_counts()
+    times = {name: [] for name in K3_KERNELS}
+    for name in ("fused_augment_simt", "fused_augment", "fused_augment", "fused_augment_simt"):
+        fn = K3_KERNELS[name]
+        times[name].append(cuda_time_ms(lambda: fn(imgs, gains, flips)))
+    torch.cuda.synchronize()
+    ab_launches = read_counts()
+    ms = {name: min(t) for name, t in times.items()}
     plain_ms = cuda_time_ms(lambda: fused_augment_plain(imgs, gains, flips), iters=5)
-    nbytes = imgs.numel() + got.numel() * 4 + gains.numel() * 4 + flips.numel() * 4
+    nbytes = imgs.numel() * 5 + gains.numel() * 4 + flips.numel() * 4   # 3 B in, 12 B out
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = B * H * W * K3_OPS_PER_PIXEL / PEAK_FLOPS["float32"]
     bound_ms, bound_by = max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-    log(f"fused_augment B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bound_ms:.5f} ms ({bound_by}; {nbytes / 1e6:.1f} MB)")
-    return {"name": "fused_augment", "route": "cuda",
-            "source": "mgdt_yolo_tpu_torch/csrc/fused_augment.cu",
-            "replaces": "mgdt_yolo_tpu/ops/pallas_image.py:93",
-            "shape": f"images ({B},{H},{W},3) uint8 -> float32, gains ({B},3), flips ({B},2)",
-            "launches": None, "max_abs_err": err, "max_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+    new, simt = ms["fused_augment"], ms["fused_augment_simt"]
+    usage, simt_usage = _usage("fused_augment"), _usage("fused_augment_simt")
+    log(f"A/B fused_augment ({B},{H},{W},3): SIMT " +
+        " / ".join(f"{t:.4f}" for t in times["fused_augment_simt"]) + " ms, Hopper " +
+        " / ".join(f"{t:.4f}" for t in times["fused_augment"]) +
+        f" ms; SIMT / Hopper {simt / new:.3f}x; bound {bound_ms:.5f} ms ({bound_by}; "
+        f"{nbytes / 1e6:.1f} MB): Hopper at {bound_ms / new:.2%} of it, SIMT at "
+        f"{bound_ms / simt:.2%}; plain {plain_ms:.4f} ms; registers / spill stores Hopper "
+        f"{usage.get('registers')} / {usage.get('spill_stores')} B, SIMT "
+        f"{simt_usage.get('registers')} / {simt_usage.get('spill_stores')} B")
+    log(f"launches during the K3 A/B path: {ab_launches}")
+    entries = []
+    for name in K3_KERNELS:
+        e = {"name": name, "route": "cuda", "source": f"mgdt_yolo_tpu_torch/csrc/{name}.cu",
+             "replaces": "mgdt_yolo_tpu/ops/pallas_image.py:93",
+             "shape": f"images ({B},{H},{W},3) uint8 -> float32, gains ({B},3), flips ({B},2)",
+             "launches": None, "max_abs_err": errs[name], "max_err": errs[name],
+             "ms": ms[name], "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": None, "share_of_bound": bound_ms / ms[name],
+             **_usage(name)}
+        if name == "fused_augment":
+            e.update(simt_over_hopper=simt / new, bitwise_to_simt=True)
+        entries.append(e)
+    return entries, ab_launches
 
 
 def _check_variant_case(shape, dtype, off_range, bitwise):
@@ -565,9 +753,11 @@ def phase_kernels():
     """K1 (DCNv2 forward) and K2 (DCNv2 backward) against their plain
     versions at the main paths' shape, 80x80 map, C_in = C_out = 32, in the
     8 cases at b8 and b32, then each against its SIMT baseline in turns (the
-    "DCN A/B" path, counted); K3 (flip + HSV + normalise) at the augmented
-    training batch; the five K1 variants as K1. Returns the kernel entries
-    and the DCN A/B path's launches."""
+    "DCN A/B" path, counted); K1 and K2 at C 64 and C 128 (their second
+    plan); K3 (flip + HSV + normalise) and the SIMT K3 at the augmented
+    training batch, bitwise over every RGB triple, and in turns (the "K3
+    A/B" path, counted); the five K1 variants as K1. Returns the kernel
+    entries and the DCN and K3 A/B paths' launches."""
     log("== phase 3: kernels against their plain versions")
     H, W, C, O = 80, 80, 32, 32
     errs = _check_dcn(H, W, C, O)
@@ -576,9 +766,15 @@ def phase_kernels():
     torch.cuda.synchronize()
     ab_launches = read_counts()
     log(f"launches during the DCN A/B path: {ab_launches}")
-    kernels = [*_dcn_entries(H, W, C, O, errs, rows),
-               _check_augment(TRAIN_BATCH, IMGSZ, IMGSZ), *_check_variants(8, H, W, C, O)]
-    return kernels, ab_launches
+    _check_plans()
+    wide = _check_dcn_wide()
+    dcn = _dcn_entries(H, W, C, O, errs, rows)
+    for e in dcn:
+        if e["name"] in wide:
+            e["wide"] = wide[e["name"]]
+    k3, k3_launches = _check_augment(TRAIN_BATCH, IMGSZ, IMGSZ)
+    kernels = [*dcn, *k3, *_check_variants(8, H, W, C, O)]
+    return kernels, ab_launches, k3_launches
 
 
 def phase_serving():
@@ -1010,7 +1206,8 @@ KERNEL_PATHS = {"deform_fwd": ("serving", "training", "augmented training"),
                 "deform_bwd": ("training", "augmented training"),
                 "deform_fwd_simt": ("DCN A/B", "K1 variant A/B"),
                 "deform_bwd_simt": ("DCN A/B",),
-                "fused_augment": ("augmented training",),
+                "fused_augment": ("augmented training", "K3 A/B"),
+                "fused_augment_simt": ("K3 A/B",),
                 **{name: ("K1 variant A/B",) for name in VARIANTS}}
 
 
@@ -1021,7 +1218,7 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_environment()
     phase_build()
-    kernels, dcn_ab = phase_kernels()
+    kernels, dcn_ab, k3_ab = phase_kernels()
     model, serving = phase_serving()
     phase_throughput(model)
     del model
@@ -1036,14 +1233,15 @@ def main() -> int:
     phase_augment_card_vs_cpu()
     ab_launches, ab_rows = phase_variant_ab()
     paths = {"serving": serving, "training": training, "augmented training": augmented,
-             "DCN A/B": dcn_ab, "K1 variant A/B": ab_launches}
+             "DCN A/B": dcn_ab, "K3 A/B": k3_ab, "K1 variant A/B": ab_launches}
     for k in kernels:
         k["launches_by_path"] = {p: paths[p][k["name"]] for p in KERNEL_PATHS[k["name"]]}
         for p, n in k["launches_by_path"].items():
             if not n:
                 raise SystemExit(f"kernel {k['name']} never launched on the {p} path")
         # K1's own path is serving, K2's training, K3's augmented training,
-        # the SIMT kernels' the DCN A/B, each variant's the variant A/B
+        # the SIMT DCN kernels' the DCN A/B, the SIMT K3's the K3 A/B, each
+        # variant's the variant A/B
         k["launches"] = k["launches_by_path"][KERNEL_PATHS[k["name"]][0]]
         if k["name"] == "fused_augment":
             k["apply_augment_ms"] = aug_ms

@@ -1,10 +1,50 @@
-"""The keys of the JAX package's `cfg/default.yaml` that the port's trainer
-and validator honour, as a Python literal (the GPU host has no PyYAML),
-with the same values but one: `device_augment` is True here. The JAX
-default (False) selects the host augmentation pipeline, which needs cv2 and
-is not ported; the device pipeline is the port's only augmentation, so
-`device_augment=False` requires every augmentation key at 0 (`UNAUGMENTED`).
+"""The run configuration of the JAX package's `cfg/default.yaml`, as Python
+literals (the GPU host has no PyYAML).
+
+`CFG_DEFAULTS` is its full key set with its defaults: a key outside it is
+not a configuration key at all. `TRAIN_DEFAULTS` holds the keys that the
+port's trainer and validator honour, with the same values but one:
+`device_augment` is True here. The JAX default (False) selects the host
+augmentation pipeline, which needs cv2 and is not ported; the device
+pipeline is the port's only augmentation, so `device_augment=False` requires
+every augmentation key at 0 (`UNAUGMENTED`). `NEUTRAL_KEYS` are the keys the
+port accepts at any value because they change neither the weights nor the
+metrics; every other key of `CFG_DEFAULTS` must keep its default, or the
+`Trainer` raises (`engine/trainer.check_train_args`).
 """
+CFG_DEFAULTS = {
+    "task": "detect", "mode": "train", "model": None, "data": None,
+    # train
+    "epochs": 100, "patience": 50, "batch": 16, "imgsz": 640, "save": True,
+    "save_period": -1, "cache": False, "device": None, "tp": 1, "fsdp": False,
+    "workers": 8, "project": None, "name": None, "exist_ok": False, "pretrained": True,
+    "optimizer": "auto", "verbose": True, "seed": 0, "deterministic": True,
+    "single_cls": False, "rect": False, "cos_lr": False, "close_mosaic": 0,
+    "resume": False, "amp": True, "fraction": 1.0, "profile": False,
+    "overlap_mask": True, "mask_ratio": 4, "dropout": 0.0,
+    # val
+    "val": True, "split": "val", "save_json": False, "save_hybrid": False, "conf": None,
+    "iou": 0.7, "max_det": 300, "half": False, "dnn": False, "plots": True,
+    # predict
+    "source": None, "show": False, "save_txt": False, "save_conf": False,
+    "save_crop": False, "show_labels": True, "show_conf": True, "vid_stride": 1,
+    "line_width": None, "visualize": False, "augment": False, "agnostic_nms": False,
+    "classes": None, "retina_masks": False, "boxes": True, "tracker": "botsort.yaml",
+    # export
+    "format": "stablehlo", "keras": False, "optimize": False, "int8": False,
+    "dynamic": False, "simplify": False, "opset": None, "workspace": 4, "nms": False,
+    # hyperparameters
+    "lr0": 0.001, "lrf": 0.01, "momentum": 0.937, "weight_decay": 0.0005,
+    "warmup_epochs": 3.0, "warmup_momentum": 0.8, "warmup_bias_lr": 0.1, "box": 7.5,
+    "cls": 0.5, "dfl": 1.5, "pose": 12.0, "kobj": 1.0, "label_smoothing": 0.0, "nbs": 64,
+    "hsv_h": 0.015, "hsv_s": 0.7, "hsv_v": 0.4, "degrees": 0.0, "translate": 0.1,
+    "scale": 0.5, "shear": 0.0, "perspective": 0.0, "flipud": 0.0, "fliplr": 0.0,
+    "mosaic": 1.0, "mosaic9": 0.0, "device_augment": False, "mixup": 0.0,
+    "copy_paste": 0.0,
+    # override file; debug
+    "cfg": None, "v5loader": False,
+}
+
 TRAIN_DEFAULTS = {
     "epochs": 100,            # training epochs
     "patience": 50,           # early-stop patience (epochs without fitness gain)
@@ -58,3 +98,34 @@ AUGMENT_KEYS = ("hsv_h", "hsv_s", "hsv_v", "degrees", "translate", "scale", "she
 
 # overrides for training on unaugmented scenes (square items at the train size)
 UNAUGMENTED = {"device_augment": False, **dict.fromkeys(AUGMENT_KEYS, 0.0)}
+
+# keys accepted at any value: they change neither the weights nor the metrics
+NEUTRAL_KEYS = (
+    "workers",    # host data workers; the port's loaders run in the calling process
+    "verbose",    # logging only
+    "project",    # names of the run directory; the port writes to `save_dir`
+    "name",
+    "exist_ok",   # reuse of that directory
+    "device",     # only where it names the model's device (checked by the Trainer)
+    "plots",      # the port draws no plots; plots change no weight and no metric
+)
+
+# the optimizer names the port's `Optimizer` takes (the JAX chain's but RMSProp)
+PORTED_OPTIMIZERS = ("auto", "SGD", "sgd", "AdamW", "Adam", "adamw", "adam", "NAdam", "RAdam")
+
+# typed key groups, as the JAX package's `cfg/__init__.py` checks them
+CFG_FLOAT_KEYS = ("warmup_epochs", "box", "cls", "dfl", "degrees", "shear")
+CFG_FRACTION_KEYS = (
+    "dropout", "iou", "lr0", "lrf", "momentum", "weight_decay", "warmup_momentum",
+    "warmup_bias_lr", "label_smoothing", "hsv_h", "hsv_s", "hsv_v", "translate",
+    "scale", "perspective", "flipud", "fliplr", "mosaic", "mosaic9", "mixup",
+    "copy_paste", "conf", "fraction")
+CFG_INT_KEYS = ("epochs", "patience", "batch", "workers", "seed", "close_mosaic",
+                "mask_ratio", "max_det", "vid_stride", "line_width", "workspace",
+                "nbs", "save_period")
+CFG_BOOL_KEYS = (
+    "save", "exist_ok", "verbose", "deterministic", "single_cls", "rect", "cos_lr",
+    "overlap_mask", "val", "save_json", "save_hybrid", "half", "dnn", "plots", "show",
+    "save_txt", "save_conf", "save_crop", "show_labels", "show_conf", "visualize",
+    "augment", "device_augment", "agnostic_nms", "retina_masks", "boxes", "keras",
+    "optimize", "int8", "dynamic", "simplify", "nms", "profile", "v5loader")

@@ -65,6 +65,14 @@
 //   all taps): four barriers per row. dW stays in registers over the
 //   block's tiles, each warp owning fixed (tap, 16x8 block, k-part)
 //   products, and leaves the block once.
+// * Wide channels: the 9 taps' weight, s^T and ds outgrow a block's shared
+//   memory in float32 from C 64 (the hi/lo weight alone is 165,888 B there)
+//   and in bf16 above C 64. Where no tile of that plan fits, a second plan
+//   ("streamed") holds one tap at a time: per tile, for each tap, the tap's
+//   weight slice is staged, then its ds, its corners and its dW products
+//   run, three barriers per tap. The window, the ring of rows and the
+//   float32 hi/lo terms are the same. Square C up to 144 (float32) and 194
+//   (bf16) fits one of the two plans at every map width.
 //
 // Built by mgdt_yolo_tpu_torch/utils/build.py with nvcc for sm_90a; called
 // through ctypes from mgdt_yolo_tpu_torch/ops/cuda_deform.py (`deform_bwd`).
@@ -88,6 +96,7 @@ constexpr long long MAX_SMEM = 232448;  // shared memory one block may use
 
 // The launch's shape: tile, padding, strides and shared-memory regions.
 struct BwdPlan {
+  int stream;       // 0: all 9 taps per phase; 1: one tap at a time, its weight staged
   int WS, TP;       // tile: a segment of WS columns of one row; TP = WS padded to 16
   int WW;           // dx window columns: min(W, WS + 7)
   int CinP8, CinM;  // Cin padded to 8 (ds's n) and to 16 (dW's m)
@@ -100,12 +109,14 @@ struct BwdPlan {
   long long off_g, off_gt, off_st, off_ds, off_om, off_win, smem;
 };
 
-bool make_plan(int W, int Cin, int Cout, int es, BwdPlan* out) {
+bool plan_for(int W, int Cin, int Cout, int es, int stream, BwdPlan* out) {
   const int nsplit = es == 4 ? 2 : 1;  // float32 operands: bf16 hi and lo
+  const long long nt = stream ? 1 : KT;  // taps of the weight, s^T and ds held at once
   for (int n = 1; ; ++n) {
     const int WS = (W + n - 1) / n;
     if (n > 1 && WS < 8) break;
     BwdPlan p{};
+    p.stream = stream;
     p.WS = WS;
     p.TP = (int)round_up(WS, 16);
     p.WW = W < WS + 7 ? W : WS + 7;
@@ -122,11 +133,11 @@ bool make_plan(int W, int Cin, int Cout, int es, BwdPlan* out) {
     p.KS = NW / per_tap < 1 ? 1 : (NW / per_tap > ksteps ? ksteps : NW / per_tap);
     while (p.KS > 1 && 9 * per_tap * p.KS > JMAX * NW) --p.KS;
     p.njobs = 9 * per_tap * p.KS;
-    p.off_g = 9LL * p.CinP8 * p.SGA * 2 * nsplit;
+    p.off_g = nt * p.CinP8 * p.SGA * 2 * nsplit;
     p.off_gt = p.off_g + (long long)p.TP * p.SGA * 2 * nsplit;
     p.off_st = p.off_gt + (long long)p.CoN * p.SST * 2 * nsplit;
-    p.off_ds = p.off_st + 9LL * p.CinM * p.SST * 2 * nsplit;
-    p.off_om = p.off_ds + round_up(9LL * p.TP * p.DSR * es, 16);
+    p.off_ds = p.off_st + nt * p.CinM * p.SST * 2 * nsplit;
+    p.off_om = p.off_ds + round_up(nt * p.TP * p.DSR * es, 16);
     p.off_win = p.off_om + round_up((long long)p.TP * 3 * KT * es, 16);
     p.smem = p.off_win + (long long)WR * p.WW * Cin * 4;
     if (p.smem <= MAX_SMEM) {
@@ -136,6 +147,11 @@ bool make_plan(int W, int Cin, int Cout, int es, BwdPlan* out) {
     if (WS <= 8) break;
   }
   return false;
+}
+
+// the 9-tap plan where a tile of it fits, else the streamed one
+bool make_plan(int W, int Cin, int Cout, int es, BwdPlan* out) {
+  return plan_for(W, Cin, Cout, es, 0, out) || plan_for(W, Cin, Cout, es, 1, out);
 }
 
 // V consecutive channels as float32
@@ -176,8 +192,9 @@ __device__ __forceinline__ int gcd(int a, int b) {
   return a;
 }
 
-// V = 4: four channels per lane (Cin % 4 == 0, x aligned to 4 elements); V = 1 otherwise
-template <typename T, int V>
+// V = 4: four channels per lane (Cin % 4 == 0, x aligned to 4 elements); V = 1 otherwise.
+// STREAM: the streamed plan, one tap per phase
+template <typename T, int V, bool STREAM>
 __global__ void __launch_bounds__(THREADS, 1)
 deform_bwd_mma_kernel(const T* __restrict__ x, const T* __restrict__ offset,
                       const T* __restrict__ mask, const T* __restrict__ weight,
@@ -186,38 +203,44 @@ deform_bwd_mma_kernel(const T* __restrict__ x, const T* __restrict__ offset,
                       float* __restrict__ dweight, int B, int H, int W, int Cin, int Cout,
                       int windowed, const BwdPlan pl) {
   constexpr bool F32 = sizeof(T) == 4;
+  constexpr int NTAP = STREAM ? 1 : KT;  // taps of the weight, s^T and ds held at once
   extern __shared__ __align__(16) unsigned char smem[];
   const int TP = pl.TP, SGA = pl.SGA, SST = pl.SST, DSR = pl.DSR, CinP8 = pl.CinP8;
   const int CinM = pl.CinM, WW = pl.WW;
-  __nv_bfloat16* wc_hi = reinterpret_cast<__nv_bfloat16*>(smem);  // (9, CinP8, SGA): [k][c][o]
-  __nv_bfloat16* wc_lo = wc_hi + 9 * CinP8 * SGA;
+  __nv_bfloat16* wc_hi = reinterpret_cast<__nv_bfloat16*>(smem);  // (NTAP, CinP8, SGA): [k][c][o]
+  __nv_bfloat16* wc_lo = wc_hi + NTAP * CinP8 * SGA;
   __nv_bfloat16* g_hi = reinterpret_cast<__nv_bfloat16*>(smem + pl.off_g);    // (TP, SGA)
   __nv_bfloat16* g_lo = g_hi + TP * SGA;
   __nv_bfloat16* gt_hi = reinterpret_cast<__nv_bfloat16*>(smem + pl.off_gt);  // (CoN, SST)
   __nv_bfloat16* gt_lo = gt_hi + pl.CoN * SST;
-  __nv_bfloat16* st_hi = reinterpret_cast<__nv_bfloat16*>(smem + pl.off_st);  // (9 * CinM, SST)
-  __nv_bfloat16* st_lo = st_hi + 9 * CinM * SST;
-  T* ds_s = reinterpret_cast<T*>(smem + pl.off_ds);       // (TP, 9, DSR): ds, x's type
+  __nv_bfloat16* st_hi = reinterpret_cast<__nv_bfloat16*>(smem + pl.off_st);  // (NTAP * CinM, SST)
+  __nv_bfloat16* st_lo = st_hi + NTAP * CinM * SST;
+  T* ds_s = reinterpret_cast<T*>(smem + pl.off_ds);       // (TP, NTAP, DSR): ds, x's type
   T* om_s = reinterpret_cast<T*>(smem + pl.off_om);       // (TP, 18) offsets, (TP, 9) mask
   float* win = reinterpret_cast<float*>(smem + pl.off_win);  // (WR, WW, Cin), ring by row
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int P = H * W;
 
-  // once per block: the weight in the B layout of ds (zero-padded); the
-  // window zeroed; s^T zeroed, so its rows past Cin stay 0 and its columns
-  // past a narrower tile hold finite values (their g is 0)
-  for (int e = tid; e < 9 * CinP8 * pl.CoK; e += THREADS) {
-    const int k = e / (CinP8 * pl.CoK), r = e % (CinP8 * pl.CoK), c = r / pl.CoK,
-              o = r % pl.CoK;
-    const float v = (c < Cin && o < Cout) ? to_f32(weight[((size_t)k * Cin + c) * Cout + o]) : 0.f;
-    __nv_bfloat16 hi, lo;
-    split_bf16(v, hi, lo);
-    wc_hi[(k * CinP8 + c) * SGA + o] = hi;
-    if (F32) wc_lo[(k * CinP8 + c) * SGA + o] = lo;
-  }
+  // taps k0 .. k0 + taps - 1 of the weight in the B layout of ds, zero-padded
+  auto load_weight = [&](int k0, int taps) {
+    for (int e = tid; e < taps * CinP8 * pl.CoK; e += THREADS) {
+      const int k = e / (CinP8 * pl.CoK), r = e % (CinP8 * pl.CoK), c = r / pl.CoK,
+                o = r % pl.CoK;
+      const float v = (c < Cin && o < Cout)
+                          ? to_f32(weight[((size_t)(k0 + k) * Cin + c) * Cout + o]) : 0.f;
+      __nv_bfloat16 hi, lo;
+      split_bf16(v, hi, lo);
+      wc_hi[(k * CinP8 + c) * SGA + o] = hi;
+      if (F32) wc_lo[(k * CinP8 + c) * SGA + o] = lo;
+    }
+  };
+  // once per block: the weight (all of it in the 9-tap plan); the window
+  // zeroed; s^T zeroed, so its rows past Cin stay 0 and its columns past a
+  // narrower tile hold finite values (their g is 0)
+  if (!STREAM) load_weight(0, KT);
   for (int e = tid; e < WR * WW * Cin; e += THREADS) win[e] = 0.f;
-  for (int e = tid; e < 9 * CinM * SST * (F32 ? 2 : 1); e += THREADS)
+  for (int e = tid; e < NTAP * CinM * SST * (F32 ? 2 : 1); e += THREADS)
     st_hi[e] = __float2bfloat16_rn(0.f);
 
   const int MTc = CinM / 16, NTo = pl.CoN / 8, KST = TP / 16;
@@ -230,8 +253,9 @@ deform_bwd_mma_kernel(const T* __restrict__ x, const T* __restrict__ offset,
     for (int r = 0; r < 4; ++r) acc[i][r] = 0.f;
 
   // one dW product of this tile: tap k's rows mt of s^T (channels), columns
-  // nt of g (output channels), its part ks of the tile's pixels
-  auto dw_product = [&](int job, float (&d)[4]) {
+  // nt of g (output channels), its part ks of the tile's pixels; s^T holds
+  // the taps from k0 on
+  auto dw_product = [&](int job, int k0, float (&d)[4]) {
     const int k = job / per_tap;
     int r = job % per_tap;
     const int ks = r % pl.KS;
@@ -240,12 +264,12 @@ deform_bwd_mma_kernel(const T* __restrict__ x, const T* __restrict__ offset,
     const int k_end = min(KST, (ks + 1) * kper);
     for (int kk = ks * kper; kk < k_end; ++kk) {
       uint32_t ah[4], bh[2];
-      load_a(ah, st_hi, SST, k * CinM + mt * 16, kk * 16, lane);
+      load_a(ah, st_hi, SST, (k - k0) * CinM + mt * 16, kk * 16, lane);
       load_b(bh, gt_hi, SST, nt * 8, kk * 16, lane);
       mma_bf16(d, ah, bh);
       if (F32) {
         uint32_t al[4], bl[2];
-        load_a(al, st_lo, SST, k * CinM + mt * 16, kk * 16, lane);
+        load_a(al, st_lo, SST, (k - k0) * CinM + mt * 16, kk * 16, lane);
         load_b(bl, gt_lo, SST, nt * 8, kk * 16, lane);
         mma_bf16(d, al, bh);
         mma_bf16(d, ah, bl);
@@ -302,152 +326,160 @@ deform_bwd_mma_kernel(const T* __restrict__ x, const T* __restrict__ offset,
     for (int e = tid; e < WSX * KT; e += THREADS) om_s[TP * 2 * KT + e] = mask[pix0 * KT + e];
     __syncthreads();
 
-    // ds = g . W_k^T for the 9 taps, rounded to x's type as the JAX glue does
-    for (int jb = warp; jb < 9 * MTp * NTc; jb += NW) {
-      const int k = jb / (MTp * NTc), mt = (jb / NTc) % MTp, nt = jb % NTc;
-      const __nv_bfloat16* wk_hi = wc_hi + k * CinP8 * SGA;
-      const __nv_bfloat16* wk_lo = wc_lo + k * CinP8 * SGA;
-      float d[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int kk = 0; kk < pl.CoK; kk += 16) {
-        uint32_t ah[4], bh[2];
-        load_a(ah, g_hi, SGA, mt * 16, kk, lane);
-        load_b(bh, wk_hi, SGA, nt * 8, kk, lane);
-        mma_bf16(d, ah, bh);
-        if (F32) {
-          uint32_t al[4], bl[2];
-          load_a(al, g_lo, SGA, mt * 16, kk, lane);
-          load_b(bl, wk_lo, SGA, nt * 8, kk, lane);
-          mma_bf16(d, al, bh);
-          mma_bf16(d, ah, bl);
+    // the taps in phases of NTAP: all 9 at once, or one at a time (streamed)
+    for (int k0 = 0; k0 < KT; k0 += NTAP) {
+      if (STREAM) {
+        load_weight(k0, 1);  // the last tap's ds phase, its reader, passed two barriers
+        __syncthreads();
+      }
+      // ds = g . W_k^T for the phase's taps, rounded to x's type as the JAX glue does
+      for (int jb = warp; jb < NTAP * MTp * NTc; jb += NW) {
+        const int kl = jb / (MTp * NTc), mt = (jb / NTc) % MTp, nt = jb % NTc;
+        const __nv_bfloat16* wk_hi = wc_hi + kl * CinP8 * SGA;
+        const __nv_bfloat16* wk_lo = wc_lo + kl * CinP8 * SGA;
+        float d[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int kk = 0; kk < pl.CoK; kk += 16) {
+          uint32_t ah[4], bh[2];
+          load_a(ah, g_hi, SGA, mt * 16, kk, lane);
+          load_b(bh, wk_hi, SGA, nt * 8, kk, lane);
+          mma_bf16(d, ah, bh);
+          if (F32) {
+            uint32_t al[4], bl[2];
+            load_a(al, g_lo, SGA, mt * 16, kk, lane);
+            load_b(bl, wk_lo, SGA, nt * 8, kk, lane);
+            mma_bf16(d, al, bh);
+            mma_bf16(d, ah, bl);
+          }
         }
+        const int row = mt * 16 + (lane >> 2), col = nt * 8 + 2 * (lane & 3);
+        store2(ds_s + (row * NTAP + kl) * DSR + col, d[0], d[1]);
+        store2(ds_s + ((row + 8) * NTAP + kl) * DSR + col, d[2], d[3]);
       }
-      const int row = mt * 16 + (lane >> 2), col = nt * 8 + 2 * (lane & 3);
-      store2(ds_s + (row * KT + k) * DSR + col, d[0], d[1]);
-      store2(ds_s + ((row + 8) * KT + k) * DSR + col, d[2], d[3]);
-    }
-    __syncthreads();
+      __syncthreads();
 
-    // corners: an 8-lane group per (pixel, tap), V channels per lane. The
-    // four groups of a warp take items a quarter of the tile's 9 * WSX apart,
-    // and consecutive warps pixels S apart, so concurrent groups scatter to
-    // different cells; group g adds its four channels in the order g, g + 1,
-    // ... (mod 4), so the four groups' shared atomics fall in different banks
-    const int items = KT * WSX, Q = (items + 3) / 4;
-    int S = 37;
-    while (gcd(S, WSX) != 1) S += 2;
-    for (int m = warp; m < Q; m += NW) {  // warp-uniform
-      const int e = grp * Q + m;
-      const bool live = e < items;
-      const int k = live ? e / WSX : 0;
-      const int p = live ? (int)(((long long)(e % WSX) * S) % WSX) : 0;
-      const int j = c0 + p;
-      Tap tp = {};  // not live: not valid, no corner
-      float mk = 0.f;
-      if (live) {
-        tp = tap_fields(r, j, k, to_f32(om_s[p * 2 * KT + 2 * k]),
-                        to_f32(om_s[p * 2 * KT + 2 * k + 1]), H, W, windowed);
-        if (tp.valid) mk = to_f32(om_s[TP * 2 * KT + p * KT + k]);
-      }
-      const float ay[2] = {1.f - tp.fy, tp.fy}, ax[2] = {1.f - tp.fx, tp.fx};
-      int src[4], widx[4];
-      float wq[4];
+      // corners: an 8-lane group per (pixel, tap), V channels per lane. The
+      // four groups of a warp take items a quarter of the tile's 9 * WSX apart,
+      // and consecutive warps pixels S apart, so concurrent groups scatter to
+      // different cells; group g adds its four channels in the order g, g + 1,
+      // ... (mod 4), so the four groups' shared atomics fall in different banks
+      const int items = NTAP * WSX, Q = (items + 3) / 4;
+      int S = 37;
+      while (gcd(S, WSX) != 1) S += 2;
+      for (int m = warp; m < Q; m += NW) {  // warp-uniform
+        const int e = grp * Q + m;
+        const bool live = e < items;
+        const int kl = live ? e / WSX : 0, k = k0 + kl;
+        const int p = live ? (int)(((long long)(e % WSX) * S) % WSX) : 0;
+        const int j = c0 + p;
+        Tap tp = {};  // not live: not valid, no corner
+        float mk = 0.f;
+        if (live) {
+          tp = tap_fields(r, j, k, to_f32(om_s[p * 2 * KT + 2 * k]),
+                          to_f32(om_s[p * 2 * KT + 2 * k + 1]), H, W, windowed);
+          if (tp.valid) mk = to_f32(om_s[TP * 2 * KT + p * KT + k]);
+        }
+        const float ay[2] = {1.f - tp.fy, tp.fy}, ax[2] = {1.f - tp.fx, tp.fx};
+        int src[4], widx[4];
+        float wq[4];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int yy = tp.y0 + (q >> 1), xx = tp.x0 + (q & 1);
-        src[q] = (tp.valid && yy >= 0 && yy < H && xx >= 0 && xx < W) ? yy * W + xx : -1;
-        wq[q] = ay[q >> 1] * ax[q & 1] * mk;
-        const bool inwin = yy >= r - 3 && yy <= r + 4 && xx >= wc0 && xx < wc0 + wwc;
-        widx[q] = inwin ? (((yy & (WR - 1)) * WW) + (xx - wc0)) * Cin : -1;
-      }
-      float part[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int ch = gl; ch < NCH; ch += 8) {
-        const int c = ch * V;
-        float sv[V];
+        for (int q = 0; q < 4; ++q) {
+          const int yy = tp.y0 + (q >> 1), xx = tp.x0 + (q & 1);
+          src[q] = (tp.valid && yy >= 0 && yy < H && xx >= 0 && xx < W) ? yy * W + xx : -1;
+          wq[q] = ay[q >> 1] * ax[q & 1] * mk;
+          const bool inwin = yy >= r - 3 && yy <= r + 4 && xx >= wc0 && xx < wc0 + wwc;
+          widx[q] = inwin ? (((yy & (WR - 1)) * WW) + (xx - wc0)) * Cin : -1;
+        }
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int ch = gl; ch < NCH; ch += 8) {
+          const int c = ch * V;
+          float sv[V];
 #pragma unroll
-        for (int u = 0; u < V; ++u) sv[u] = 0.f;
-        if (tp.valid) {
-          float d[V], xv[4][V];
-          load_v(ds_s + (p * KT + k) * DSR + c, d);
+          for (int u = 0; u < V; ++u) sv[u] = 0.f;
+          if (tp.valid) {
+            float d[V], xv[4][V];
+            load_v(ds_s + (p * NTAP + kl) * DSR + c, d);
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            if (src[q] >= 0) {
-              load_v(x + (img + src[q]) * Cin + c, xv[q]);
-            } else {
+            for (int q = 0; q < 4; ++q) {
+              if (src[q] >= 0) {
+                load_v(x + (img + src[q]) * Cin + c, xv[q]);
+              } else {
 #pragma unroll
-              for (int u = 0; u < V; ++u) xv[q][u] = 0.f;
+                for (int u = 0; u < V; ++u) xv[q][u] = 0.f;
+              }
+            }
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              if (src[q] < 0) continue;
+#pragma unroll
+              for (int u = 0; u < V; ++u) {
+                part[q] += d[u] * xv[q][u];
+                sv[u] += wq[q] * xv[q][u];
+              }
+              if (wq[q] != 0.f) {
+                if (widx[q] >= 0) {
+#pragma unroll
+                  for (int u = 0; u < V; ++u) {
+                    const int uu = (u + grp) & (V - 1);
+                    const float dv = V == 1 ? d[0] : uu == 0 ? d[0] : uu == 1 ? d[V > 1 ? 1 : 0]
+                                     : uu == 2 ? d[V > 2 ? 2 : 0] : d[V > 3 ? 3 : 0];
+                    atomicAdd(win + widx[q] + c + uu, wq[q] * dv);
+                  }
+                } else {  // beyond the window: exact semantics only
+                  float* dst = dx + (img + src[q]) * Cin + c;
+#pragma unroll
+                  for (int u = 0; u < V; ++u) atomicAdd(dst + u, wq[q] * d[u]);
+                }
+              }
             }
           }
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            if (src[q] < 0) continue;
+          // the recomputed sample, rounded to x's type, as s^T for dW
+          if (live) {
 #pragma unroll
             for (int u = 0; u < V; ++u) {
-              part[q] += d[u] * xv[q][u];
-              sv[u] += wq[q] * xv[q][u];
-            }
-            if (wq[q] != 0.f) {
-              if (widx[q] >= 0) {
-#pragma unroll
-                for (int u = 0; u < V; ++u) {
-                  const int uu = (u + grp) & (V - 1);
-                  const float dv = V == 1 ? d[0] : uu == 0 ? d[0] : uu == 1 ? d[V > 1 ? 1 : 0]
-                                   : uu == 2 ? d[V > 2 ? 2 : 0] : d[V > 3 ? 3 : 0];
-                  atomicAdd(win + widx[q] + c + uu, wq[q] * dv);
-                }
-              } else {  // beyond the window: exact semantics only
-                float* dst = dx + (img + src[q]) * Cin + c;
-#pragma unroll
-                for (int u = 0; u < V; ++u) atomicAdd(dst + u, wq[q] * d[u]);
+              if (c + u < Cin) {
+                __nv_bfloat16 hi, lo;
+                split_bf16(round_to<T>(sv[u]), hi, lo);
+                st_hi[(kl * CinM + c + u) * SST + p] = hi;
+                if (F32) st_lo[(kl * CinM + c + u) * SST + p] = lo;
               }
             }
           }
         }
-        // the recomputed sample, rounded to x's type, as s^T for dW
-        if (live) {
 #pragma unroll
-          for (int u = 0; u < V; ++u) {
-            if (c + u < Cin) {
-              __nv_bfloat16 hi, lo;
-              split_bf16(round_to<T>(sv[u]), hi, lo);
-              st_hi[(k * CinM + c + u) * SST + p] = hi;
-              if (F32) st_lo[(k * CinM + c + u) * SST + p] = lo;
-            }
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int o = 4; o > 0; o >>= 1) part[q] += __shfl_xor_sync(0xffffffffu, part[q], o);
+        if (gl == 0 && live) {
+          float dfy = 0.f, dfx = 0.f, dwv = 0.f;
+          if (tp.valid) {  // an invalid tap has no gradient
+            dfy = mk * ((part[2] * ax[0] + part[3] * ax[1]) - (part[0] * ax[0] + part[1] * ax[1]));
+            dfx = mk * ((part[1] * ay[0] + part[3] * ay[1]) - (part[0] * ay[0] + part[2] * ay[1]));
+            dwv = part[0] * ay[0] * ax[0] + part[1] * ay[0] * ax[1] + part[2] * ay[1] * ax[0] +
+                  part[3] * ay[1] * ax[1];
+            dfy = tp.pass_y ? dfy : 0.f;
+            dfx = tp.pass_x ? dfx : 0.f;
           }
+          const size_t pix = pix0 + p;
+          doffset[pix * (2 * KT) + 2 * k] = from_f32<T>(dfy);
+          doffset[pix * (2 * KT) + 2 * k + 1] = from_f32<T>(dfx);
+          dmask[pix * KT + k] = from_f32<T>(dwv);
         }
       }
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-#pragma unroll
-        for (int o = 4; o > 0; o >>= 1) part[q] += __shfl_xor_sync(0xffffffffu, part[q], o);
-      if (gl == 0 && live) {
-        float dfy = 0.f, dfx = 0.f, dwv = 0.f;
-        if (tp.valid) {  // an invalid tap has no gradient
-          dfy = mk * ((part[2] * ax[0] + part[3] * ax[1]) - (part[0] * ax[0] + part[1] * ax[1]));
-          dfx = mk * ((part[1] * ay[0] + part[3] * ay[1]) - (part[0] * ay[0] + part[2] * ay[1]));
-          dwv = part[0] * ay[0] * ax[0] + part[1] * ay[0] * ax[1] + part[2] * ay[1] * ax[0] +
-                part[3] * ay[1] * ax[1];
-          dfy = tp.pass_y ? dfy : 0.f;
-          dfx = tp.pass_x ? dfx : 0.f;
-        }
-        const size_t pix = pix0 + p;
-        doffset[pix * (2 * KT) + 2 * k] = from_f32<T>(dfy);
-        doffset[pix * (2 * KT) + 2 * k + 1] = from_f32<T>(dfx);
-        dmask[pix * KT + k] = from_f32<T>(dwv);
-      }
-    }
-    __syncthreads();
+      __syncthreads();
 
-    // dW += s_k^T . g for the 9 taps: each warp its own products
+      // dW += s_k^T . g for the phase's taps: each warp its own products
 #pragma unroll
-    for (int i = 0; i < JMAX; ++i) {
-      const int job = warp + NW * i;
-      if (job < pl.njobs) dw_product(job, acc[i]);
-    }
-    for (int job = warp + NW * JMAX; job < pl.njobs; job += NW) {
-      float d[4] = {0.f, 0.f, 0.f, 0.f};
-      dw_product(job, d);
-      dw_add(job, d);
-    }
+      for (int i = 0; i < JMAX; ++i) {
+        const int job = warp + NW * i;
+        if (job < pl.njobs && (!STREAM || job / per_tap == k0)) dw_product(job, k0, acc[i]);
+      }
+      for (int job = warp + NW * JMAX; job < pl.njobs; job += NW) {
+        if (STREAM && job / per_tap != k0) continue;
+        float d[4] = {0.f, 0.f, 0.f, 0.f};
+        dw_product(job, k0, d);
+        dw_add(job, d);
+      }
+    }  // the phases of taps
 
     // flush into dx the window rows no later tile of this block reaches (the
     // row leaving the ring, or all of it at the end of a run of rows) and
@@ -482,26 +514,27 @@ deform_bwd_mma_kernel(const T* __restrict__ x, const T* __restrict__ offset,
   }
 }
 
-template <typename T, int V>
+template <typename T, int V, bool STREAM>
 int launch_v(const void* x, const void* offset, const void* mask, const void* weight,
              const void* grad, float* dx, void* doffset, void* dmask, float* dweight, int B,
              int H, int W, int Cin, int Cout, int windowed, const BwdPlan& pl,
              cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      deform_bwd_mma_kernel<T, V>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
+      deform_bwd_mma_kernel<T, V, STREAM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)pl.smem);
   if (err != cudaSuccess) return (int)err;
   int device = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
     return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, deform_bwd_mma_kernel<T, V>,
-                                                           THREADS, (size_t)pl.smem)) != cudaSuccess)
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, deform_bwd_mma_kernel<T, V, STREAM>, THREADS, (size_t)pl.smem)) != cudaSuccess)
     return (int)err;
   const long long tiles = (long long)B * H * ((W + pl.WS - 1) / pl.WS);
   const long long cap = (long long)sms * per_sm;
   const long long blocks = tiles < cap ? tiles : cap;
   if (blocks < 1) return (int)cudaErrorInvalidConfiguration;
-  deform_bwd_mma_kernel<T, V><<<(unsigned)blocks, THREADS, (size_t)pl.smem, stream>>>(
+  deform_bwd_mma_kernel<T, V, STREAM><<<(unsigned)blocks, THREADS, (size_t)pl.smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(offset), static_cast<const T*>(mask),
       static_cast<const T*>(weight), static_cast<const T*>(grad), dx, static_cast<T*>(doffset),
       static_cast<T*>(dmask), dweight, B, H, W, Cin, Cout, windowed, pl);
@@ -516,11 +549,18 @@ int launch(const void* x, const void* offset, const void* mask, const void* weig
   if (!make_plan(W, Cin, Cout, (int)sizeof(T), &pl)) return (int)cudaErrorInvalidValue;
   const bool vec = Cin % 4 == 0 && reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T)) == 0 &&
                    reinterpret_cast<uintptr_t>(dx) % 16 == 0;
+  if (pl.stream) {
+    if (vec)
+      return launch_v<T, 4, true>(x, offset, mask, weight, grad, dx, doffset, dmask, dweight, B,
+                                  H, W, Cin, Cout, windowed, pl, stream);
+    return launch_v<T, 1, true>(x, offset, mask, weight, grad, dx, doffset, dmask, dweight, B, H,
+                                W, Cin, Cout, windowed, pl, stream);
+  }
   if (vec)
-    return launch_v<T, 4>(x, offset, mask, weight, grad, dx, doffset, dmask, dweight, B, H, W,
-                          Cin, Cout, windowed, pl, stream);
-  return launch_v<T, 1>(x, offset, mask, weight, grad, dx, doffset, dmask, dweight, B, H, W, Cin,
-                        Cout, windowed, pl, stream);
+    return launch_v<T, 4, false>(x, offset, mask, weight, grad, dx, doffset, dmask, dweight, B,
+                                 H, W, Cin, Cout, windowed, pl, stream);
+  return launch_v<T, 1, false>(x, offset, mask, weight, grad, dx, doffset, dmask, dweight, B, H,
+                               W, Cin, Cout, windowed, pl, stream);
 }
 
 }  // namespace
@@ -532,6 +572,13 @@ extern "C" {
 long long deform_bwd_smem_bytes(int W, int Cin, int Cout, int is_bf16) {
   BwdPlan pl;
   return make_plan(W, Cin, Cout, is_bf16 ? 2 : 4, &pl) ? pl.smem : -1;
+}
+
+// The plan this map width, channel counts and type take: 0 all 9 taps per
+// phase, 1 one tap at a time with its weight staged; -1 where neither fits.
+long long deform_bwd_plan(int W, int Cin, int Cout, int is_bf16) {
+  BwdPlan pl;
+  return make_plan(W, Cin, Cout, is_bf16 ? 2 : 4, &pl) ? pl.stream : -1;
 }
 
 // x (B,H,W,Cin), offset (B,H,W,18), mask (B,H,W,9), weight (3,3,Cin,Cout) and

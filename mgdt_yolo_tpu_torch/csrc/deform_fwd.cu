@@ -44,6 +44,15 @@
 //   are combined (float32, K1's corner order) and multiplied. The epilogue
 //   adds the bias, rounds to x's type and stores 16-byte vectors of NHWC
 //   rows. Cout past 32 is taken in further items of the same pixels.
+// * Wide channels: the resident weight, 9 (Cin, Cout) slices, outgrows a
+//   block's shared memory above C 64 (313,344 B in bf16 at C 128) and leaves
+//   room for one warp in float32 at C 64. There a second plan ("streamed")
+//   holds one tap's slice: the block's warps take their items in lockstep
+//   and, at each tap, wait at a block barrier, load the tap's slice, wait
+//   again and contract with it, so the slice is re-read once per tap per
+//   round of items. Where the resident plan fits 4 warps or more (every
+//   channel count up to 32, and bf16 at 64) it runs as before. Square C up
+//   to 172 (float32) and 256 (bf16) fits one of the two.
 //
 // Built by mgdt_yolo_tpu_torch/utils/build.py with nvcc for sm_90a; called
 // through ctypes from mgdt_yolo_tpu_torch/ops/cuda_deform.py (`deform_fwd`).
@@ -61,11 +70,13 @@ using namespace deform;
 
 constexpr int NTW = 4;            // n-tiles (8 output channels each) per warp item
 constexpr int MAX_WARPS = 16;     // warps per block
+constexpr int MIN_RESIDENT_WARPS = 4;  // below this the streamed plan is taken, where it fits
 constexpr long long MAX_SMEM = 232448;  // shared memory one block may use
 
 // The launch's shape, from (Cin, Cout, type): per-warp regions after the
 // block's weight. A warp item is 16 output pixels by NTW * 8 output channels.
 struct FwdPlan {
+  int stream;   // 0: the 9 taps' weight resident; 1: one tap's slice, staged by tap
   int NWB;      // warps per block: 16, or fewer where shared memory forces it
   int groups;   // column groups of NTW n-tiles (each warp item takes one)
   int CK;       // Cin padded to 16: the contraction depth per tap
@@ -80,8 +91,9 @@ struct FwdPlan {
   long long smem;
 };
 
-bool make_plan(int Cin, int Cout, int es, FwdPlan* out) {
+bool plan_for(int Cin, int Cout, int es, int stream, FwdPlan* out) {
   FwdPlan p{};
+  p.stream = stream;
   p.CK = (int)round_up(Cin, 16);
   p.SA = p.CK + 8;
   p.NP = (int)round_up(Cout, 8);
@@ -89,7 +101,7 @@ bool make_plan(int Cin, int Cout, int es, FwdPlan* out) {
   p.groups = (p.NT + NTW - 1) / NTW;
   p.RS = (int)round_up(Cin, 16 / es);
   p.OS = NTW * 8 + 4;
-  p.w_bytes = 9LL * p.NP * p.SA * 2 * (es == 4 ? 2 : 1);
+  p.w_bytes = (stream ? 1LL : 9LL) * p.NP * p.SA * 2 * (es == 4 ? 2 : 1);
   p.a_off = 0;                                        // a_hi, a_lo: (16, SA) bf16 each
   p.f_off = p.a_off + 2LL * 16 * p.SA * 2;            // fw, fi: (2, 16, 4) each
   p.o_off = p.f_off + 2LL * 2 * 16 * 4 * 4;           // offsets (16, 18) and mask (16, 9)
@@ -105,6 +117,23 @@ bool make_plan(int Cin, int Cout, int es, FwdPlan* out) {
     }
   }
   return false;
+}
+
+// the resident plan where it fits MIN_RESIDENT_WARPS warps, else the
+// streamed one, else the resident one with fewer warps
+bool make_plan(int Cin, int Cout, int es, FwdPlan* out) {
+  FwdPlan resident, streamed;
+  const bool fits = plan_for(Cin, Cout, es, 0, &resident);
+  if (fits && resident.NWB >= MIN_RESIDENT_WARPS) {
+    *out = resident;
+    return true;
+  }
+  if (plan_for(Cin, Cout, es, 1, &streamed)) {
+    *out = streamed;
+    return true;
+  }
+  if (fits) *out = resident;
+  return fits;
 }
 
 // four consecutive channels c..c+3 (c a multiple of 4) of a staged row, 0 past Cin
@@ -148,17 +177,18 @@ __device__ __forceinline__ void store16(float* dst, const float* v) {
   *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
-template <typename T>
+template <typename T, bool STREAM>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
 deform_fwd_mma_kernel(const T* __restrict__ x, const T* __restrict__ offset,
                       const T* __restrict__ mask, const T* __restrict__ weight,
                       const float* __restrict__ bias, T* __restrict__ out, int B, int H,
                       int W, int Cin, int Cout, int windowed, const FwdPlan pl) {
   constexpr bool F32 = sizeof(T) == 4;
+  constexpr int WTAPS = STREAM ? 1 : KT;  // taps of the weight held in shared memory
   extern __shared__ __align__(16) unsigned char smem[];
   const int CK = pl.CK, SA = pl.SA, NP = pl.NP, RS = pl.RS;
-  __nv_bfloat16* w_hi = reinterpret_cast<__nv_bfloat16*>(smem);   // (9, NP, SA): [k][o][c]
-  __nv_bfloat16* w_lo = w_hi + 9 * NP * SA;                        // float32 weights only
+  __nv_bfloat16* w_hi = reinterpret_cast<__nv_bfloat16*>(smem);   // (WTAPS, NP, SA): [k][o][c]
+  __nv_bfloat16* w_lo = w_hi + WTAPS * NP * SA;                    // float32 weights only
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   unsigned char* mine = smem + pl.w_bytes + warp * pl.warp_bytes;  // this warp's regions
@@ -171,23 +201,32 @@ deform_fwd_mma_kernel(const T* __restrict__ x, const T* __restrict__ offset,
   T* stage = reinterpret_cast<T*>(mine + pl.s_off);       // (2, 16, 4, RS)
   float* o_s = reinterpret_cast<float*>(stage);           // (16, OS) after the last tap
 
-  // the weight, once per block, zero-padded: w[k][c][o] -> w_hi[k][o][c]
-  for (int e = tid; e < 9 * NP * CK; e += blockDim.x) {
-    const int k = e / (NP * CK), r = e % (NP * CK), o = r / CK, c = r % CK;
-    const float v = (o < Cout && c < Cin) ? to_f32(weight[((size_t)k * Cin + c) * Cout + o]) : 0.f;
-    __nv_bfloat16 hi, lo;
-    split_bf16(v, hi, lo);
-    w_hi[(k * NP + o) * SA + c] = hi;
-    if (F32) w_lo[(k * NP + o) * SA + c] = lo;
+  // taps k0 .. k0 + taps - 1 of the weight, zero-padded: w[k0 + k][c][o] -> w_hi[k][o][c]
+  auto load_weight = [&](int k0, int taps) {
+    for (int e = tid; e < taps * NP * CK; e += blockDim.x) {
+      const int k = e / (NP * CK), r = e % (NP * CK), o = r / CK, c = r % CK;
+      const float v =
+          (o < Cout && c < Cin) ? to_f32(weight[((size_t)(k0 + k) * Cin + c) * Cout + o]) : 0.f;
+      __nv_bfloat16 hi, lo;
+      split_bf16(v, hi, lo);
+      w_hi[(k * NP + o) * SA + c] = hi;
+      if (F32) w_lo[(k * NP + o) * SA + c] = lo;
+    }
+  };
+  if (!STREAM) {
+    load_weight(0, KT);  // once per block
+    __syncthreads();     // the resident plan's only block barrier: from here each warp runs alone
   }
-  __syncthreads();  // the only block barrier: from here each warp runs alone
 
   const int P = H * W;
   const int tiles = (P + 15) / 16;
   const long long items = (long long)B * tiles * pl.groups;
   const int CK4 = CK / 4;
-  for (long long item = (long long)blockIdx.x * pl.NWB + warp; item < items;
-       item += (long long)gridDim.x * pl.NWB) {
+  // the streamed plan's warps run in lockstep, one round of NWB items at a
+  // time, so a warp past the last item still takes the block's barriers
+  for (long long item = (long long)blockIdx.x * pl.NWB + warp;
+       (STREAM ? item - warp : item) < items; item += (long long)gridDim.x * pl.NWB) {
+    const bool live = !STREAM || item < items;
     const int ng = (int)(item % pl.groups);
     const long long t = item / pl.groups;
     const int b = (int)(t / tiles);
@@ -197,8 +236,10 @@ deform_fwd_mma_kernel(const T* __restrict__ x, const T* __restrict__ offset,
     const T* xb = x + (size_t)b * P * Cin;
 
     // the 16 pixels' offsets and mask, one read for all 9 taps
-    for (int e = lane; e < np * 2 * KT; e += 32) off_s[e] = offset[pix0 * (2 * KT) + e];
-    for (int e = lane; e < np * KT; e += 32) m_s[e] = mask[pix0 * KT + e];
+    if (live) {
+      for (int e = lane; e < np * 2 * KT; e += 32) off_s[e] = offset[pix0 * (2 * KT) + e];
+      for (int e = lane; e < np * KT; e += 32) m_s[e] = mask[pix0 * KT + e];
+    }
     __syncwarp();
 
     // tap k's corner weights and row copies into buffer buf, one lane per
@@ -283,11 +324,21 @@ deform_fwd_mma_kernel(const T* __restrict__ x, const T* __restrict__ offset,
 #pragma unroll
       for (int r = 0; r < 4; ++r) acc[j][r] = 0.f;
 
-    gather(0, 0);
-    cp_async_commit();
-    for (int k = 0; k < KT; ++k) {
-      if (k + 1 < KT) gather(k + 1, (k + 1) & 1);
+    if (live) {
+      gather(0, 0);
       cp_async_commit();
+    }
+    for (int k = 0; k < KT; ++k) {
+      if (live) {
+        if (k + 1 < KT) gather(k + 1, (k + 1) & 1);
+        cp_async_commit();
+      }
+      if (STREAM) {
+        __syncthreads();  // every warp's products with the last tap's slice are done
+        load_weight(k, 1);
+        __syncthreads();
+      }
+      if (!live) continue;
       cp_async_wait<1>();  // tap k's copies have landed (this lane's) ...
       __syncwarp();        // ... and every lane's; the last tap's products are done
       if (32 % CK4 == 0) {
@@ -297,8 +348,8 @@ deform_fwd_mma_kernel(const T* __restrict__ x, const T* __restrict__ offset,
         for (int e = lane; e < 16 * CK4; e += 32) combine_one(k & 1, e / CK4, 4 * (e % CK4));
       }
       __syncwarp();
-      const __nv_bfloat16* wk_hi = w_hi + k * NP * SA;
-      const __nv_bfloat16* wk_lo = w_lo + k * NP * SA;
+      const __nv_bfloat16* wk_hi = w_hi + (STREAM ? 0 : k) * NP * SA;
+      const __nv_bfloat16* wk_lo = w_lo + (STREAM ? 0 : k) * NP * SA;
       for (int kk = 0; kk < CK; kk += 16) {
         uint32_t ah[4], al[4];
         load_a(ah, a_hi, SA, 0, kk, lane);
@@ -320,6 +371,7 @@ deform_fwd_mma_kernel(const T* __restrict__ x, const T* __restrict__ offset,
       }
     }
 
+    if (!live) continue;  // the last round's idle warps: no barrier follows
     // epilogue: the sums through this warp's staging (the stage is free:
     // every lane passed the last combine), then bias, x's type, 16-byte rows
     const int row = lane >> 2;
@@ -359,6 +411,32 @@ deform_fwd_mma_kernel(const T* __restrict__ x, const T* __restrict__ offset,
   }
 }
 
+template <typename T, bool STREAM>
+int launch_plan(const void* x, const void* offset, const void* mask, const void* weight,
+                const float* bias, void* out, int B, int H, int W, int Cin, int Cout,
+                int windowed, const FwdPlan& pl, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(deform_fwd_mma_kernel<T, STREAM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
+  if (err != cudaSuccess) return (int)err;
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return (int)err;
+  const int threads = pl.NWB * 32;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, deform_fwd_mma_kernel<T, STREAM>, threads, (size_t)pl.smem)) != cudaSuccess)
+    return (int)err;
+  const long long items = (long long)B * ((H * W + 15) / 16) * pl.groups;
+  const long long need = (items + pl.NWB - 1) / pl.NWB, cap = (long long)sms * per_sm;
+  const long long blocks = need < cap ? need : cap;
+  if (blocks < 1) return (int)cudaErrorInvalidConfiguration;
+  deform_fwd_mma_kernel<T, STREAM><<<(unsigned)blocks, threads, (size_t)pl.smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(offset), static_cast<const T*>(mask),
+      static_cast<const T*>(weight), bias, static_cast<T*>(out), B, H, W, Cin, Cout, windowed,
+      pl);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch(const void* x, const void* offset, const void* mask, const void* weight,
            const float* bias, void* out, int B, int H, int W, int Cin, int Cout,
@@ -368,26 +446,11 @@ int launch(const void* x, const void* offset, const void* mask, const void* weig
   const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
   const int row_bytes = Cin * (int)sizeof(T);
   pl.vec = (row_bytes % 16 == 0 && xa % 16 == 0) ? 16 : (row_bytes % 4 == 0 && xa % 4 == 0) ? 4 : 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      deform_fwd_mma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
-  if (err != cudaSuccess) return (int)err;
-  int device = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
-    return (int)err;
-  const int threads = pl.NWB * 32;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, deform_fwd_mma_kernel<T>,
-                                                           threads, (size_t)pl.smem)) != cudaSuccess)
-    return (int)err;
-  const long long items = (long long)B * ((H * W + 15) / 16) * pl.groups;
-  const long long need = (items + pl.NWB - 1) / pl.NWB, cap = (long long)sms * per_sm;
-  const long long blocks = need < cap ? need : cap;
-  if (blocks < 1) return (int)cudaErrorInvalidConfiguration;
-  deform_fwd_mma_kernel<T><<<(unsigned)blocks, threads, (size_t)pl.smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(offset), static_cast<const T*>(mask),
-      static_cast<const T*>(weight), bias, static_cast<T*>(out), B, H, W, Cin, Cout, windowed,
-      pl);
-  return (int)cudaGetLastError();
+  if (pl.stream)
+    return launch_plan<T, true>(x, offset, mask, weight, bias, out, B, H, W, Cin, Cout, windowed,
+                                pl, stream);
+  return launch_plan<T, false>(x, offset, mask, weight, bias, out, B, H, W, Cin, Cout, windowed,
+                               pl, stream);
 }
 
 }  // namespace
@@ -399,6 +462,13 @@ extern "C" {
 long long deform_fwd_smem_bytes(int Cin, int Cout, int is_bf16) {
   FwdPlan pl;
   return make_plan(Cin, Cout, is_bf16 ? 2 : 4, &pl) ? pl.smem : -1;
+}
+
+// The plan these channel counts and type take: 0 the resident weight, 1 the
+// weight staged by tap; -1 where neither fits.
+long long deform_fwd_plan(int Cin, int Cout, int is_bf16) {
+  FwdPlan pl;
+  return make_plan(Cin, Cout, is_bf16 ? 2 : 4, &pl) ? pl.stream : -1;
 }
 
 // x (B,H,W,Cin), offset (B,H,W,18), mask (B,H,W,9), weight (3,3,Cin,Cout),

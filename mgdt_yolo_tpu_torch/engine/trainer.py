@@ -2,6 +2,13 @@
 (`mgdt_yolo_tpu/engine/trainer.py`) with `device_augment=True`, without
 resume.
 
+`check_train_args` holds the overrides to the JAX configuration's rules
+before anything is built: an unknown key raises `SyntaxError` with the JAX
+suggestions, a value of the wrong type as the JAX `check_cfg_types` does,
+and a key the port does not honour yet (`resume`, `single_cls`,
+`agnostic_nms`, `rect`, `save_json`, RMSProp, ...) raises wherever it
+differs from the JAX default.
+
 `Optimizer` is the JAX trainer's optax chain step for step: SGD (Nesterov)
 or AdamW chosen as `optimizer="auto"` chooses, gradients summed over
 `accumulate` micro-batches (optax.MultiSteps, schedules indexed by optimizer
@@ -23,6 +30,7 @@ and, by fitness, `weights/best.npz`, and stops early on a fitness plateau.
 from __future__ import annotations
 
 import copy
+import difflib
 import logging
 import math
 from pathlib import Path
@@ -31,7 +39,9 @@ from typing import Callable, Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from ..cfg.default import AUGMENT_KEYS, TRAIN_DEFAULTS
+from ..cfg.default import (AUGMENT_KEYS, CFG_BOOL_KEYS, CFG_DEFAULTS, CFG_FLOAT_KEYS,
+                           CFG_FRACTION_KEYS, CFG_INT_KEYS, NEUTRAL_KEYS, PORTED_OPTIMIZERS,
+                           TRAIN_DEFAULTS)
 from ..data.build import DataLoader, to_device
 from ..data.synthetic import val_dataset
 from ..ops.device_augment import apply_augment, augment_draws
@@ -229,10 +239,90 @@ def check_augment_args(a: Mapping) -> None:
                          "(cfg.default.UNAUGMENTED) or use device_augment=True")
 
 
+def check_cfg_types(cfg: Mapping) -> None:
+    """Raise where a value has the wrong type for its key group, as the JAX
+    `cfg.check_cfg_types` does (a copy of its rules)."""
+    for k, v in cfg.items():
+        if v is None:
+            continue
+        if k in CFG_FLOAT_KEYS and not isinstance(v, (int, float)):
+            raise TypeError(f"'{k}={v}' must be a number (got {type(v).__name__})")
+        elif k in CFG_FRACTION_KEYS:
+            if not isinstance(v, (int, float)):
+                raise TypeError(f"'{k}={v}' must be a number (got {type(v).__name__})")
+            if not 0.0 <= v <= 1.0:
+                raise ValueError(f"'{k}={v}' must be in [0, 1]")
+        elif k in CFG_INT_KEYS and not isinstance(v, int):
+            raise TypeError(f"'{k}={v}' must be an int (got {type(v).__name__})")
+        elif k in CFG_BOOL_KEYS and not isinstance(v, bool):
+            raise TypeError(f"'{k}={v}' must be a bool (got {type(v).__name__})")
+
+
+def check_dict_alignment(base: Mapping, custom: Mapping) -> None:
+    """Raise `SyntaxError` with close matches where a key of `custom` is not
+    in `base`, as the JAX `cfg.check_dict_alignment` does."""
+    mismatched = [k for k in custom if k not in base]
+    if mismatched:
+        msgs = []
+        for k in mismatched:
+            matches = difflib.get_close_matches(k, list(base))
+            hint = f"Similar keys: {matches}. " if matches else ""
+            msgs.append(f"'{k}' is not a valid config key. {hint}")
+        raise SyntaxError("\n".join(msgs))
+
+
+def _names_device(value, device: torch.device) -> bool:
+    """Whether a `device` key ("0", 0, "cuda", "cuda:0", "cpu") names `device`."""
+    text = str(value).strip().lower()
+    try:
+        want = torch.device("cuda", int(text)) if text.isdigit() else torch.device(text)
+    except RuntimeError:
+        return False
+    if want.type != device.type:
+        return False
+    return want.index is None or device.index is None or want.index == device.index
+
+
+def _unhonoured_reason(key: str, device) -> str:
+    if key == "optimizer":
+        return f"optimizer must be one of {PORTED_OPTIMIZERS}"
+    if key == "device":
+        return f"device must name the model's device, {device}"
+    if key == "save_dir":
+        return "save_dir is the Trainer's own argument"
+    return f"{key} must be {CFG_DEFAULTS[key]!r} (the JAX default)"
+
+
+def check_train_args(overrides: Optional[Mapping], device: Optional[torch.device] = None
+                     ) -> Dict:
+    """The trainer's arguments, `TRAIN_DEFAULTS` updated by `overrides`, after
+    holding `overrides` to the JAX configuration: its keys (and `save_dir`,
+    which the JAX `get_cfg` also takes), its value types, and, for a key the
+    port does not honour, its default. `device`, where given, is the
+    model's, which a `device` key must name."""
+    overrides = dict(overrides or {})
+    check_dict_alignment({**CFG_DEFAULTS, "save_dir": None}, overrides)
+    check_cfg_types({**CFG_DEFAULTS, **TRAIN_DEFAULTS, **overrides})
+    unhonoured = {k: v for k, v in overrides.items()
+                  if k not in TRAIN_DEFAULTS and k not in NEUTRAL_KEYS
+                  and v != CFG_DEFAULTS.get(k)}
+    if overrides.get("optimizer", "auto") not in PORTED_OPTIMIZERS:
+        unhonoured["optimizer"] = overrides["optimizer"]
+    if device is not None and overrides.get("device") is not None and \
+            not _names_device(overrides["device"], device):
+        unhonoured["device"] = overrides["device"]
+    if unhonoured:
+        raise ValueError(f"the port does not honour {unhonoured} yet: " +
+                         "; ".join(_unhonoured_reason(k, device) for k in unhonoured))
+    return {**TRAIN_DEFAULTS, **overrides}
+
+
 class Trainer:
     """Trains a `DetectionModel` over a training `data.build.DataLoader`.
 
-    `overrides` replace keys of `cfg.default.TRAIN_DEFAULTS`; the loader's
+    `overrides` replace keys of `cfg.default.TRAIN_DEFAULTS` and are held to
+    the JAX configuration first (`check_train_args`: an unknown key, a
+    wrong type or a key the port does not honour raises); the loader's
     `device_augment` must match theirs. `steps_per_epoch` defaults to the
     loader's length. With `save_dir`, every epoch writes
     `<save_dir>/results.csv` and `weights/last.npz` (EMA parameters,
@@ -246,7 +336,8 @@ class Trainer:
     def __init__(self, model, loader=None, overrides: Optional[Dict] = None,
                  save_dir=None, steps_per_epoch: Optional[int] = None, val_loader=None,
                  augment_fn: Optional[Callable] = None):
-        self.args = a = {**TRAIN_DEFAULTS, **(overrides or {})}
+        self.args = a = check_train_args(overrides,
+                                         None if model is None else model.device)
         check_augment_args(a)
         if loader is not None and loader.device_augment != bool(a["device_augment"]):
             raise ValueError(f"the loader's device_augment={loader.device_augment} does not "

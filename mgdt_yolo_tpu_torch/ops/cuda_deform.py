@@ -11,7 +11,12 @@ the backward.
   shared-memory window of its tile's rows, which the windowed reach (every
   corner of output (i, j) lies in rows [i - 3, i + 4] and columns
   [j - 3, j + 4]) keeps small; corners outside it (exact semantics) go to
-  global atomics.
+  global atomics. Where the 9 taps' weight does not fit in a block's shared
+  memory (K1 above C 64, or float32 at C 64; K2 in float32 from C 64 and in
+  bf16 above it) each kernel takes a second plan that stages the weight one
+  tap at a time (`plan` says which runs). Square C up to 172 (float32) and
+  256 (bf16) for K1, 144 (float32) and 194 (bf16) for K2 at any map width
+  fits a plan; `_shape_smem` raises above that.
 * `deform_fwd_simt` and `deform_bwd_simt` (`csrc/deform_{fwd,bwd}_simt.cu`):
   the first designs, contracting on the CUDA cores, kept as the A/B
   baseline of the two and, for the forward, as the float32 order that the
@@ -47,16 +52,17 @@ _MAX_SMEM = 232448
 
 
 def _library(name: str, n_ptrs: int, source: str | None = None,
-             smem_args: int = 2) -> ctypes.CDLL:
+             smem_args: int = 2, has_plan: bool = False) -> ctypes.CDLL:
     """Build (first use) and load the library of `csrc/<source>.cu` (default:
     `name`), with the C signatures of kernel `name`: `name(n_ptrs pointers,
-    B, H, W, Cin, Cout, windowed, bf16, stream)` and `name_smem_bytes` of
-    `smem_args` ints."""
+    B, H, W, Cin, Cout, windowed, bf16, stream)`, `name_smem_bytes` of
+    `smem_args` ints and, with `has_plan`, `name_plan` of the same ints."""
     from ..utils.build import load_library
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    plan = ((f"{name}_plan", ctypes.c_longlong, (i32,) * smem_args),) if has_plan else ()
     return load_library(source or name, (
         (name, i32, (ptr,) * n_ptrs + (i32,) * 7 + (ptr,)),
-        (f"{name}_smem_bytes", ctypes.c_longlong, (i32,) * smem_args)))
+        (f"{name}_smem_bytes", ctypes.c_longlong, (i32,) * smem_args), *plan))
 
 
 # each kernel: (its pointer count, the arguments of its `_smem_bytes`)
@@ -66,9 +72,13 @@ _KERNELS = {"deform_fwd": (6, ("Cin", "Cout", "bf16")),
             "deform_bwd_simt": (9, ("Cin", "Cout"))}
 
 
+# the kernels with two plans (the 9 taps' weight resident, or staged by tap)
+_PLANNED = ("deform_fwd", "deform_bwd")
+
+
 def _kernel_lib(kernel: str) -> ctypes.CDLL:
     n_ptrs, names = _KERNELS[kernel]
-    return _library(kernel, n_ptrs, smem_args=len(names))
+    return _library(kernel, n_ptrs, smem_args=len(names), has_plan=kernel in _PLANNED)
 
 
 def _kernel_smem(kernel: str, **shape) -> int:
@@ -77,6 +87,15 @@ def _kernel_smem(kernel: str, **shape) -> int:
     names = _KERNELS[kernel][1]
     return getattr(_kernel_lib(kernel), f"{kernel}_smem_bytes")(
         *(int(shape[n]) for n in names))
+
+
+def plan(kernel: str, **shape) -> str:
+    """Which plan K1 ("deform_fwd": Cin, Cout, bf16) or K2 ("deform_bwd": W,
+    Cin, Cout, bf16) takes at `shape`: "resident" (the 9 taps' weight in
+    shared memory), "streamed" (staged one tap at a time) or "none"."""
+    names = _KERNELS[kernel][1]
+    got = getattr(_kernel_lib(kernel), f"{kernel}_plan")(*(int(shape[n]) for n in names))
+    return {0: "resident", 1: "streamed"}.get(got, "none")
 
 
 def simt_smem_bytes(Cin: int, Cout: int) -> int:
@@ -157,6 +176,8 @@ def deform_fwd(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
 
     x (B, H, W, Cin); offset (B, H, W, 18) y/x per tap; mask (B, H, W, 9);
     weight (3, 3, Cin, Cout) in x's type; bias float32 (Cout,) or None.
+    Takes Cin = Cout up to 172 in float32 and 256 in bf16 (other pairs:
+    where `deform_fwd_smem_bytes` finds a plan) and raises above.
     """
     return _fwd("deform_fwd", "launches", x, offset, mask, weight, bias, semantics)
 
@@ -211,6 +232,9 @@ def deform_bwd(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
 
     x, offset, mask, weight as for `deform_fwd`; grad_out (B, H, W, Cout) in
     x's type. Returns (dx, d offset, d mask, d weight) in the inputs' type.
+    Takes Cin = Cout up to 144 in float32 and 194 in bf16 at any map width
+    (other shapes: where `deform_bwd_smem_bytes` finds a plan) and raises
+    above.
     """
     return _bwd("deform_bwd", "bwd_launches", x, offset, mask, weight, grad_out, semantics)
 

@@ -97,6 +97,78 @@ def test_fused_augment_wrapper_takes_cpu_and_cuda_only():
                                  torch.from_numpy(gains), torch.from_numpy(flips))
 
 
+def test_fused_augment_simt_wrapper_takes_cpu_and_cuda_only():
+    """The SIMT K3, the Hopper K3's A/B baseline: a CPU tensor goes to the
+    plain version without counting a launch of either kernel."""
+    imgs, gains, flips = _k3_inputs(1, B=3, H=6, W=10)
+    args = [torch.from_numpy(a) for a in (imgs, gains, flips)]
+    before = (cuda_image.launches, cuda_image.simt_launches)
+    out = cuda_image.fused_augment_simt(*args)
+    assert (cuda_image.launches, cuda_image.simt_launches) == before
+    assert torch.equal(out, fused_augment_plain(*args))
+    with pytest.raises(ValueError):
+        cuda_image.fused_augment_simt(torch.empty((3, 6, 10, 3), dtype=torch.uint8,
+                                                  device="meta"), *args[1:])
+
+
+def _hues():
+    """Every hue ratio (before /6) that K3 computes from a uint8 triple, in
+    float32 as the kernels compute it: the 2^24 triples in 4 chunks."""
+    t = np.arange(256, dtype=np.float32) / np.float32(255)
+    found = []
+    gb = np.arange(1 << 16)
+    for r0 in range(0, 256, 64):
+        r = np.repeat(t[r0:r0 + 64], 1 << 16)
+        g, b = np.tile(t[gb >> 8], 64), np.tile(t[gb & 255], 64)
+        cmax, cmin = np.maximum(r, np.maximum(g, b)), np.minimum(r, np.minimum(g, b))
+        delta = (cmax - cmin) + np.float32(1e-12)
+        is_r = cmax == r
+        is_g = ~is_r & (cmax == g)
+        q = np.where(is_r, g - b, np.where(is_g, b - r, r - g)) / delta
+        h = np.where(is_r, np.where(q < 0, q + np.float32(6), q),
+                     q + np.where(is_g, np.float32(2), np.float32(4)))
+        found.append(np.unique(h.astype(np.float32)))
+    return np.unique(np.concatenate(found))
+
+
+def test_k3_division_free_forms_give_the_same_bits():
+    """The Hopper K3 (`csrc/fused_augment.cu`) rewrites three operations of
+    the SIMT K3 without a division or fmodf; each must give the same
+    float32 bits: x / 6 as Markstein's correction q1 = RN(x z), r =
+    fma(-q1, 6, x), RN(q1 + r z) with z = RN(1/6), on every hue ratio the
+    2^24 RGB triples give (the FMAs emulated exactly in float64, and with
+    rationals where the last rounding is close); fmod(x, 1) and fmod(x, 2)
+    as x - n trunc(x / n) with x's sign; the hue sector as an integer
+    remainder."""
+    from fractions import Fraction
+    h = _hues()
+    z = np.float32(1) / np.float32(6)
+    q1 = (h.astype(np.float64) * np.float64(z)).astype(np.float32)
+    r = (h.astype(np.float64) - 6.0 * q1.astype(np.float64)).astype(np.float32)
+    exact = q1.astype(np.float64) + r.astype(np.float64) * np.float64(z)
+    got = exact.astype(np.float32)
+    lo, hi = np.nextafter(got, np.float32(-np.inf)), np.nextafter(got, np.float32(np.inf))
+    mids = (got.astype(np.float64) + np.stack([lo, hi]).astype(np.float64)) / 2
+    for k in np.nonzero((np.abs(mids - exact) <= 4 * np.spacing(exact)).any(axis=0))[0]:
+        want = Fraction(float(q1[k])) + Fraction(float(r[k])) * Fraction(float(z))
+        got[k] = min((lo[k], got[k], hi[k]), key=lambda c: (
+            abs(Fraction(float(c)) - want), int(np.float32(c).view(np.uint32)) & 1))
+    assert h.size > 100000
+    assert np.array_equal(got.view(np.uint32), (h / np.float32(6)).view(np.uint32))
+
+    rng = np.random.default_rng(0)
+    x = np.concatenate([rng.uniform(-10, 10, 100000), rng.uniform(-1, 1, 100000) * 1e-30,
+                        np.arange(-16, 16, 0.5), [0.0, -0.0, 6.0, 2.0 ** 23 + 1, 3e38, -3e38]])
+    x = x.astype(np.float32)
+    for n in (1, 2):
+        rewrite = np.copysign(x - np.float32(n) * np.trunc(x * np.float32(1 / n)), x)
+        assert np.array_equal(rewrite.view(np.uint32), np.fmod(x, np.float32(n)).view(np.uint32))
+    for m in range(-20, 21):
+        s = np.fmod(np.float32(m), np.float32(6))
+        s = s + np.float32(6) if s < 0 else s
+        assert int(s) == (m % 6)
+
+
 # ---------------------------------------------------------------------------
 # apply_augment against JAX device_augment, with JAX's draws
 # ---------------------------------------------------------------------------

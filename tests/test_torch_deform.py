@@ -93,6 +93,27 @@ def test_exact_matches_jax_exact(case):
     np.testing.assert_allclose(_port(args, "exact"), want, rtol=0, atol=ATOL_EXACT)
 
 
+# (B, H, W, C, offset range): the widths the Hopper kernels' second plan
+# (weight staged by tap) takes, at a small map; the weight is scaled by
+# 1 / sqrt(9 C) so every width gives outputs of magnitude ~1
+WIDE_CASES = [(1, 8, 8, C, r) for C in (64, 128) for r in (1.5, 4.0)]
+
+
+@pytest.mark.parametrize("case", WIDE_CASES, ids=[f"C{c[3]}-off{c[4]}" for c in WIDE_CASES])
+def test_wide_channels_match_pallas_interpret(case):
+    """C 64 and C 128: the plain forward against the JAX Pallas kernel in
+    interpret mode, float32, 1e-4 absolute (sums of 9 C products in
+    another order)."""
+    B, H, W, C, off_range = case
+    x, off, mask, w, _ = _case(B, H, W, C, C, off_range, False)
+    w = w / 0.2 / np.sqrt(9 * C)
+    args = (x, off, mask, w.astype(np.float32), None)
+    want = np.asarray(modulated_deform_conv2d_pallas(*_jax(args), interpret=True))
+    got = _port(args, "windowed")
+    assert np.abs(want).max() > 0.5
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
 def test_semantics_differ_beyond_reach():
     """Beyond the reach the two semantics must give different answers (the
     reason the pin exists); within it they agree."""

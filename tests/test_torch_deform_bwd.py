@@ -92,6 +92,29 @@ def test_exact_bwd_matches_jax_exact(case):
     _check(_plain_bwd(args, g, "exact"), vjp(jnp.asarray(g)), TOL_JAX)
 
 
+# (B, H, W, C, offset range): the widths the Hopper kernels' second plan
+# takes, at a small map; weight scaled by 1 / sqrt(9 C)
+WIDE_CASES = [(1, 8, 8, C, r) for C in (64, 128) for r in (1.5, 4.0)]
+
+
+@pytest.mark.parametrize("case", WIDE_CASES, ids=[f"C{c[3]}-off{c[4]}" for c in WIDE_CASES])
+def test_wide_channels_bwd_match_jax_pallas_vjp(case):
+    """C 64 and C 128: the plain backward against `jax.vjp` of the Pallas
+    custom VJP in interpret mode, float32; each gradient within 1e-3 of
+    its largest value (the weight gradient sums 576 terms per element,
+    d offset and d mask 9 C products per tap, in another order)."""
+    B, H, W, C, off_range = case
+    (x, off, mask, w), g = _case(B, H, W, C, C, off_range)
+    args = (x, off, mask, (w / 0.2 / np.sqrt(9 * C)).astype(np.float32))
+    _, vjp = jax.vjp(lambda *a: modulated_deform_conv2d_pallas_vjp(*a, interpret=True),
+                     *[jnp.asarray(a) for a in args])
+    for name, got, want in zip(NAMES, _plain_bwd(args, g, "windowed"), vjp(jnp.asarray(g))):
+        want = np.asarray(want)
+        scale = np.abs(want).max()
+        assert scale > 0, name
+        assert np.abs(got - want).max() <= 1e-3 * scale, f"gradient of {name}"
+
+
 def test_offset_gradient_stops_where_clamped():
     """Beyond a tap's reach the windowed offset gradient is 0 (the clip-pass
     indicator), while the exact one is not."""

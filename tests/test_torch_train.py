@@ -46,7 +46,8 @@ from mgdt_yolo_tpu.nn.tasks import DetectionModel as JaxDetectionModel
 from mgdt_yolo_tpu.utils import yaml_load
 from mgdt_yolo_tpu.ops.device_augment import device_augment as jax_device_augment
 from mgdt_yolo_tpu.utils.loss import DetectionLoss as JaxDetectionLoss
-from mgdt_yolo_tpu_torch.cfg.default import TRAIN_DEFAULTS, UNAUGMENTED
+from mgdt_yolo_tpu_torch.cfg.default import (CFG_DEFAULTS, NEUTRAL_KEYS, TRAIN_DEFAULTS,
+                                            UNAUGMENTED)
 from mgdt_yolo_tpu_torch.data.build import DataLoader, collate, collate_raw, to_device
 from mgdt_yolo_tpu_torch.data.synthetic import SyntheticDetectionDataset
 from mgdt_yolo_tpu_torch.engine.trainer import (EarlyStopping, Optimizer, Trainer,
@@ -100,6 +101,92 @@ def test_train_defaults_match_yaml():
             assert v is True and yaml_cfg[k] is False
             continue
         assert yaml_cfg[k] == v, k
+
+
+def test_port_key_set_is_the_yaml_key_set():
+    """The port's copy of the JAX configuration: every key of default.yaml
+    with its value; the honoured and the neutral keys are among them."""
+    yaml_cfg = yaml_load(ROOT / "mgdt_yolo_tpu/cfg/default.yaml")
+    assert list(CFG_DEFAULTS) == list(yaml_cfg) and CFG_DEFAULTS == yaml_cfg
+    assert set(TRAIN_DEFAULTS) <= set(CFG_DEFAULTS) and set(NEUTRAL_KEYS) <= set(CFG_DEFAULTS)
+    assert not set(TRAIN_DEFAULTS) & set(NEUTRAL_KEYS)
+
+
+UNKNOWN_KEY_CASES = [{"lr": 0.5}, {"epoch": 3, "batch": 2}, {"zzz_not_a_key": 1},
+                     {"lr": 0.5, "momentun": 0.9}]
+
+
+@pytest.mark.parametrize("overrides", UNKNOWN_KEY_CASES,
+                         ids=["lr", "epoch", "no-match", "two"])
+def test_unknown_key_raises_as_jax(overrides):
+    """An unknown key raises `SyntaxError` before anything is built, with
+    the JAX message and suggestions (`lr` -> `lr0`) on the same overrides."""
+    from mgdt_yolo_tpu.cfg import DEFAULT_CFG_DICT, check_dict_alignment as jax_alignment
+    with pytest.raises(SyntaxError) as jax_err:
+        jax_alignment(dict(DEFAULT_CFG_DICT, save_dir=None), overrides)
+    with pytest.raises(SyntaxError) as err:
+        Trainer(None, None, overrides={**UNAUGMENTED, **overrides})
+    assert str(err.value) == str(jax_err.value)
+    if "lr" in overrides:
+        assert "lr0" in str(err.value)
+
+
+# one key of each JAX type group (float, fraction, int, bool) with a bad value
+TYPE_CASES = [("box", "7.5"), ("lr0", 1.5), ("hsv_s", "0.7"), ("epochs", 1.5),
+              ("batch", "2"), ("val", 1), ("save", "yes")]
+
+
+@pytest.mark.parametrize("key,value", TYPE_CASES, ids=[f"{k}={v!r}" for k, v in TYPE_CASES])
+def test_type_errors_match_jax(key, value):
+    """A value of the wrong type or range raises the JAX `check_cfg_types`
+    error, type and message."""
+    from mgdt_yolo_tpu.cfg import DEFAULT_CFG_DICT, check_cfg_types as jax_types
+    with pytest.raises((TypeError, ValueError)) as jax_err:
+        jax_types({**DEFAULT_CFG_DICT, key: value})
+    with pytest.raises(type(jax_err.value)) as err:
+        Trainer(None, None, overrides={key: value})
+    assert str(err.value) == str(jax_err.value)
+
+
+# the JAX keys the port does not honour yet, each at a value other than its
+# default (the JAX reference: engine/trainer.py :419 resume, :305
+# single_cls; engine/validator.py :215 agnostic_nms; RMSProp at :147)
+UNHONOURED_CASES = [("resume", True), ("single_cls", True), ("agnostic_nms", True),
+                    ("rect", True), ("save_json", True), ("optimizer", "RMSProp"),
+                    ("fraction", 0.5), ("label_smoothing", 0.1), ("cache", "ram"),
+                    ("device", "cuda:0")]
+
+
+@pytest.fixture(scope="module")
+def cpu_model():
+    return _port_model()
+
+
+@pytest.mark.parametrize("key,value", UNHONOURED_CASES,
+                         ids=[f"{k}={v!r}" for k, v in UNHONOURED_CASES])
+def test_unhonoured_key_raises_and_its_default_builds(key, value, cpu_model):
+    """A key the port does not honour raises, naming it, at a value other
+    than the JAX default, and the Trainer builds at the default."""
+    with pytest.raises(ValueError, match=key):
+        Trainer(cpu_model, None, overrides={**OVERRIDES, key: value},
+                steps_per_epoch=STEPS_PER_EPOCH)
+    default = "cpu" if key == "device" else "SGD" if key == "optimizer" else CFG_DEFAULTS[key]
+    tr = Trainer(cpu_model, None, overrides={**OVERRIDES, key: default},
+                 steps_per_epoch=STEPS_PER_EPOCH)
+    assert tr.args[key] == default
+
+
+def test_neutral_keys_and_defaults_build(cpu_model):
+    """The JAX defaults and `UNAUGMENTED` build; the keys that change
+    neither weights nor metrics are taken at other values."""
+    Trainer(cpu_model, None, steps_per_epoch=STEPS_PER_EPOCH)
+    Trainer(cpu_model, None, overrides=UNAUGMENTED, steps_per_epoch=STEPS_PER_EPOCH)
+    neutral = {"workers": 0, "verbose": False, "project": "p", "name": "n", "exist_ok": True,
+               "device": "cpu", "plots": False}
+    assert set(neutral) == set(NEUTRAL_KEYS)
+    tr = Trainer(cpu_model, None, overrides={**OVERRIDES, **neutral},
+                 steps_per_epoch=STEPS_PER_EPOCH)
+    assert tr.optimizer.lr0 == OVERRIDES["lr0"]
 
 
 def test_synthetic_data_and_collate_match_jax():
