@@ -8,8 +8,9 @@ Phases, each of which passes or ends the script with a non-zero exit:
 1. environment: torch, CUDA, the card's name and power limit, nvcc, triton;
 2. build: nvcc builds every `mgdt_yolo_tpu_torch/csrc/*.cu` (one process per
    source, all started together: K1, K2 and their SIMT baselines, the K1
-   variants, K3 `fused_augment.cu` and its SIMT baseline
-   `fused_augment_simt.cu`), with ptxas's registers and spills;
+   variants on the CUDA cores, the Hopper V2 and V3 `deform_fwd_slab.cu`, K3
+   `fused_augment.cu` and its SIMT baseline `fused_augment_simt.cu`), with
+   ptxas's registers and spills;
 3. kernels: each hand-written kernel against its plain PyTorch version on the
    card, at the main paths' shapes, with the stated tolerance: K1 and K2 (the
    tensor-core designs, `csrc/deform_{fwd,bwd}.cu`) in 8 cases (float32 and
@@ -30,12 +31,17 @@ Phases, each of which passes or ends the script with a non-zero exit:
    bitwise against the SIMT K3 over all 2^24 RGB triples (a (1, 4096,
    4096, 3) image) under 4 gain vectors and the 4 flip pairs, and at a
    ragged width, then the two timed in turns (the "K3 A/B" path, counted)
-   with each time's share of the bound; the five K1 variants V1-V5
-   (`csrc/deform_fwd_variants.cu`) against their plain versions at batch 8
-   (float32 and bf16, offsets +-1.5 and +-4.0) and at the ragged (2, 20, 28,
-   32 -> 32), in bf16 also by the share of elements that differ, with the
-   SIMT K1's output as the control that must fail V1's limits; V4 and V5
-   also bitwise against the SIMT K1, each timed beside it;
+   with each time's share of the bound; the five K1 variants V1-V5 (V1, V4,
+   V5 in `csrc/deform_fwd_variants.cu`; the Hopper V2 and V3 in
+   `csrc/deform_fwd_slab.cu`) and the first designs of V2 and V3 (their
+   `_simt` kernels) against their plain versions at batch 8 (float32 and
+   bf16, offsets +-1.5 and +-4.0) and at the ragged (2, 20, 28, 32 -> 32)
+   and (2, 13, 21, 32 -> 32) (V2 and V3 also at the qxhoist tool's check,
+   (2, 16, 24, 8 -> 6) with and without a bias), in bf16 also by the share of
+   elements that differ, with the SIMT K1's
+   output as the control that must fail V1's limits; V4 and V5 also bitwise
+   against the SIMT K1, the Hopper V2 and V3 bitwise against the Hopper K1
+   (`deform_fwd`), each timed beside the SIMT K1;
 4. serving path: the flagship MGDT-n from `weights/mgdt_n_synth.npz`, Conv+BN
    fused, bf16, 640 px, answers requests of batch 1, 8 and 32 through
    `predict` on synthetic scenes; K1 must have launched once per forward,
@@ -72,13 +78,18 @@ Phases, each of which passes or ends the script with a non-zero exit:
    pixels within the stated tolerance.
 12. K1 variant A/B: the `bench()` of the four ported A/B tools
    (`mgdt_yolo_tpu_torch/tools/proto_deform_*.py`) at their own shapes (b512
-   C 32, b128 C 32, b512 C 64, bf16), then all five variants at the training
-   batch (b32, bf16, windowed, +-1.5) in one table against the SIMT K1 (their
-   baseline; the model's K1 must not launch there); each variant must launch
-   there, V4 and V5 give the SIMT K1's bits and V1-V3 stay within bf16
-   rounding of it; each variant and the SIMT K1 are held against their plain
-   versions on the first 8 images of each tool's batch (so V5 and K1 at
-   C 64) and on the whole b32 batch, as in phase 3.
+   C 32, b128 C 32, b512 C 64, bf16), then all seven variant kernels at the
+   training batch (b32, bf16, windowed, +-1.5) in one table against the SIMT
+   K1 (the series of earlier runs), then the Hopper V2 and V3 in turns against
+   their first designs and the Hopper K1 (SIMT V, Hopper V, Hopper K1,
+   Hopper K1, Hopper V, SIMT V) at b32, as the qxhoist tool does at b128;
+   each variant must launch there, V4 and V5 give the SIMT K1's bits, the
+   Hopper V2 and V3 the Hopper K1's, and the rest stay within bf16 rounding
+   of the SIMT K1; the Hopper K1 launches there only as the slab variants'
+   baseline (its count must equal those runs'), K2 never; each variant and
+   the SIMT K1 are held against their plain versions on the first 8 images
+   of each tool's batch (so V5 and K1 at C 64) and on the whole b32 batch,
+   as in phase 3.
    Phase 10 runs before phase 8, and phases 8, 9 and 11 run after it,
    because the CPU work leaves the host's threads busy, which slows the
    host-bound steps; phase 12, which times kernels only, runs last.
@@ -108,7 +119,7 @@ from mgdt_yolo_tpu_torch.engine.predictor import predict
 from mgdt_yolo_tpu_torch.engine.trainer import Trainer
 from mgdt_yolo_tpu_torch.nn.tasks import DetectionModel
 from mgdt_yolo_tpu_torch.ops import cuda_deform, cuda_deform_variants, cuda_image
-from mgdt_yolo_tpu_torch.ops.cuda_deform_variants import VARIANTS
+from mgdt_yolo_tpu_torch.ops.cuda_deform_variants import SIMT_SLAB, SLAB_PAIRS, VARIANTS
 from mgdt_yolo_tpu_torch.ops.deform import (modulated_deform_conv2d_plain,
                                             modulated_deform_conv2d_plain_bwd)
 from mgdt_yolo_tpu_torch.ops.deform_variants import MISMATCH_LIMIT, compare, windowed_plain
@@ -136,6 +147,9 @@ TRAIN_OVERRIDES = {"optimizer": "SGD", "batch": TRAIN_BATCH, "epochs": 1, "val":
 AUG_EPOCHS, AUG_STEPS = 2, 2
 AUG_OVERRIDES = {"optimizer": "SGD", "batch": TRAIN_BATCH, "epochs": AUG_EPOCHS,
                  "close_mosaic": 1}
+# every variant kernel: the five variants (V2 and V3 by their Hopper designs)
+# and the first designs of V2 and V3, each (wrapper, plain version)
+ALL_VARIANTS = {**VARIANTS, **SIMT_SLAB}
 # each kernel's launch counter (the dict that holds it, its key), set to 0
 # just before a path: a module's globals for K1-K3, the variants' dict
 COUNTERS = {"deform_fwd": (vars(cuda_deform), "launches"),
@@ -144,16 +158,20 @@ COUNTERS = {"deform_fwd": (vars(cuda_deform), "launches"),
             "deform_bwd_simt": (vars(cuda_deform), "bwd_simt_launches"),
             "fused_augment": (vars(cuda_image), "launches"),
             "fused_augment_simt": (vars(cuda_image), "simt_launches"),
-            **{name: (cuda_deform_variants.launches, name) for name in VARIANTS}}
-# the TPU function each K1 variant replaces
+            **{name: (cuda_deform_variants.launches, name) for name in ALL_VARIANTS}}
+# the TPU function each K1 variant kernel replaces
 VARIANT_SITES = {"deform_fwd_bf16_fma": "tools/proto_deform_bf16_fma.py:64",
                  "deform_fwd_qxhoist": "tools/proto_deform_qxhoist.py:163",
                  "deform_fwd_cvt1": "tools/proto_deform_qxhoist.py:128",
                  "deform_fwd_slot_skip": "tools/proto_deform_slot_skip.py:75",
-                 "deform_fwd_tapwalk": "tools/proto_deform_tapwalk.py:116"}
+                 "deform_fwd_tapwalk": "tools/proto_deform_tapwalk.py:116",
+                 "deform_fwd_qxhoist_simt": "tools/proto_deform_qxhoist.py:163",
+                 "deform_fwd_cvt1_simt": "tools/proto_deform_qxhoist.py:128"}
 # the variants whose design keeps the SIMT K1's order of every float32 sum,
 # so they must give its bits (the inputs here are finite)
 BITWISE_TO_K1 = ("deform_fwd_slot_skip", "deform_fwd_tapwalk")
+# the variants built on the Hopper K1's design, which must give its bits
+BITWISE_TO_HOPPER_K1 = tuple(SLAB_PAIRS)
 
 
 def reset_counts():
@@ -251,7 +269,16 @@ KERNEL_SYMBOLS = {"deform_fwd": ("deform_fwd_mma_kernel", ("bfloat16", "Lb0E")),
                   "deform_bwd": ("deform_bwd_mma_kernel", ("bfloat16", "Li4E", "Lb0E")),
                   "deform_bwd_simt": ("deform_bwd_kernel", ("bfloat16",)),
                   "fused_augment": ("fused_augment_kernel", ("Lb1E",)),
-                  "fused_augment_simt": ("fused_augment_simt_kernel", ())}
+                  "fused_augment_simt": ("fused_augment_simt_kernel", ()),
+                  # the slab kernels on bf16 x: V2's slab in bf16, V3's in float32
+                  "deform_fwd_qxhoist": ("slab_kernel", ("deform_fwd_slab_cu",
+                                                         "slab_kernelI13__nv_bfloat16S1_E")),
+                  "deform_fwd_cvt1": ("slab_kernel", ("deform_fwd_slab_cu",
+                                                      "slab_kernelI13__nv_bfloat16fE")),
+                  "deform_fwd_qxhoist_simt": ("slab_kernel", ("deform_fwd_variants_cu",
+                                                              "slab_kernelI13__nv_bfloat16S1_E")),
+                  "deform_fwd_cvt1_simt": ("slab_kernel", ("deform_fwd_variants_cu",
+                                                           "slab_kernelI13__nv_bfloat16fE"))}
 
 
 def _ptxas_usage(logs):
@@ -274,7 +301,10 @@ def _ptxas_usage(logs):
 
 
 def _usage(kernel):
-    """ptxas's registers and spills of `kernel`'s main instantiation."""
+    """ptxas's registers and spills of `kernel`'s main instantiation ({}
+    for a kernel without an entry in KERNEL_SYMBOLS)."""
+    if kernel not in KERNEL_SYMBOLS:
+        return {}
     sym, marks = KERNEL_SYMBOLS[kernel]
     found = {f: u for f, u in USAGE.items()
              if f"{len(sym)}{sym}" in f and all(m in f for m in marks)}
@@ -673,34 +703,40 @@ def _check_augment(B, H, W):
 
 
 def _check_variant_case(shape, dtype, off_range, bitwise):
-    """V1-V5 in one case against their plain versions, by
+    """The seven variant kernels in one case against their plain versions, by
     `deform_variants.compare` (K1's tolerances, and in bf16 the share of
     elements that may differ), and against the SIMT K1's output ("K1"
-    below, the variants' baseline): V4 and V5 must equal it bit for bit;
-    its output must fail V1's limits (the control that they tell V1's
-    function from K1's); V1 prints its largest difference from it relative
-    to its largest output, the number the JAX tool prints. Returns each
-    variant's error and records in `bitwise` whether it gave K1's bits."""
+    below, the baseline of V1, V4, V5 and the first designs of V2 and V3):
+    V4 and V5 must equal it bit for bit, and the Hopper V2 and V3 the Hopper
+    K1's output; the SIMT K1's output must fail V1's limits (the control
+    that they tell V1's function from K1's); each prints its largest
+    difference from K1 relative to K1's largest output, the number the JAX
+    tool prints. Returns each variant's error and records in `bitwise`
+    whether it gave its bitwise reference's bits (K1's for the others)."""
     args = _deform_inputs(*shape, off_range, dtype)
     case = f"{str(dtype)[6:]:9s} offsets +-{off_range} {shape}"
     errs = {}
     with float32_exact():
         k1 = cuda_deform.deform_fwd_simt(*args)
+        hopper_k1 = cuda_deform.deform_fwd(*args)
         wants = {}
-        for name, (fn, plain) in VARIANTS.items():
+        for name, (fn, plain) in ALL_VARIANTS.items():
             got = fn(*args)
             if plain not in wants:
                 wants[plain] = plain(*args)
             want = wants[plain]
             torch.cuda.synchronize()
             c = compare(got, want)
-            same = torch.equal(got, k1)
+            hopper = name in BITWISE_TO_HOPPER_K1
+            ref = "the Hopper K1" if hopper else "K1"
+            same = torch.equal(got, hopper_k1 if hopper else k1)
             rel = (got.float() - k1.float()).abs().max().item() / k1.float().abs().max().item()
-            ok = c["ok"] and (same or name not in BITWISE_TO_K1)
-            text = (f"{name:20s} {case}: max_abs_err {c['max_abs_err']:.3e} "
+            ok = c["ok"] and (same or name not in BITWISE_TO_K1 + BITWISE_TO_HOPPER_K1)
+            text = (f"{name:23s} {case}: max_abs_err {c['max_abs_err']:.3e} "
                     f"(tol {c['tol']:.3e}), differing {c['mismatch_share']:.3%} "
                     f"(limit {c['share_limit']:.0%}), "
-                    f"{'bitwise equal to K1' if same else f'max rel diff from K1 {rel:.3e}'}")
+                    f"{f'bitwise equal to {ref}' if same else f'differs from {ref}'}, "
+                    f"max rel diff from K1 {rel:.3e}")
             if plain is not windowed_plain:
                 control = compare(k1, want)
                 ok &= not control["ok"]
@@ -717,35 +753,64 @@ def _check_variant_case(shape, dtype, off_range, bitwise):
     return errs
 
 
+def _check_slab_plans(shapes):
+    """The Hopper V2 and V3's plans at `shapes` in both types, each logged,
+    with the kernel's own count of the plan's shared memory, which must be
+    the plan's (the launch refuses a plan it disagrees with)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for B, H, W, C, O in shapes:
+        for kernel in SLAB_PAIRS:
+            for dtype in (torch.bfloat16, torch.float32):
+                plan = cuda_deform_variants.slab_plan(kernel, B, H, W, C, O, dtype, sms)
+                own = cuda_deform_variants.slab_smem_bytes(plan, W, C, O, dtype)
+                log(f"{kernel} {str(dtype)[6:]} ({B},{H},{W},{C}->{O}): RB {plan['rb']}, ring "
+                    f"{plan['ring_rows']} rows, {plan['warps']} warps, {plan['blocks']} blocks "
+                    f"for {plan['bands']} bands, {plan['smem']} B (the kernel's count {own} B)")
+                if own != plan["smem"]:
+                    raise SystemExit(f"{kernel}'s plan and its kernel disagree on its bytes")
+
+
 def _check_variants(B, H, W, C, O):
-    """The five K1 variants at the main path's shape in 4 cases and at a
-    ragged shape (H, W not multiples of 8) in 4; times each beside K1 in the
-    serving path's case (bf16, offsets +-1.5)."""
+    """The seven variant kernels at the main path's shape in 4 cases and at
+    two ragged shapes (H, W not multiples of 8) in 4 each, V2 and V3 also at
+    the JAX tool's check shape; times each beside the SIMT K1 in the serving
+    path's case (bf16, offsets +-1.5)."""
     bitwise = {}
-    for shape in ((B, H, W, C, O), (2, 20, 28, 32, 32)):
+    _check_slab_plans(((B, H, W, C, O), (2, 20, 28, 32, 32), (2, 13, 21, 32, 32),
+                       (TRAIN_BATCH, H, W, C, O)))
+    # the last shape gives the slab kernels items of fewer than 16 pixels and
+    # offsets and masks that are not 16-byte aligned (their 4-byte and plain
+    # copies)
+    for shape in ((B, H, W, C, O), (2, 20, 28, 32, 32), (2, 13, 21, 32, 32)):
         for dtype in (torch.float32, torch.bfloat16):
             for off_range in (1.5, 4.0):
                 errs = _check_variant_case(shape, dtype, off_range, bitwise)
                 if shape[0] == B and dtype == torch.bfloat16 and off_range == 1.5:
                     main_errs = errs    # the serving path's case
+    # V2 and V3, both designs, at the JAX tool's check shape (Cin 8 -> Cout 6,
+    # with and without a bias), the Hopper ones bit for bit the Hopper K1
+    proto_deform_qxhoist.check()
     args = _deform_inputs(B, H, W, C, O, 1.5, torch.bfloat16)
     # the plain versions of V2-V5 are one function, K1's: timed once
     plain_ms = {plain: cuda_time_ms(lambda: plain(*args), iters=5)
-                for plain in {p for _, p in VARIANTS.values()}}
+                for plain in {p for _, p in ALL_VARIANTS.values()}}
     bound_ms, bound_by = deform_fwd_bound_ms(B, H, W, C, O, "bfloat16")
     entries = []
-    for name, (fn, plain) in VARIANTS.items():
+    for name, (fn, plain) in ALL_VARIANTS.items():
         row = deform_ab.ab(f"b{B} serving case", name, fn, plain, args, iters=20, windows=5,
                            plain_images=B)
+        source = "deform_fwd_slab" if name in BITWISE_TO_HOPPER_K1 else "deform_fwd_variants"
+        ref = "bitwise_to_hopper_k1" if name in BITWISE_TO_HOPPER_K1 else "bitwise_to_k1"
         entries.append({
             "name": name, "route": "cuda",
-            "source": "mgdt_yolo_tpu_torch/csrc/deform_fwd_variants.cu",
+            "source": f"mgdt_yolo_tpu_torch/csrc/{source}.cu",
             "replaces": VARIANT_SITES[name],
             "shape": f"x ({B},{H},{W},{C}) bf16, weight (3,3,{C},{O}), windowed",
             "launches": None, "max_abs_err": main_errs[name], "max_err": main_errs[name],
             "ms": row["ms"], "plain_ms": plain_ms[plain], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None, "k1_ms": row["k1_ms"],
-            "bitwise_to_k1": bitwise[name], "max_rel_diff_from_k1": row["max_rel_diff"]})
+            ref: bitwise[name], "max_rel_diff_from_k1": row["max_rel_diff"],
+            **_usage(name)})
     return entries
 
 
@@ -1158,9 +1223,9 @@ AB_TOOLS = (proto_deform_bf16_fma, proto_deform_qxhoist, proto_deform_slot_skip,
 
 
 def _ab_sound(row):
-    """An A/B row's output against K1's: V4 and V5 give K1's bits; V2 and V3
-    (K1's function) stay within two bf16 roundings of K1's largest output,
-    V1 (bf16 weights and products) within four."""
+    """An A/B row's output against the SIMT K1's: V4 and V5 give its bits;
+    V2 and V3, both designs (K1's function), stay within two bf16 roundings
+    of its largest output, V1 (bf16 weights and products) within four."""
     if row["variant"] in BITWISE_TO_K1:
         return row["max_abs_diff"] == 0.0
     limit = (4 if row["variant"] == "deform_fwd_bf16_fma" else 2) * 2 ** -8
@@ -1169,24 +1234,35 @@ def _ab_sound(row):
 
 def phase_variant_ab():
     log(f"== phase 12: K1 variant A/B: the four ported A/B tools at their own shapes, then "
-        f"the five variants at b{TRAIN_BATCH} (bf16, windowed, offsets +-1.5)")
+        f"the seven variant kernels at b{TRAIN_BATCH} (bf16, windowed, offsets +-1.5) "
+        f"against the SIMT K1, then the Hopper V2 and V3 against their first designs and "
+        f"the Hopper K1")
     reset_counts()
-    rows = []
+    rows, slab_rows = [], []
     for tool in AB_TOOLS:
-        rows += tool.bench()["cases"]
+        result = tool.bench()
+        rows += result["cases"]
+        slab_rows += result.get("slab", [])
         torch.cuda.empty_cache()
     args = _deform_inputs(TRAIN_BATCH, 80, 80, 32, 32, 1.5, torch.bfloat16)
     rows += [deform_ab.ab(f"b{TRAIN_BATCH} main path", name, fn, plain, args, iters=10,
                           plain_images=TRAIN_BATCH)
-             for name, (fn, plain) in VARIANTS.items()]
+             for name, (fn, plain) in ALL_VARIANTS.items()]
+    slab_rows += [deform_ab.ab_slab(f"b{TRAIN_BATCH} main path", name, args, iters=10,
+                                    plain_images=TRAIN_BATCH) for name in SLAB_PAIRS]
     torch.cuda.synchronize()
     launches = read_counts()
     del args
     torch.cuda.empty_cache()
     log(f"launches during the A/B path: {launches}")
-    if launches["deform_fwd_simt"] == 0 or \
-            any(launches[k] for k in ("deform_fwd", "deform_bwd", "deform_bwd_simt")):
-        raise SystemExit("the variants' A/B did not run against the SIMT K1 alone")
+    # the SIMT K1 is the baseline of every variant; the Hopper K1 launches
+    # only as the slab variants' baseline (ab_slab counts its runs); K2 never
+    baseline = sum(r["hopper_k1_launches"] for r in slab_rows)
+    if launches["deform_fwd_simt"] == 0 or launches["deform_fwd"] != baseline or \
+            any(launches[k] for k in ("deform_bwd", "deform_bwd_simt")):
+        raise SystemExit(f"the variants' A/B ran other kernels than its baselines: the Hopper "
+                         f"K1 {launches['deform_fwd']} times, {baseline} of them as the slab "
+                         f"variants' baseline")
     log("case | variant | shape | K1 ms | variant ms | K1 / variant | max |d| | max rel |d| "
         "from K1 | images held | max |d| | differing from the plain version")
     for r in rows:
@@ -1194,21 +1270,29 @@ def phase_variant_ab():
             f"{r['ms']:.4f} | {r['ratio']:.3f} | {r['max_abs_diff']:.3e} | "
             f"{r['max_rel_diff']:.3e} | {r['plain_images']} | {r['max_abs_err']:.3e} | "
             f"{r['mismatch_share']:.3%}")
+    log("case | Hopper variant | ms | its SIMT design ms | SIMT / Hopper | Hopper K1 ms | "
+        "K1 / variant | share of the bound | bits of the Hopper K1")
+    for r in slab_rows:
+        log(f"  {r['case']} | {r['variant']} | {r['ms']:.4f} | {r['simt_ms']:.4f} | "
+            f"{r['simt_over_hopper']:.3f} | {r['hopper_k1_ms']:.4f} | "
+            f"{r['k1_over_variant']:.3f} | {r['share_of_bound']:.2%} | "
+            f"{r['bitwise_to_hopper_k1']}")
     bad = [f"{r['variant']} ({r['case']})" for r in rows if not _ab_sound(r)]
     if bad:
         raise SystemExit("an A/B variant strays from K1: " + ", ".join(bad))
-    return launches, rows
+    return launches, rows, slab_rows
 
 
 # which paths run each kernel (its launches must be counted on each); the
 # first is the kernel's own main path
-KERNEL_PATHS = {"deform_fwd": ("serving", "training", "augmented training"),
+KERNEL_PATHS = {"deform_fwd": ("serving", "training", "augmented training",
+                               "K1 variant A/B"),
                 "deform_bwd": ("training", "augmented training"),
                 "deform_fwd_simt": ("DCN A/B", "K1 variant A/B"),
                 "deform_bwd_simt": ("DCN A/B",),
                 "fused_augment": ("augmented training", "K3 A/B"),
                 "fused_augment_simt": ("K3 A/B",),
-                **{name: ("K1 variant A/B",) for name in VARIANTS}}
+                **{name: ("K1 variant A/B",) for name in ALL_VARIANTS}}
 
 
 def main() -> int:
@@ -1231,7 +1315,7 @@ def main() -> int:
     phase_card_vs_cpu()
     phase_train_card_vs_cpu()
     phase_augment_card_vs_cpu()
-    ab_launches, ab_rows = phase_variant_ab()
+    ab_launches, ab_rows, slab_rows = phase_variant_ab()
     paths = {"serving": serving, "training": training, "augmented training": augmented,
              "DCN A/B": dcn_ab, "K3 A/B": k3_ab, "K1 variant A/B": ab_launches}
     for k in kernels:
@@ -1245,8 +1329,10 @@ def main() -> int:
         k["launches"] = k["launches_by_path"][KERNEL_PATHS[k["name"]][0]]
         if k["name"] == "fused_augment":
             k["apply_augment_ms"] = aug_ms
-        if k["name"] in VARIANTS:
+        if k["name"] in ALL_VARIANTS:
             k["ab"] = [r for r in ab_rows if r["variant"] == k["name"]]
+        if k["name"] in SLAB_PAIRS:
+            k["ab_slab"] = [r for r in slab_rows if r["variant"] == k["name"]]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(gpu_name_and_power())

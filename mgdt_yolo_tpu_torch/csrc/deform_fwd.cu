@@ -54,6 +54,10 @@
 //   channel count up to 32, and bf16 at 64) it runs as before. Square C up
 //   to 172 (float32) and 256 (bf16) fits one of the two.
 //
+// The device code the staged-slab forwards V2 and V3 (deform_fwd_slab.cu)
+// share with this kernel (the weight staging, the corner weights, the
+// combine, the per-tap contraction and the epilogue) is in deform_k1.cuh.
+//
 // Built by mgdt_yolo_tpu_torch/utils/build.py with nvcc for sm_90a; called
 // through ctypes from mgdt_yolo_tpu_torch/ops/cuda_deform.py (`deform_fwd`).
 
@@ -62,13 +66,13 @@
 #include <stdint.h>
 
 #include "deform_common.cuh"
+#include "deform_k1.cuh"
 #include "deform_mma.cuh"
 
 namespace {
 
 using namespace deform;
 
-constexpr int NTW = 4;            // n-tiles (8 output channels each) per warp item
 constexpr int MAX_WARPS = 16;     // warps per block
 constexpr int MIN_RESIDENT_WARPS = 4;  // below this the streamed plan is taken, where it fits
 constexpr long long MAX_SMEM = 232448;  // shared memory one block may use
@@ -136,47 +140,6 @@ bool make_plan(int Cin, int Cout, int es, FwdPlan* out) {
   return fits;
 }
 
-// four consecutive channels c..c+3 (c a multiple of 4) of a staged row, 0 past Cin
-__device__ __forceinline__ void load4(const __nv_bfloat16* row, int c, int Cin, float (&v)[4]) {
-  if (c + 3 < Cin) {
-    const uint2 u = *reinterpret_cast<const uint2*>(row + c);
-    const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
-    const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
-    v[0] = __low2float(a);
-    v[1] = __high2float(a);
-    v[2] = __low2float(b);
-    v[3] = __high2float(b);
-  } else {
-#pragma unroll
-    for (int u = 0; u < 4; ++u) v[u] = c + u < Cin ? __bfloat162float(row[c + u]) : 0.f;
-  }
-}
-__device__ __forceinline__ void load4(const float* row, int c, int Cin, float (&v)[4]) {
-  if (c + 3 < Cin) {
-    const float4 u = *reinterpret_cast<const float4*>(row + c);
-    v[0] = u.x;
-    v[1] = u.y;
-    v[2] = u.z;
-    v[3] = u.w;
-  } else {
-#pragma unroll
-    for (int u = 0; u < 4; ++u) v[u] = c + u < Cin ? row[c + u] : 0.f;
-  }
-}
-
-// 16 bytes of output from floats already biased
-__device__ __forceinline__ void store16(__nv_bfloat16* dst, const float* v) {
-  uint4 u;
-  u.x = pack_bf16(__float2bfloat16_rn(v[0]), __float2bfloat16_rn(v[1]));
-  u.y = pack_bf16(__float2bfloat16_rn(v[2]), __float2bfloat16_rn(v[3]));
-  u.z = pack_bf16(__float2bfloat16_rn(v[4]), __float2bfloat16_rn(v[5]));
-  u.w = pack_bf16(__float2bfloat16_rn(v[6]), __float2bfloat16_rn(v[7]));
-  *reinterpret_cast<uint4*>(dst) = u;
-}
-__device__ __forceinline__ void store16(float* dst, const float* v) {
-  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
 template <typename T, bool STREAM>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
 deform_fwd_mma_kernel(const T* __restrict__ x, const T* __restrict__ offset,
@@ -203,15 +166,7 @@ deform_fwd_mma_kernel(const T* __restrict__ x, const T* __restrict__ offset,
 
   // taps k0 .. k0 + taps - 1 of the weight, zero-padded: w[k0 + k][c][o] -> w_hi[k][o][c]
   auto load_weight = [&](int k0, int taps) {
-    for (int e = tid; e < taps * NP * CK; e += blockDim.x) {
-      const int k = e / (NP * CK), r = e % (NP * CK), o = r / CK, c = r % CK;
-      const float v =
-          (o < Cout && c < Cin) ? to_f32(weight[((size_t)(k0 + k) * Cin + c) * Cout + o]) : 0.f;
-      __nv_bfloat16 hi, lo;
-      split_bf16(v, hi, lo);
-      w_hi[(k * NP + o) * SA + c] = hi;
-      if (F32) w_lo[(k * NP + o) * SA + c] = lo;
-    }
+    stage_weight(w_hi, w_lo, weight, k0, taps, NP, CK, SA, Cin, Cout, tid, (int)blockDim.x);
   };
   if (!STREAM) {
     load_weight(0, KT);  // once per block
@@ -263,13 +218,8 @@ deform_fwd_mma_kernel(const T* __restrict__ x, const T* __restrict__ offset,
           const Tap tp = tap_fields(pi[h], pj[h], k, to_f32(off_s[p * 2 * KT + 2 * k]),
                                     to_f32(off_s[p * 2 * KT + 2 * k + 1]), H, W, windowed);
           const float wv = tp.valid ? to_f32(m_s[p * KT + k]) : 0.f;
-          if (wv != 0.f) {
-            const int dy = q >> 1, dx = q & 1, yy = tp.y0 + dy, xx = tp.x0 + dx;
-            if (yy >= 0 && yy < H && xx >= 0 && xx < W) {
-              src = yy * W + xx;
-              wq = (dy ? tp.fy : 1.f - tp.fy) * (dx ? tp.fx : 1.f - tp.fx) * wv;
-            }
-          }
+          int yy, xx;
+          if (corner(tp, wv, q, H, W, wq, yy, xx)) src = yy * W + xx;
         }
         fw[(buf * 16 + p) * 4 + q] = wq;
         fi[(buf * 16 + p) * 4 + q] = src;
@@ -297,24 +247,11 @@ deform_fwd_mma_kernel(const T* __restrict__ x, const T* __restrict__ offset,
       const int4 src = *reinterpret_cast<const int4*>(fi + (buf * 16 + p) * 4);
       const T* row = stage + (size_t)(buf * 16 + p) * 4 * RS;
       const int sw = p & 1;
-      float s[4] = {0.f, 0.f, 0.f, 0.f}, v[4];
       const float w4[4] = {wq.x, wq.y, wq.z, wq.w};
-      const int s4[4] = {src.x, src.y, src.z, src.w};
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        if (s4[q] >= 0) {
-          load4(row + (q ^ sw) * RS, c, Cin, v);
-#pragma unroll
-          for (int u = 0; u < 4; ++u) s[u] += w4[q] * v[u];
-        }
-      }
-      __nv_bfloat16 h[4], l[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) split_bf16(s[u], h[u], l[u]);
-      *reinterpret_cast<uint2*>(a_hi + p * SA + c) =
-          make_uint2(pack_bf16(h[0], h[1]), pack_bf16(h[2], h[3]));
-      *reinterpret_cast<uint2*>(a_lo + p * SA + c) =
-          make_uint2(pack_bf16(l[0], l[1]), pack_bf16(l[2], l[3]));
+      const bool live[4] = {src.x >= 0, src.y >= 0, src.z >= 0, src.w >= 0};
+      const T* const rows[4] = {row + (0 ^ sw) * RS, row + (1 ^ sw) * RS, row + (2 ^ sw) * RS,
+                                row + (3 ^ sw) * RS};
+      combine<true>(rows, w4, live, c, Cin, p, SA, a_hi, a_lo);
     };
 
     const int n0 = ng * NTW;  // this item's first n-tile
@@ -350,63 +287,13 @@ deform_fwd_mma_kernel(const T* __restrict__ x, const T* __restrict__ offset,
       __syncwarp();
       const __nv_bfloat16* wk_hi = w_hi + (STREAM ? 0 : k) * NP * SA;
       const __nv_bfloat16* wk_lo = w_lo + (STREAM ? 0 : k) * NP * SA;
-      for (int kk = 0; kk < CK; kk += 16) {
-        uint32_t ah[4], al[4];
-        load_a(ah, a_hi, SA, 0, kk, lane);
-        load_a(al, a_lo, SA, 0, kk, lane);
-#pragma unroll
-        for (int j = 0; j < NTW; ++j) {
-          if (n0 + j < pl.NT) {
-            uint32_t bh[2];
-            load_b(bh, wk_hi, SA, (n0 + j) * 8, kk, lane);
-            mma_bf16(acc[j], ah, bh);
-            mma_bf16(acc[j], al, bh);
-            if (F32) {
-              uint32_t bl[2];
-              load_b(bl, wk_lo, SA, (n0 + j) * 8, kk, lane);
-              mma_bf16(acc[j], ah, bl);
-            }
-          }
-        }
-      }
+      contract_tap<F32>(acc, a_hi, a_lo, wk_hi, wk_lo, SA, CK, n0, pl.NT, lane);
     }
 
     if (!live) continue;  // the last round's idle warps: no barrier follows
     // epilogue: the sums through this warp's staging (the stage is free:
     // every lane passed the last combine), then bias, x's type, 16-byte rows
-    const int row = lane >> 2;
-#pragma unroll
-    for (int j = 0; j < NTW; ++j) {
-      const int col = j * 8 + 2 * (lane & 3);
-      o_s[row * pl.OS + col] = acc[j][0];
-      o_s[row * pl.OS + col + 1] = acc[j][1];
-      o_s[(row + 8) * pl.OS + col] = acc[j][2];
-      o_s[(row + 8) * pl.OS + col + 1] = acc[j][3];
-    }
-    __syncwarp();
-    const int c_lo = n0 * 8;
-    const int c_hi = min(Cout, c_lo + NTW * 8);
-    constexpr int VO = 16 / (int)sizeof(T);
-    T* ob = out + pix0 * Cout;
-    if (Cout % VO == 0) {
-      const int nv = (c_hi - c_lo) / VO;
-      for (int e = lane; e < np * nv; e += 32) {
-        const int p = e / nv, o = (e % nv) * VO;
-        float v[VO];
-#pragma unroll
-        for (int u = 0; u < VO; ++u)
-          v[u] = o_s[p * pl.OS + o + u] + (bias != nullptr ? bias[c_lo + o + u] : 0.f);
-        store16(ob + (size_t)p * Cout + c_lo + o, v);
-      }
-    } else {
-      const int nc = c_hi - c_lo;
-      for (int e = lane; e < np * nc; e += 32) {
-        const int p = e / nc, o = e % nc;
-        float v = o_s[p * pl.OS + o];
-        if (bias != nullptr) v += bias[c_lo + o];
-        ob[(size_t)p * Cout + c_lo + o] = from_f32<T>(v);
-      }
-    }
+    store_item(acc, o_s, pl.OS, out + pix0 * Cout, bias, np, Cout, n0, lane);
     __syncwarp();  // the staging and the offsets are read before the next item refills them
   }
 }

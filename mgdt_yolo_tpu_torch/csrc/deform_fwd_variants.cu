@@ -4,12 +4,17 @@
 // flagship's DCN shape (80x80, C = 32):
 //
 //   V1 deform_fwd_bf16_fma   tools/proto_deform_bf16_fma.py `variant` (`_kernel_bf16`)
-//   V2 deform_fwd_qxhoist    tools/proto_deform_qxhoist.py `deform_qxhoist`
-//                            (`_kernel_fused_qxhoist`)
-//   V3 deform_fwd_cvt1       tools/proto_deform_qxhoist.py `deform_cvt1`
-//                            (`_kernel_fused_cvt1`)
+//   V2 deform_fwd_qxhoist_simt  tools/proto_deform_qxhoist.py `deform_qxhoist`
+//                               (`_kernel_fused_qxhoist`)
+//   V3 deform_fwd_cvt1_simt     tools/proto_deform_qxhoist.py `deform_cvt1`
+//                               (`_kernel_fused_cvt1`)
 //   V4 deform_fwd_slot_skip  tools/proto_deform_slot_skip.py `variant` (`_kernel_skip`)
 //   V5 deform_fwd_tapwalk    tools/proto_deform_tapwalk.py `variant` (`_kernel_tap`)
+//
+// V2 and V3 here are their first designs, on the CUDA cores; their Hopper
+// designs (K1's tensor-core contraction fed from a ring of input rows) are in
+// deform_fwd_slab.cu behind the names `deform_fwd_qxhoist` and
+// `deform_fwd_cvt1`, and these stay as their A/B baseline (the `_simt` names).
 //
 // The TPU prototypes walk one-hot window slots because gathers are slow
 // there; none of that walk is carried over. Each variant keeps K1's gather of
@@ -544,7 +549,7 @@ int run(Variant v, const void* x, const void* offset, const void* mask, const vo
   }
 
 VARIANT_ENTRY(deform_fwd_bf16_fma, BF16_FMA)
-VARIANT_ENTRY(deform_fwd_qxhoist, QXHOIST)
-VARIANT_ENTRY(deform_fwd_cvt1, CVT1)
+VARIANT_ENTRY(deform_fwd_qxhoist_simt, QXHOIST)
+VARIANT_ENTRY(deform_fwd_cvt1_simt, CVT1)
 VARIANT_ENTRY(deform_fwd_slot_skip, SLOT_SKIP)
 VARIANT_ENTRY(deform_fwd_tapwalk, TAPWALK)

@@ -3,10 +3,14 @@ the check of a variant against its plain version, the inputs of the A/B runs
 and the timing of a variant against K1 on the card, with both held against
 their plain versions on the A/B's own inputs.
 
-"K1" here is the SIMT K1, `cuda_deform.deform_fwd_simt`: the variants are
+"K1" here is the SIMT K1, `cuda_deform.deform_fwd_simt`: V1, V4 and V5 are
 redesigns of its CUDA-core arithmetic, and V4 and V5 keep its float32 order,
-so it is their baseline and their bitwise reference. The model's K1
-(`cuda_deform.deform_fwd`, the tensor-core design) is A/B'd against the same
+so it is their baseline and their bitwise reference; every variant is timed
+against it (`ab`), so the series of earlier runs goes on. The Hopper V2 and
+V3 are K1's tensor-core design (`cuda_deform.deform_fwd`, "the Hopper K1")
+fed from a shared-memory ring: `ab_slab` times each in turns against its
+first design (`deform_qxhoist_simt`, `deform_cvt1_simt`) and against the
+Hopper K1, whose bits it must give. The model's K1 is A/B'd against the
 SIMT K1 by `chip_smoke.py` phase 3.
 
 Each tool ports one A/B script of the repo-root `tools/` (JAX on a TPU) and
@@ -22,6 +26,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops import cuda_deform
+from ..ops.cuda_deform_variants import SIMT_SLAB, SLAB_PAIRS, VARIANTS
 from ..ops.deform_variants import compare, windowed_plain
 from ..utils.measure import (cuda_time_ms, deform_fwd_bound_ms, float32_exact,
                              gpu_name_and_power)
@@ -77,11 +82,13 @@ def describe(held) -> str:
     return text
 
 
-def check(variant, plain, device=None, bias_cases=(False,)) -> dict:
+def check(variant, plain, device=None, bias_cases=(False,), bitwise_to=None) -> dict:
     """`variant` against `plain` at CHECK_SHAPE in float32 and bf16 (and with
     a bias for each of `bias_cases` that is True), by `hold` (K1's plain
-    version stands for K1). Prints each case; returns {case: max |diff|};
-    raises RuntimeError on a disagreement."""
+    version stands for K1); with `bitwise_to`, a kernel whose bits the
+    variant must give (on the CPU both are the plain version). Prints each
+    case; returns {case: max |diff|}; raises RuntimeError on a
+    disagreement."""
     dev = resolve_device(device)
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -89,11 +96,16 @@ def check(variant, plain, device=None, bias_cases=(False,)) -> dict:
             args = check_inputs(dtype, dev, with_bias)
             got = variant(*args)
             held = hold(got, cuda_deform.deform_fwd_simt(*args), plain, args)
+            same = bitwise_to is None or torch.equal(got, bitwise_to(*args))
             case = f"{str(dtype)[6:]}{' bias' if with_bias else ''}"
-            print(f"check {case} {tuple(got.shape)} on {dev}: {describe(held)} "
-                  f"{'ok' if held['ok'] else 'FAIL'}", flush=True)
-            if not held["ok"]:
-                raise RuntimeError(f"the variant disagrees with its plain version ({case})")
+            text = describe(held) + ("" if bitwise_to is None else
+                                     f"; {'bitwise equal to' if same else 'DIFFERS from'} "
+                                     "the Hopper K1")
+            print(f"check {case} {tuple(got.shape)} on {dev}: {text} "
+                  f"{'ok' if held['ok'] and same else 'FAIL'}", flush=True)
+            if not (held["ok"] and same):
+                raise RuntimeError(f"the variant disagrees with its plain version or its "
+                                   f"bitwise reference ({case})")
             errs[case] = held["variant"]["max_abs_err"]
     return errs
 
@@ -164,6 +176,60 @@ def ab(label: str, name: str, variant, plain, args, iters=5, windows=3,
     print(f"{label} {shape}: {name} {v_ms:.4f} ms vs K1 {k1_ms:.4f} ms "
           f"({row['ratio']:.3f}x), max|d| {d:.3e}, max rel {rel:.3e}, "
           f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+    return row
+
+
+def ab_slab(label: str, name: str, args, iters=5, windows=3, plain_images=8) -> dict:
+    """The Hopper slab variant `name` (V2 or V3) in turns against its first
+    design and the Hopper K1 on the same bf16 inputs: SIMT V, Hopper V,
+    Hopper K1, Hopper K1, Hopper V, SIMT V (min over windows of each, CUDA
+    events). Its output must give the Hopper K1's bits on all of `args`, and
+    it is held against its plain version on the first `plain_images` images
+    (`compare`); raises RuntimeError otherwise. Counts the Hopper K1's
+    launches made here as its baseline (`hopper_k1_launches`). Prints two
+    lines and returns the row as a dict."""
+    hopper, _ = VARIANTS[name]
+    simt_name = SLAB_PAIRS[name]
+    simt, _ = SIMT_SLAB[simt_name]
+    x, _, _, w = args
+    B, Hx, Wx, C = x.shape
+    O = w.shape[3]
+    k1_before = cuda_deform.launches
+    got, k1 = hopper(*args), cuda_deform.deform_fwd(*args)
+    same = torch.equal(got, k1)
+    n = min(plain_images, B)
+    with float32_exact():
+        held = compare(got[:n], windowed_plain(*[t[:n] for t in args[:3]], w))
+    del got, k1
+    shape = f"({B},{Hx},{Wx},{C}->{O}) bf16"
+    ok = same and held["ok"]
+    print(f"{label} {shape}: {name} {'bitwise equal to' if same else 'DIFFERS from'} the "
+          f"Hopper K1; first {n} images against the plain version: max |diff| "
+          f"{held['max_abs_err']:.3e} (tol {held['tol']:.3e}), differing "
+          f"{held['mismatch_share']:.3%} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise RuntimeError(f"{name} differs from the Hopper K1 or its plain version ({label})")
+    fns = {"simt": lambda: simt(*args), "hopper": lambda: hopper(*args),
+           "k1": lambda: cuda_deform.deform_fwd(*args)}
+    times = {who: [] for who in fns}
+    for who in ("simt", "hopper", "k1", "k1", "hopper", "simt"):
+        times[who].append(cuda_time_ms(fns[who], iters=iters, windows=windows))
+    ms, simt_ms, k1_ms = min(times["hopper"]), min(times["simt"]), min(times["k1"])
+    bound_ms, bound_by = deform_fwd_bound_ms(B, Hx, Wx, C, O, "bfloat16")
+    row = {"case": label, "variant": name, "simt": simt_name, "shape": shape, "ms": ms,
+           "simt_ms": simt_ms, "hopper_k1_ms": k1_ms, "simt_over_hopper": simt_ms / ms,
+           "k1_over_variant": k1_ms / ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "share_of_bound": bound_ms / ms, "simt_share_of_bound": bound_ms / simt_ms,
+           "bitwise_to_hopper_k1": same, "plain_images": n,
+           "max_abs_err": held["max_abs_err"], "mismatch_share": held["mismatch_share"],
+           "hopper_k1_launches": cuda_deform.launches - k1_before}
+    print(f"{label} {shape}: {name} " + " / ".join(f"{t:.4f}" for t in times["hopper"]) +
+          " ms, its SIMT design " + " / ".join(f"{t:.4f}" for t in times["simt"]) +
+          f" ms ({row['simt_over_hopper']:.3f}x), the Hopper K1 " +
+          " / ".join(f"{t:.4f}" for t in times["k1"]) +
+          f" ms (K1 / variant {row['k1_over_variant']:.3f}); bound {bound_ms:.5f} ms "
+          f"({bound_by}): at {row['share_of_bound']:.2%} of it, SIMT at "
+          f"{row['simt_share_of_bound']:.2%}", flush=True)
     return row
 
 

@@ -1,24 +1,29 @@
-"""A/B on the card: V2, the DCNv2 forward from an input slab staged once per
-block in shared memory (`deform_qxhoist`), and V3, the same slab converted
-to float32 once (`deform_cvt1`), against the SIMT K1
-(`deform_fwd_simt`).
+"""A/B on the card: V2, the DCNv2 forward with its corner rows read from a
+ring of input rows in shared memory (`deform_qxhoist`), and V3, the same
+ring in float32, each row converted once (`deform_cvt1`): their Hopper
+designs against their first designs on the CUDA cores
+(`deform_qxhoist_simt`, `deform_cvt1_simt`), the Hopper K1
+(`deform_fwd`) and the SIMT K1 (`deform_fwd_simt`).
 
     python -m mgdt_yolo_tpu_torch.tools.proto_deform_qxhoist [check|bench] [--device cpu]
 
 The port of the repo-root `tools/proto_deform_qxhoist.py` (a TPU A/B).
-`check` (the default; on the card unless `--device cpu`) holds both against
-K1's windowed plain version at (2, 16, 24, 8 -> 6) in float32 and bf16,
-without and with a bias. `bench` (card only) makes the JAX script's data on
-the card: batch 128, 80x80, C 32 -> 32, bf16; x ~ N(0, 1), offsets
-U(-3, 3), mask U(0, 1), weight N(0, 0.1^2); holds each variant and K1
-against K1's plain version on the first 8 images; and prints K1's time, each
-variant's, their ratio and each variant's largest difference from K1.
+`check` (the default; on the card unless `--device cpu`) holds all four
+against K1's windowed plain version at (2, 16, 24, 8 -> 6) in float32 and
+bf16, without and with a bias, and the Hopper designs bit for bit to the
+Hopper K1. `bench` (card only) makes the JAX script's data on the card:
+batch 128, 80x80, C 32 -> 32, bf16; x ~ N(0, 1), offsets U(-3, 3), mask
+U(0, 1), weight N(0, 0.1^2); times each Hopper design in turns against its
+first design and the Hopper K1 (`deform_ab.ab_slab`, which also holds it to
+the Hopper K1's bits), and all four against the SIMT K1 (`deform_ab.ab`),
+each held against K1's plain version on the first 8 images.
 """
 from __future__ import annotations
 
 import sys
 
-from ..ops.cuda_deform_variants import deform_cvt1, deform_qxhoist
+from ..ops import cuda_deform
+from ..ops.cuda_deform_variants import SIMT_SLAB, SLAB_PAIRS, VARIANTS
 from ..ops.deform_variants import windowed_plain
 from . import deform_ab
 
@@ -26,8 +31,13 @@ B, C, O = 128, 32, 32
 
 
 def check(device=None) -> dict:
-    return {name: deform_ab.check(fn, windowed_plain, device, bias_cases=(False, True))
-            for name, fn in (("deform_qxhoist", deform_qxhoist), ("deform_cvt1", deform_cvt1))}
+    out = {}
+    for name in SLAB_PAIRS:
+        out[name] = deform_ab.check(VARIANTS[name][0], windowed_plain, device,
+                                    bias_cases=(False, True), bitwise_to=cuda_deform.deform_fwd)
+    for name, (fn, _) in SIMT_SLAB.items():
+        out[name] = deform_ab.check(fn, windowed_plain, device, bias_cases=(False, True))
+    return out
 
 
 def bench() -> dict:
@@ -37,11 +47,11 @@ def bench() -> dict:
     mask = deform_ab.uniform(g, (B, deform_ab.H, deform_ab.W, 9), 0.0, 1.0)
     w = deform_ab.normal(g, (3, 3, C, O), 0.1)
     args = deform_ab.bf16(x, off, mask, w)
-    return {"tool": "proto_deform_qxhoist",
-            "cases": [deform_ab.ab("qxhoist", "deform_fwd_qxhoist", deform_qxhoist,
-                                   windowed_plain, args, iters=20),
-                      deform_ab.ab("cvt1", "deform_fwd_cvt1", deform_cvt1, windowed_plain,
-                                   args, iters=20)]}
+    slab = [deform_ab.ab_slab(f"{name[11:]} b{B}", name, args, iters=20) for name in SLAB_PAIRS]
+    cases = [deform_ab.ab(name[11:], name, fn, windowed_plain, args, iters=20)
+             for name, (fn, _) in [*((n, VARIANTS[n]) for n in SLAB_PAIRS),
+                                   *SIMT_SLAB.items()]]
+    return {"tool": "proto_deform_qxhoist", "cases": cases, "slab": slab}
 
 
 def main(argv=None) -> int:
