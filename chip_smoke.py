@@ -8,9 +8,10 @@ Phases, each of which passes or ends the script with a non-zero exit:
 1. environment: torch, CUDA, the card's name and power limit, nvcc, triton;
 2. build: nvcc builds every `mgdt_yolo_tpu_torch/csrc/*.cu` (one process per
    source, all started together: K1, K2 and their SIMT baselines, the K1
-   variants on the CUDA cores, the Hopper V2 and V3 `deform_fwd_slab.cu`, K3
-   `fused_augment.cu` and its SIMT baseline `fused_augment_simt.cu`), with
-   ptxas's registers and spills;
+   variants on the CUDA cores, the Hopper V2 and V3 `deform_fwd_slab.cu`, the
+   Hopper V4 and V5 `deform_fwd_tc_variants.cu`, K3 `fused_augment.cu` and
+   its SIMT baseline `fused_augment_simt.cu`), with ptxas's registers and
+   spills; no instantiation of the Hopper V4 and V5 may spill;
 3. kernels: each hand-written kernel against its plain PyTorch version on the
    card, at the main paths' shapes, with the stated tolerance: K1 and K2 (the
    tensor-core designs, `csrc/deform_{fwd,bwd}.cu`) in 8 cases (float32 and
@@ -31,17 +32,22 @@ Phases, each of which passes or ends the script with a non-zero exit:
    bitwise against the SIMT K3 over all 2^24 RGB triples (a (1, 4096,
    4096, 3) image) under 4 gain vectors and the 4 flip pairs, and at a
    ragged width, then the two timed in turns (the "K3 A/B" path, counted)
-   with each time's share of the bound; the five K1 variants V1-V5 (V1, V4,
-   V5 in `csrc/deform_fwd_variants.cu`; the Hopper V2 and V3 in
-   `csrc/deform_fwd_slab.cu`) and the first designs of V2 and V3 (their
-   `_simt` kernels) against their plain versions at batch 8 (float32 and
-   bf16, offsets +-1.5 and +-4.0) and at the ragged (2, 20, 28, 32 -> 32)
-   and (2, 13, 21, 32 -> 32) (V2 and V3 also at the qxhoist tool's check,
-   (2, 16, 24, 8 -> 6) with and without a bias), in bf16 also by the share of
-   elements that differ, with the SIMT K1's
-   output as the control that must fail V1's limits; V4 and V5 also bitwise
-   against the SIMT K1, the Hopper V2 and V3 bitwise against the Hopper K1
-   (`deform_fwd`), each timed beside the SIMT K1;
+   with each time's share of the bound; the five K1 variants V1-V5 (V1 in
+   `csrc/deform_fwd_variants.cu`; the Hopper V2 and V3 in
+   `csrc/deform_fwd_slab.cu`, V4 and V5 in `csrc/deform_fwd_tc_variants.cu`)
+   and the first designs of V2-V5 (their `_simt` kernels, in
+   `csrc/deform_fwd_variants.cu`) against their plain versions at batch 8
+   (float32 and bf16, offsets +-1.5 and +-4.0) and at the ragged
+   (2, 20, 28, 32 -> 32) and (2, 13, 21, 32 -> 32) (V2-V5 also at their
+   tools' check, (2, 16, 24, 8 -> 6), V2 and V3 with and without a bias), in
+   bf16 also by the share of elements that differ, with the SIMT K1's output
+   as the control that must fail V1's limits; the Hopper V2-V5 bitwise
+   against the Hopper K1 (`deform_fwd`), the first designs of V4 and V5
+   against the SIMT K1; V4 and V5 (both designs) also on two inputs where
+   V4's skips fire (integer offsets; a mask with whole taps at 0 over
+   16-pixel runs) and at C 64 (8, 40, 40), with the Hopper V2-V5's plans
+   (V4's is the Hopper K1's resident plan); each variant timed beside the
+   SIMT K1;
 4. serving path: the flagship MGDT-n from `weights/mgdt_n_synth.npz`, Conv+BN
    fused, bf16, 640 px, answers requests of batch 1, 8 and 32 through
    `predict` on synthetic scenes; K1 must have launched once per forward,
@@ -78,15 +84,18 @@ Phases, each of which passes or ends the script with a non-zero exit:
    pixels within the stated tolerance.
 12. K1 variant A/B: the `bench()` of the four ported A/B tools
    (`mgdt_yolo_tpu_torch/tools/proto_deform_*.py`) at their own shapes (b512
-   C 32, b128 C 32, b512 C 64, bf16), then all seven variant kernels at the
+   C 32, b128 C 32, b512 C 64, bf16), then all nine variant kernels at the
    training batch (b32, bf16, windowed, +-1.5) in one table against the SIMT
-   K1 (the series of earlier runs), then the Hopper V2 and V3 in turns against
+   K1 (the series of earlier runs), then the Hopper V2-V5 in turns against
    their first designs and the Hopper K1 (SIMT V, Hopper V, Hopper K1,
-   Hopper K1, Hopper V, SIMT V) at b32, as the qxhoist tool does at b128;
-   each variant must launch there, V4 and V5 give the SIMT K1's bits, the
-   Hopper V2 and V3 the Hopper K1's, and the rest stay within bf16 rounding
-   of the SIMT K1; the Hopper K1 launches there only as the slab variants'
-   baseline (its count must equal those runs'), K2 never; each variant and
+   Hopper K1, Hopper V, SIMT V) at b32, as the tools do at their shapes
+   (the slot-skip tool also on inputs where V4's skips fire, the tap-walk
+   tool also with V5 under other plans: its warps with one item, the
+   Hopper K1's warps with two and with one); each variant must launch there, the first designs of V4 and V5 give the
+   SIMT K1's bits, the Hopper V2-V5 the Hopper K1's, and the rest stay
+   within bf16 rounding of the SIMT K1; the Hopper K1 launches there only as
+   the Hopper variants' baseline (its count must equal those runs'), K2
+   never; each variant and
    the SIMT K1 are held against their plain versions on the first 8 images
    of each tool's batch (so V5 and K1 at C 64) and on the whole b32 batch,
    as in phase 3.
@@ -119,10 +128,12 @@ from mgdt_yolo_tpu_torch.engine.predictor import predict
 from mgdt_yolo_tpu_torch.engine.trainer import Trainer
 from mgdt_yolo_tpu_torch.nn.tasks import DetectionModel
 from mgdt_yolo_tpu_torch.ops import cuda_deform, cuda_deform_variants, cuda_image
-from mgdt_yolo_tpu_torch.ops.cuda_deform_variants import SIMT_SLAB, SLAB_PAIRS, VARIANTS
+from mgdt_yolo_tpu_torch.ops.cuda_deform_variants import (FIRST_DESIGNS, SLAB_KERNELS,
+                                                          TC_KERNELS, VARIANTS)
 from mgdt_yolo_tpu_torch.ops.deform import (modulated_deform_conv2d_plain,
                                             modulated_deform_conv2d_plain_bwd)
-from mgdt_yolo_tpu_torch.ops.deform_variants import MISMATCH_LIMIT, compare, windowed_plain
+from mgdt_yolo_tpu_torch.ops.deform_variants import (MISMATCH_LIMIT, compare, skip_shares,
+                                                     windowed_plain)
 from mgdt_yolo_tpu_torch.ops.device_augment import apply_augment, augment_draws
 from mgdt_yolo_tpu_torch.ops.image import fused_augment_plain
 from mgdt_yolo_tpu_torch.ops.nms import non_max_suppression
@@ -147,9 +158,9 @@ TRAIN_OVERRIDES = {"optimizer": "SGD", "batch": TRAIN_BATCH, "epochs": 1, "val":
 AUG_EPOCHS, AUG_STEPS = 2, 2
 AUG_OVERRIDES = {"optimizer": "SGD", "batch": TRAIN_BATCH, "epochs": AUG_EPOCHS,
                  "close_mosaic": 1}
-# every variant kernel: the five variants (V2 and V3 by their Hopper designs)
-# and the first designs of V2 and V3, each (wrapper, plain version)
-ALL_VARIANTS = {**VARIANTS, **SIMT_SLAB}
+# every variant kernel: the five variants (V2-V5 by their Hopper designs)
+# and the first designs of V2-V5, each (wrapper, plain version)
+ALL_VARIANTS = {**VARIANTS, **{simt: (fn, plain) for simt, fn, plain in FIRST_DESIGNS.values()}}
 # each kernel's launch counter (the dict that holds it, its key), set to 0
 # just before a path: a module's globals for K1-K3, the variants' dict
 COUNTERS = {"deform_fwd": (vars(cuda_deform), "launches"),
@@ -166,12 +177,19 @@ VARIANT_SITES = {"deform_fwd_bf16_fma": "tools/proto_deform_bf16_fma.py:64",
                  "deform_fwd_slot_skip": "tools/proto_deform_slot_skip.py:75",
                  "deform_fwd_tapwalk": "tools/proto_deform_tapwalk.py:116",
                  "deform_fwd_qxhoist_simt": "tools/proto_deform_qxhoist.py:163",
-                 "deform_fwd_cvt1_simt": "tools/proto_deform_qxhoist.py:128"}
+                 "deform_fwd_cvt1_simt": "tools/proto_deform_qxhoist.py:128",
+                 "deform_fwd_slot_skip_simt": "tools/proto_deform_slot_skip.py:75",
+                 "deform_fwd_tapwalk_simt": "tools/proto_deform_tapwalk.py:116"}
 # the variants whose design keeps the SIMT K1's order of every float32 sum,
-# so they must give its bits (the inputs here are finite)
-BITWISE_TO_K1 = ("deform_fwd_slot_skip", "deform_fwd_tapwalk")
+# so they must give its bits (the inputs here are finite): the first designs
+# of V4 and V5
+BITWISE_TO_K1 = ("deform_fwd_slot_skip_simt", "deform_fwd_tapwalk_simt")
 # the variants built on the Hopper K1's design, which must give its bits
-BITWISE_TO_HOPPER_K1 = tuple(SLAB_PAIRS)
+BITWISE_TO_HOPPER_K1 = tuple(FIRST_DESIGNS)
+# each variant kernel's source, by the kernels' names
+VARIANT_SOURCES = {**dict.fromkeys(ALL_VARIANTS, "deform_fwd_variants"),
+                   **dict.fromkeys(SLAB_KERNELS, "deform_fwd_slab"),
+                   **dict.fromkeys(TC_KERNELS, "deform_fwd_tc_variants")}
 
 
 def reset_counts():
@@ -217,6 +235,7 @@ def phase_build():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "Function properties" in line:
                 log(f"  {name}: {line.strip()}")
+    _check_new_kernel_spills(logs)
 
 
 def _deform_inputs(B, H, W, C, O, off_range, dtype, seed=0):
@@ -278,7 +297,17 @@ KERNEL_SYMBOLS = {"deform_fwd": ("deform_fwd_mma_kernel", ("bfloat16", "Lb0E")),
                   "deform_fwd_qxhoist_simt": ("slab_kernel", ("deform_fwd_variants_cu",
                                                               "slab_kernelI13__nv_bfloat16S1_E")),
                   "deform_fwd_cvt1_simt": ("slab_kernel", ("deform_fwd_variants_cu",
-                                                           "slab_kernelI13__nv_bfloat16fE"))}
+                                                           "slab_kernelI13__nv_bfloat16fE")),
+                  # V4 and V5 on bf16 x: the Hopper V5 with one item a warp (C 32's
+                  # plan; its two-item instantiation, C 64's, is `_usage`'s "two items")
+                  "deform_fwd_slot_skip": ("slot_skip_kernel", ("deform_fwd_tc_variants_cu",
+                                                                "bfloat16")),
+                  "deform_fwd_tapwalk": ("tapwalk_kernel", ("deform_fwd_tc_variants_cu",
+                                                            "bfloat16", "Li1E")),
+                  "deform_fwd_slot_skip_simt": ("slot_skip_kernel", ("deform_fwd_variants_cu",
+                                                                     "bfloat16")),
+                  "deform_fwd_tapwalk_simt": ("tapwalk_kernel", ("deform_fwd_variants_cu",
+                                                                 "bfloat16"))}
 
 
 def _ptxas_usage(logs):
@@ -302,13 +331,38 @@ def _ptxas_usage(logs):
 
 def _usage(kernel):
     """ptxas's registers and spills of `kernel`'s main instantiation ({}
-    for a kernel without an entry in KERNEL_SYMBOLS)."""
+    for a kernel without an entry in KERNEL_SYMBOLS); for the Hopper V5 also
+    those of its two-item instantiation on bf16 x ("two_items")."""
     if kernel not in KERNEL_SYMBOLS:
         return {}
     sym, marks = KERNEL_SYMBOLS[kernel]
     found = {f: u for f, u in USAGE.items()
              if f"{len(sym)}{sym}" in f and all(m in f for m in marks)}
-    return next(iter(found.values()), {})
+    usage = dict(next(iter(found.values()), {}))
+    if kernel == "deform_fwd_tapwalk":
+        two = [u for f, u in USAGE.items() if f"{len(sym)}{sym}" in f and "Li2E" in f and
+               all(m in f for m in marks[:2])]
+        usage["two_items"] = two[0] if two else {}
+    return usage
+
+
+def _check_new_kernel_spills(logs):
+    """No instantiation of the Hopper V4 and V5 spills (ptxas's counts from
+    phase 2's build `logs`); logs each one's registers. Skipped where their
+    library was built before this run (no ptxas output to read)."""
+    if not logs.get("deform_fwd_tc_variants"):
+        log("deform_fwd_tc_variants was built before this run: ptxas's counts not read")
+        return
+    for kernel in TC_KERNELS:
+        sym = KERNEL_SYMBOLS[kernel][0]
+        found = {f: u for f, u in USAGE.items()
+                 if f"{len(sym)}{sym}" in f and "deform_fwd_tc_variants_cu" in f}
+        for f, u in found.items():
+            log(f"{kernel} {f}: {u.get('registers')} registers, spill stores "
+                f"{u.get('spill_stores')} B, loads {u.get('spill_loads')} B")
+        if not found or any(u.get("spill_stores") or u.get("spill_loads")
+                            for u in found.values()):
+            raise SystemExit(f"{kernel}: an instantiation spills, or ptxas reported none")
 
 
 def _case_label(dtype, semantics, off_range, B):
@@ -703,12 +757,12 @@ def _check_augment(B, H, W):
 
 
 def _check_variant_case(shape, dtype, off_range, bitwise):
-    """The seven variant kernels in one case against their plain versions, by
+    """The nine variant kernels in one case against their plain versions, by
     `deform_variants.compare` (K1's tolerances, and in bf16 the share of
     elements that may differ), and against the SIMT K1's output ("K1"
-    below, the baseline of V1, V4, V5 and the first designs of V2 and V3):
-    V4 and V5 must equal it bit for bit, and the Hopper V2 and V3 the Hopper
-    K1's output; the SIMT K1's output must fail V1's limits (the control
+    below, the baseline of V1 and the first designs of V2-V5): the first
+    designs of V4 and V5 must equal it bit for bit, and the Hopper V2-V5 the
+    Hopper K1's output; the SIMT K1's output must fail V1's limits (the control
     that they tell V1's function from K1's); each prints its largest
     difference from K1 relative to K1's largest output, the number the JAX
     tool prints. Returns each variant's error and records in `bitwise`
@@ -753,14 +807,17 @@ def _check_variant_case(shape, dtype, off_range, bitwise):
     return errs
 
 
-def _check_slab_plans(shapes):
-    """The Hopper V2 and V3's plans at `shapes` in both types, each logged,
-    with the kernel's own count of the plan's shared memory, which must be
-    the plan's (the launch refuses a plan it disagrees with)."""
+def _check_hopper_plans(shapes):
+    """The Hopper V2-V5's plans at `shapes` in both types, each logged, with
+    the kernel's own count of the plan's shared memory, which must be the
+    plan's (the launch refuses a plan it disagrees with); V4's must be the
+    Hopper K1's resident plan, byte for byte, where K1 takes that plan."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for B, H, W, C, O in shapes:
-        for kernel in SLAB_PAIRS:
-            for dtype in (torch.bfloat16, torch.float32):
+        for dtype in (torch.bfloat16, torch.float32):
+            for kernel in SLAB_KERNELS:
+                if C > 32:  # no slab plan fits at C 64 on width 40 or 80
+                    continue
                 plan = cuda_deform_variants.slab_plan(kernel, B, H, W, C, O, dtype, sms)
                 own = cuda_deform_variants.slab_smem_bytes(plan, W, C, O, dtype)
                 log(f"{kernel} {str(dtype)[6:]} ({B},{H},{W},{C}->{O}): RB {plan['rb']}, ring "
@@ -768,16 +825,99 @@ def _check_slab_plans(shapes):
                     f"for {plan['bands']} bands, {plan['smem']} B (the kernel's count {own} B)")
                 if own != plan["smem"]:
                     raise SystemExit(f"{kernel}'s plan and its kernel disagree on its bytes")
+            k1 = cuda_deform_variants.hopper_k1_plan(C, O, dtype)
+            for kernel in TC_KERNELS:
+                plan = cuda_deform_variants.tc_plan(kernel, B, H, W, C, O, dtype, sms)
+                own = cuda_deform_variants.tc_smem_bytes(plan, C, O, dtype)
+                log(f"{kernel} {str(dtype)[6:]} ({B},{H},{W},{C}->{O}): {plan['warps']} warps x "
+                    f"{plan['items_per_warp']} items, {plan['blocks']} blocks for "
+                    f"{plan['items']} items, {plan['smem']} B (the kernel's count {own} B); the "
+                    f"Hopper K1 {k1['plan']}, {k1['warps']} warps, {k1['smem']} B")
+                if own != plan["smem"]:
+                    raise SystemExit(f"{kernel}'s plan and its kernel disagree on its bytes")
+                if kernel == "deform_fwd_slot_skip" and k1["plan"] == "resident" and \
+                        (plan["warps"], plan["smem"]) != (k1["warps"], k1["smem"]):
+                    raise SystemExit("V4's plan is not the Hopper K1's resident plan")
+
+
+# the C 64 shape at which the Hopper V4 and V5 and their first designs are
+# held too: K1's (8, 40, 40) of phase 3's widths
+VARIANT_WIDE = (8, 40, 40, 64, 64)
+# V4's and V5's kernels and the K1 whose bits each must give
+SKIP_AND_WALK = {"deform_fwd_slot_skip": cuda_deform.deform_fwd,
+                 "deform_fwd_tapwalk": cuda_deform.deform_fwd,
+                 "deform_fwd_slot_skip_simt": cuda_deform.deform_fwd_simt,
+                 "deform_fwd_tapwalk_simt": cuda_deform.deform_fwd_simt}
+
+
+def _hold_bits(name, args, case, bitwise):
+    """One of SKIP_AND_WALK against its plain version (`compare`) and bit
+    for bit against its K1 on `args`; ends the script on a disagreement.
+    Returns the largest error."""
+    fn, plain = ALL_VARIANTS[name]
+    with float32_exact():
+        got, ref, want = fn(*args), SKIP_AND_WALK[name](*args), plain(*args)
+        torch.cuda.synchronize()
+    c = compare(got, want)
+    same = torch.equal(got, ref)
+    k1 = "the Hopper K1" if SKIP_AND_WALK[name] is cuda_deform.deform_fwd else "the SIMT K1"
+    log(f"{name:25s} {case}: max_abs_err {c['max_abs_err']:.3e} (tol {c['tol']:.3e}), differing "
+        f"{c['mismatch_share']:.3%}, {'bitwise equal to' if same else 'DIFFERS from'} {k1} "
+        f"{'ok' if c['ok'] and same else 'FAIL'}")
+    if not (c["ok"] and same):
+        raise SystemExit(f"{name} disagrees with its plain version or with {k1}")
+    bitwise[name] = bitwise.get(name, True) and same
+    return c["max_abs_err"]
+
+
+def _skip_inputs(kind, B, H, W, C, O, dtype):
+    """Inputs on which V4's skips fire (`deform_ab.skip_firing`; checks of
+    the skip's bits, not user traffic): "integer offsets", U(-2.5, 2.5)
+    rounded; "dead taps", offsets U(-1.5, 1.5) and a third of the (item,
+    tap) pairs' mask 0."""
+    off_range = 2.5 if kind == "integer offsets" else 1.5
+    x, off, mask, w = _deform_inputs(B, H, W, C, O, off_range, torch.float32)
+    off, mask = deform_ab.skip_firing(kind, off, mask)
+    return [t.to(dtype).contiguous() for t in (x, off, mask, w)]
+
+
+def _check_skip_and_walk(B, H, W, C, O, bitwise):
+    """V4 and V5, both designs, where V4's skips fire (SKIP_CASES, each in
+    float32 and bf16, the share of corners and (item, tap) pairs skipped
+    logged) and at VARIANT_WIDE in the 4 windowed cases, each bit for bit
+    its K1 and within `compare` of the plain version."""
+    for kind in ("integer offsets", "dead taps"):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = _skip_inputs(kind, B, H, W, C, O, dtype)
+            skips = skip_shares(args[1], args[2])
+            log(f"skip check ({kind}, {str(dtype)[6:]}; a check of V4's skips, not user "
+                f"traffic): V4 skips {skips['zero_corners']:.2%} of the corners K1 gathers, "
+                f"{skips['dead_taps']:.2%} of the (item, tap) pairs")
+            if skips["zero_corners" if kind == "integer offsets" else "dead_taps"] < 0.25:
+                raise SystemExit(f"the {kind} case does not make V4's skips fire")
+            for name in SKIP_AND_WALK:
+                _hold_bits(name, args, f"{kind} {str(dtype)[6:]} ({B},{H},{W},{C}->{O})",
+                           bitwise)
+            del args
+    B, H, W, C, O = VARIANT_WIDE
+    for dtype in (torch.float32, torch.bfloat16):
+        for off_range in (1.5, 4.0):
+            args = _deform_inputs(B, H, W, C, O, off_range, dtype)
+            for name in SKIP_AND_WALK:
+                _hold_bits(name, args, f"{_case_label(dtype, 'windowed', off_range, B)} "
+                           f"({H}x{W}, C {C} -> {O})", bitwise)
+            del args
 
 
 def _check_variants(B, H, W, C, O):
-    """The seven variant kernels at the main path's shape in 4 cases and at
-    two ragged shapes (H, W not multiples of 8) in 4 each, V2 and V3 also at
-    the JAX tool's check shape; times each beside the SIMT K1 in the serving
-    path's case (bf16, offsets +-1.5)."""
+    """The nine variant kernels at the main path's shape in 4 cases and at
+    two ragged shapes (H, W not multiples of 8) in 4 each, with their plans;
+    V2 and V3 also at the JAX tool's check shape; V4 and V5 where V4's skips
+    fire, at C 64 and at the JAX tools' check shape; times each beside the
+    SIMT K1 in the serving path's case (bf16, offsets +-1.5)."""
     bitwise = {}
-    _check_slab_plans(((B, H, W, C, O), (2, 20, 28, 32, 32), (2, 13, 21, 32, 32),
-                       (TRAIN_BATCH, H, W, C, O)))
+    _check_hopper_plans(((B, H, W, C, O), (2, 20, 28, 32, 32), (2, 13, 21, 32, 32),
+                         (TRAIN_BATCH, H, W, C, O), VARIANT_WIDE))
     # the last shape gives the slab kernels items of fewer than 16 pixels and
     # offsets and masks that are not 16-byte aligned (their 4-byte and plain
     # copies)
@@ -790,6 +930,11 @@ def _check_variants(B, H, W, C, O):
     # V2 and V3, both designs, at the JAX tool's check shape (Cin 8 -> Cout 6,
     # with and without a bias), the Hopper ones bit for bit the Hopper K1
     proto_deform_qxhoist.check()
+    # V4 and V5 where the skips fire and at C 64, then both designs at the
+    # JAX tools' check shape (Cin 8 -> Cout 6), each bit for bit its K1
+    _check_skip_and_walk(B, H, W, C, O, bitwise)
+    proto_deform_slot_skip.check()
+    proto_deform_tapwalk.check()
     args = _deform_inputs(B, H, W, C, O, 1.5, torch.bfloat16)
     # the plain versions of V2-V5 are one function, K1's: timed once
     plain_ms = {plain: cuda_time_ms(lambda: plain(*args), iters=5)
@@ -799,11 +944,10 @@ def _check_variants(B, H, W, C, O):
     for name, (fn, plain) in ALL_VARIANTS.items():
         row = deform_ab.ab(f"b{B} serving case", name, fn, plain, args, iters=20, windows=5,
                            plain_images=B)
-        source = "deform_fwd_slab" if name in BITWISE_TO_HOPPER_K1 else "deform_fwd_variants"
         ref = "bitwise_to_hopper_k1" if name in BITWISE_TO_HOPPER_K1 else "bitwise_to_k1"
         entries.append({
             "name": name, "route": "cuda",
-            "source": f"mgdt_yolo_tpu_torch/csrc/{source}.cu",
+            "source": f"mgdt_yolo_tpu_torch/csrc/{VARIANT_SOURCES[name]}.cu",
             "replaces": VARIANT_SITES[name],
             "shape": f"x ({B},{H},{W},{C}) bf16, weight (3,3,{C},{O}), windowed",
             "launches": None, "max_abs_err": main_errs[name], "max_err": main_errs[name],
@@ -1223,9 +1367,10 @@ AB_TOOLS = (proto_deform_bf16_fma, proto_deform_qxhoist, proto_deform_slot_skip,
 
 
 def _ab_sound(row):
-    """An A/B row's output against the SIMT K1's: V4 and V5 give its bits;
-    V2 and V3, both designs (K1's function), stay within two bf16 roundings
-    of its largest output, V1 (bf16 weights and products) within four."""
+    """An A/B row's output against the SIMT K1's: the first designs of V4 and
+    V5 give its bits; the Hopper V2-V5 and the first designs of V2 and V3
+    (K1's function) stay within two bf16 roundings of its largest output,
+    V1 (bf16 weights and products) within four."""
     if row["variant"] in BITWISE_TO_K1:
         return row["max_abs_diff"] == 0.0
     limit = (4 if row["variant"] == "deform_fwd_bf16_fma" else 2) * 2 ** -8
@@ -1234,34 +1379,38 @@ def _ab_sound(row):
 
 def phase_variant_ab():
     log(f"== phase 12: K1 variant A/B: the four ported A/B tools at their own shapes, then "
-        f"the seven variant kernels at b{TRAIN_BATCH} (bf16, windowed, offsets +-1.5) "
-        f"against the SIMT K1, then the Hopper V2 and V3 against their first designs and "
-        f"the Hopper K1")
+        f"the nine variant kernels at b{TRAIN_BATCH} (bf16, windowed, offsets +-1.5) "
+        f"against the SIMT K1, then the Hopper V2-V5 against their first designs and the "
+        f"Hopper K1")
     reset_counts()
-    rows, slab_rows = [], []
+    rows, hopper_rows, plan_rows, baseline = [], [], [], 0
     for tool in AB_TOOLS:
         result = tool.bench()
         rows += result["cases"]
-        slab_rows += result.get("slab", [])
+        hopper_rows += result.get("hopper", []) + result.get("skips_firing", [])
+        plan_rows += result.get("plans", [])
+        baseline += result.get("hopper_k1_launches", 0)
         torch.cuda.empty_cache()
     args = _deform_inputs(TRAIN_BATCH, 80, 80, 32, 32, 1.5, torch.bfloat16)
     rows += [deform_ab.ab(f"b{TRAIN_BATCH} main path", name, fn, plain, args, iters=10,
                           plain_images=TRAIN_BATCH)
              for name, (fn, plain) in ALL_VARIANTS.items()]
-    slab_rows += [deform_ab.ab_slab(f"b{TRAIN_BATCH} main path", name, args, iters=10,
-                                    plain_images=TRAIN_BATCH) for name in SLAB_PAIRS]
+    main_rows = [deform_ab.ab_hopper(f"b{TRAIN_BATCH} main path", name, args, iters=10,
+                                     plain_images=TRAIN_BATCH) for name in FIRST_DESIGNS]
+    hopper_rows += main_rows
     torch.cuda.synchronize()
     launches = read_counts()
     del args
     torch.cuda.empty_cache()
     log(f"launches during the A/B path: {launches}")
     # the SIMT K1 is the baseline of every variant; the Hopper K1 launches
-    # only as the slab variants' baseline (ab_slab counts its runs); K2 never
-    baseline = sum(r["hopper_k1_launches"] for r in slab_rows)
+    # only as the Hopper variants' baseline (each tool's bench and ab_hopper
+    # count their runs of it); K2 never
+    baseline += sum(r["hopper_k1_launches"] for r in main_rows)
     if launches["deform_fwd_simt"] == 0 or launches["deform_fwd"] != baseline or \
             any(launches[k] for k in ("deform_bwd", "deform_bwd_simt")):
         raise SystemExit(f"the variants' A/B ran other kernels than its baselines: the Hopper "
-                         f"K1 {launches['deform_fwd']} times, {baseline} of them as the slab "
+                         f"K1 {launches['deform_fwd']} times, {baseline} of them as the Hopper "
                          f"variants' baseline")
     log("case | variant | shape | K1 ms | variant ms | K1 / variant | max |d| | max rel |d| "
         "from K1 | images held | max |d| | differing from the plain version")
@@ -1272,15 +1421,21 @@ def phase_variant_ab():
             f"{r['mismatch_share']:.3%}")
     log("case | Hopper variant | ms | its SIMT design ms | SIMT / Hopper | Hopper K1 ms | "
         "K1 / variant | share of the bound | bits of the Hopper K1")
-    for r in slab_rows:
+    for r in hopper_rows:
         log(f"  {r['case']} | {r['variant']} | {r['ms']:.4f} | {r['simt_ms']:.4f} | "
             f"{r['simt_over_hopper']:.3f} | {r['hopper_k1_ms']:.4f} | "
             f"{r['k1_over_variant']:.3f} | {r['share_of_bound']:.2%} | "
             f"{r['bitwise_to_hopper_k1']}")
+    log("the Hopper V5's plans at b512 C 64 (small-off), in turns: warps | items per warp | "
+        "bytes | ms | the Hopper K1 ms | K1 / V5")
+    for r in plan_rows:
+        log(f"  {r['warps']} | {r['items_per_warp']} | {r['smem']} | {r['ms']:.4f} | "
+            f"{r['hopper_k1_ms']:.4f} | {r['k1_over_variant']:.3f}"
+            f"{' (chosen)' if r['chosen'] else ''}")
     bad = [f"{r['variant']} ({r['case']})" for r in rows if not _ab_sound(r)]
     if bad:
         raise SystemExit("an A/B variant strays from K1: " + ", ".join(bad))
-    return launches, rows, slab_rows
+    return launches, rows, hopper_rows, plan_rows
 
 
 # which paths run each kernel (its launches must be counted on each); the
@@ -1315,7 +1470,7 @@ def main() -> int:
     phase_card_vs_cpu()
     phase_train_card_vs_cpu()
     phase_augment_card_vs_cpu()
-    ab_launches, ab_rows, slab_rows = phase_variant_ab()
+    ab_launches, ab_rows, hopper_rows, plan_rows = phase_variant_ab()
     paths = {"serving": serving, "training": training, "augmented training": augmented,
              "DCN A/B": dcn_ab, "K3 A/B": k3_ab, "K1 variant A/B": ab_launches}
     for k in kernels:
@@ -1331,8 +1486,10 @@ def main() -> int:
             k["apply_augment_ms"] = aug_ms
         if k["name"] in ALL_VARIANTS:
             k["ab"] = [r for r in ab_rows if r["variant"] == k["name"]]
-        if k["name"] in SLAB_PAIRS:
-            k["ab_slab"] = [r for r in slab_rows if r["variant"] == k["name"]]
+        if k["name"] in FIRST_DESIGNS:
+            k["ab_hopper"] = [r for r in hopper_rows if r["variant"] == k["name"]]
+        if k["name"] == "deform_fwd_tapwalk":
+            k["plans_b512_c64"] = plan_rows
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(gpu_name_and_power())

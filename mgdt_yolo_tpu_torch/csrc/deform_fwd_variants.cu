@@ -8,13 +8,18 @@
 //                               (`_kernel_fused_qxhoist`)
 //   V3 deform_fwd_cvt1_simt     tools/proto_deform_qxhoist.py `deform_cvt1`
 //                               (`_kernel_fused_cvt1`)
-//   V4 deform_fwd_slot_skip  tools/proto_deform_slot_skip.py `variant` (`_kernel_skip`)
-//   V5 deform_fwd_tapwalk    tools/proto_deform_tapwalk.py `variant` (`_kernel_tap`)
+//   V4 deform_fwd_slot_skip_simt  tools/proto_deform_slot_skip.py `variant`
+//                                 (`_kernel_skip`)
+//   V5 deform_fwd_tapwalk_simt    tools/proto_deform_tapwalk.py `variant`
+//                                 (`_kernel_tap`)
 //
-// V2 and V3 here are their first designs, on the CUDA cores; their Hopper
-// designs (K1's tensor-core contraction fed from a ring of input rows) are in
-// deform_fwd_slab.cu behind the names `deform_fwd_qxhoist` and
-// `deform_fwd_cvt1`, and these stay as their A/B baseline (the `_simt` names).
+// V2-V5 here are their first designs, on the CUDA cores; their Hopper
+// designs are K1's tensor-core contraction fed from a ring of input rows (V2
+// and V3, deform_fwd_slab.cu, behind `deform_fwd_qxhoist` and
+// `deform_fwd_cvt1`) or with dead work skipped and the taps walked
+// outermost (V4 and V5, deform_fwd_tc_variants.cu, behind
+// `deform_fwd_slot_skip` and `deform_fwd_tapwalk`). These stay as their A/B
+// baseline (the `_simt` names); V1 has no Hopper design yet.
 //
 // The TPU prototypes walk one-hot window slots because gathers are slow
 // there; none of that walk is carried over. Each variant keeps K1's gather of
@@ -56,7 +61,7 @@
 // each gives K1's bits: a skipped term of V4 is a product with an exact 0,
 // which leaves a float32 sum that started at +0 unchanged (with an infinite
 // or NaN input, 0 * inf would have been NaN, so the claim holds for finite
-// inputs only). chip_smoke.py holds V4 and V5 bitwise to K1.
+// inputs only). chip_smoke.py holds V4 and V5 here bitwise to the SIMT K1.
 //
 // Bound on this card: memory, as K1's (the same inputs read and the same
 // output written; see deform_fwd.cu).
@@ -551,5 +556,5 @@ int run(Variant v, const void* x, const void* offset, const void* mask, const vo
 VARIANT_ENTRY(deform_fwd_bf16_fma, BF16_FMA)
 VARIANT_ENTRY(deform_fwd_qxhoist_simt, QXHOIST)
 VARIANT_ENTRY(deform_fwd_cvt1_simt, CVT1)
-VARIANT_ENTRY(deform_fwd_slot_skip, SLOT_SKIP)
-VARIANT_ENTRY(deform_fwd_tapwalk, TAPWALK)
+VARIANT_ENTRY(deform_fwd_slot_skip_simt, SLOT_SKIP)
+VARIANT_ENTRY(deform_fwd_tapwalk_simt, TAPWALK)

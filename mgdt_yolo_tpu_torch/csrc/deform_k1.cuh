@@ -1,14 +1,17 @@
 // The device code of the Hopper DCNv2 forward (K1, deform_fwd.cu) that the
-// staged-slab forwards (V2 and V3, deform_fwd_slab.cu) share with it: the
-// weight staged as bf16 B fragments, one corner's sampling weight, the
+// staged-slab forwards (V2 and V3, deform_fwd_slab.cu) and the slot-skip and
+// tap-walk forwards (V4 and V5, deform_fwd_tc_variants.cu) share with it:
+// the weight staged as bf16 B fragments, one corner's sampling weight, the
 // combine of a (pixel, 4 channels) sample from its corner rows in K1's
 // corner order and its bf16 hi/lo split, the per-tap contraction on the
 // tensor cores and the epilogue. K1 reads its corner rows from a per-warp
 // stage that cp.async fills from global memory and skips a dead corner
 // (`combine`); V2 and V3 read them from a ring of input rows in shared
 // memory and read a dead corner as a zero row (`combine_ring`), which sums
-// the same terms in the same order. So the three give the same bits on
-// finite inputs.
+// the same terms in the same order; V4 and V5 fill and read K1's stage
+// through `gather_corner` and `combine_stage` (K1 keeps its own copies of
+// those two steps, so that its code stays as it was compiled). So all five
+// give the same bits on finite inputs.
 //
 // utils/build.py hashes this header into every kernel's build digest.
 #pragma once
@@ -234,6 +237,93 @@ __device__ __forceinline__ void store_item(const float (&acc)[NTW][4], float* o_
       if (bias != nullptr) v += bias[c_lo + o];
       ob[(size_t)p * Cout + c_lo + o] = from_f32<T>(v);
     }
+  }
+}
+
+
+// `corner`, and also false where the corner's weight is exactly 0 (fy or fx
+// exactly 0 or 1 after the clip, or a product that underflows): V4 skips
+// such a corner. The term it would add to a sample is a product with an
+// exact 0, +-0 for a finite row value, and s + (+-0) is s for every s but
+// -0, which a sum that starts at +0 is only where an underflowed product
+// made it so; the sample is then +-0 either way. So on finite inputs the
+// skip leaves every sample's value as K1's.
+__device__ __forceinline__ bool corner_nonzero(const Tap& tp, float wv, int q, int H, int W,
+                                               float& wq, int& yy, int& xx) {
+  return corner(tp, wv, q, H, W, wq, yy, xx) && wq != 0.f;
+}
+
+// One lane's share of K1's gather of tap k for a warp item (windowed
+// semantics): pixel p of the item's np (its offsets in off_s (16, 18), its
+// mask in m_s (16, 9), its position (pi, pj) in image xb) and corner q. The
+// corner's weight and source pixel go to the tap buffer's fw and fi ((16, 4)
+// each, -1 for a corner that adds nothing), and its Cin-wide row is copied
+// into row slot q ^ (p & 1) of the buffer's stage ((16, 4, RS)) by 16- or
+// 4-byte cp.async (vec), or by plain loads (vec 0). With SKIP_ZERO a corner
+// of weight 0 also copies nothing (`corner_nonzero`). Returns whether the
+// corner is live.
+template <bool SKIP_ZERO, typename T>
+__device__ __forceinline__ bool gather_corner(const T* off_s, const T* m_s, int p, int q, int np,
+                                              int pi, int pj, int k, int H, int W, int Cin,
+                                              int RS, int vec, const T* __restrict__ xb,
+                                              T* stage, float* fw, int* fi) {
+  float wq = 0.f;
+  int src = -1;
+  if (p < np) {
+    const Tap tp = tap_fields(pi, pj, k, to_f32(off_s[p * 2 * KT + 2 * k]),
+                              to_f32(off_s[p * 2 * KT + 2 * k + 1]), H, W, 1);
+    const float wv = tp.valid ? to_f32(m_s[p * KT + k]) : 0.f;
+    int yy, xx;
+    const bool live = SKIP_ZERO ? corner_nonzero(tp, wv, q, H, W, wq, yy, xx)
+                                : corner(tp, wv, q, H, W, wq, yy, xx);
+    if (live) src = yy * W + xx;
+  }
+  fw[p * 4 + q] = wq;
+  fi[p * 4 + q] = src;
+  if (src >= 0) {
+    T* dst = stage + ((size_t)p * 4 + (q ^ (p & 1))) * RS;
+    const T* row = xb + (size_t)src * Cin;
+    const int nbytes = Cin * (int)sizeof(T);
+    if (vec == 16) {
+      for (int o = 0; o < nbytes; o += 16)
+        cp_async16(reinterpret_cast<char*>(dst) + o, reinterpret_cast<const char*>(row) + o);
+    } else if (vec == 4) {
+      for (int o = 0; o < nbytes; o += 4)
+        cp_async4(reinterpret_cast<char*>(dst) + o, reinterpret_cast<const char*>(row) + o);
+    } else {
+      for (int c = 0; c < Cin; ++c) dst[c] = row[c];
+    }
+  }
+  return src >= 0;
+}
+
+// K1's combine of one tap for a warp item: the 16 pixels' samples of
+// channels 0 .. CK - 1 from the corner rows `gather_corner` left in the tap
+// buffer (stage, fw, fi), in K1's corner order, split into the bf16 hi and
+// lo blocks (row stride SA; zero past Cin and for pixels past the item's).
+// The lanes take (pixel, 4 channels) pairs.
+template <typename T>
+__device__ __forceinline__ void combine_stage(const T* stage, const float* fw, const int* fi,
+                                              int Cin, int CK, int RS, int SA,
+                                              __nv_bfloat16* a_hi, __nv_bfloat16* a_lo,
+                                              int lane) {
+  auto one = [&](int p, int c) {
+    const float4 wq = *reinterpret_cast<const float4*>(fw + p * 4);
+    const int4 src = *reinterpret_cast<const int4*>(fi + p * 4);
+    const T* row = stage + (size_t)p * 4 * RS;
+    const int sw = p & 1;
+    const float w4[4] = {wq.x, wq.y, wq.z, wq.w};
+    const bool live[4] = {src.x >= 0, src.y >= 0, src.z >= 0, src.w >= 0};
+    const T* const rows[4] = {row + (0 ^ sw) * RS, row + (1 ^ sw) * RS, row + (2 ^ sw) * RS,
+                              row + (3 ^ sw) * RS};
+    combine<true>(rows, w4, live, c, Cin, p, SA, a_hi, a_lo);
+  };
+  const int CK4 = CK / 4;
+  if (32 % CK4 == 0) {
+    const int c = 4 * (lane % CK4);
+    for (int p = lane / CK4; p < 16; p += 32 / CK4) one(p, c);
+  } else {
+    for (int e = lane; e < 16 * CK4; e += 32) one(e / CK4, 4 * (e % CK4));
   }
 }
 

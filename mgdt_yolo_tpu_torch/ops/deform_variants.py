@@ -61,6 +61,33 @@ def compare(got: torch.Tensor, want: torch.Tensor) -> dict:
             "share_limit": share_limit, "ok": ok}
 
 
+def skip_shares(offset: torch.Tensor, mask: torch.Tensor) -> dict:
+    """What V4 (`deform_fwd_slot_skip`) skips beyond K1 on these offsets and
+    mask, from K1's windowed fields (`_sample_fields`), each corner weight
+    ``(ay * ax) * wv`` in float32 as the kernels take it. `zero_corners`: the
+    share of the corners K1 gathers (inside the image, of a tap with
+    wv != 0) whose weight is exactly 0, which V4 neither copies nor adds;
+    `dead_taps`: the share of (item, tap) pairs, an item being 16
+    consecutive pixels of an image (the last one of an image may be
+    shorter), with no corner of non-zero weight left, whose combine and
+    products V4 skips."""
+    B, H, W, _ = offset.shape
+    P = H * W
+    y0, fy, x0, fx, wv = _sample_fields(offset, mask, True)[:5]
+    gathered, kept = [], []
+    for _, _, _, inb, ay, ax in _corners(y0, fy, x0, fx, H, W):
+        k1 = (inb > 0) & (wv != 0)
+        gathered.append(k1)
+        kept.append(k1 & (ay * ax * wv != 0))
+    gathered, kept = torch.stack(gathered, -1), torch.stack(kept, -1)   # (B, P, 9, 4)
+    tiles = -(-P // 16)
+    live = torch.zeros(B, tiles * 16, 9, dtype=torch.bool, device=offset.device)
+    live[:, :P] = kept.any(-1)
+    n = gathered.sum().item()
+    return {"zero_corners": (gathered & ~kept).sum().item() / max(n, 1),
+            "dead_taps": (~live.reshape(B, tiles, 16, 9).any(2)).float().mean().item()}
+
+
 def deform_bf16_fma_plain(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                           weight: torch.Tensor) -> torch.Tensor:
     """V1's function: DCNv2 forward, windowed, NHWC, no bias.

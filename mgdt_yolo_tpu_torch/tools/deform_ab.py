@@ -3,15 +3,16 @@ the check of a variant against its plain version, the inputs of the A/B runs
 and the timing of a variant against K1 on the card, with both held against
 their plain versions on the A/B's own inputs.
 
-"K1" here is the SIMT K1, `cuda_deform.deform_fwd_simt`: V1, V4 and V5 are
-redesigns of its CUDA-core arithmetic, and V4 and V5 keep its float32 order,
-so it is their baseline and their bitwise reference; every variant is timed
-against it (`ab`), so the series of earlier runs goes on. The Hopper V2 and
-V3 are K1's tensor-core design (`cuda_deform.deform_fwd`, "the Hopper K1")
-fed from a shared-memory ring: `ab_slab` times each in turns against its
-first design (`deform_qxhoist_simt`, `deform_cvt1_simt`) and against the
-Hopper K1, whose bits it must give. The model's K1 is A/B'd against the
-SIMT K1 by `chip_smoke.py` phase 3.
+"K1" here is the SIMT K1, `cuda_deform.deform_fwd_simt`: V1 and the first
+designs of V2-V5 are redesigns of its CUDA-core arithmetic, and those of V4
+and V5 keep its float32 order, so it is their baseline and their bitwise
+reference; every variant is timed against it (`ab`), so the series of
+earlier runs goes on. The Hopper V2-V5 are K1's tensor-core design
+(`cuda_deform.deform_fwd`, "the Hopper K1") with each variant's idea:
+`ab_hopper` times each in turns against its first design
+(`cuda_deform_variants.FIRST_DESIGNS`) and against the Hopper K1, whose bits
+it must give. The model's K1 is A/B'd against the SIMT K1 by
+`chip_smoke.py` phase 3.
 
 Each tool ports one A/B script of the repo-root `tools/` (JAX on a TPU) and
 keeps that script's shapes and data distributions; the data is made anew
@@ -26,7 +27,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops import cuda_deform
-from ..ops.cuda_deform_variants import SIMT_SLAB, SLAB_PAIRS, VARIANTS
+from ..ops.cuda_deform_variants import FIRST_DESIGNS, VARIANTS
 from ..ops.deform_variants import compare, windowed_plain
 from ..utils.measure import (cuda_time_ms, deform_fwd_bound_ms, float32_exact,
                              gpu_name_and_power)
@@ -82,13 +83,14 @@ def describe(held) -> str:
     return text
 
 
-def check(variant, plain, device=None, bias_cases=(False,), bitwise_to=None) -> dict:
+def check(variant, plain, device=None, bias_cases=(False,), bitwise_to=None,
+          bitwise_name="the Hopper K1") -> dict:
     """`variant` against `plain` at CHECK_SHAPE in float32 and bf16 (and with
     a bias for each of `bias_cases` that is True), by `hold` (K1's plain
-    version stands for K1); with `bitwise_to`, a kernel whose bits the
-    variant must give (on the CPU both are the plain version). Prints each
-    case; returns {case: max |diff|}; raises RuntimeError on a
-    disagreement."""
+    version stands for K1); with `bitwise_to`, a kernel (`bitwise_name`)
+    whose bits the variant must give (on the CPU both are the plain
+    version). Prints each case; returns {case: max |diff|}; raises
+    RuntimeError on a disagreement."""
     dev = resolve_device(device)
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -100,7 +102,7 @@ def check(variant, plain, device=None, bias_cases=(False,), bitwise_to=None) -> 
             case = f"{str(dtype)[6:]}{' bias' if with_bias else ''}"
             text = describe(held) + ("" if bitwise_to is None else
                                      f"; {'bitwise equal to' if same else 'DIFFERS from'} "
-                                     "the Hopper K1")
+                                     f"{bitwise_name}")
             print(f"check {case} {tuple(got.shape)} on {dev}: {text} "
                   f"{'ok' if held['ok'] and same else 'FAIL'}", flush=True)
             if not (held["ok"] and same):
@@ -121,6 +123,21 @@ def normal(g, shape, std):
 
 def uniform(g, shape, lo, hi):
     return torch.rand(shape, generator=g, device=g.device) * (hi - lo) + lo
+
+
+def skip_firing(kind: str, offset, mask):
+    """Offsets and mask on which V4's skips fire (checks of the skips, not
+    user data): "integer offsets" rounds the offsets to {-2, ..., 2}, so fy
+    and fx are exactly 0 and three corners in four have weight 0; "dead
+    taps" zeroes the mask of tap k over every 16-pixel run n of an image
+    with (n + k) % 3 == 0 (the Hopper K1's items), so a third of the (item,
+    tap) pairs have no live corner."""
+    if kind == "integer offsets":
+        return offset.round().clamp(-2, 2), mask
+    H, W = mask.shape[1:3]
+    run = torch.arange(H * W, device=mask.device) // 16
+    dead = (run[:, None] + torch.arange(9, device=mask.device)) % 3 == 0
+    return offset, mask * ~dead.reshape(1, H, W, 9)
 
 
 def bf16(*ts):
@@ -179,18 +196,18 @@ def ab(label: str, name: str, variant, plain, args, iters=5, windows=3,
     return row
 
 
-def ab_slab(label: str, name: str, args, iters=5, windows=3, plain_images=8) -> dict:
-    """The Hopper slab variant `name` (V2 or V3) in turns against its first
-    design and the Hopper K1 on the same bf16 inputs: SIMT V, Hopper V,
-    Hopper K1, Hopper K1, Hopper V, SIMT V (min over windows of each, CUDA
-    events). Its output must give the Hopper K1's bits on all of `args`, and
-    it is held against its plain version on the first `plain_images` images
-    (`compare`); raises RuntimeError otherwise. Counts the Hopper K1's
-    launches made here as its baseline (`hopper_k1_launches`). Prints two
-    lines and returns the row as a dict."""
+def ab_hopper(label: str, name: str, args, iters=5, windows=3, plain_images=8) -> dict:
+    """The Hopper variant `name` (a key of FIRST_DESIGNS) in turns against its
+    first design and the Hopper K1 on the same bf16 inputs: SIMT V, Hopper
+    V, Hopper K1, Hopper K1, Hopper V, SIMT V (min over windows of each,
+    CUDA events). Its output must give the Hopper K1's bits on all of
+    `args`, and it is held against its plain version on the first
+    `plain_images` images (`compare`); raises RuntimeError otherwise. Counts
+    the Hopper K1's launches made here as its baseline
+    (`hopper_k1_launches`). Prints two lines and returns the row as a
+    dict."""
     hopper, _ = VARIANTS[name]
-    simt_name = SLAB_PAIRS[name]
-    simt, _ = SIMT_SLAB[simt_name]
+    simt_name, simt, _ = FIRST_DESIGNS[name]
     x, _, _, w = args
     B, Hx, Wx, C = x.shape
     O = w.shape[3]

@@ -144,6 +144,8 @@ def test_ring_holds_every_row_a_band_reads(kernel, case, blocks):
 
 
 def test_each_slab_variant_has_its_first_design():
-    assert set(cdv.SLAB_PAIRS) == set(cdv.SLAB_KERNELS)
-    assert set(cdv.SLAB_PAIRS.values()) == set(cdv.SIMT_SLAB)
-    assert set(cdv.launches) == set(cdv.VARIANTS) | set(cdv.SIMT_SLAB)
+    assert set(cdv.SLAB_KERNELS) <= set(cdv.FIRST_DESIGNS)
+    simt = {name: first for name, (first, _, _) in cdv.FIRST_DESIGNS.items()}
+    assert {simt[k] for k in cdv.SLAB_KERNELS} == {"deform_fwd_qxhoist_simt",
+                                                    "deform_fwd_cvt1_simt"}
+    assert set(cdv.launches) == set(cdv.VARIANTS) | set(simt.values())

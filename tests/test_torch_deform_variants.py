@@ -220,9 +220,14 @@ def test_tool_imports_quietly_and_checks_on_cpu(tool, capsys):
     assert cdv.launches == before
 
 
-@pytest.mark.parametrize("kernel", list(cdv.VARIANTS) + list(cdv.SIMT_SLAB))
+# every variant kernel: the five variants and the first designs of V2-V5
+ALL_KERNELS = {**cdv.VARIANTS, **{simt: (fn, plain) for simt, fn, plain in
+                                  cdv.FIRST_DESIGNS.values()}}
+
+
+@pytest.mark.parametrize("kernel", list(ALL_KERNELS))
 def test_wrapper_routes_cpu_to_plain_and_refuses_exact(kernel):
-    fn, plain = {**cdv.VARIANTS, **cdv.SIMT_SLAB}[kernel]
+    fn, plain = ALL_KERNELS[kernel]
     ins = _torch_args(_case(), torch.float32)
     before = cdv.launches[kernel]
     torch.testing.assert_close(fn(*ins), plain(*ins), rtol=0, atol=0)
