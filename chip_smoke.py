@@ -9,9 +9,10 @@ Phases, each of which passes or ends the script with a non-zero exit:
 2. build: nvcc builds every `mgdt_yolo_tpu_torch/csrc/*.cu` (one process per
    source, all started together: K1, K2 and their SIMT baselines, the K1
    variants on the CUDA cores, the Hopper V2 and V3 `deform_fwd_slab.cu`, the
-   Hopper V4 and V5 `deform_fwd_tc_variants.cu`, K3 `fused_augment.cu` and
-   its SIMT baseline `fused_augment_simt.cu`), with ptxas's registers and
-   spills; no instantiation of the Hopper V4 and V5 may spill;
+   Hopper V4, V5 and V1 `deform_fwd_tc_variants.cu`, K3 `fused_augment.cu`
+   and its SIMT baseline `fused_augment_simt.cu`, and the check helper
+   `smem_poison.cu`), with ptxas's registers and spills, both V1 kernels'
+   logged; no instantiation of the Hopper V4, V5 and V1 may spill;
 3. kernels: each hand-written kernel against its plain PyTorch version on the
    card, at the main paths' shapes, with the stated tolerance: K1 and K2 (the
    tensor-core designs, `csrc/deform_{fwd,bwd}.cu`) in 8 cases (float32 and
@@ -32,22 +33,27 @@ Phases, each of which passes or ends the script with a non-zero exit:
    bitwise against the SIMT K3 over all 2^24 RGB triples (a (1, 4096,
    4096, 3) image) under 4 gain vectors and the 4 flip pairs, and at a
    ragged width, then the two timed in turns (the "K3 A/B" path, counted)
-   with each time's share of the bound; the five K1 variants V1-V5 (V1 in
-   `csrc/deform_fwd_variants.cu`; the Hopper V2 and V3 in
-   `csrc/deform_fwd_slab.cu`, V4 and V5 in `csrc/deform_fwd_tc_variants.cu`)
-   and the first designs of V2-V5 (their `_simt` kernels, in
-   `csrc/deform_fwd_variants.cu`) against their plain versions at batch 8
+   with each time's share of the bound; the five K1 variants V1-V5 (the
+   Hopper V2 and V3 in `csrc/deform_fwd_slab.cu`, V4, V5 and V1 in
+   `csrc/deform_fwd_tc_variants.cu`) and their first designs (their `_simt`
+   kernels, in `csrc/deform_fwd_variants.cu`) against their plain versions
+   at batch 8
    (float32 and bf16, offsets +-1.5 and +-4.0) and at the ragged
    (2, 20, 28, 32 -> 32) and (2, 13, 21, 32 -> 32) (V2-V5 also at their
    tools' check, (2, 16, 24, 8 -> 6), V2 and V3 with and without a bias), in
-   bf16 also by the share of elements that differ, with the SIMT K1's output
-   as the control that must fail V1's limits; the Hopper V2-V5 bitwise
+   bf16 also by the share of elements that differ; both V1 kernels
+   against V1's plain version, with the controls that the SIMT and the
+   Hopper K1's outputs fail V1's limits and V1's fails K1's, and the Hopper
+   V1 within V1's limits of its first design; the Hopper V2-V5 bitwise
    against the Hopper K1 (`deform_fwd`), the first designs of V4 and V5
    against the SIMT K1; V4 and V5 (both designs) also on two inputs where
    V4's skips fire (integer offsets; a mask with whole taps at 0 over
-   16-pixel runs) and at C 64 (8, 40, 40), with the Hopper V2-V5's plans
-   (V4's is the Hopper K1's resident plan); each variant timed beside the
-   SIMT K1;
+   16-pixel runs) and at C 64 (8, 40, 40), V1 (both designs) at C 64 too,
+   with the Hopper V2-V5 and V1's plans (V4's and V1's are the Hopper K1's
+   resident plan); the Hopper V1 once more right after every SM's shared
+   memory was filled with bf16 NaN bits (`csrc/smem_poison.cu`), on
+   out-of-image corners at Cin 24 and 21 (its dead corners and channels past
+   Cin must read as zeros); each variant timed beside the SIMT K1;
 4. serving path: the flagship MGDT-n from `weights/mgdt_n_synth.npz`, Conv+BN
    fused, bf16, 640 px, answers requests of batch 1, 8 and 32 through
    `predict` on synthetic scenes; K1 must have launched once per forward,
@@ -84,16 +90,19 @@ Phases, each of which passes or ends the script with a non-zero exit:
    pixels within the stated tolerance.
 12. K1 variant A/B: the `bench()` of the four ported A/B tools
    (`mgdt_yolo_tpu_torch/tools/proto_deform_*.py`) at their own shapes (b512
-   C 32, b128 C 32, b512 C 64, bf16), then all nine variant kernels at the
+   C 32, b128 C 32, b512 C 64, bf16), then all ten variant kernels at the
    training batch (b32, bf16, windowed, +-1.5) in one table against the SIMT
-   K1 (the series of earlier runs), then the Hopper V2-V5 in turns against
+   K1 (the series of earlier runs), then the Hopper V1-V5 in turns against
    their first designs and the Hopper K1 (SIMT V, Hopper V, Hopper K1,
    Hopper K1, Hopper V, SIMT V) at b32, as the tools do at their shapes
    (the slot-skip tool also on inputs where V4's skips fire, the tap-walk
    tool also with V5 under other plans: its warps with one item, the
-   Hopper K1's warps with two and with one); each variant must launch there, the first designs of V4 and V5 give the
-   SIMT K1's bits, the Hopper V2-V5 the Hopper K1's, and the rest stay
-   within bf16 rounding of the SIMT K1; the Hopper K1 launches there only as
+   Hopper K1's warps with two and with one); each variant must launch
+   there, the first designs of V4 and V5 give the SIMT K1's bits, the
+   Hopper V2-V5 the Hopper K1's, the Hopper V1 stays within V1's limits of
+   its first design (with both controls failing), and the rest stay within
+   bf16 rounding of the SIMT K1 (V1's two designs within four roundings);
+   the Hopper K1 launches there only as
    the Hopper variants' baseline (its count must equal those runs'), K2
    never; each variant and
    the SIMT K1 are held against their plain versions on the first 8 images
@@ -109,6 +118,7 @@ exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import re
@@ -130,9 +140,11 @@ from mgdt_yolo_tpu_torch.nn.tasks import DetectionModel
 from mgdt_yolo_tpu_torch.ops import cuda_deform, cuda_deform_variants, cuda_image
 from mgdt_yolo_tpu_torch.ops.cuda_deform_variants import (FIRST_DESIGNS, SLAB_KERNELS,
                                                           TC_KERNELS, VARIANTS)
-from mgdt_yolo_tpu_torch.ops.deform import (modulated_deform_conv2d_plain,
+from mgdt_yolo_tpu_torch.ops.deform import (_corners, _sample_fields,
+                                            modulated_deform_conv2d_plain,
                                             modulated_deform_conv2d_plain_bwd)
-from mgdt_yolo_tpu_torch.ops.deform_variants import (MISMATCH_LIMIT, compare, skip_shares,
+from mgdt_yolo_tpu_torch.ops.deform_variants import (MISMATCH_LIMIT, compare,
+                                                     deform_bf16_fma_plain, skip_shares,
                                                      windowed_plain)
 from mgdt_yolo_tpu_torch.ops.device_augment import apply_augment, augment_draws
 from mgdt_yolo_tpu_torch.ops.image import fused_augment_plain
@@ -158,8 +170,8 @@ TRAIN_OVERRIDES = {"optimizer": "SGD", "batch": TRAIN_BATCH, "epochs": 1, "val":
 AUG_EPOCHS, AUG_STEPS = 2, 2
 AUG_OVERRIDES = {"optimizer": "SGD", "batch": TRAIN_BATCH, "epochs": AUG_EPOCHS,
                  "close_mosaic": 1}
-# every variant kernel: the five variants (V2-V5 by their Hopper designs)
-# and the first designs of V2-V5, each (wrapper, plain version)
+# every variant kernel: the five variants (by their Hopper designs) and
+# their first designs, each (wrapper, plain version)
 ALL_VARIANTS = {**VARIANTS, **{simt: (fn, plain) for simt, fn, plain in FIRST_DESIGNS.values()}}
 # each kernel's launch counter (the dict that holds it, its key), set to 0
 # just before a path: a module's globals for K1-K3, the variants' dict
@@ -172,6 +184,7 @@ COUNTERS = {"deform_fwd": (vars(cuda_deform), "launches"),
             **{name: (cuda_deform_variants.launches, name) for name in ALL_VARIANTS}}
 # the TPU function each K1 variant kernel replaces
 VARIANT_SITES = {"deform_fwd_bf16_fma": "tools/proto_deform_bf16_fma.py:64",
+                 "deform_fwd_bf16_fma_simt": "tools/proto_deform_bf16_fma.py:64",
                  "deform_fwd_qxhoist": "tools/proto_deform_qxhoist.py:163",
                  "deform_fwd_cvt1": "tools/proto_deform_qxhoist.py:128",
                  "deform_fwd_slot_skip": "tools/proto_deform_slot_skip.py:75",
@@ -184,8 +197,13 @@ VARIANT_SITES = {"deform_fwd_bf16_fma": "tools/proto_deform_bf16_fma.py:64",
 # so they must give its bits (the inputs here are finite): the first designs
 # of V4 and V5
 BITWISE_TO_K1 = ("deform_fwd_slot_skip_simt", "deform_fwd_tapwalk_simt")
-# the variants built on the Hopper K1's design, which must give its bits
-BITWISE_TO_HOPPER_K1 = tuple(FIRST_DESIGNS)
+# the variants built on the Hopper K1's design that compute its function,
+# and so must give its bits: the Hopper V2-V5 (not V1, whose function is its
+# own)
+BITWISE_TO_HOPPER_K1 = tuple(k for k in FIRST_DESIGNS if VARIANTS[k][1] is windowed_plain)
+# the Hopper variants that compute a function of their own (V1), held to
+# their plain version and their first design within `compare`'s limits
+OWN_FUNCTION = tuple(k for k in FIRST_DESIGNS if k not in BITWISE_TO_HOPPER_K1)
 # each variant kernel's source, by the kernels' names
 VARIANT_SOURCES = {**dict.fromkeys(ALL_VARIANTS, "deform_fwd_variants"),
                    **dict.fromkeys(SLAB_KERNELS, "deform_fwd_slab"),
@@ -306,6 +324,10 @@ KERNEL_SYMBOLS = {"deform_fwd": ("deform_fwd_mma_kernel", ("bfloat16", "Lb0E")),
                                                             "bfloat16", "Li1E")),
                   "deform_fwd_slot_skip_simt": ("slot_skip_kernel", ("deform_fwd_variants_cu",
                                                                      "bfloat16")),
+                  "deform_fwd_bf16_fma": ("bf16_fma_kernel", ("deform_fwd_tc_variants_cu",
+                                                              "bfloat16")),
+                  "deform_fwd_bf16_fma_simt": ("bf16_fma_kernel", ("deform_fwd_variants_cu",
+                                                                   "bfloat16")),
                   "deform_fwd_tapwalk_simt": ("tapwalk_kernel", ("deform_fwd_variants_cu",
                                                                  "bfloat16"))}
 
@@ -347,9 +369,10 @@ def _usage(kernel):
 
 
 def _check_new_kernel_spills(logs):
-    """No instantiation of the Hopper V4 and V5 spills (ptxas's counts from
-    phase 2's build `logs`); logs each one's registers. Skipped where their
-    library was built before this run (no ptxas output to read)."""
+    """No instantiation of the Hopper V4, V5 and V1 spills (ptxas's counts
+    from phase 2's build `logs`); logs each one's registers, and those of
+    V1's first design. Skipped where their library was built before this run
+    (no ptxas output to read)."""
     if not logs.get("deform_fwd_tc_variants"):
         log("deform_fwd_tc_variants was built before this run: ptxas's counts not read")
         return
@@ -363,6 +386,11 @@ def _check_new_kernel_spills(logs):
         if not found or any(u.get("spill_stores") or u.get("spill_loads")
                             for u in found.values()):
             raise SystemExit(f"{kernel}: an instantiation spills, or ptxas reported none")
+    sym = KERNEL_SYMBOLS["deform_fwd_bf16_fma_simt"][0]
+    for f, u in USAGE.items():
+        if f"{len(sym)}{sym}" in f and "deform_fwd_variants_cu" in f:
+            log(f"deform_fwd_bf16_fma_simt {f}: {u.get('registers')} registers, spill stores "
+                f"{u.get('spill_stores')} B, loads {u.get('spill_loads')} B")
 
 
 def _case_label(dtype, semantics, off_range, B):
@@ -757,28 +785,26 @@ def _check_augment(B, H, W):
 
 
 def _check_variant_case(shape, dtype, off_range, bitwise):
-    """The nine variant kernels in one case against their plain versions, by
+    """The ten variant kernels in one case against their plain versions, by
     `deform_variants.compare` (K1's tolerances, and in bf16 the share of
     elements that may differ), and against the SIMT K1's output ("K1"
-    below, the baseline of V1 and the first designs of V2-V5): the first
-    designs of V4 and V5 must equal it bit for bit, and the Hopper V2-V5 the
-    Hopper K1's output; the SIMT K1's output must fail V1's limits (the control
-    that they tell V1's function from K1's); each prints its largest
-    difference from K1 relative to K1's largest output, the number the JAX
-    tool prints. Returns each variant's error and records in `bitwise`
-    whether it gave its bitwise reference's bits (K1's for the others)."""
+    below, the baseline of the first designs): the first designs of V4 and
+    V5 must equal it bit for bit, and the Hopper V2-V5 the Hopper K1's
+    output; each prints its largest difference from K1 relative to K1's
+    largest output, the number the JAX tool prints. Both V1 kernels are held
+    by `_hold_own`. Returns each variant's error and records in `bitwise`
+    whether V2-V5 gave their bitwise reference's bits (K1's for the others)."""
     args = _deform_inputs(*shape, off_range, dtype)
     case = f"{str(dtype)[6:]:9s} offsets +-{off_range} {shape}"
     errs = {}
     with float32_exact():
         k1 = cuda_deform.deform_fwd_simt(*args)
         hopper_k1 = cuda_deform.deform_fwd(*args)
-        wants = {}
+        want = windowed_plain(*args)
         for name, (fn, plain) in ALL_VARIANTS.items():
+            if plain is not windowed_plain:
+                continue
             got = fn(*args)
-            if plain not in wants:
-                wants[plain] = plain(*args)
-            want = wants[plain]
             torch.cuda.synchronize()
             c = compare(got, want)
             hopper = name in BITWISE_TO_HOPPER_K1
@@ -786,32 +812,51 @@ def _check_variant_case(shape, dtype, off_range, bitwise):
             same = torch.equal(got, hopper_k1 if hopper else k1)
             rel = (got.float() - k1.float()).abs().max().item() / k1.float().abs().max().item()
             ok = c["ok"] and (same or name not in BITWISE_TO_K1 + BITWISE_TO_HOPPER_K1)
-            text = (f"{name:23s} {case}: max_abs_err {c['max_abs_err']:.3e} "
-                    f"(tol {c['tol']:.3e}), differing {c['mismatch_share']:.3%} "
-                    f"(limit {c['share_limit']:.0%}), "
-                    f"{f'bitwise equal to {ref}' if same else f'differs from {ref}'}, "
-                    f"max rel diff from K1 {rel:.3e}")
-            if plain is not windowed_plain:
-                control = compare(k1, want)
-                ok &= not control["ok"]
-                text += (f"; control, K1 against this plain version: max_abs_err "
-                         f"{control['max_abs_err']:.3e}, differing "
-                         f"{control['mismatch_share']:.3%}, "
-                         f"{'WITHIN the limits' if control['ok'] else 'fails the limits'}")
-            log(f"{text} {'ok' if ok else 'FAIL'}")
+            log(f"{name:25s} {case}: max_abs_err {c['max_abs_err']:.3e} "
+                f"(tol {c['tol']:.3e}), differing {c['mismatch_share']:.3%} "
+                f"(limit {c['share_limit']:.0%}), "
+                f"{f'bitwise equal to {ref}' if same else f'differs from {ref}'}, "
+                f"max rel diff from K1 {rel:.3e} {'ok' if ok else 'FAIL'}")
             if not ok:
-                raise SystemExit(f"{name} disagrees with its plain version or with K1, or "
-                                 "the limits do not tell it from K1")
+                raise SystemExit(f"{name} disagrees with its plain version or with K1")
             errs[name] = c["max_abs_err"]
             bitwise[name] = bitwise.get(name, True) and same
+    errs.update(_hold_own(args, case, k1=k1, hopper_k1=hopper_k1))
+    return errs
+
+
+def _hold_own(args, case, k1=None, hopper_k1=None):
+    """Both designs of each variant that computes a function of its own
+    (V1, OWN_FUNCTION) on `args`, by `deform_ab.hold_hopper` on the whole
+    batch: each within V1's limits of its plain version, the Hopper V1
+    within them of its first design, and the controls that tell V1's
+    function from K1's failing: the Hopper K1's output (`hopper_k1`,
+    computed where not given) and the SIMT K1's (`k1`, where given) against
+    V1's plain version, both V1 designs' outputs against K1's. Ends the
+    script on a failure; returns each kernel's largest error from its plain
+    version."""
+    errs = {}
+    if hopper_k1 is None:
+        hopper_k1 = cuda_deform.deform_fwd(*args)
+    for name in OWN_FUNCTION:
+        held = deform_ab.hold_hopper(name, VARIANTS[name][0](*args), hopper_k1, args,
+                                     plain_images=args[0].shape[0],
+                                     others=None if k1 is None else {"the SIMT K1": k1})
+        log(f"{name:25s} {case}: {held['text']} {'ok' if held['ok'] else 'FAIL'}")
+        if not held["ok"]:
+            raise SystemExit(f"{name} or its first design disagrees with its plain version or "
+                             "with each other, or the limits do not tell V1's function from K1's")
+        errs[name] = held["plain"]["max_abs_err"]
+        errs[FIRST_DESIGNS[name][0]] = held["first_design_plain"]["max_abs_err"]
     return errs
 
 
 def _check_hopper_plans(shapes):
-    """The Hopper V2-V5's plans at `shapes` in both types, each logged, with
+    """The Hopper V1-V5's plans at `shapes` in both types, each logged, with
     the kernel's own count of the plan's shared memory, which must be the
-    plan's (the launch refuses a plan it disagrees with); V4's must be the
-    Hopper K1's resident plan, byte for byte, where K1 takes that plan."""
+    plan's (the launch refuses a plan it disagrees with); V4's and V1's must
+    be the Hopper K1's resident plan, byte for byte, where K1 takes that
+    plan (V1's with the A-block bytes its bf16 path leaves unused)."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for B, H, W, C, O in shapes:
         for dtype in (torch.bfloat16, torch.float32):
@@ -829,15 +874,18 @@ def _check_hopper_plans(shapes):
             for kernel in TC_KERNELS:
                 plan = cuda_deform_variants.tc_plan(kernel, B, H, W, C, O, dtype, sms)
                 own = cuda_deform_variants.tc_smem_bytes(plan, C, O, dtype)
+                unused = f", {plan['unused_a_bytes']} B of them unused" \
+                    if plan["unused_a_bytes"] else ""
                 log(f"{kernel} {str(dtype)[6:]} ({B},{H},{W},{C}->{O}): {plan['warps']} warps x "
                     f"{plan['items_per_warp']} items, {plan['blocks']} blocks for "
-                    f"{plan['items']} items, {plan['smem']} B (the kernel's count {own} B); the "
-                    f"Hopper K1 {k1['plan']}, {k1['warps']} warps, {k1['smem']} B")
+                    f"{plan['items']} items, {plan['smem']} B (the kernel's count {own} B"
+                    f"{unused}); the Hopper K1 {k1['plan']}, {k1['warps']} warps, "
+                    f"{k1['smem']} B")
                 if own != plan["smem"]:
                     raise SystemExit(f"{kernel}'s plan and its kernel disagree on its bytes")
-                if kernel == "deform_fwd_slot_skip" and k1["plan"] == "resident" and \
+                if kernel != "deform_fwd_tapwalk" and k1["plan"] == "resident" and \
                         (plan["warps"], plan["smem"]) != (k1["warps"], k1["smem"]):
-                    raise SystemExit("V4's plan is not the Hopper K1's resident plan")
+                    raise SystemExit(f"{kernel}'s plan is not the Hopper K1's resident plan")
 
 
 # the C 64 shape at which the Hopper V4 and V5 and their first designs are
@@ -909,12 +957,83 @@ def _check_skip_and_walk(B, H, W, C, O, bitwise):
             del args
 
 
+# the shapes at which the Hopper V1 runs right after every SM's shared
+# memory was filled with bf16 NaN bits: offsets +-4 put corners outside the
+# small image, Cin 24 and 21 end inside the last 16-channel step (21 inside
+# a 4-channel group too), and 20 x 21 pixels leave a short last item
+V1_POISONED = ((32, 20, 21, 24, 32), (32, 20, 21, 21, 32))
+
+
+def _dead_corner_share(offset, mask):
+    """The share of the corners of live taps (wv != 0) that lie outside the
+    image, from K1's windowed fields."""
+    H, W = offset.shape[1:3]
+    y0, fy, x0, fx, wv = _sample_fields(offset.float(), mask.float(), True)[:5]
+    live = (wv != 0).float()
+    dead = sum(((inb == 0).float() * live).sum() for *_, inb, _, _ in
+               _corners(y0, fy, x0, fx, H, W))
+    return (dead / (4 * live.sum())).item()
+
+
+def _check_own_wide():
+    """Both V1 kernels at VARIANT_WIDE (C 64) in the 4 windowed cases
+    (`_hold_own`)."""
+    B, H, W, C, O = VARIANT_WIDE
+    for dtype in (torch.float32, torch.bfloat16):
+        for off_range in (1.5, 4.0):
+            args = _deform_inputs(B, H, W, C, O, off_range, dtype)
+            _hold_own(args, f"{_case_label(dtype, 'windowed', off_range, B)} "
+                            f"({H}x{W}, C {C} -> {O})")
+            del args
+
+
+def _check_v1_poisoned():
+    """For each of V1_POISONED, `csrc/smem_poison.cu` fills every SM's
+    shared memory with 0xFFFF (a bf16 NaN) and the Hopper V1 launches right
+    after it on the same stream: it must read no stage row of a dead corner
+    and no channel past Cin (stale NaN bits there would reach its output),
+    so its output must be finite and within V1's limits of its plain
+    version, and the Hopper K1's output outside them."""
+    from mgdt_yolo_tpu_torch.utils.build import load_library
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    poison = load_library("smem_poison",
+                          (("smem_poison", i32, (i32, i64, i32, ptr, ptr)),)).smem_poison
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for B, H, W, C, O in V1_POISONED:
+        args = _deform_inputs(B, H, W, C, O, 4.0, torch.bfloat16)
+        hit = torch.zeros(1024, dtype=torch.int32, device=DEVICE)
+        err = poison(0xFFFF, cuda_deform._MAX_SMEM, 4 * sms, hit.data_ptr(),
+                     torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"smem_poison failed: CUDA error {err}")
+        got = cuda_deform_variants.deform_fwd_bf16_fma(*args)
+        torch.cuda.synchronize()
+        filled = int((hit > 0).sum())
+        with float32_exact():
+            want = deform_bf16_fma_plain(*args)
+        c, control = compare(got, want), compare(cuda_deform.deform_fwd(*args), want)
+        ok = filled >= sms and c["ok"] and not control["ok"]
+        log(f"deform_fwd_bf16_fma after NaN bits in the shared memory of {filled} of {sms} SMs, "
+            f"bf16 offsets +-4.0 ({B},{H},{W},{C}->{O}), "
+            f"{_dead_corner_share(args[1], args[2]):.2%} of the live taps' corners outside the "
+            f"image: finite {bool(torch.isfinite(got).all())}, max_abs_err "
+            f"{c['max_abs_err']:.3e} (tol {c['tol']:.3e}), differing {c['mismatch_share']:.3%}; "
+            f"the Hopper K1 differing {control['mismatch_share']:.3%} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("the Hopper V1 read shared memory it did not write, or the poison "
+                             "missed an SM")
+        del args, got
+
+
 def _check_variants(B, H, W, C, O):
-    """The nine variant kernels at the main path's shape in 4 cases and at
+    """The ten variant kernels at the main path's shape in 4 cases and at
     two ragged shapes (H, W not multiples of 8) in 4 each, with their plans;
     V2 and V3 also at the JAX tool's check shape; V4 and V5 where V4's skips
-    fire, at C 64 and at the JAX tools' check shape; times each beside the
-    SIMT K1 in the serving path's case (bf16, offsets +-1.5)."""
+    fire, at C 64 and at the JAX tools' check shape; V1 at C 64 and after
+    the shared memory was poisoned (`_check_v1_poisoned`); times
+    each beside the SIMT K1 in the serving path's case (bf16, offsets
+    +-1.5)."""
     bitwise = {}
     _check_hopper_plans(((B, H, W, C, O), (2, 20, 28, 32, 32), (2, 13, 21, 32, 32),
                          (TRAIN_BATCH, H, W, C, O), VARIANT_WIDE))
@@ -935,6 +1054,8 @@ def _check_variants(B, H, W, C, O):
     _check_skip_and_walk(B, H, W, C, O, bitwise)
     proto_deform_slot_skip.check()
     proto_deform_tapwalk.check()
+    _check_own_wide()
+    _check_v1_poisoned()
     args = _deform_inputs(B, H, W, C, O, 1.5, torch.bfloat16)
     # the plain versions of V2-V5 are one function, K1's: timed once
     plain_ms = {plain: cuda_time_ms(lambda: plain(*args), iters=5)
@@ -945,6 +1066,9 @@ def _check_variants(B, H, W, C, O):
         row = deform_ab.ab(f"b{B} serving case", name, fn, plain, args, iters=20, windows=5,
                            plain_images=B)
         ref = "bitwise_to_hopper_k1" if name in BITWISE_TO_HOPPER_K1 else "bitwise_to_k1"
+        held = {ref: bitwise[name]} if name in bitwise else {
+            "reference": "its plain version, within compare's limits, with K1's output outside "
+                         "them (and the Hopper V1 within them of its first design)"}
         entries.append({
             "name": name, "route": "cuda",
             "source": f"mgdt_yolo_tpu_torch/csrc/{VARIANT_SOURCES[name]}.cu",
@@ -953,7 +1077,7 @@ def _check_variants(B, H, W, C, O):
             "launches": None, "max_abs_err": main_errs[name], "max_err": main_errs[name],
             "ms": row["ms"], "plain_ms": plain_ms[plain], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None, "k1_ms": row["k1_ms"],
-            ref: bitwise[name], "max_rel_diff_from_k1": row["max_rel_diff"],
+            **held, "max_rel_diff_from_k1": row["max_rel_diff"],
             **_usage(name)})
     return entries
 
@@ -1370,17 +1494,18 @@ def _ab_sound(row):
     """An A/B row's output against the SIMT K1's: the first designs of V4 and
     V5 give its bits; the Hopper V2-V5 and the first designs of V2 and V3
     (K1's function) stay within two bf16 roundings of its largest output,
-    V1 (bf16 weights and products) within four."""
+    both V1 kernels (bf16 weights and products) within four."""
     if row["variant"] in BITWISE_TO_K1:
         return row["max_abs_diff"] == 0.0
-    limit = (4 if row["variant"] == "deform_fwd_bf16_fma" else 2) * 2 ** -8
+    own = ALL_VARIANTS[row["variant"]][1] is not windowed_plain
+    limit = (4 if own else 2) * 2 ** -8
     return math.isfinite(row["max_rel_diff"]) and row["max_rel_diff"] <= limit
 
 
 def phase_variant_ab():
     log(f"== phase 12: K1 variant A/B: the four ported A/B tools at their own shapes, then "
-        f"the nine variant kernels at b{TRAIN_BATCH} (bf16, windowed, offsets +-1.5) "
-        f"against the SIMT K1, then the Hopper V2-V5 against their first designs and the "
+        f"the ten variant kernels at b{TRAIN_BATCH} (bf16, windowed, offsets +-1.5) "
+        f"against the SIMT K1, then the Hopper V1-V5 against their first designs and the "
         f"Hopper K1")
     reset_counts()
     rows, hopper_rows, plan_rows, baseline = [], [], [], 0
@@ -1420,12 +1545,13 @@ def phase_variant_ab():
             f"{r['max_rel_diff']:.3e} | {r['plain_images']} | {r['max_abs_err']:.3e} | "
             f"{r['mismatch_share']:.3%}")
     log("case | Hopper variant | ms | its SIMT design ms | SIMT / Hopper | Hopper K1 ms | "
-        "K1 / variant | share of the bound | bits of the Hopper K1")
+        "K1 / variant | share of the bound | reference held")
     for r in hopper_rows:
+        held = "the Hopper K1's bits" if r["bitwise_to_hopper_k1"] else (
+            f"its first design, differing {r['first_design_mismatch_share']:.3%}")
         log(f"  {r['case']} | {r['variant']} | {r['ms']:.4f} | {r['simt_ms']:.4f} | "
             f"{r['simt_over_hopper']:.3f} | {r['hopper_k1_ms']:.4f} | "
-            f"{r['k1_over_variant']:.3f} | {r['share_of_bound']:.2%} | "
-            f"{r['bitwise_to_hopper_k1']}")
+            f"{r['k1_over_variant']:.3f} | {r['share_of_bound']:.2%} | {held}")
     log("the Hopper V5's plans at b512 C 64 (small-off), in turns: warps | items per warp | "
         "bytes | ms | the Hopper K1 ms | K1 / V5")
     for r in plan_rows:

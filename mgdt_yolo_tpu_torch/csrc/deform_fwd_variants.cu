@@ -3,7 +3,8 @@
 // one TPU prototype that tested a schedule of K1's function against K1 at the
 // flagship's DCN shape (80x80, C = 32):
 //
-//   V1 deform_fwd_bf16_fma   tools/proto_deform_bf16_fma.py `variant` (`_kernel_bf16`)
+//   V1 deform_fwd_bf16_fma_simt  tools/proto_deform_bf16_fma.py `variant`
+//                                (`_kernel_bf16`)
 //   V2 deform_fwd_qxhoist_simt  tools/proto_deform_qxhoist.py `deform_qxhoist`
 //                               (`_kernel_fused_qxhoist`)
 //   V3 deform_fwd_cvt1_simt     tools/proto_deform_qxhoist.py `deform_cvt1`
@@ -13,13 +14,14 @@
 //   V5 deform_fwd_tapwalk_simt    tools/proto_deform_tapwalk.py `variant`
 //                                 (`_kernel_tap`)
 //
-// V2-V5 here are their first designs, on the CUDA cores; their Hopper
+// All five here are their first designs, on the CUDA cores; their Hopper
 // designs are K1's tensor-core contraction fed from a ring of input rows (V2
 // and V3, deform_fwd_slab.cu, behind `deform_fwd_qxhoist` and
-// `deform_fwd_cvt1`) or with dead work skipped and the taps walked
-// outermost (V4 and V5, deform_fwd_tc_variants.cu, behind
-// `deform_fwd_slot_skip` and `deform_fwd_tapwalk`). These stay as their A/B
-// baseline (the `_simt` names); V1 has no Hopper design yet.
+// `deform_fwd_cvt1`), with dead work skipped, the taps walked outermost or
+// the bf16 corner products fed to the tensor cores as they are (V4, V5 and
+// V1, deform_fwd_tc_variants.cu, behind `deform_fwd_slot_skip`,
+// `deform_fwd_tapwalk` and `deform_fwd_bf16_fma`). These stay as their A/B
+// baseline (the `_simt` names).
 //
 // The TPU prototypes walk one-hot window slots because gathers are slow
 // there; none of that walk is carried over. Each variant keeps K1's gather of
@@ -553,7 +555,7 @@ int run(Variant v, const void* x, const void* offset, const void* mask, const vo
     return smem_bytes(v, W, Cin, Cout, is_bf16);                                            \
   }
 
-VARIANT_ENTRY(deform_fwd_bf16_fma, BF16_FMA)
+VARIANT_ENTRY(deform_fwd_bf16_fma_simt, BF16_FMA)
 VARIANT_ENTRY(deform_fwd_qxhoist_simt, QXHOIST)
 VARIANT_ENTRY(deform_fwd_cvt1_simt, CVT1)
 VARIANT_ENTRY(deform_fwd_slot_skip_simt, SLOT_SKIP)

@@ -11,7 +11,8 @@
 // the same terms in the same order; V4 and V5 fill and read K1's stage
 // through `gather_corner` and `combine_stage` (K1 keeps its own copies of
 // those two steps, so that its code stays as it was compiled). So all five
-// give the same bits on finite inputs.
+// give the same bits on finite inputs. V1 (deform_fwd_tc_variants.cu), a
+// function of its own, fills the stage through `gather_corner` too.
 //
 // utils/build.py hashes this header into every kernel's build digest.
 #pragma once

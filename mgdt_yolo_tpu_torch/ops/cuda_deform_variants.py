@@ -2,7 +2,7 @@
 forward, each the Hopper counterpart of one TPU prototype (the repo-root
 `tools/proto_deform_*.py`):
 
-* `deform_fwd_bf16_fma` (V1): bf16 corner weights and bf16 products;
+* `deform_fwd_bf16_fma` (V1): bf16 corner weights and bf16 corner products;
 * `deform_qxhoist` (V2): the input rows staged once per block in shared
   memory, in x's type;
 * `deform_cvt1` (V3): V2 with the staged rows converted to float32 once;
@@ -10,19 +10,20 @@ forward, each the Hopper counterpart of one TPU prototype (the repo-root
 * `deform_fwd_tapwalk` (V5): the contraction walked tap-outer, one tap's
   weight slice resident.
 
-V1 (`csrc/deform_fwd_variants.cu`) is a design on the CUDA cores beside the
-SIMT K1. V2-V5 are redesigned on the Hopper K1's tensor-core design and give
+All five are redesigned on the Hopper K1's tensor-core design. V2-V5 give
 its bits: V2 and V3 (`csrc/deform_fwd_slab.cu`) fed from a ring of input
 rows in shared memory, loaded asynchronously; V4 and V5
 (`csrc/deform_fwd_tc_variants.cu`) with K1's per-warp corner gathers, V4
 skipping dead work and V5 holding one tap's weight slice in place of nine.
-Their plans (`slab_plan`: rows per band, ring rows, warps, blocks, bytes;
-`tc_plan`: warps, items per warp, blocks, bytes) are chosen here and passed
-to the kernel, which refuses a plan its own layout disagrees with. Their
-first designs, on the CUDA cores, stay in `csrc/deform_fwd_variants.cu` as
-their A/B baseline (`FIRST_DESIGNS`): `deform_qxhoist_simt`,
-`deform_cvt1_simt`, `deform_fwd_slot_skip_simt` and
-`deform_fwd_tapwalk_simt`.
+V1 (`csrc/deform_fwd_tc_variants.cu`) computes its own function with K1's
+plan and gathers, its bf16 corner products fed to the tensor cores as four
+times the contraction depth. Their plans (`slab_plan`: rows per band, ring
+rows, warps, blocks, bytes; `tc_plan`: warps, items per warp, blocks,
+bytes) are chosen here and passed to the kernel, which refuses a plan its
+own layout disagrees with. Their first designs, on the CUDA cores, stay in
+`csrc/deform_fwd_variants.cu` as their A/B baseline (`FIRST_DESIGNS`):
+`deform_fwd_bf16_fma_simt`, `deform_qxhoist_simt`, `deform_cvt1_simt`,
+`deform_fwd_slot_skip_simt` and `deform_fwd_tapwalk_simt`.
 
 They take the JAX tools' signatures (NHWC x, offset, mask, weight; `bias`
 for V2 and V3) and windowed semantics only. For CUDA tensors each launches
@@ -30,10 +31,10 @@ its kernel on the current stream; a CPU tensor goes to its plain version
 (`ops/deform_variants.py`: V1's own, K1's windowed plain version for V2-V5)
 without counting a launch. Any other input the kernels do not take raises:
 exact semantics, more shared memory than a block may use (V2 and V3: no
-slab plan fits, as at C 64; V4 above K1's resident plan, V5 where not one
-warp fits), a non-contiguous or mistyped tensor (K1's checks,
-`cuda_deform._check`), and for V1 in bf16 an odd Cin or an x not aligned to
-4 bytes (it reads channel pairs). Nothing falls back. `launches` counts each
+slab plan fits, as at C 64; V4 and V1 above K1's resident plan, V5 where not
+one warp fits), a non-contiguous or mistyped tensor (K1's checks,
+`cuda_deform._check`), and for V1's first design in bf16 an odd Cin or an x
+not aligned to 4 bytes (it reads channel pairs). Nothing falls back. `launches` counts each
 kernel's launches, keyed by its C entry point; `smem_bytes` gives the shared
 memory one block of a CUDA-core kernel needs.
 """
@@ -51,14 +52,15 @@ from .deform_variants import deform_bf16_fma_plain, windowed_plain
 SOURCE = "deform_fwd_variants"      # csrc/deform_fwd_variants.cu: the CUDA-core designs
 SLAB_SOURCE = "deform_fwd_slab"     # csrc/deform_fwd_slab.cu: the Hopper V2 and V3
 SLAB_KERNELS = ("deform_fwd_qxhoist", "deform_fwd_cvt1")
-TC_SOURCE = "deform_fwd_tc_variants"  # csrc/deform_fwd_tc_variants.cu: the Hopper V4 and V5
-TC_KERNELS = ("deform_fwd_slot_skip", "deform_fwd_tapwalk")
+TC_SOURCE = "deform_fwd_tc_variants"  # csrc/deform_fwd_tc_variants.cu: the Hopper V4, V5, V1
+TC_KERNELS = ("deform_fwd_slot_skip", "deform_fwd_tapwalk", "deform_fwd_bf16_fma")
 
 # launches of each variant's kernel since its count was last set to 0
 launches = dict.fromkeys(("deform_fwd_bf16_fma", "deform_fwd_qxhoist", "deform_fwd_cvt1",
                           "deform_fwd_slot_skip", "deform_fwd_tapwalk",
-                          "deform_fwd_qxhoist_simt", "deform_fwd_cvt1_simt",
-                          "deform_fwd_slot_skip_simt", "deform_fwd_tapwalk_simt"), 0)
+                          "deform_fwd_bf16_fma_simt", "deform_fwd_qxhoist_simt",
+                          "deform_fwd_cvt1_simt", "deform_fwd_slot_skip_simt",
+                          "deform_fwd_tapwalk_simt"), 0)
 
 # The slab plan. Output rows per band, the largest that fits first: a band is
 # one block barrier, and a run of bands reads x once plus 7 halo rows.
@@ -220,7 +222,7 @@ def _run_slab(kernel, x, offset, mask, weight, bias, semantics):
     return out
 
 
-# The Hopper V4 / V5 plan. Warps a block may have at each number of items a
+# The Hopper V4 / V5 / V1 plan. Warps a block may have at each number of items a
 # warp carries over the taps: the kernel's launch bound (512 threads, so 128
 # registers a thread, as K1; two items' 16 more float32 sums a lane take 384
 # and 168). They are also the warps an SM holds by registers.
@@ -229,7 +231,7 @@ TC_MAX_WARPS = {1: 16, 2: 12}
 
 def tc_layout(Cin: int, Cout: int, x_bytes: int, weight_taps: int, warps: int,
               items_per_warp: int) -> dict:
-    """The shared memory of one block of the Hopper V4 or V5 (`layout` in
+    """The shared memory of one block of the Hopper V4, V5 or V1 (`layout` in
     `csrc/deform_fwd_tc_variants.cu`, which the launch recomputes), K1's own
     layout (`csrc/deform_fwd.cu`): `weight_taps` taps of the weight as bf16
     B fragments, (Cout padded to 8, Cin padded to 16 plus 8), hi and, for
@@ -252,14 +254,19 @@ def tc_layout(Cin: int, Cout: int, x_bytes: int, weight_taps: int, warps: int,
 
 def tc_plan(kernel: str, B: int, H: int, W: int, Cin: int, Cout: int, dtype: torch.dtype,
             sms: int, warps: int | None = None, items_per_warp: int | None = None) -> dict:
-    """The plan of the Hopper V4 ("deform_fwd_slot_skip") or V5
-    ("deform_fwd_tapwalk") at x (B, H, W, Cin), Cout output channels, x's
-    `dtype`, on a card of `sms` SMs. Raises ValueError where not one warp
-    fits in a block's shared memory. `warps` and `items_per_warp` force V5's
-    plan (its tool's A/B of plans); they raise where they do not fit.
+    """The plan of the Hopper V4 ("deform_fwd_slot_skip"), V5
+    ("deform_fwd_tapwalk") or V1 ("deform_fwd_bf16_fma") at x (B, H, W,
+    Cin), Cout output channels, x's `dtype`, on a card of `sms` SMs. Raises
+    ValueError where not one warp fits in a block's shared memory.
+    `warps` and `items_per_warp` force V5's plan (its tool's A/B of plans);
+    they raise where they do not fit.
 
-    V4 holds the 9 taps' weight and one item per warp: K1's resident plan,
-    the same bytes and warps (at most 16). V5 holds two taps' slices (the
+    V4 and V1 hold the 9 taps' weight and one item per warp: K1's resident
+    plan, the same bytes and warps (at most 16). V1 on bf16 x leaves the
+    (16, Cin) hi/lo sample blocks of each warp unused (`unused_a_bytes`; its
+    products go to the tensor cores from registers), and does not spend
+    them on warps, so that its A/B against K1 measures its arithmetic
+    alone. V5 holds two taps' slices (the
     one contracted and the next, loading) and takes the most warps that fit
     (at most TC_MAX_WARPS for its items per warp), then the most items per
     warp, 1 or 2: a warp's items share the round's block barrier per tap.
@@ -270,7 +277,7 @@ def tc_plan(kernel: str, B: int, H: int, W: int, Cin: int, Cout: int, dtype: tor
     x_bytes = 2 if dtype == torch.bfloat16 else 4
     walk = kernel == "deform_fwd_tapwalk"
     if kernel not in TC_KERNELS or items_per_warp not in (None, *TC_MAX_WARPS):
-        raise ValueError(f"{kernel} is not a Hopper V4 or V5 kernel, or {items_per_warp} items "
+        raise ValueError(f"{kernel} is not one of {TC_KERNELS}, or {items_per_warp} items "
                          f"a warp is not one of {tuple(TC_MAX_WARPS)}")
     taps = 2 if walk else 9
     best = None
@@ -288,8 +295,11 @@ def tc_plan(kernel: str, B: int, H: int, W: int, Cin: int, Cout: int, dtype: tor
     lay = tc_layout(Cin, Cout, x_bytes, taps, warps, ipw)
     items = B * -(-H * W // 16) * -(-_round_up(Cout, 8) // 8 // _NTW)
     per_sm = max(1, min(_SMEM_PER_SM // (lay["smem"] + 1024), TC_MAX_WARPS[ipw] // warps))
+    unused = warps * 2 * 16 * (_round_up(Cin, 16) + 8) * 2 \
+        if kernel == "deform_fwd_bf16_fma" and x_bytes == 2 else 0
     return {"kernel": kernel, "warps": warps, "items_per_warp": ipw, "items": items,
-            "blocks": max(1, min(-(-items // (warps * ipw)), sms * per_sm)), **lay}
+            "blocks": max(1, min(-(-items // (warps * ipw)), sms * per_sm)),
+            "unused_a_bytes": unused, **lay}
 
 
 def hopper_k1_plan(Cin: int, Cout: int, dtype: torch.dtype) -> dict:
@@ -324,11 +334,11 @@ def tc_smem_bytes(plan: dict, Cin: int, Cout: int, dtype: torch.dtype) -> int:
         Cin, Cout, int(dtype == torch.bfloat16), plan["warps"], plan["items_per_warp"])
 
 
-def _run_tc(kernel, x, offset, mask, weight, semantics, plan=None):
+def _run_tc(kernel, x, offset, mask, weight, semantics, plan=None, plain=windowed_plain):
     if check_semantics(semantics) != "windowed":
         raise ValueError(f"{kernel} computes windowed semantics only, got {semantics!r}")
     if x.device.type == "cpu":
-        return windowed_plain(x, offset, mask, weight)
+        return plain(x, offset, mask, weight)
     if not x.is_cuda:
         raise ValueError(f"{kernel} takes CUDA or CPU tensors, got {x.device}")
     B, H, W, Cin, Cout = _check(x, offset, mask, weight, None)
@@ -355,13 +365,23 @@ def _run_tc(kernel, x, offset, mask, weight, semantics, plan=None):
 def deform_fwd_bf16_fma(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                         weight: torch.Tensor, semantics: str = "windowed") -> torch.Tensor:
     """V1: corner weights rounded to bf16, corner products in x's type,
-    float32 sums (`deform_bf16_fma_plain` is its function). No bias. In bf16
-    it reads x's channels in pairs: Cin even (its `smem_bytes` is -1 for an
-    odd one) and x aligned to 4 bytes."""
+    float32 sums (`deform_bf16_fma_plain` is its function), on the Hopper
+    K1's resident plan (`tc_plan`), its bf16 corner products contracted on
+    the tensor cores as they are. No bias."""
+    return _run_tc("deform_fwd_bf16_fma", x, offset, mask, weight, semantics,
+                   plain=deform_bf16_fma_plain)
+
+
+def deform_fwd_bf16_fma_simt(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+                             weight: torch.Tensor, semantics: str = "windowed") -> torch.Tensor:
+    """V1's first design, on the CUDA cores (the A/B baseline of V1): V1's
+    function in the SIMT K1's blocks. No bias. In bf16 it reads x's channels
+    in pairs: Cin even (its `smem_bytes` is -1 for an odd one) and x aligned
+    to 4 bytes."""
     if x.is_cuda and x.dtype == torch.bfloat16 and x.data_ptr() % 4:
-        raise ValueError("deform_fwd_bf16_fma reads bf16 channel pairs: x must be aligned "
-                         "to 4 bytes")
-    return _run("deform_fwd_bf16_fma",
+        raise ValueError("deform_fwd_bf16_fma_simt reads bf16 channel pairs: x must be "
+                         "aligned to 4 bytes")
+    return _run("deform_fwd_bf16_fma_simt",
                 lambda: deform_bf16_fma_plain(x, offset, mask, weight),
                 x, offset, mask, weight, None, semantics)
 
@@ -441,7 +461,7 @@ def deform_fwd_tapwalk_simt(x: torch.Tensor, offset: torch.Tensor, mask: torch.T
 
 
 # each variant's wrapper and plain version, keyed by its kernel's name
-# (V2-V5 by their Hopper designs)
+# (by their Hopper designs)
 VARIANTS = {"deform_fwd_bf16_fma": (deform_fwd_bf16_fma, deform_bf16_fma_plain),
             "deform_fwd_qxhoist": (deform_qxhoist, windowed_plain),
             "deform_fwd_cvt1": (deform_cvt1, windowed_plain),
@@ -450,6 +470,8 @@ VARIANTS = {"deform_fwd_bf16_fma": (deform_fwd_bf16_fma, deform_bf16_fma_plain),
 # every variant redesigned for Hopper, keyed by its kernel: its first design
 # on the CUDA cores, its A/B baseline, as (kernel, wrapper, plain version)
 FIRST_DESIGNS = {
+    "deform_fwd_bf16_fma": ("deform_fwd_bf16_fma_simt", deform_fwd_bf16_fma_simt,
+                            deform_bf16_fma_plain),
     "deform_fwd_qxhoist": ("deform_fwd_qxhoist_simt", deform_qxhoist_simt, windowed_plain),
     "deform_fwd_cvt1": ("deform_fwd_cvt1_simt", deform_cvt1_simt, windowed_plain),
     "deform_fwd_slot_skip": ("deform_fwd_slot_skip_simt", deform_fwd_slot_skip_simt,

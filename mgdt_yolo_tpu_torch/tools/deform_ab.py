@@ -3,16 +3,17 @@ the check of a variant against its plain version, the inputs of the A/B runs
 and the timing of a variant against K1 on the card, with both held against
 their plain versions on the A/B's own inputs.
 
-"K1" here is the SIMT K1, `cuda_deform.deform_fwd_simt`: V1 and the first
-designs of V2-V5 are redesigns of its CUDA-core arithmetic, and those of V4
-and V5 keep its float32 order, so it is their baseline and their bitwise
+"K1" here is the SIMT K1, `cuda_deform.deform_fwd_simt`: the first designs
+of V1-V5 are redesigns of its CUDA-core arithmetic, and those of V4 and V5
+keep its float32 order, so it is their baseline and their bitwise
 reference; every variant is timed against it (`ab`), so the series of
-earlier runs goes on. The Hopper V2-V5 are K1's tensor-core design
+earlier runs goes on. The Hopper V1-V5 are K1's tensor-core design
 (`cuda_deform.deform_fwd`, "the Hopper K1") with each variant's idea:
 `ab_hopper` times each in turns against its first design
 (`cuda_deform_variants.FIRST_DESIGNS`) and against the Hopper K1, whose bits
-it must give. The model's K1 is A/B'd against the SIMT K1 by
-`chip_smoke.py` phase 3.
+V2-V5 must give (V1, which computes its own function, is held to its plain
+version and its first design instead). The model's K1 is A/B'd against the
+SIMT K1 by `chip_smoke.py` phase 3.
 
 Each tool ports one A/B script of the repo-root `tools/` (JAX on a TPU) and
 keeps that script's shapes and data distributions; the data is made anew
@@ -196,16 +197,67 @@ def ab(label: str, name: str, variant, plain, args, iters=5, windows=3,
     return row
 
 
+def hold_hopper(name, got, k1, args, plain_images=8, others=None) -> dict:
+    """The Hopper variant `name`'s output `got` on `args`, with the Hopper
+    K1's `k1` on the same inputs, against the variant's reference: V2-V5
+    must give the Hopper K1's bits on all of `args`; V1, which computes its
+    own function, must be within its limits (`compare`) of its first
+    design's output on all of `args`, and the controls must fail: the
+    Hopper K1's output (and each of `others`, {name: output}) against V1's
+    plain version, and both V1 designs' outputs against K1's
+    (`windowed_plain`). The variant (and V1's first design) is also held
+    against its plain version on the first `plain_images` images. Returns
+    the comparisons, a one-line `text` and `ok`."""
+    _, plain = VARIANTS[name]
+    _, simt, _ = FIRST_DESIGNS[name]
+    n = min(plain_images, got.shape[0])
+    head = [t[:n] for t in args[:3]] + [args[3]]
+    with float32_exact():
+        want = plain(*head)
+        k1_want = want if plain is windowed_plain else windowed_plain(*head)
+    held = {"plain": compare(got[:n], want), "plain_images": n}
+    if plain is windowed_plain:
+        same = torch.equal(got, k1)
+        held.update(reference="the Hopper K1's bits", bitwise_to_hopper_k1=same,
+                    ok=same and held["plain"]["ok"])
+        text = f"{'bitwise equal to' if same else 'DIFFERS from'} the Hopper K1"
+    else:
+        first_out = simt(*args)
+        first = compare(got, first_out)
+        controls = {"the Hopper K1 against its plain version": compare(k1[:n], want),
+                    **{f"{who} against its plain version": compare(out[:n], want)
+                       for who, out in (others or {}).items()},
+                    "it against K1's": compare(got[:n], k1_want),
+                    "its first design against K1's": compare(first_out[:n], k1_want)}
+        held.update(reference="its plain version and its first design, within compare's "
+                              "limits", bitwise_to_hopper_k1=False, first_design=first,
+                    first_design_plain=compare(first_out[:n], want), controls=controls)
+        held["ok"] = held["plain"]["ok"] and first["ok"] and \
+            held["first_design_plain"]["ok"] and not any(c["ok"] for c in controls.values())
+        text = (f"against its first design: max |diff| {first['max_abs_err']:.3e} (tol "
+                f"{first['tol']:.3e}), differing {first['mismatch_share']:.3%}; controls, "
+                "differing: " + ", ".join(f"{who} {c['mismatch_share']:.3%}"
+                                          for who, c in controls.items()) +
+                f" ({'all fail' if not any(c['ok'] for c in controls.values()) else 'ONE IS WITHIN'}"
+                " the limits); its first design against the plain version: max |diff| "
+                f"{held['first_design_plain']['max_abs_err']:.3e}, differing "
+                f"{held['first_design_plain']['mismatch_share']:.3%}")
+    p = held["plain"]
+    held["text"] = (f"{text}; first {n} images against the plain version: max |diff| "
+                    f"{p['max_abs_err']:.3e} (tol {p['tol']:.3e}), differing "
+                    f"{p['mismatch_share']:.3%}")
+    return held
+
+
 def ab_hopper(label: str, name: str, args, iters=5, windows=3, plain_images=8) -> dict:
     """The Hopper variant `name` (a key of FIRST_DESIGNS) in turns against its
     first design and the Hopper K1 on the same bf16 inputs: SIMT V, Hopper
     V, Hopper K1, Hopper K1, Hopper V, SIMT V (min over windows of each,
-    CUDA events). Its output must give the Hopper K1's bits on all of
-    `args`, and it is held against its plain version on the first
-    `plain_images` images (`compare`); raises RuntimeError otherwise. Counts
-    the Hopper K1's launches made here as its baseline
-    (`hopper_k1_launches`). Prints two lines and returns the row as a
-    dict."""
+    CUDA events). Its output is first held to its reference (`hold_hopper`:
+    the Hopper K1's bits for V2-V5, V1's function for V1); raises
+    RuntimeError otherwise. Counts the Hopper K1's launches made here as its
+    baseline (`hopper_k1_launches`). Prints two lines and returns the row as
+    a dict."""
     hopper, _ = VARIANTS[name]
     simt_name, simt, _ = FIRST_DESIGNS[name]
     x, _, _, w = args
@@ -213,19 +265,14 @@ def ab_hopper(label: str, name: str, args, iters=5, windows=3, plain_images=8) -
     O = w.shape[3]
     k1_before = cuda_deform.launches
     got, k1 = hopper(*args), cuda_deform.deform_fwd(*args)
-    same = torch.equal(got, k1)
-    n = min(plain_images, B)
-    with float32_exact():
-        held = compare(got[:n], windowed_plain(*[t[:n] for t in args[:3]], w))
+    held = hold_hopper(name, got, k1, args, plain_images)
     del got, k1
     shape = f"({B},{Hx},{Wx},{C}->{O}) bf16"
-    ok = same and held["ok"]
-    print(f"{label} {shape}: {name} {'bitwise equal to' if same else 'DIFFERS from'} the "
-          f"Hopper K1; first {n} images against the plain version: max |diff| "
-          f"{held['max_abs_err']:.3e} (tol {held['tol']:.3e}), differing "
-          f"{held['mismatch_share']:.3%} {'ok' if ok else 'FAIL'}", flush=True)
-    if not ok:
-        raise RuntimeError(f"{name} differs from the Hopper K1 or its plain version ({label})")
+    print(f"{label} {shape}: {name} {held['text']} {'ok' if held['ok'] else 'FAIL'}",
+          flush=True)
+    if not held["ok"]:
+        raise RuntimeError(f"{name} strays from {held['reference']} or its plain version "
+                           f"({label})")
     fns = {"simt": lambda: simt(*args), "hopper": lambda: hopper(*args),
            "k1": lambda: cuda_deform.deform_fwd(*args)}
     times = {who: [] for who in fns}
@@ -237,9 +284,15 @@ def ab_hopper(label: str, name: str, args, iters=5, windows=3, plain_images=8) -
            "simt_ms": simt_ms, "hopper_k1_ms": k1_ms, "simt_over_hopper": simt_ms / ms,
            "k1_over_variant": k1_ms / ms, "bound_ms": bound_ms, "bound_by": bound_by,
            "share_of_bound": bound_ms / ms, "simt_share_of_bound": bound_ms / simt_ms,
-           "bitwise_to_hopper_k1": same, "plain_images": n,
-           "max_abs_err": held["max_abs_err"], "mismatch_share": held["mismatch_share"],
+           "reference": held["reference"], "bitwise_to_hopper_k1": held["bitwise_to_hopper_k1"],
+           "plain_images": held["plain_images"], "max_abs_err": held["plain"]["max_abs_err"],
+           "mismatch_share": held["plain"]["mismatch_share"],
            "hopper_k1_launches": cuda_deform.launches - k1_before}
+    if "first_design" in held:
+        row.update(first_design_max_abs_err=held["first_design"]["max_abs_err"],
+                   first_design_mismatch_share=held["first_design"]["mismatch_share"],
+                   control_mismatch_shares={k: c["mismatch_share"]
+                                            for k, c in held["controls"].items()})
     print(f"{label} {shape}: {name} " + " / ".join(f"{t:.4f}" for t in times["hopper"]) +
           " ms, its SIMT design " + " / ".join(f"{t:.4f}" for t in times["simt"]) +
           f" ms ({row['simt_over_hopper']:.3f}x), the Hopper K1 " +
