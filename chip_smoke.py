@@ -88,6 +88,26 @@ Phases, each of which passes or ends the script with a non-zero exit:
 11. `apply_augment` on the card against the CPU with the same draws, two
    640 px scenes, mosaic on, HSV off and on: labels equal, boxes and
    pixels within the stated tolerance.
+13. the ablation family: the seven other models of the paper's ablation
+   matrix (`models.CONFIGS`: YOLOv8's PAN with `Detect` at reg_max 4 or
+   TOOD on the stride-16 map, and GOLD-YOLO's neck with either head; C2f or
+   MSPA-C2f backbones), n-scale, nc=2, full width and depth, 640 px, from
+   the port's seeded init (no trained weights exist): each serves a fused
+   bf16 request at b8 (K1 once on the three TOOD models, no kernel on the
+   four `Detect` models) and is timed at b32; compares a float32 fused
+   forward of two noise images on the card with the CPU, its BatchNorm
+   statistics set from one batch of scenes (raw maps within 1e-3 of their
+   magnitude, decoded boxes 0.5 px, scores 1e-3; NMS on the card and the
+   CPU given the same decoded tensor, ~1000 candidates: the same result);
+   trains unaugmented through
+   `Trainer.train()` at b16 for two micro-steps (accumulate 2: one update;
+   K1 and K2 once per micro-step on the TOOD models, none on the others;
+   finite losses; a finite, non-zero DCN weight gradient) and reloads its
+   `last.npz` through `from_npz` as the same config, `nc` and weights; times
+   the micro-step, and K1 and K2 per launch inside the forward and the step
+   (torch.profiler) beside phase 3's synthetic C 64 case; on the two thead
+   models (DCN at C 64 on the 40x40 map) one float32 training step on the
+   card against the CPU, as phase 9 (there K2 runs its streamed plan).
 12. K1 variant A/B: the `bench()` of the four ported A/B tools
    (`mgdt_yolo_tpu_torch/tools/proto_deform_*.py`) at their own shapes (b512
    C 32, b128 C 32, b512 C 64, bf16), then all ten variant kernels at the
@@ -110,7 +130,8 @@ Phases, each of which passes or ends the script with a non-zero exit:
    as in phase 3.
    Phase 10 runs before phase 8, and phases 8, 9 and 11 run after it,
    because the CPU work leaves the host's threads busy, which slows the
-   host-bound steps; phase 12, which times kernels only, runs last.
+   host-bound steps; phase 13 runs after phase 11, and phase 12, which
+   times kernels only, runs last.
 
 The last lines are the kernel table as JSON, the card's name and power
 limit, and `{"ok": true, "device": {...}}`. Without a CUDA device the script
@@ -136,6 +157,8 @@ from mgdt_yolo_tpu_torch.data.synthetic import SyntheticDetectionDataset, synthe
 from mgdt_yolo_tpu_torch.engine import predictor
 from mgdt_yolo_tpu_torch.engine.predictor import predict
 from mgdt_yolo_tpu_torch.engine.trainer import Trainer
+from mgdt_yolo_tpu_torch.models import CONFIGS, FLAGSHIP
+from mgdt_yolo_tpu_torch.nn.modules.block import DyDCNv2
 from mgdt_yolo_tpu_torch.nn.tasks import DetectionModel
 from mgdt_yolo_tpu_torch.ops import cuda_deform, cuda_deform_variants, cuda_image
 from mgdt_yolo_tpu_torch.ops.cuda_deform_variants import (FIRST_DESIGNS, SLAB_KERNELS,
@@ -153,8 +176,8 @@ from mgdt_yolo_tpu_torch.tools import (deform_ab, proto_deform_bf16_fma, proto_d
                                        proto_deform_slot_skip, proto_deform_tapwalk)
 from mgdt_yolo_tpu_torch.utils.build import build_all, nvcc_path
 from mgdt_yolo_tpu_torch.utils.measure import (HBM_BYTES_PER_S, PEAK_FLOPS, cuda_time_ms,
-                                               deform_fwd_bound_ms, float32_exact,
-                                               gpu_name_and_power)
+                                               deform_fwd_bound_ms, device_us,
+                                               float32_exact, gpu_name_and_power)
 
 ROOT = Path(__file__).resolve().parent
 WEIGHTS = ROOT / "weights" / "mgdt_n_synth.npz"
@@ -1146,6 +1169,11 @@ def phase_throughput(model):
     log("throughput images/s: " + json.dumps(rates))
 
 
+def _dcn(model):
+    """The model's DyDCNv2 (None for a model without one)."""
+    return next((m for m in model.modules() if isinstance(m, DyDCNv2)), None)
+
+
 def _dcn_weight_grad(trainer, batch):
     """The DCN weight's gradient from one forward and backward of `batch`
     (no optimizer step); every gradient is cleared afterwards."""
@@ -1153,7 +1181,7 @@ def _dcn_weight_grad(trainer, batch):
     with torch.autocast("cuda", dtype=torch.bfloat16, enabled=trainer.amp):
         feats = model.forward_feats(batch["img"].float() / 255.0)
     trainer.criterion(feats, batch, trainer.step).total.backward()
-    grad = model.model_16.DyDCNV2.weight.grad.detach().clone()
+    grad = _dcn(model).weight.grad.detach().clone()
     for p in model.parameters():
         p.grad = None
     return grad
@@ -1247,14 +1275,18 @@ def phase_card_vs_cpu():
         raise SystemExit("the card and the CPU disagree")
 
 
-# gradients compared in phase 9: the DCN weight, the two tensors that take
-# K2's other gradients first (the offset/mask conv: d offset and d mask; the
-# regression branch's reduction: d x), and backbone kernels from the stem
-# to the deepest stage
-GRAD_NAMES = ("model_16.DyDCNV2.weight", "model_16.spatial_conv_offset.weight",
-              "model_16.reg_decomp.reduction_weight", "model_0.conv.weight",
-              "model_1.conv.weight", "model_3.conv.weight", "model_7.conv.weight",
-              "model_9.cv2.conv.weight")
+def grad_names(model):
+    """The gradients compared in phases 9 and 13: the DCN weight, the two
+    tensors that take K2's other gradients first (the offset/mask conv: d
+    offset and d mask; the regression branch's reduction: d x), and backbone
+    kernels from the stem to the deepest stage."""
+    head = f"model_{model.specs[-1].i}"
+    return (f"{head}.DyDCNV2.weight", f"{head}.spatial_conv_offset.weight",
+            f"{head}.reg_decomp.reduction_weight", "model_0.conv.weight",
+            "model_1.conv.weight", "model_3.conv.weight", "model_7.conv.weight",
+            "model_9.cv2.conv.weight")
+
+
 # float32, TF32 off: ~60 layers of convolutions and norms reordered by cuDNN
 # and the CPU, and the DCN backward's atomics. Loss parts to 1e-4 of their
 # value; each gradient to 5e-3 of its tensor's largest value: the backward
@@ -1281,11 +1313,13 @@ def _planted(fault):
     return wrong
 
 
-def _float32_train_step(dev, batch, fault=None):
-    """Loss parts and the GRAD_NAMES gradients of one float32 training
-    forward and backward on `dev`; `fault` plants `_planted(fault)` into
-    the DCN's backward."""
-    model = DetectionModel.from_npz(WEIGHTS, device=dev).train()
+def _float32_train_step(dev, batch, fault=None, name=None):
+    """Loss parts and the `grad_names` gradients of one float32 training
+    forward and backward on `dev`: of the flagship from its weights, or of
+    the config `name` (nc=2) from the port's seeded init; `fault` plants
+    `_planted(fault)` into the DCN's backward."""
+    model = (DetectionModel.from_npz(WEIGHTS, device=dev) if name is None else
+             DetectionModel(name, nc=ABLATION_NC, device=dev)).train()
     crit = Trainer(model, overrides={**TRAIN_OVERRIDES, "amp": False},
                    steps_per_epoch=1).criterion
     b = to_device(batch, dev)
@@ -1299,13 +1333,13 @@ def _float32_train_step(dev, batch, fault=None):
     finally:
         cuda_deform.deform_bwd = real
     params = dict(model.named_parameters())
-    return out.parts.cpu(), {n: params[n].grad.cpu() for n in GRAD_NAMES}
+    return out.parts.cpu(), {n: params[n].grad.cpu() for n in grad_names(model)}
 
 
 def _grad_gaps(got, want):
     """Each gradient's largest difference over its tensor's largest value."""
     return {n: (got[n] - want[n]).abs().max().item() / want[n].abs().max().item()
-            for n in GRAD_NAMES}
+            for n in want}
 
 
 def phase_train_card_vs_cpu():
@@ -1486,6 +1520,247 @@ def phase_augment_card_vs_cpu():
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = saved
 
 
+# phase 13: the seven other models of the ablation matrix, n-scale, full
+# width and depth, nc=2, from the port's seeded init (no trained weights)
+ABLATION = tuple(n for n in CONFIGS if n != FLAGSHIP)
+ABLATION_NC = 2
+ABLATION_SERVE, ABLATION_RATE, ABLATION_TRAIN, ABLATION_STEPS = 8, 32, 16, 2
+# batch 16 with nbs 32: accumulate 2, so the two micro-steps make one update
+ABLATION_OVERRIDES = {**TRAIN_OVERRIDES, "batch": ABLATION_TRAIN, "nbs": 32}
+# float32 card against CPU, TF32 off: raw maps to 1e-3 of their magnitude
+# (at least 1), as rounding of reordered sums (phase 8's flagship: < 1e-2
+# absolute on maps of magnitude ~10)
+ABLATION_RAW_TOL = 1e-3
+
+
+def _dcn_shape(model):
+    """"(h, w, C -> C)" of the model's DCN map at IMGSZ, or None."""
+    dcn = _dcn(model)
+    if dcn is None:
+        return None
+    s = model.stride[0]
+    return f"({IMGSZ // s}, {IMGSZ // s}, {dcn.weight.shape[2]} -> {dcn.weight.shape[3]})"
+
+
+def _profiled_ms(fn, calls):
+    """K1's and K2's device ms per launch over `calls` calls of `fn`, from
+    torch.profiler (the kernels' own device time, not the host's gaps)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for name, sym in (("deform_fwd", "deform_fwd_mma_kernel"),
+                      ("deform_bwd", "deform_bwd_mma_kernel")):
+        hits = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and sym in e.key]
+        n = sum(e.count for e in hits)
+        if n:
+            out[name] = sum(device_us(e) for e in hits) / n / 1e3
+    return out
+
+
+def _calibrated_state(name):
+    """`name`'s seeded init with every BatchNorm's statistics set to those
+    of one batch of synthetic scenes (one train-mode forward at momentum 1).
+    At the plain seeded init the deep features are so small that every
+    anchor of a level scores its class prior to float32 rounding, so NMS
+    would order ties by rounding."""
+    model = DetectionModel(name, nc=ABLATION_NC, device=DEVICE).train()
+    for m in model.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.momentum = 1.0
+    with torch.no_grad(), float32_exact():
+        model(torch.from_numpy(synthetic_batch(8, IMGSZ)).to(DEVICE).float() / 255.0)
+    return {k: v.cpu() for k, v in model.state_dict().items()}
+
+
+def _ablation_card_vs_cpu(name):
+    """A float32 fused forward of two noise images on the card and on the
+    CPU (plain DCN), from `_calibrated_state`: raw maps within
+    ABLATION_RAW_TOL, decoded boxes within 0.5 px and scores within 1e-3;
+    then NMS on the card and on the CPU given the same decoded tensor (the
+    CPU's), at the serving settings but a threshold that passes ~1000
+    anchors: the same counts, boxes and scores within 1e-4. With no trained
+    weights many anchors score within rounding of each other, so NMS on each
+    device's own output may keep the other of two near-equal boxes: that
+    end-to-end comparison is logged, not held. Noise images, since a
+    synthetic scene's flat background gives many anchors one score."""
+    x = torch.rand((2, IMGSZ, IMGSZ, 3), generator=torch.Generator().manual_seed(13))
+    state, outs = _calibrated_state(name), []
+    for dev in (DEVICE, "cpu"):
+        model = DetectionModel(name, nc=ABLATION_NC, device=dev)
+        model.load_state_dict(state)
+        model.fuse()
+        with torch.no_grad(), float32_exact():
+            decoded, feats = model(x.to(dev))
+        outs.append(([f.cpu() for f in feats], decoded.cpu()))
+    (fg, dg), (fc, dc) = outs
+    raw_err = max((a - b).abs().max().item() / max(1.0, b.abs().max().item())
+                  for a, b in zip(fg, fc))
+    box_err = (dg[:, :4] - dc[:, :4]).abs().max().item()
+    score_err = (dg[:, 4:] - dc[:, 4:]).abs().max().item()
+    ranked = dc[:, 4:].amax(1).flatten().sort(descending=True).values
+    thr = float(ranked[min(999, len(ranked) - 1)])
+    kw = dict(conf_thres=thr, iou_thres=predictor.IOU, max_det=predictor.MAX_DET,
+              pre_topk=predictor.PRE_TOPK, block=predictor.BLOCK)
+    (det_g, cnt_g), (det_c, cnt_c) = ((t.cpu() for t in non_max_suppression(dc.to(dev), **kw))
+                                      for dev in (DEVICE, "cpu"))
+    same = torch.equal(cnt_g, cnt_c) and int(cnt_c.sum()) > 0
+    nms_err = (det_g - det_c).abs().max().item() if same else None
+    own_g = non_max_suppression(dg.to(DEVICE), **kw)[1].cpu()
+    ok = raw_err <= ABLATION_RAW_TOL and box_err < 0.5 and score_err <= 1e-3 and same and \
+        nms_err <= 1e-4
+    log(f"{name} float32 card vs CPU: raw maps max |diff| / max(1, max |raw|) {raw_err:.3e} "
+        f"(limit {ABLATION_RAW_TOL:.0e}), decoded boxes max |diff| {box_err:.3e} px, scores "
+        f"{score_err:.3e}; NMS at conf {thr:.6f} on the same decoded tensor: kept card "
+        f"{cnt_g.tolist()} cpu {cnt_c.tolist()}, max |diff| {nms_err}; on each device's own "
+        f"output: card {own_g.tolist()} (logged) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{name}: the card and the CPU disagree")
+    return raw_err
+
+
+def _ablation_serving(name, k1_want):
+    """Fused bf16 `predict` at ABLATION_SERVE (counted), images/s at
+    ABLATION_RATE, and K1's time per launch inside the forward."""
+    model = DetectionModel(name, nc=ABLATION_NC, device=DEVICE).fuse().to(torch.bfloat16)
+    imgs = synthetic_batch(ABLATION_SERVE, IMGSZ)
+    reset_counts()
+    det, counts = predict(model, imgs)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    if det.shape != (ABLATION_SERVE, 300, 6) or not bool(torch.isfinite(det).all()):
+        raise SystemExit(f"{name}: serving gave malformed or non-finite detections")
+    if launches != no_launches(deform_fwd=k1_want):
+        raise SystemExit(f"{name}: serving launched {launches}, K1 {k1_want} times expected")
+    x = torch.from_numpy(synthetic_batch(ABLATION_RATE, IMGSZ)).to(DEVICE)
+    ms = cuda_time_ms(lambda: predict(model, x), iters=5, windows=3)
+    xs = torch.from_numpy(imgs).to(DEVICE)
+    kernel_ms = _profiled_ms(lambda: predict(model, xs), 5) if k1_want else {}
+    return launches, {"fused": model.n_fused, "detections_b8": int(counts.sum()),
+                      "rate_ms": ms, "images_per_s": ABLATION_RATE / ms * 1e3,
+                      "k1_ms_b8": kernel_ms.get("deform_fwd")}
+
+
+def _ablation_training(name, k_want):
+    """`Trainer.train()` over ABLATION_STEPS unaugmented micro-steps at
+    ABLATION_TRAIN (counted), its checkpoint reloaded, the DCN weight's
+    gradient, the micro-step's time and K1's and K2's times inside it."""
+    model = DetectionModel(name, nc=ABLATION_NC, device=DEVICE)
+    ds = SyntheticDetectionDataset(n=ABLATION_TRAIN * ABLATION_STEPS, imgsz=IMGSZ, seed=0)
+    loader = DataLoader(ds, ABLATION_TRAIN, IMGSZ)
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(model, loader, overrides=ABLATION_OVERRIDES, save_dir=tmp)
+        reset_counts()
+        trainer.train()
+        torch.cuda.synchronize()
+        launches = read_counts()
+        meta = json.loads((Path(tmp) / "weights" / "last_metadata.json").read_text())
+        back = DetectionModel.from_npz(Path(tmp) / "weights" / "last.npz", device=DEVICE)
+    losses, updates = [float(m["loss"]) for m in trainer.history], trainer.optimizer.count
+    if not (len(losses) == ABLATION_STEPS and all(math.isfinite(v) for v in losses)):
+        raise SystemExit(f"{name}: a training loss is not finite")
+    if launches != no_launches(deform_fwd=k_want, deform_bwd=k_want):
+        raise SystemExit(f"{name}: training launched {launches}, K1 and K2 {k_want} times "
+                         "expected")
+    if updates != ABLATION_STEPS // trainer.accumulate:
+        raise SystemExit(f"{name}: the optimizer did not step once per accumulation")
+    ema = trainer.ema.state()
+    same = (back.model_yaml, back.nc, back.stride, back.reg_max) == \
+        (name, ABLATION_NC, model.stride, model.reg_max) and meta["model_yaml"] == name and \
+        all(torch.equal(p, ema[n]) for n, p in back.named_parameters())
+    if not same:
+        raise SystemExit(f"{name}: last.npz did not reload as the same config and weights")
+    del back
+    batch = to_device(collate([ds[i] for i in range(ABLATION_TRAIN)], IMGSZ, loader.max_gt),
+                      DEVICE)
+    gnorm = None
+    if k_want:
+        grad = _dcn_weight_grad(trainer, batch)
+        gnorm = grad.float().norm().item()
+        if not (math.isfinite(gnorm) and gnorm > 0):
+            raise SystemExit(f"{name}: the DCN weight got no finite, non-zero gradient")
+    ms = cuda_time_ms(lambda: trainer.train_step(batch), iters=4, windows=3)
+    kernel_ms = _profiled_ms(lambda: trainer.train_step(batch), 4) if k_want else {}
+    return launches, {"losses": losses, "updates": updates,
+                      "dcn_grad_norm": gnorm, "step_ms": ms,
+                      "train_images_per_s": ABLATION_TRAIN / ms * 1e3,
+                      "k1_ms_train": kernel_ms.get("deform_fwd"),
+                      "k2_ms_train": kernel_ms.get("deform_bwd")}
+
+
+def _ablation_train_card_vs_cpu(name):
+    """One float32 training step of `name` on the card and on the CPU (two
+    scenes): loss parts to 1e-4 and gradients to GRAD_TOL, as phase 9; on
+    the thead models' C 64 map K1 and K2 run their streamed plan there."""
+    ds = SyntheticDetectionDataset(n=2, imgsz=IMGSZ, seed=0)
+    batch = collate([ds[0], ds[1]], IMGSZ, 24)
+    reset_counts()
+    (pg, gg), (pc, gc) = (_float32_train_step(dev, batch, name=name) for dev in (DEVICE, "cpu"))
+    launches = read_counts()
+    ok = bool(((pg - pc).abs() <= PARTS_TOL * pc.abs()).all()) and \
+        launches == no_launches(deform_fwd=1, deform_bwd=1)
+    gaps = _grad_gaps(gg, gc)
+    ok &= all(g <= GRAD_TOL and gc[n].abs().max().item() > 0 for n, g in gaps.items())
+    log(f"{name} float32 training step, card vs CPU: parts card {pg.tolist()} cpu "
+        f"{pc.tolist()}; gradient gaps " + ", ".join(f"{n} {g:.3e}" for n, g in gaps.items()) +
+        f"; launches K1 {launches['deform_fwd']} K2 {launches['deform_bwd']} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{name}: the card's float32 training step disagrees with the CPU's")
+    return max(gaps.values())
+
+
+def phase_ablation(wide):
+    log(f"== phase 13: the ablation family: the seven other models of the paper's ablation "
+        f"matrix (n-scale, nc={ABLATION_NC}, the port's seeded init, {IMGSZ} px): fused bf16 "
+        f"serving at b{ABLATION_SERVE} and images/s at b{ABLATION_RATE}, float32 card vs CPU, "
+        f"unaugmented training at b{ABLATION_TRAIN} ({ABLATION_STEPS} micro-steps), "
+        f"the checkpoint reloaded")
+    totals, rows = dict.fromkeys(COUNTERS, 0), {}
+    for name in ABLATION:
+        t0 = time.perf_counter()
+        probe = DetectionModel(name, nc=ABLATION_NC, device="cpu")
+        shape, k = _dcn_shape(probe), int(_dcn(probe) is not None)
+        row = {"stride": list(probe.stride), "reg_max": probe.reg_max, "dcn": shape}
+        del probe
+        served, serve = _ablation_serving(name, k)
+        trained, train = _ablation_training(name, k * ABLATION_STEPS)
+        for key in totals:
+            totals[key] += served[key] + trained[key]
+        row.update(serve, **train, launches={"deform_fwd": served["deform_fwd"] +
+                                             trained["deform_fwd"],
+                                             "deform_bwd": trained["deform_bwd"]})
+        row["raw_err"] = _ablation_card_vs_cpu(name)
+        if shape and shape.endswith("64 -> 64)"):
+            plans = {f"{kern} {t}": cuda_deform.plan(kern, Cin=64, Cout=64, W=IMGSZ // 16,
+                                                      bf16=int(t == "bf16"))
+                     for kern in ("deform_fwd", "deform_bwd") for t in ("bf16", "float32")}
+            log(f"{name}: plans at C 64 on the {IMGSZ // 16}-wide map: {plans}")
+            if plans["deform_bwd float32"] != "streamed":
+                raise SystemExit("K2 does not take its streamed plan at C 64 in float32")
+            row["plans"] = plans
+            row["train_grad_gap"] = _ablation_train_card_vs_cpu(name)
+        rows[name] = row
+        torch.cuda.empty_cache()
+        log(f"{name}: strides {row['stride']}, reg_max {row['reg_max']}, DCN {shape}; "
+            f"{row['fused']} Conv+BN pairs fused; b{ABLATION_RATE} {row['rate_ms']:.3f} ms, "
+            f"{row['images_per_s']:.2f} images/s; train b{ABLATION_TRAIN} "
+            f"{row['step_ms']:.3f} ms per micro-step ({row['train_images_per_s']:.2f} train "
+            f"images/s), losses {', '.join(f'{v:.4f}' for v in row['losses'])}, "
+            f"{row['updates']} update(s); DCN weight gradient norm {row['dcn_grad_norm']}; "
+            f"K1 {row['k1_ms_b8']} ms per launch serving b{ABLATION_SERVE}, K1 "
+            f"{row['k1_ms_train']} and K2 {row['k2_ms_train']} ms per launch training "
+            f"b{ABLATION_TRAIN}; launches {row['launches']}; {time.perf_counter() - t0:.1f} s")
+    c64 = {kern: wide[kern]["C64"]["bfloat16"]["ms"] for kern in ("deform_fwd", "deform_bwd")}
+    log(f"phase 3's synthetic C 64 (8, 40, 40) bf16: K1 {c64['deform_fwd']:.4f} ms, K2 "
+        f"{c64['deform_bwd']:.4f} ms")
+    log(f"launches during the ablation family's counted runs: {totals}")
+    return totals, rows
+
+
 AB_TOOLS = (proto_deform_bf16_fma, proto_deform_qxhoist, proto_deform_slot_skip,
             proto_deform_tapwalk)
 
@@ -1567,8 +1842,8 @@ def phase_variant_ab():
 # which paths run each kernel (its launches must be counted on each); the
 # first is the kernel's own main path
 KERNEL_PATHS = {"deform_fwd": ("serving", "training", "augmented training",
-                               "K1 variant A/B"),
-                "deform_bwd": ("training", "augmented training"),
+                               "ablation family", "K1 variant A/B"),
+                "deform_bwd": ("training", "augmented training", "ablation family"),
                 "deform_fwd_simt": ("DCN A/B", "K1 variant A/B"),
                 "deform_bwd_simt": ("DCN A/B",),
                 "fused_augment": ("augmented training", "K3 A/B"),
@@ -1596,9 +1871,13 @@ def main() -> int:
     phase_card_vs_cpu()
     phase_train_card_vs_cpu()
     phase_augment_card_vs_cpu()
+    ablation, ablation_rows = phase_ablation({k["name"]: k["wide"] for k in kernels
+                                              if "wide" in k})
+    torch.cuda.empty_cache()
     ab_launches, ab_rows, hopper_rows, plan_rows = phase_variant_ab()
     paths = {"serving": serving, "training": training, "augmented training": augmented,
-             "DCN A/B": dcn_ab, "K3 A/B": k3_ab, "K1 variant A/B": ab_launches}
+             "ablation family": ablation, "DCN A/B": dcn_ab, "K3 A/B": k3_ab,
+             "K1 variant A/B": ab_launches}
     for k in kernels:
         k["launches_by_path"] = {p: paths[p][k["name"]] for p in KERNEL_PATHS[k["name"]]}
         for p, n in k["launches_by_path"].items():
@@ -1610,6 +1889,14 @@ def main() -> int:
         k["launches"] = k["launches_by_path"][KERNEL_PATHS[k["name"]][0]]
         if k["name"] == "fused_augment":
             k["apply_augment_ms"] = aug_ms
+        if k["name"] in ("deform_fwd", "deform_bwd"):
+            # its times per launch inside the ablation models' forwards and
+            # training steps (profiler), by model
+            keys = ("k1_ms_b8", "k1_ms_train") if k["name"] == "deform_fwd" else \
+                ("k2_ms_train",)
+            k["ablation"] = {n: {"dcn": r["dcn"], **{key: r[key] for key in keys},
+                                 "launches": r["launches"][k["name"]]}
+                             for n, r in ablation_rows.items() if r["dcn"]}
         if k["name"] in ALL_VARIANTS:
             k["ab"] = [r for r in ab_rows if r["variant"] == k["name"]]
         if k["name"] in FIRST_DESIGNS:

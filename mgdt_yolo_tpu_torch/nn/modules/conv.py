@@ -10,6 +10,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...ops.common import interpolate_bilinear, upsample_nearest
+
 BN_EPS = 1e-3        # the reference's BatchNorm eps
 BN_MOMENTUM = 0.03   # torch convention (flax momentum 0.97)
 
@@ -77,3 +79,28 @@ class Conv(nn.Module):
 
     def forward(self, x):
         return self.act(self.norm(self.conv(x)))
+
+
+class Concat(nn.Module):
+    """Concatenate a list of NCHW maps on the channel axis (the YAML's dim 1
+    is NCHW's channel axis, the one used here)."""
+
+    def forward(self, xs):
+        return torch.cat(list(xs), dim=1)
+
+
+class Upsample(nn.Module):
+    """`nn.Upsample` with an integer scale: 'nearest' repeats values,
+    'bilinear' resizes with align_corners=False (`ops/common.py`)."""
+
+    def __init__(self, scale: int = 2, mode: str = "nearest"):
+        super().__init__()
+        if mode not in ("nearest", "bilinear"):
+            raise KeyError(f"upsample mode {mode!r} is not ported")
+        self.scale, self.mode = int(scale), mode
+
+    def forward(self, x):
+        if self.mode == "nearest":
+            return upsample_nearest(x, self.scale)
+        h, w = x.shape[2:]
+        return interpolate_bilinear(x, (h * self.scale, w * self.scale))

@@ -1,5 +1,5 @@
-"""The TOOD detection head (NCHW) and the eval-path decode, the counterparts
-of `mgdt_yolo_tpu/nn/modules/head.py`."""
+"""The detection heads (NCHW), YOLOv8's `Detect` and TOOD, and the eval-path
+decode, the counterparts of `mgdt_yolo_tpu/nn/modules/head.py`."""
 from __future__ import annotations
 
 import torch
@@ -8,6 +8,7 @@ import torch.nn.functional as F
 
 from ...ops.boxes import dist2bbox, make_anchors
 from .block import DyDCNv2, dfl_decode
+from .conv import Conv
 
 
 def _head_conv(c1: int, c2: int, k: int) -> nn.Conv2d:
@@ -60,10 +61,42 @@ def decode_detections(feats, strides, nc: int, reg_max: int) -> torch.Tensor:
     box, cls = flat[..., :reg_max * 4], flat[..., reg_max * 4:]
     anchors, stride_t = make_anchors([f.shape[2:] for f in feats], strides, 0.5,
                                      device=flat.device)
-    dist = dfl_decode(box, reg_max)
+    dist = dfl_decode(box, reg_max) if reg_max > 1 else box
     dbox = dist2bbox(dist, anchors[None], xywh=True) * stride_t[None]
     out = torch.cat([dbox, torch.sigmoid(cls.float())], dim=-1)
     return out.transpose(1, 2)
+
+
+class Detect(nn.Module):
+    """YOLOv8's decoupled head, one box and one class branch per level, at
+    the fork's reg_max 4. Layers `cv2_{i}_{j}` (box) and `cv3_{i}_{j}`
+    (class) carry the flax names: two Conv+BN+SiLU, then a conv with bias."""
+
+    def __init__(self, nc: int, ch, strides, reg_max: int = 4):
+        super().__init__()
+        self.nc, self.reg_max, self.strides = nc, reg_max, tuple(strides)
+        c2, c3 = max(16, ch[0] // 4, reg_max * 4), max(ch[0], nc)
+        for i, c in enumerate(ch):
+            for name, hidden, out in (("cv2", c2, 4 * reg_max), ("cv3", c3, nc)):
+                self.add_module(f"{name}_{i}_0", Conv(c, hidden, 3))
+                self.add_module(f"{name}_{i}_1", Conv(hidden, hidden, 3))
+                self.add_module(f"{name}_{i}_2", _head_conv(hidden, out, 1))
+
+    def forward(self, xs):
+        """Returns (decoded (B, 4+nc, A), [raw map (B, no, h, w)] per level);
+        in training (None, [raw map]), without the decode."""
+        feats = []
+        for i, x in enumerate(xs):
+            branches = []
+            for name in ("cv2", "cv3"):
+                y = x
+                for j in range(3):
+                    y = getattr(self, f"{name}_{i}_{j}")(y)
+                branches.append(y)
+            feats.append(torch.cat(branches, dim=1))
+        if self.training:
+            return None, feats
+        return decode_detections(feats, self.strides, self.nc, self.reg_max), feats
 
 
 class TOODHead(nn.Module):

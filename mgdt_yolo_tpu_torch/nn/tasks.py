@@ -1,12 +1,14 @@
 """The model graph: a layer list parsed from a config dict into one module.
 
 The counterpart of `mgdt_yolo_tpu/nn/tasks.py`, cut to the module types the
-flagship config uses; any other type raises KeyError. `parse_model` keeps
-the JAX package's channel arithmetic, including the GOLD-YOLO cases, and
-also tracks each layer's stride so the head's strides need no probe run.
+eight models of the ablation matrix use (`models.CONFIGS`); any other type
+raises KeyError. `parse_model` keeps the JAX package's channel arithmetic,
+including the GOLD-YOLO cases, and also tracks each layer's stride so the
+head's strides need no probe run.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple, Union
@@ -15,10 +17,11 @@ import torch
 import torch.nn as nn
 
 from ..device import resolve_device
+from ..models import FLAGSHIP, load_config
 from ..ops.deform import check_semantics
 from .modules import block as B
 from .modules import head as H
-from .modules.conv import Conv
+from .modules.conv import Concat, Conv, Upsample
 
 
 def make_divisible(x: float, divisor: int = 8) -> int:
@@ -38,8 +41,9 @@ class LayerSpec:
 
 _CONV_LIKE = {"Conv", "SPPF", "C2f", "MSPA_C2f"}
 _REPEAT_BLOCKS = {"C2f", "MSPA_C2f"}
-_KNOWN = _CONV_LIKE | {"SimFusion_4in", "SimFusion_3in", "IFM",
-                       "InjectionMultiSum_Auto_pool", "TOODHead"}
+_HEADS = {"Detect", "TOODHead"}
+_KNOWN = _CONV_LIKE | _HEADS | {"nn.Upsample", "Concat", "SimFusion_4in", "SimFusion_3in",
+                                "IFM", "InjectionMultiSum_Auto_pool"}
 
 
 def parse_model(d: Dict, scale: Optional[str] = None):
@@ -69,7 +73,12 @@ def parse_model(d: Dict, scale: Optional[str] = None):
                 n = 1
             if m == "Conv":
                 stride *= args[3] if len(args) > 3 else 1
-        elif m == "TOODHead":
+        elif m == "nn.Upsample":
+            c2 = chs[f]
+            stride //= int(args[1])
+        elif m == "Concat":
+            c2 = sum(chs[x] for x in f)
+        elif m in _HEADS:
             args.append([chs[x] for x in f])
             c2 = None
         elif m == "SimFusion_4in":
@@ -126,29 +135,42 @@ def build_module(spec: LayerSpec, head_strides) -> nn.Module:
         return B.IFM(a[0], a[1])
     if m == "InjectionMultiSum_Auto_pool":
         return B.InjectionMultiSum_Auto_pool(a[0], a[1], a[2], a[3])
+    if m == "nn.Upsample":
+        return Upsample(int(a[1]), a[2])
+    if m == "Concat":
+        return Concat()
+    if m == "Detect":
+        return H.Detect(a[0], a[-1], head_strides)
     if m == "TOODHead":
         return H.TOODHead(a[0], a[1], a[-1], head_strides)
     raise KeyError(f"module type {m!r} is not ported")
 
 
 class DetectionModel(nn.Module):
-    """A detection model built from a config dict (default: the flagship).
+    """A detection model built from a config: a dict, or the YAML file name
+    of one of `models.CONFIGS` ("thead_yolov8.yaml"; a scale letter as in
+    "yolov8s.yaml" picks that scale), by default the flagship. `nc`
+    overrides the config's class count, as the JAX `DetectionModel(cfg,
+    nc=...)` does.
 
     Layers are the attributes `model_0` ... `model_N`, named as the flax
-    graph names them. `forward` takes an NHWC float image batch and returns
-    (decoded (B, 4+nc, A), [raw map (B, h, w, no) per level]), as the JAX
-    `DetectionModel.predict` does; in `train()` mode decoded is None and
-    BatchNorm uses and updates batch statistics (`forward_feats`). A new
-    model is in `eval()` mode.
+    graph names them; every layer runs, also those whose output reaches no
+    head (the thead models' 19-21), as in the JAX graph. `forward` takes an
+    NHWC float image batch and returns (decoded (B, 4+nc, A), [raw map
+    (B, h, w, no) per level]), as the JAX `DetectionModel.predict` does; in
+    `train()` mode decoded is None and BatchNorm uses and updates batch
+    statistics (`forward_feats`). A new model is in `eval()` mode.
     """
 
-    def __init__(self, cfg: Optional[Dict] = None, scale: str = "n", device=None):
+    def __init__(self, cfg: Union[None, str, Dict] = None, scale: Optional[str] = None,
+                 device=None, nc: Optional[int] = None):
         super().__init__()
-        if cfg is None:
-            from ..models.mspa_c2f_gd_tood_yolov8 import CONFIG
-            cfg = CONFIG
+        cfg = copy.deepcopy(cfg) if isinstance(cfg, dict) else load_config(cfg or FLAGSHIP)
+        if nc:
+            cfg["nc"] = nc
         # the config a checkpoint's metadata names, as the JAX exporter does
-        self.model_yaml = cfg.get("yaml_file", "mspa_c2f_gd_tood_yolov8.yaml")
+        # (None for a dict of no file)
+        self.model_yaml = cfg.get("yaml_file")
         self.specs, self.save, self.nc = parse_model(cfg, scale=scale)
         self.stride = tuple(self.specs[j].stride for j in self.specs[-1].f)
         for spec in self.specs:
@@ -161,11 +183,14 @@ class DetectionModel(nn.Module):
 
     @classmethod
     def from_npz(cls, path, device=None):
-        """The flagship with JAX weights exported as a flat npz, pinned to
-        the deform semantics of `<stem>_metadata.json` beside it."""
-        from ..weights import load_npz
+        """The model a flat flax npz holds: the config and `nc` that
+        `<stem>_metadata.json` beside it names (`model_yaml`, `nc`; the
+        flagship where it names no config), filled from the npz and pinned
+        to the deform semantics the metadata records."""
+        from ..weights import load_npz, read_metadata
         dev = resolve_device(device)
-        model = cls(device="cpu")
+        meta = read_metadata(path)
+        model = cls(meta.get("model_yaml"), nc=meta.get("nc"), device="cpu")
         load_npz(model, path)
         return model.to(dev)
 
@@ -212,7 +237,7 @@ class DetectionModel(nn.Module):
     def _init_weights(self):
         """Deterministic init with the JAX package's distributions: kernels
         uniform(+-sqrt(1/fan_in)) from a seeded generator, norm scales and
-        variances 1, the rest 0, then the TOOD prior biases."""
+        variances 1, the rest 0, then the head's prior biases."""
         gen = torch.Generator().manual_seed(0)
         for name, p in list(self.named_parameters()) + list(self.named_buffers()):
             leaf = name.rsplit(".", 1)[-1]
@@ -227,5 +252,10 @@ class DetectionModel(nn.Module):
                 p.zero_()
         head = getattr(self, f"model_{self.specs[-1].i}")
         if isinstance(head, H.TOODHead):
+            # the reference's quirk: stride 16 whatever the head's stride
             head.cv2.bias.fill_(1.0)
             head.cv3.bias.fill_(math.log(5 / self.nc / (640 / 16) ** 2))
+        else:
+            for i, s in enumerate(self.stride):
+                getattr(head, f"cv2_{i}_2").bias.fill_(1.0)
+                getattr(head, f"cv3_{i}_2").bias.fill_(math.log(5 / self.nc / (640 / s) ** 2))

@@ -1,6 +1,7 @@
 """Resampling and pooling for NCHW feature maps.
 
-Adaptive average pooling and bilinear resizing are products with small
+Nearest upsampling repeats values. Adaptive average pooling and bilinear
+resizing are products with small
 per-axis interpolation matrices, rebuilt here exactly as the JAX package
 builds them (`mgdt_yolo_tpu/ops/common.py`), so both packages resample with
 the same weights. The matrices are made with numpy and cached per size.
@@ -93,6 +94,14 @@ def interpolate_bilinear(x: torch.Tensor, size) -> torch.Tensor:
     if (h, w) == (oh, ow):
         return x
     return _apply_hw_matrices(x, _bilinear_matrix(h, oh), _bilinear_matrix(w, ow))
+
+
+def upsample_nearest(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
+    """Nearest-neighbour integer upsample of a (B, C, H, W) map: every value
+    repeated `scale` times along H and W (an exact copy, no index arithmetic)."""
+    b, c, h, w = x.shape
+    return (x[:, :, :, None, :, None].expand(b, c, h, scale, w, scale)
+            .reshape(b, c, h * scale, w * scale))
 
 
 def max_pool2d_same(x: torch.Tensor, kernel: int, stride: int = 1) -> torch.Tensor:

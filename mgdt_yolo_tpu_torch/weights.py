@@ -91,13 +91,16 @@ def load_state(module: torch.nn.Module, state: Mapping) -> None:
                        f"unexpected {result.unexpected_keys[:8]}")
 
 
-def read_semantics(path) -> str | None:
-    """`deform_semantics` from `<stem>_metadata.json` beside an npz."""
+def read_metadata(path) -> dict:
+    """`<stem>_metadata.json` beside an npz, or {} where there is none."""
     path = Path(path)
     meta = path.parent / f"{path.stem}_metadata.json"
-    if not meta.is_file():
-        return None
-    sem = json.loads(meta.read_text()).get("deform_semantics")
+    return json.loads(meta.read_text()) if meta.is_file() else {}
+
+
+def read_semantics(path) -> str | None:
+    """`deform_semantics` from `<stem>_metadata.json` beside an npz."""
+    sem = read_metadata(path).get("deform_semantics")
     return sem if sem in ("windowed", "exact") else None
 
 
