@@ -53,7 +53,11 @@ Phases, each of which passes or ends the script with a non-zero exit:
    resident plan); the Hopper V1 once more right after every SM's shared
    memory was filled with bf16 NaN bits (`csrc/smem_poison.cu`), on
    out-of-image corners at Cin 24 and 21 (its dead corners and channels past
-   Cin must read as zeros); each variant timed beside the SIMT K1;
+   Cin must read as zeros); each variant timed beside the SIMT K1; K1 at the
+   maps test-time augmentation gives it at 640 px (68x68 and 56x56, C 32:
+   the 0.83 and 0.67 passes) in float32 and bf16, windowed, offsets +-1.5
+   and +-4.0, at b8, then timed in bf16 at b32 beside its plain version and
+   its bound;
 4. serving path: the flagship MGDT-n from `weights/mgdt_n_synth.npz`, Conv+BN
    fused, bf16, 640 px, answers requests of batch 1, 8 and 32 through
    `predict` on synthetic scenes; K1 must have launched once per forward,
@@ -128,10 +132,22 @@ Phases, each of which passes or ends the script with a non-zero exit:
    the SIMT K1 are held against their plain versions on the first 8 images
    of each tool's batch (so V5 and K1 at C 64) and on the whole b32 batch,
    as in phase 3.
+14. serving entry points: the flagship from the same weights behind
+   `DetectionPredictor` (fused, bf16, letterbox to 640 px) over 64 seeded
+   BGR scenes of 480x640, 720x1280, 1080x1920 and 375x500, at batch 1 and
+   32 and with test-time augmentation at 32 (images/s, per-image
+   preprocess and inference ms; K1 once per forward, three times per TTA
+   forward, no other kernel), then `InferenceServer` (batch 8, 2 ms wait)
+   under 1 and 16 closed-loop client threads, 256 requests each (images/s,
+   p50 / p90 latency, mean occupancy; every result equal, bit for bit, to
+   the predictor's at batch 8 for its scene; K1 once per batch); then the
+   predictor in float32 on the card against the CPU, plain on 16 scenes and
+   TTA on 8: the same detections and classes per scene, boxes in the
+   scene's pixels within 0.5 px.
    Phase 10 runs before phase 8, and phases 8, 9 and 11 run after it,
    because the CPU work leaves the host's threads busy, which slows the
-   host-bound steps; phase 13 runs after phase 11, and phase 12, which
-   times kernels only, runs last.
+   host-bound steps; phase 13 runs after phase 11, phase 14 after phase
+   13, and phase 12, which times kernels only, runs last.
 
 The last lines are the kernel table as JSON, the card's name and power
 limit, and `{"ok": true, "device": {...}}`. Without a CUDA device the script
@@ -146,16 +162,22 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from mgdt_yolo_tpu_torch.cfg.default import UNAUGMENTED
+from mgdt_yolo_tpu_torch.data.augment import letterbox
 from mgdt_yolo_tpu_torch.data.build import DataLoader, collate, collate_raw, to_device
-from mgdt_yolo_tpu_torch.data.synthetic import SyntheticDetectionDataset, synthetic_batch
+from mgdt_yolo_tpu_torch.data.synthetic import (SyntheticDetectionDataset, synthetic_batch,
+                                                synthetic_scene)
 from mgdt_yolo_tpu_torch.engine import predictor
-from mgdt_yolo_tpu_torch.engine.predictor import predict
+from mgdt_yolo_tpu_torch.engine.predictor import (DetectionPredictor, infer, letterbox_batch,
+                                                  predict)
+from mgdt_yolo_tpu_torch.engine.serve import InferenceServer
 from mgdt_yolo_tpu_torch.engine.trainer import Trainer
 from mgdt_yolo_tpu_torch.models import CONFIGS, FLAGSHIP
 from mgdt_yolo_tpu_torch.nn.modules.block import DyDCNv2
@@ -503,6 +525,41 @@ def _check_dcn(H, W, C, O):
     errs["deform_fwd"][128] = _hold_fwd("deform_fwd", cuda_deform.deform_fwd, args, "windowed",
                                         _case_label(*MAIN_CASE, 128))
     return errs
+
+
+# the maps K1 takes under test-time augmentation at 640 px (phase 14): the
+# 0.83 and 0.67 passes give 544 and 448 px inputs, so 68x68 and 56x56
+# stride-8 maps at the flagship's C 32; held at b8, timed at phase 14's batch
+TTA_MAPS = ((68, 68), (56, 56))
+TTA_BATCH = 32
+
+
+def _check_tta_maps(C=32, O=32):
+    """K1 at TTA's maps against its plain version (float32 and bf16,
+    windowed, offsets +-1.5 and +-4.0, b8, `_hold_fwd`'s limits), then
+    timed in bf16 at the TTA batch beside its plain version and bound.
+    Returns {"HxW": {errors, ms, plain_ms, bound_ms, bound_by}}."""
+    out = {}
+    for H, W in TTA_MAPS:
+        row = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            for off in (1.5, 4.0):
+                args = _deform_inputs(8, H, W, C, O, off, dtype)
+                row[f"max_abs_err_{str(dtype)[6:]}_{off}"] = _hold_fwd(
+                    "deform_fwd", cuda_deform.deform_fwd, args, "windowed",
+                    f"{_case_label(dtype, 'windowed', off, 8)} {H}x{W}")
+        args = _deform_inputs(TTA_BATCH, H, W, C, O, 1.5, torch.bfloat16)
+        row["ms"] = cuda_time_ms(lambda: cuda_deform.deform_fwd(*args), iters=10, windows=3)
+        row["plain_ms"] = cuda_time_ms(lambda: modulated_deform_conv2d_plain(*args),
+                                       iters=2, windows=2)
+        row["bound_ms"], row["bound_by"] = deform_fwd_bound_ms(TTA_BATCH, H, W, C, O,
+                                                               "bfloat16")
+        log(f"deform_fwd TTA map b{TTA_BATCH} {H}x{W} bf16 windowed: {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms ({row['bound_by']}), "
+            f"{row['bound_ms'] / row['ms']:.2%} of it")
+        out[f"{H}x{W}"] = row
+        del args
+    return out
 
 
 # the widths K1's and K2's second plan takes: (B, H, W, C -> C), the thead
@@ -1124,10 +1181,13 @@ def phase_kernels():
     log(f"launches during the DCN A/B path: {ab_launches}")
     _check_plans()
     wide = _check_dcn_wide()
+    tta = _check_tta_maps()
     dcn = _dcn_entries(H, W, C, O, errs, rows)
     for e in dcn:
         if e["name"] in wide:
             e["wide"] = wide[e["name"]]
+        if e["name"] == "deform_fwd":
+            e["tta_maps"] = tta
     k3, k3_launches = _check_augment(TRAIN_BATCH, IMGSZ, IMGSZ)
     kernels = [*dcn, *k3, *_check_variants(8, H, W, C, O)]
     return kernels, ab_launches, k3_launches
@@ -1839,10 +1899,224 @@ def phase_variant_ab():
     return launches, rows, hopper_rows, plan_rows
 
 
+# phase 14: the serving entry points. Scenes of a camera frame, an HD frame,
+# a VGA image and a photo; the server under one closed-loop client and 16
+SCENE_SIZES = ((480, 640), (720, 1280), (1080, 1920), (375, 500))
+N_SCENES = 64
+ENTRY_BATCHES = (1, 32)
+SERVE_BATCH, SERVE_WAIT_MS, SERVE_REQUESTS, SERVE_CLIENTS = 8, 2.0, 256, (1, 16)
+# the float32 card-vs-CPU holds: the first scenes (each size 4 times; TTA 2)
+HOLD_SCENES, HOLD_TTA_SCENES, HOLD_BOX_PX = 16, 8, 0.5
+
+
+def _scenes(n):
+    """`n` seeded BGR scenes, the sizes in turn: synthetic scene i (the
+    committed weights' kind of scene) made at the larger side, cut to size."""
+    out = []
+    for i in range(n):
+        h, w = SCENE_SIZES[i % len(SCENE_SIZES)]
+        out.append(np.ascontiguousarray(synthetic_scene(i, max(h, w), seed=7)[:h, :w]))
+    return out
+
+
+def _entry_predictor(model, device, **kw):
+    return DetectionPredictor(overrides={"imgsz": IMGSZ, "device": device, **kw}
+                              ).setup_model(model)
+
+
+def _hold_results(got, want, name):
+    """Per image: the same number of detections and classes, boxes in the
+    original image's pixels within HOLD_BOX_PX. Returns the largest box and
+    score differences; ends the script on a disagreement."""
+    box = score = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        a, b = g.boxes.data, w.boxes.data
+        if a.shape != b.shape or not (a[:, 5] == b[:, 5]).all():
+            raise SystemExit(f"{name}: scene {i} has {len(a)} detections on the card and "
+                             f"{len(b)} on the CPU, or other classes")
+        if len(a):
+            box = max(box, float(np.abs(a[:, :4] - b[:, :4]).max()))
+            score = max(score, float(np.abs(a[:, 4] - b[:, 4]).max()))
+    n = sum(len(g) for g in got)
+    log(f"{name}: {n} detections over {len(got)} scenes, counts equal, box max |diff| "
+        f"{box:.3e} px (limit {HOLD_BOX_PX}), score max |diff| {score:.3e}")
+    if box > HOLD_BOX_PX or n == 0:
+        raise SystemExit(f"{name}: the card and the CPU disagree")
+    return box
+
+
+def _timed_predict(p, scenes, batch, name, forwards_per_batch=1):
+    """One counted, timed run of the predictor (after one warm-up run):
+    images/s over the wall time, the per-image preprocess and inference ms,
+    and K1 launched once per forward (`forwards_per_batch` a batch) and no
+    other kernel. Returns (results, launches, row)."""
+    p(scenes, batch=batch)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    results = p(scenes, batch=batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    n = len(scenes)
+    pre = sum(r.speed["preprocess"] for r in results) / n
+    inf = sum(r.speed["inference"] for r in results) / n
+    row = {"images_per_s": n / wall, "wall_s": wall, "preprocess_ms": pre, "inference_ms": inf,
+           "preprocess_share": pre / (pre + inf), "detections": sum(len(r) for r in results)}
+    log(f"{name}: {row['images_per_s']:.2f} images/s ({n} scenes in {wall:.3f} s); per image "
+        f"preprocess {pre:.3f} ms, inference {inf:.3f} ms (preprocess "
+        f"{row['preprocess_share']:.1%}); {row['detections']} detections; launches "
+        f"{launches['deform_fwd']}")
+    want = forwards_per_batch * -(-n // batch)
+    if launches != no_launches(deform_fwd=want):
+        raise SystemExit(f"{name}: deform_fwd did not launch {want} times (once per forward), "
+                         f"or another kernel ran: {launches}")
+    return results, launches, row
+
+
+def _serve_clients(model, scenes, want, clients):
+    """SERVE_REQUESTS requests from `clients` closed-loop client threads
+    (each submits, waits, submits), request k asking for scene k mod n; each
+    result must equal the predictor's `want` for its scene, bit for bit.
+    Returns (launches, row)."""
+    kw = dict(batch=SERVE_BATCH, max_wait_ms=SERVE_WAIT_MS, imgsz=IMGSZ, device=DEVICE)
+    with InferenceServer(model, **kw) as warm:  # warms the server's stream and shape
+        warm.predict(scenes[0])
+    srv = InferenceServer(model, **kw).start()
+    mismatched = []
+
+    def client(t):
+        for k in range(t, SERVE_REQUESTS, clients):
+            got = srv.submit(scenes[k % len(scenes)]).result(timeout=600)
+            if not np.array_equal(got.boxes.data, want[k % len(scenes)].boxes.data):
+                mismatched.append(k)
+
+    threads = [threading.Thread(target=client, args=(t,)) for t in range(clients)]
+    reset_counts()
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    wall = time.perf_counter() - t0
+    srv.stop()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    lat = srv.latency_ms()
+    row = {"clients": clients, "requests": SERVE_REQUESTS, "images_per_s": SERVE_REQUESTS / wall,
+           "p50_ms": lat["p50"], "p90_ms": lat["p90"], "mean_ms": lat["mean"],
+           "max_ms": lat["max"], "batches": srv.stats["batches"],
+           "mean_occupancy": srv.mean_occupancy}
+    log(f"server b{SERVE_BATCH} max_wait {SERVE_WAIT_MS} ms, {clients} client(s): "
+        f"{row['images_per_s']:.2f} images/s, latency p50 {lat['p50']:.3f} ms, p90 "
+        f"{lat['p90']:.3f} ms, max {lat['max']:.3f} ms; {row['batches']} batches, mean "
+        f"occupancy {row['mean_occupancy']:.3f}; launches {launches['deform_fwd']}")
+    if lat["n"] != SERVE_REQUESTS or mismatched:
+        raise SystemExit(f"server: {lat['n']} of {SERVE_REQUESTS} served, requests "
+                         f"{mismatched[:8]} differ from the predictor's result")
+    if launches != no_launches(deform_fwd=srv.stats["batches"]):
+        raise SystemExit(f"server: deform_fwd did not launch once per batch, or another kernel "
+                         f"ran: {launches}")
+    return launches, row
+
+
+def _request_breakdown(model, scenes, batch, reps=5):
+    """Where a request of `batch` mixed-size scenes spends its wall time,
+    each part ended by a synchronise (median of `reps`): letterbox, upload
+    from pinned memory, forward + NMS, download; and the device's busy
+    share of forward + NMS (torch.profiler). Returns the row."""
+    imgs = scenes[:batch]
+    parts = {k: [] for k in ("letterbox", "upload", "forward_nms", "download")}
+    with torch.no_grad():
+        for _ in range(reps + 1):
+            t0 = time.perf_counter()
+            x, _ = letterbox_batch(imgs, IMGSZ)
+            t1 = time.perf_counter()
+            xt = torch.from_numpy(x).pin_memory().to(DEVICE, non_blocking=True)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            det, counts = infer(model, xt, predictor.CONF, predictor.IOU, predictor.MAX_DET)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            det.float().cpu(), counts.cpu()
+            t4 = time.perf_counter()
+            for k, a, b in (("letterbox", t0, t1), ("upload", t1, t2),
+                            ("forward_nms", t2, t3), ("download", t3, t4)):
+                parts[k].append((b - a) * 1e3)
+        row = {k: float(np.median(v[1:])) for k, v in parts.items()}
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                infer(model, xt, predictor.CONF, predictor.IOU, predictor.MAX_DET)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us = sum(device_us(e) for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    row["device_busy_share"] = busy_us / wall_us
+    total = sum(row[k] for k in parts)
+    log(f"request of b{batch} ({total:.3f} ms): " +
+        ", ".join(f"{k} {row[k]:.3f} ms ({row[k] / total:.1%})" for k in parts) +
+        f"; device busy {row['device_busy_share']:.1%} of forward + NMS")
+    return row
+
+
+def phase_serving_entry_points():
+    """The fused bf16 flagship behind `DetectionPredictor` (b1, b32, TTA at
+    b32) and `InferenceServer` over mixed-size BGR scenes, with the launches
+    on each; then float32 on the card against float32 on the CPU through
+    the same predictor (plain and TTA). Returns (launches, rows)."""
+    log(f"== phase 14: serving entry points (MGDT-n, fused, bf16, letterbox to {IMGSZ} px, "
+        f"{N_SCENES} scenes of {', '.join(f'{h}x{w}' for h, w in SCENE_SIZES)})")
+    scenes = _scenes(N_SCENES)
+    lb_ms = {}
+    for h, w in SCENE_SIZES:
+        img = scenes[SCENE_SIZES.index((h, w))]
+        t0 = time.perf_counter()
+        for _ in range(5):
+            letterbox(img, IMGSZ)
+        lb_ms[f"{h}x{w}"] = (time.perf_counter() - t0) / 5 * 1e3
+    log(f"letterbox to {IMGSZ} on the host, ms per image: " +
+        ", ".join(f"{k} {v:.3f}" for k, v in lb_ms.items()))
+    model = DetectionModel.from_npz(WEIGHTS, device=DEVICE)
+    p = _entry_predictor(model, DEVICE, half=True)
+    total = no_launches()
+    rows = {"letterbox_ms": lb_ms}
+    for b in ENTRY_BATCHES:
+        _, launches, rows[f"predictor_b{b}"] = _timed_predict(p, scenes, b, f"predictor b{b}")
+        total = {k: total[k] + launches[k] for k in total}
+    want, _, _ = _timed_predict(p, scenes, SERVE_BATCH, f"predictor b{SERVE_BATCH}")
+    p.args.augment = True
+    _, launches, rows[f"predictor_tta_b{TTA_BATCH}"] = _timed_predict(
+        p, scenes, TTA_BATCH, f"predictor TTA b{TTA_BATCH}", 3)
+    total = {k: total[k] + launches[k] for k in total}
+    for clients in SERVE_CLIENTS:
+        launches, rows[f"server_{clients}"] = _serve_clients(model, scenes, want, clients)
+        total = {k: total[k] + launches[k] for k in total}
+    for b in (1, SERVE_BATCH):
+        rows[f"request_b{b}"] = _request_breakdown(model, scenes, b)
+    b1 = rows["predictor_b1"]
+    for k, v in lb_ms.items():
+        log(f"letterbox share of a b1 request at {k}: {v / (b1['wall_s'] * 1e3 / N_SCENES):.1%}")
+    del p, model
+    torch.cuda.empty_cache()
+    held = {}
+    with float32_exact():
+        for augment, n in ((False, HOLD_SCENES), (True, HOLD_TTA_SCENES)):
+            outs = [_entry_predictor(DetectionModel.from_npz(WEIGHTS, device=dev), dev,
+                                     augment=augment)(scenes[:n], batch=8)
+                    for dev in (DEVICE, "cpu")]
+            held["tta" if augment else "plain"] = _hold_results(
+                *outs, f"float32 predictor{' TTA' if augment else ''}, card vs CPU")
+    rows["card_vs_cpu_box_px"] = held
+    log(f"launches during the serving entry points: {total}")
+    return total, rows
+
+
 # which paths run each kernel (its launches must be counted on each); the
 # first is the kernel's own main path
 KERNEL_PATHS = {"deform_fwd": ("serving", "training", "augmented training",
-                               "ablation family", "K1 variant A/B"),
+                               "ablation family", "serving entry points", "K1 variant A/B"),
                 "deform_bwd": ("training", "augmented training", "ablation family"),
                 "deform_fwd_simt": ("DCN A/B", "K1 variant A/B"),
                 "deform_bwd_simt": ("DCN A/B",),
@@ -1874,10 +2148,12 @@ def main() -> int:
     ablation, ablation_rows = phase_ablation({k["name"]: k["wide"] for k in kernels
                                               if "wide" in k})
     torch.cuda.empty_cache()
+    entry, entry_rows = phase_serving_entry_points()
+    torch.cuda.empty_cache()
     ab_launches, ab_rows, hopper_rows, plan_rows = phase_variant_ab()
     paths = {"serving": serving, "training": training, "augmented training": augmented,
-             "ablation family": ablation, "DCN A/B": dcn_ab, "K3 A/B": k3_ab,
-             "K1 variant A/B": ab_launches}
+             "ablation family": ablation, "serving entry points": entry, "DCN A/B": dcn_ab,
+             "K3 A/B": k3_ab, "K1 variant A/B": ab_launches}
     for k in kernels:
         k["launches_by_path"] = {p: paths[p][k["name"]] for p in KERNEL_PATHS[k["name"]]}
         for p, n in k["launches_by_path"].items():
@@ -1897,6 +2173,8 @@ def main() -> int:
             k["ablation"] = {n: {"dcn": r["dcn"], **{key: r[key] for key in keys},
                                  "launches": r["launches"][k["name"]]}
                              for n, r in ablation_rows.items() if r["dcn"]}
+        if k["name"] == "deform_fwd":
+            k["serving_entry_points"] = entry_rows
         if k["name"] in ALL_VARIANTS:
             k["ab"] = [r for r in ab_rows if r["variant"] == k["name"]]
         if k["name"] in FIRST_DESIGNS:

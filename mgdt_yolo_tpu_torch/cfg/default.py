@@ -62,6 +62,7 @@ TRAIN_DEFAULTS = {
     "conf": None,             # confidence threshold (0.001 for validation when unset)
     "iou": 0.7,               # NMS IoU threshold
     "max_det": 300,           # max detections per image
+    "agnostic_nms": False,    # NMS across classes (boxes of any class suppress each other)
     # hyperparameters
     "lr0": 0.001,             # initial LR (the fork's value)
     "lrf": 0.01,              # final LR fraction

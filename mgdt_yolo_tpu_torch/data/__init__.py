@@ -1,1 +1,1 @@
-"""Synthetic input data of the PyTorch port."""
+"""Input data of the PyTorch port: synthetic scenes, batches and the letterbox."""

@@ -22,3 +22,16 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the port "
             "on the CPU")
     return dev
+
+
+def names_device(value, device: torch.device) -> bool:
+    """Whether a `device` value ("0", 0, "cuda", "cuda:0", "cpu", a
+    torch.device) names `device`; one without an index names any index."""
+    text = str(value).strip().lower()
+    try:
+        want = torch.device("cuda", int(text)) if text.isdigit() else torch.device(text)
+    except RuntimeError:
+        return False
+    if want.type != device.type:
+        return False
+    return want.index is None or device.index is None or want.index == device.index

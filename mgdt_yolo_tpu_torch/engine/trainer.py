@@ -5,9 +5,8 @@ resume.
 `check_train_args` holds the overrides to the JAX configuration's rules
 before anything is built: an unknown key raises `SyntaxError` with the JAX
 suggestions, a value of the wrong type as the JAX `check_cfg_types` does,
-and a key the port does not honour yet (`resume`, `single_cls`,
-`agnostic_nms`, `rect`, `save_json`, RMSProp, ...) raises wherever it
-differs from the JAX default.
+and a key the port does not honour yet (`resume`, `single_cls`, `rect`,
+`save_json`, RMSProp, ...) raises wherever it differs from the JAX default.
 
 `Optimizer` is the JAX trainer's optax chain step for step: SGD (Nesterov)
 or AdamW chosen as `optimizer="auto"` chooses, gradients summed over
@@ -44,6 +43,7 @@ from ..cfg.default import (AUGMENT_KEYS, CFG_BOOL_KEYS, CFG_DEFAULTS, CFG_FLOAT_
                            TRAIN_DEFAULTS)
 from ..data.build import DataLoader, to_device
 from ..data.synthetic import val_dataset
+from ..device import names_device
 from ..ops.device_augment import apply_augment, augment_draws
 from ..utils.loss import DetectionLoss
 from ..weights import flax_keys, save_npz
@@ -271,18 +271,6 @@ def check_dict_alignment(base: Mapping, custom: Mapping) -> None:
         raise SyntaxError("\n".join(msgs))
 
 
-def _names_device(value, device: torch.device) -> bool:
-    """Whether a `device` key ("0", 0, "cuda", "cuda:0", "cpu") names `device`."""
-    text = str(value).strip().lower()
-    try:
-        want = torch.device("cuda", int(text)) if text.isdigit() else torch.device(text)
-    except RuntimeError:
-        return False
-    if want.type != device.type:
-        return False
-    return want.index is None or device.index is None or want.index == device.index
-
-
 def _unhonoured_reason(key: str, device) -> str:
     if key == "optimizer":
         return f"optimizer must be one of {PORTED_OPTIMIZERS}"
@@ -309,12 +297,22 @@ def check_train_args(overrides: Optional[Mapping], device: Optional[torch.device
     if overrides.get("optimizer", "auto") not in PORTED_OPTIMIZERS:
         unhonoured["optimizer"] = overrides["optimizer"]
     if device is not None and overrides.get("device") is not None and \
-            not _names_device(overrides["device"], device):
+            not names_device(overrides["device"], device):
         unhonoured["device"] = overrides["device"]
     if unhonoured:
         raise ValueError(f"the port does not honour {unhonoured} yet: " +
                          "; ".join(_unhonoured_reason(k, device) for k in unhonoured))
     return {**TRAIN_DEFAULTS, **overrides}
+
+
+def check_rebuildable(model) -> None:
+    """Raise unless a checkpoint of `model` can name the config that rebuilds
+    it: a model built from a dict of no file records none, and `from_npz`
+    would rebuild another model from its weights."""
+    if model.model_yaml is None:
+        raise ValueError("the model was built from a config dict that names no YAML file, "
+                         "so its checkpoint could not be loaded back; build it by file name "
+                         "(models.CONFIGS) to save checkpoints")
 
 
 class Trainer:
@@ -345,6 +343,8 @@ class Trainer:
         self.model, self.loader, self.val_loader = model.train(), loader, val_loader
         self.device = model.device
         self.save_dir = Path(save_dir) if save_dir is not None else None
+        if self.save_dir is not None:
+            check_rebuildable(model)
         nb = steps_per_epoch or len(loader)
         self.accumulate = max(round(a["nbs"] / a["batch"]), 1)
         wd = a["weight_decay"] * a["batch"] * self.accumulate / a["nbs"]
@@ -495,6 +495,7 @@ class Trainer:
         batch statistics, flax keys) and its metadata, which records the
         deform semantics the weights were trained under."""
         m = self.model
+        check_rebuildable(m)
         meta = {"imgsz": self.args["imgsz"], "nc": m.nc, "stride": list(m.stride),
                 "names": {str(i): str(i) for i in range(m.nc)},
                 "model_yaml": m.model_yaml,

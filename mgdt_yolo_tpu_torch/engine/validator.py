@@ -5,7 +5,8 @@ counting metrics on the host; the counterpart of `DetectionValidator` in
 The model runs unfused in `eval()` mode, under bf16 autocast on the GPU when
 `amp` is on (float32 otherwise), then NMS with the val protocol: conf
 `args["conf"]` (0.001 when unset), IoU `args["iou"]`, every class of an
-anchor a candidate (`multi_label`), a 4096-deep candidate pool resolved in
+anchor a candidate (`multi_label`), classes kept apart unless
+`args["agnostic_nms"]`, a 4096-deep candidate pool resolved in
 blocks of 1024, `max_det` survivors. Detections and labels go back through
 each image's letterbox (`scale_boxes` with its `ratio_pad`) and feed
 `match_predictions`, `DetMetrics`, `ConfusionMatrix` and
@@ -31,7 +32,7 @@ VAL_PRE_TOPK, VAL_BLOCK = 4096, 1024
 class DetectionValidator:
     """`validator(model, loader)` -> {precision, recall, map50, map, fitness,
     speed_ms_per_image}. `args` replace keys of `cfg.default.TRAIN_DEFAULTS`
-    (`conf`, `iou`, `max_det`, `amp`)."""
+    (`conf`, `iou`, `max_det`, `agnostic_nms`, `amp`)."""
 
     def __init__(self, args: Optional[Dict] = None):
         self.args = {**TRAIN_DEFAULTS, **(args or {})}
@@ -50,7 +51,8 @@ class DetectionValidator:
             decoded, _ = model(x)
         return non_max_suppression(decoded.float(), conf_thres=a["conf"] or 0.001,
                                    iou_thres=a["iou"], max_det=a["max_det"],
-                                   multi_label=True, pre_topk=VAL_PRE_TOPK, block=VAL_BLOCK)
+                                   multi_label=True, agnostic=a["agnostic_nms"],
+                                   pre_topk=VAL_PRE_TOPK, block=VAL_BLOCK, nc=model.nc)
 
     def __call__(self, model, loader) -> Dict[str, float]:
         """Validate `model` (put in `eval()` mode) over `loader`, a

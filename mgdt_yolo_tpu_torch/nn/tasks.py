@@ -11,10 +11,12 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
+import re
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..models import FLAGSHIP, load_config
@@ -146,6 +148,45 @@ def build_module(spec: LayerSpec, head_strides) -> nn.Module:
     raise KeyError(f"module type {m!r} is not ported")
 
 
+def scaled_yaml_name(name: Optional[str], scale: Optional[str]) -> Optional[str]:
+    """The YAML file name that builds `name` at `scale`, as the JAX package
+    reads a scale from a name (`guess_model_scale`): "thead_yolov8.yaml" at
+    "s" is "thead_yolov8s.yaml", and a letter the name carries is replaced.
+    `name` as it is without a scale; None where no name can carry it."""
+    if name is None or not scale:
+        return name
+    new, n = re.subn(r"(yolov\d+)[nslmx]?", rf"\g<1>{scale}", name, count=1)
+    return new if n else None
+
+
+def _scale_img(img: torch.Tensor, ratio: float, gs: int = 32) -> torch.Tensor:
+    """NHWC scale-and-pad to a `gs`-multiple canvas, the JAX `_scale_img`:
+    a bilinear resize without antialias (half-pixel centres), then the
+    bottom and right padded with 0.447."""
+    if ratio == 1.0:
+        return img
+    b, h, w, c = img.shape
+    nh, nw = int(h * ratio), int(w * ratio)
+    out = F.interpolate(img.permute(0, 3, 1, 2), size=(nh, nw), mode="bilinear",
+                        align_corners=False, antialias=False)
+    ph, pw = math.ceil(h * ratio / gs) * gs, math.ceil(w * ratio / gs) * gs
+    out = F.pad(out, (0, pw - nw, 0, ph - nh), value=0.447)
+    return out.permute(0, 2, 3, 1)
+
+
+def _descale_pred(p: torch.Tensor, flip: Optional[int], scale: float, img_size) -> torch.Tensor:
+    """Undo a TTA pass's scale and flip on decoded predictions (B, 4+nc, A),
+    xywh in channels 0:4 (the JAX `_descale_pred`; 2 flips up-down, 3
+    left-right)."""
+    xy_wh = p[:, :4] / scale
+    x, y, wh = xy_wh[:, 0:1], xy_wh[:, 1:2], xy_wh[:, 2:4]
+    if flip == 2:
+        y = img_size[0] - y
+    elif flip == 3:
+        x = img_size[1] - x
+    return torch.cat((x, y, wh, p[:, 4:]), dim=1)
+
+
 class DetectionModel(nn.Module):
     """A detection model built from a config: a dict, or the YAML file name
     of one of `models.CONFIGS` ("thead_yolov8.yaml"; a scale letter as in
@@ -168,10 +209,12 @@ class DetectionModel(nn.Module):
         cfg = copy.deepcopy(cfg) if isinstance(cfg, dict) else load_config(cfg or FLAGSHIP)
         if nc:
             cfg["nc"] = nc
-        # the config a checkpoint's metadata names, as the JAX exporter does
-        # (None for a dict of no file)
-        self.model_yaml = cfg.get("yaml_file")
+        # the config a checkpoint's metadata names, as the JAX exporter does,
+        # with a `scale` given here written into it as JAX names a scale
+        # (None for a dict of no file: such a model's checkpoint is refused)
+        self.model_yaml = scaled_yaml_name(cfg.get("yaml_file"), scale)
         self.specs, self.save, self.nc = parse_model(cfg, scale=scale)
+        self.names = {i: f"{i}" for i in range(self.nc)}
         self.stride = tuple(self.specs[j].stride for j in self.specs[-1].f)
         for spec in self.specs:
             self.add_module(f"model_{spec.i}", build_module(spec, self.stride))
@@ -227,6 +270,34 @@ class DetectionModel(nn.Module):
                 saved[spec.i] = out
         decoded, feats = out
         return decoded, [f.permute(0, 2, 3, 1) for f in feats]
+
+    def predict_augment(self, x: torch.Tensor):
+        """Test-time augmentation, the JAX `predict_augment`: the eval
+        forward at scales 1, 0.83 and 0.67 of the NHWC batch `x`, the middle
+        one flipped left-right, each de-scaled, the large-object tail of the
+        first and the small-object head of the last dropped
+        (`_clip_augmented`), concatenated along the anchors. Returns
+        (decoded (B, 4+nc, A_total), None)."""
+        img_h, img_w = x.shape[1], x.shape[2]
+        gs = int(max(self.stride))
+        ys = []
+        for si, fi in zip((1.0, 0.83, 0.67), (None, 3, None)):
+            xi = torch.flip(x, dims=(2,)) if fi == 3 else x
+            yi, _ = self(_scale_img(xi, si, gs))
+            ys.append(_descale_pred(yi, fi, si, (img_h, img_w)))
+        return torch.cat(self._clip_augmented(ys), dim=-1), None
+
+    def _clip_augmented(self, y):
+        """Drop the first pass's large-object anchors and the last pass's
+        small-object anchors, with the JAX package's (and the reference's)
+        arithmetic: on a one-level head each pass drops all of its anchors."""
+        nl = len(self.stride)
+        g = sum(4 ** k for k in range(nl))
+        i = (y[0].shape[-1] // g) * 1
+        y[0] = y[0][..., :-i]
+        i = (y[-1].shape[-1] // g) * 4 ** (nl - 1)
+        y[-1] = y[-1][..., i:]
+        return y
 
     def forward_feats(self, x: torch.Tensor):
         """Training forward: the raw NHWC maps, as the JAX `forward_feats`

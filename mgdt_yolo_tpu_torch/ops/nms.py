@@ -1,5 +1,5 @@
-"""Batched class-offset NMS with fixed-size output, the counterpart of
-`mgdt_yolo_tpu/ops/nms.py` (`nms_single_fixpoint` and `_blocked_keep`).
+"""Batched class-offset (or class-agnostic) NMS with fixed-size output, the
+counterpart of `mgdt_yolo_tpu/ops/nms.py` (`nms_single_fixpoint` and `_blocked_keep`).
 
 Greedy NMS as a fixpoint: a candidate survives iff no higher-scoring
 survivor of its class overlaps it above the IoU threshold. Candidates are
@@ -13,6 +13,8 @@ Top-k ties: scores are sigmoids of bf16 logits, so exact ties are common.
 CUDA, so candidates are taken from a stable descending sort instead.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -28,12 +30,12 @@ def _topk_stable(v: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _candidates(boxes, scores, conf_thres, pre_topk, multi_label):
+def _candidates(boxes, scores, conf_thres, pre_topk, multi_label, agnostic):
     """Per image: confidence-thresholded top-k over (anchor, class) pairs
     (multi_label) or anchors' best class, and the class-offset boxes that
-    keep overlaps of different classes from suppressing each other.
-    boxes (B, A, 4), scores (B, A, nc). Returns (cand_boxes, conf, cls,
-    valid, offset_boxes, anchor_idx, k)."""
+    keep overlaps of different classes from suppressing each other (no
+    offset when `agnostic`). boxes (B, A, 4), scores (B, A, nc). Returns
+    (cand_boxes, conf, cls, valid, offset_boxes, anchor_idx, k)."""
     B, A, nc = scores.shape
     neg = torch.tensor(-1.0, dtype=scores.dtype, device=scores.device)
     if multi_label and nc > 1:
@@ -51,8 +53,8 @@ def _candidates(boxes, scores, conf_thres, pre_topk, multi_label):
         cls = torch.gather(cls_all, 1, anchor_idx)
     cand_boxes = torch.gather(boxes, 1, anchor_idx[..., None].expand(-1, -1, 4))
     valid = conf > 0.0
-    return (cand_boxes, conf, cls, valid, cand_boxes + (cls * MAX_WH)[..., None],
-            anchor_idx, k)
+    offset = torch.zeros_like(cls) if agnostic else cls * MAX_WH
+    return cand_boxes, conf, cls, valid, cand_boxes + offset[..., None], anchor_idx, k
 
 
 def _pairwise_inter(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -114,20 +116,25 @@ def _blocked_keep(ob, valid, iou_thres: float, block: int, max_det: int):
 
 
 def non_max_suppression(prediction: torch.Tensor, conf_thres: float = 0.25,
-                        iou_thres: float = 0.45, multi_label: bool = False,
-                        max_det: int = 300, pre_topk: int = 1024,
+                        iou_thres: float = 0.45, agnostic: bool = False,
+                        multi_label: bool = False, max_det: int = 300,
+                        pre_topk: int = 1024, nc: Optional[int] = None,
                         return_idx: bool = False, block: int = 256):
     """Batched NMS over the eval-path head output.
 
-    prediction: (B, 4 + nc, A) xywh boxes then class scores. `block` > 0
-    resolves candidate pools larger than it block by block (same result).
+    prediction: (B, 4 + nc, A) xywh boxes then class scores; channels past
+    4 + `nc` are ignored (all past 4 are scores when `nc` is None).
+    `agnostic` lets boxes of different classes suppress each other. `block`
+    > 0 resolves candidate pools larger than it block by block (same result).
     Returns det (B, max_det, 6) [x1, y1, x2, y2, conf, cls] zero-padded and
     counts (B,) int32, plus the source anchor of each row (B, max_det)
     int32, -1 for padding, when return_idx.
     """
     pred = prediction.transpose(1, 2)  # (B, A, 4+nc)
+    nc = nc or (pred.shape[-1] - 4)
     cand_boxes, conf, cls, valid, ob, anchor_idx, k = _candidates(
-        xywh2xyxy(pred[..., :4]), pred[..., 4:], conf_thres, pre_topk, multi_label)
+        xywh2xyxy(pred[..., :4]), pred[..., 4:4 + nc], conf_thres, pre_topk, multi_label,
+        agnostic)
     if block and k > block:
         keep = _blocked_keep(ob, valid, iou_thres, block, max_det)
     else:

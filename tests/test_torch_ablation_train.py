@@ -311,3 +311,38 @@ def test_from_npz_falls_back_to_the_flagship_only_without_a_config(tmp_path):
     save_npz(flagship, tmp_path / "b.npz", {"model_yaml": "gd_thead_yolov8.yaml", "nc": 2})
     with pytest.raises(KeyError, match="do not fit"):
         DetectionModel.from_npz(tmp_path / "b.npz", device="cpu")
+
+
+@pytest.mark.parametrize("name,scale,recorded", [("thead_yolov8.yaml", "s", "thead_yolov8s.yaml"),
+                                                 ("yolov8n.yaml", "s", "yolov8s.yaml")])
+def test_scale_argument_checkpoint_round_trip(tmp_path, name, scale, recorded):
+    """A model built with `scale=` records that scale in the config it names,
+    as JAX names a scale ("thead_yolov8s.yaml"), so `Trainer.save_checkpoint`
+    and `from_npz` give back the same model with equal weights."""
+    pm = DetectionModel(name, scale=scale, nc=2, device="cpu")
+    assert pm.model_yaml == recorded
+    tr = Trainer(pm, None, save_dir=tmp_path, overrides=OVERRIDES,
+                 steps_per_epoch=STEPS_PER_EPOCH)
+    tr.save_checkpoint("last")
+    back = DetectionModel.from_npz(tmp_path / "weights" / "last.npz", device="cpu")
+    assert (back.model_yaml, back.nc, back.stride) == (recorded, 2, pm.stride)
+    want = dict(pm.state_dict())
+    assert set(back.state_dict()) == set(want)
+    for k, v in back.state_dict().items():
+        torch.testing.assert_close(v, want[k], rtol=0, atol=0, msg=k)
+
+
+def test_checkpoint_of_a_config_dict_is_refused(tmp_path):
+    """A model built from a dict of no file cannot name its config, so the
+    Trainer refuses to save its checkpoints before training."""
+    from mgdt_yolo_tpu_torch.models import CONFIGS
+    pm = DetectionModel(CONFIGS["yolov8.yaml"], nc=2, device="cpu")
+    assert pm.model_yaml is None
+    with pytest.raises(ValueError, match="config dict"):
+        Trainer(pm, None, save_dir=tmp_path, overrides=OVERRIDES,
+                steps_per_epoch=STEPS_PER_EPOCH)
+    tr = Trainer(pm, None, overrides=OVERRIDES, steps_per_epoch=STEPS_PER_EPOCH)
+    tr.save_dir = tmp_path
+    with pytest.raises(ValueError, match="config dict"):
+        tr.save_checkpoint("last")
+    assert not (tmp_path / "weights").exists()

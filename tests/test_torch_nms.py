@@ -4,7 +4,9 @@ source anchors and survivor order (CPU, float32).
 Inputs: the JAX flagship's decoded output on synthetic scenes at 320 px (the
 committed weights' training size), and a synthetic pool whose scores take
 only 20 distinct values, so exact ties are everywhere and the top-k tie
-order decides the result. Both sides compute the same IoUs with the same
+order decides the result; and clusters of near-identical boxes of different
+classes with two channels past the class scores, for `agnostic` and `nc`.
+Both sides compute the same IoUs with the same
 float32 operations, so everything is held to exact equality.
 """
 from pathlib import Path
@@ -81,3 +83,36 @@ def test_fewer_candidates_than_rows_pad():
                              pre_topk=1024, block=256)
     assert det.shape == (2, 300, 6)
     assert (idx[:, counts.max():] == -1).all()
+
+
+def _overlapping_classes(B=2, clusters=150, per=4, nc=3, extra=2, seed=1):
+    """Clusters of near-identical boxes whose members have different best
+    classes, then `extra` channels past the class scores (as a segment or
+    pose head appends) with scores above every class's."""
+    rng = np.random.default_rng(seed)
+    centre = rng.uniform(40, 600, (B, clusters, 1, 2))
+    size = rng.uniform(20, 120, (B, clusters, 1, 2))
+    cxy = (centre + rng.normal(0, 2, (B, clusters, per, 2))).reshape(B, -1, 2)
+    wh = (size * rng.uniform(0.95, 1.05, (B, clusters, per, 2))).reshape(B, -1, 2)
+    scores = rng.uniform(0, 0.2, (B, clusters * per, nc))
+    best = rng.integers(0, nc, (B, clusters * per))
+    np.put_along_axis(scores, best[..., None], rng.uniform(0.3, 1.0, (B, clusters * per, 1)),
+                      axis=-1)
+    tail = rng.uniform(1.0, 2.0, (B, clusters * per, extra))
+    return np.concatenate([cxy, wh, scores, tail], -1).astype(np.float32).transpose(0, 2, 1)
+
+
+@pytest.mark.parametrize("block", [256, 0])
+@pytest.mark.parametrize("multi_label", [False, True])
+def test_agnostic_and_nc_match_jax(block, multi_label):
+    """`agnostic` and `nc` as JAX's: exact detections, counts and anchors;
+    across classes more boxes are suppressed; `nc` reads only its scores."""
+    pred = _overlapping_classes()
+    kw = dict(conf_thres=0.25, iou_thres=0.5, max_det=300, pre_topk=1024,
+              multi_label=multi_label, block=block, nc=3)
+    _, per_class, _ = _both(pred, agnostic=False, **kw)
+    _, agnostic, _ = _both(pred, agnostic=True, **kw)
+    assert (agnostic < per_class).all() and (agnostic > 0).all()
+    # without nc the two extra channels are read as classes, and win
+    det, _, _ = _both(pred, agnostic=False, **{**kw, "nc": None})
+    assert set(det[..., 5].unique().tolist()) <= {0.0, 3.0, 4.0} and (det[..., 5] >= 3).any()

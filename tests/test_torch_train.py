@@ -49,12 +49,14 @@ from mgdt_yolo_tpu.utils.loss import DetectionLoss as JaxDetectionLoss
 from mgdt_yolo_tpu_torch.cfg.default import (CFG_DEFAULTS, NEUTRAL_KEYS, TRAIN_DEFAULTS,
                                             UNAUGMENTED)
 from mgdt_yolo_tpu_torch.data.build import DataLoader, collate, collate_raw, to_device
-from mgdt_yolo_tpu_torch.data.synthetic import SyntheticDetectionDataset
+from mgdt_yolo_tpu_torch.data.synthetic import SyntheticDetectionDataset, synthetic_batch
 from mgdt_yolo_tpu_torch.engine.trainer import (EarlyStopping, Optimizer, Trainer,
                                                 check_augment_args, device_augment_unsupported)
 from mgdt_yolo_tpu_torch.ops.device_augment import apply_augment
 from mgdt_yolo_tpu_torch.nn.modules import conv as C
+from mgdt_yolo_tpu_torch.engine.validator import DetectionValidator
 from mgdt_yolo_tpu_torch.nn.tasks import DetectionModel
+from mgdt_yolo_tpu_torch.ops.nms import non_max_suppression
 from mgdt_yolo_tpu_torch.weights import (export_variables, flatten_variables, flax_keys,
                                          load_jax_variables, load_state, to_flax_layout)
 from test_torch_augment import jax_draws
@@ -151,7 +153,7 @@ def test_type_errors_match_jax(key, value):
 # the JAX keys the port does not honour yet, each at a value other than its
 # default (the JAX reference: engine/trainer.py :419 resume, :305
 # single_cls; engine/validator.py :215 agnostic_nms; RMSProp at :147)
-UNHONOURED_CASES = [("resume", True), ("single_cls", True), ("agnostic_nms", True),
+UNHONOURED_CASES = [("resume", True), ("single_cls", True),
                     ("rect", True), ("save_json", True), ("optimizer", "RMSProp"),
                     ("fraction", 0.5), ("label_smoothing", 0.1), ("cache", "ram"),
                     ("device", "cuda:0")]
@@ -174,6 +176,30 @@ def test_unhonoured_key_raises_and_its_default_builds(key, value, cpu_model):
     tr = Trainer(cpu_model, None, overrides={**OVERRIDES, key: default},
                  steps_per_epoch=STEPS_PER_EPOCH)
     assert tr.args[key] == default
+
+
+def test_agnostic_nms_is_honoured(cpu_model):
+    """`agnostic_nms` is a key the trainer honours: the Trainer takes it, and
+    its validator's NMS then lets boxes of any class suppress each other, as
+    the JAX validator's does (`tests/test_torch_nms.py` holds that NMS to
+    JAX's): on the same scenes it keeps fewer boxes than the NMS per class."""
+    tr = Trainer(cpu_model, None, overrides={**OVERRIDES, "agnostic_nms": True},
+                 steps_per_epoch=STEPS_PER_EPOCH)
+    assert tr.args["agnostic_nms"] is True and TRAIN_DEFAULTS["agnostic_nms"] is False
+    x = torch.from_numpy(synthetic_batch(2, imgsz=64))
+    cpu_model.eval()
+    with torch.no_grad():
+        decoded, _ = cpu_model(x.float() / 255.0)
+    counts = {}
+    for agnostic in (False, True):
+        det, counts[agnostic] = DetectionValidator({**tr.args, "agnostic_nms": agnostic}
+                                                   ).infer(cpu_model, x)
+        want = non_max_suppression(decoded, conf_thres=0.001, iou_thres=0.7, max_det=300,
+                                   multi_label=True, agnostic=agnostic, pre_topk=4096,
+                                   block=1024, nc=cpu_model.nc)
+        torch.testing.assert_close(det, want[0], rtol=0, atol=0)
+    assert (counts[True] < counts[False]).all() and (counts[True] > 0).all()
+    cpu_model.train()
 
 
 def test_neutral_keys_and_defaults_build(cpu_model):
