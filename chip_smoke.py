@@ -144,10 +144,34 @@ Phases, each of which passes or ends the script with a non-zero exit:
    predictor in float32 on the card against the CPU, plain on 16 scenes and
    TTA on 8: the same detections and classes per scene, boxes in the
    scene's pixels within 0.5 px.
+15. from disk: the image decoder (`mgdt_yolo_tpu_torch/native`, nvJPEG on
+   the card, built in phase 2 beside the kernels) against cv2's decode of
+   the committed JPEG fixtures (their PNG twins; one grey, one progressive,
+   two EXIF-rotated) within the stated grey-level limit; then a YOLO-format
+   dataset written to a temporary directory (64 train and 16 val images
+   cut from the seeded scenes at phase 14's four sizes, JPEG through PIL,
+   their labels, a dataset YAML),
+   decode ms per image at each size; `Trainer(data=...)` with the JAX
+   defaults (device augment, validation every epoch, SGD), b32, 640 px, 2
+   epochs (K3, K2 and K1 once per micro-step, K1 once per validation
+   forward, no other kernel; finite losses; the checkpoint carries the
+   dataset's names), `resume=True` for a third epoch (the restored state
+   equal to the saved one bit for bit before its first step; the same
+   launches), a timed pass of a train loader over the train split four times
+   over (images/s from disk
+   beside phase 10's resident augmented micro-step, the share of the wall
+   time spent waiting for the loader, the device's idle share; then with 8,
+   4 and 2 decoder threads in turns), 2 RMSProp
+   micro-steps (finite losses); then `DetectionPredictor` (fused, bf16) over
+   the val directory at b1 and b32 (K1 once per forward; images/s, decode +
+   letterbox ms per image) and the float32 predictor on the card against
+   the CPU over 8 of its files (the same detections and classes, boxes
+   within 0.5 px).
    Phase 10 runs before phase 8, and phases 8, 9 and 11 run after it,
    because the CPU work leaves the host's threads busy, which slows the
    host-bound steps; phase 13 runs after phase 11, phase 14 after phase
-   13, and phase 12, which times kernels only, runs last.
+   13, phase 15 after phase 14, and phase 12, which times kernels only,
+   runs last.
 
 The last lines are the kernel table as JSON, the card's name and power
 limit, and `{"ok": true, "device": {...}}`. Without a CUDA device the script
@@ -172,8 +196,9 @@ import torch
 from mgdt_yolo_tpu_torch.cfg.default import UNAUGMENTED
 from mgdt_yolo_tpu_torch.data.augment import letterbox
 from mgdt_yolo_tpu_torch.data.build import DataLoader, collate, collate_raw, to_device
+from mgdt_yolo_tpu_torch import native
 from mgdt_yolo_tpu_torch.data.synthetic import (SyntheticDetectionDataset, synthetic_batch,
-                                                synthetic_scene)
+                                                synthetic_item, synthetic_scene)
 from mgdt_yolo_tpu_torch.engine import predictor
 from mgdt_yolo_tpu_torch.engine.predictor import (DetectionPredictor, infer, letterbox_batch,
                                                   predict)
@@ -291,7 +316,7 @@ def phase_environment():
 def phase_build():
     log("== phase 2: build")
     t0 = time.perf_counter()
-    logs = build_all()
+    logs = build_all()  # the CUDA sources and the image decoder (g++, nvJPEG), together
     log(f"built {sorted(logs)} in {time.perf_counter() - t0:.2f} s")
     USAGE.update(_ptxas_usage(logs))
     for name, text in logs.items():
@@ -1538,7 +1563,7 @@ def phase_augmented_training():
         f"({aug_ms / step_ms['augmented']:.1%} of the augmented micro-step)")
     log(f"validation pass ({len(trainer.val_loader.dataset)} images, "
         f"{len(trainer.val_loader)} batch): " + " / ".join(f"{t:.3f}" for t in val_s) + " s")
-    return launches, aug_ms
+    return launches, aug_ms, step_ms
 
 
 def phase_augment_card_vs_cpu():
@@ -1945,11 +1970,12 @@ def _hold_results(got, want, name):
     return box
 
 
-def _timed_predict(p, scenes, batch, name, forwards_per_batch=1):
-    """One counted, timed run of the predictor (after one warm-up run):
-    images/s over the wall time, the per-image preprocess and inference ms,
-    and K1 launched once per forward (`forwards_per_batch` a batch) and no
-    other kernel. Returns (results, launches, row)."""
+def _timed_predict(p, scenes, batch, name, forwards_per_batch=1, n=None):
+    """One counted, timed run of the predictor (after one warm-up run) over
+    `scenes` (images, or a source of `n` files): images/s over the wall
+    time, the per-image preprocess and inference ms, and K1 launched once
+    per forward (`forwards_per_batch` a batch) and no other kernel. Returns
+    (results, launches, row)."""
     p(scenes, batch=batch)
     torch.cuda.synchronize()
     reset_counts()
@@ -1958,7 +1984,7 @@ def _timed_predict(p, scenes, batch, name, forwards_per_batch=1):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
-    n = len(scenes)
+    n = len(scenes) if n is None else n
     pre = sum(r.speed["preprocess"] for r in results) / n
     inf = sum(r.speed["inference"] for r in results) / n
     row = {"images_per_s": n / wall, "wall_s": wall, "preprocess_ms": pre, "inference_ms": inf,
@@ -2113,14 +2139,296 @@ def phase_serving_entry_points():
     return total, rows
 
 
+# phase 15: a YOLO-format dataset on disk, cut from the seeded scenes at
+# phase 14's sizes, JPEG (PIL's encoder, quality 95, 4:2:0)
+DISK_TRAIN, DISK_VAL, DISK_HOLD = 64, 16, 8
+DISK_NAMES = ("piglet", "sow")
+DISK_OVERRIDES = {"optimizer": "SGD", "batch": TRAIN_BATCH, "epochs": 2, "workers": 8}
+# the decoder's JPEG limit against cv2's decode (the fixtures' PNG twins):
+# the grey levels nvJPEG's IDCT may differ by (3 on the fixtures, on an
+# H100), and JAX's mean bound (tests/test_native_loader.py)
+JPEG_MAX_DIFF, JPEG_MEAN_DIFF = 3, 0.1
+FIXTURES = ROOT / "mgdt_yolo_tpu_torch" / "native" / "fixtures"
+
+
+def _write_disk_dataset(root):
+    """images/{train,val}/imNN.<ext> with their YOLO labels (the scene's
+    boxes clipped to the cut, those keeping under a tenth of their area
+    dropped) and data.yaml. Returns (yaml path, image format)."""
+    from PIL import Image
+    fmt = "jpg"
+    for split, n, first in (("train", DISK_TRAIN, 0), ("val", DISK_VAL, DISK_TRAIN)):
+        (root / "images" / split).mkdir(parents=True)
+        (root / "labels" / split).mkdir(parents=True)
+        for k in range(n):
+            i = first + k
+            h, w = SCENE_SIZES[i % len(SCENE_SIZES)]
+            item = synthetic_item(i, max(h, w), seed=7)
+            img = np.ascontiguousarray(item["img"][:h, :w])
+            b = item["boxes"].copy()
+            area = (b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1])
+            b[:, [0, 2]] = b[:, [0, 2]].clip(0, w)
+            b[:, [1, 3]] = b[:, [1, 3]].clip(0, h)
+            keep = (b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1]) > 0.1 * area
+            rows = [f"{int(c)} {(x1 + x2) / 2 / w:.6f} {(y1 + y2) / 2 / h:.6f} "
+                    f"{(x2 - x1) / w:.6f} {(y2 - y1) / h:.6f}"
+                    for (x1, y1, x2, y2), c in zip(b[keep], item["cls"][keep])]
+            path = root / "images" / split / f"im{k:02d}.{fmt}"
+            Image.fromarray(img[..., ::-1]).save(path, quality=95)
+            (root / "labels" / split / f"im{k:02d}.txt").write_text("\n".join(rows) + "\n")
+    y = root / "data.yaml"
+    y.write_text(f"path: {root}\ntrain: images/train\nval: images/val\n\nnames:\n" +
+                 "".join(f"  {i}: {n}\n" for i, n in enumerate(DISK_NAMES)))
+    return y, fmt
+
+
+def _check_decoder():
+    """The decoder on the card against cv2's decode of the committed JPEG
+    fixtures (their PNG twins): the largest and mean grey-level differences
+    within the stated limit. Returns {fixture: (max, mean)}."""
+    out = {}
+    if not native.has_jpeg():
+        raise SystemExit("the decoder was built without nvJPEG on a machine with a card")
+    for j in sorted(FIXTURES.glob("*.jpg")):
+        want = native.decode(j.with_suffix(".png"))
+        got = native.decode(j)
+        if got.shape != want.shape:
+            raise SystemExit(f"decoder: {j.name} decodes to {got.shape}, cv2 to {want.shape}")
+        d = np.abs(got.astype(np.int16) - want)
+        out[j.name] = (int(d.max()), float(d.mean()))
+        log(f"decoder {j.name} {got.shape[1]}x{got.shape[0]}: max |diff| {d.max()} grey "
+            f"levels, mean {d.mean():.4f}, share > 1: {(d > 1).mean():.4%}")
+        if d.max() > JPEG_MAX_DIFF or d.mean() >= JPEG_MEAN_DIFF:
+            raise SystemExit(f"decoder: {j.name} is outside the limit (max {JPEG_MAX_DIFF}, "
+                             f"mean < {JPEG_MEAN_DIFF})")
+    return out
+
+
+def _decode_ms(paths_by_size):
+    """ms per image of `native.decode` alone (5 calls) and of a 32-image
+    `decode_batch` on 8 threads, by scene size."""
+    rows = {}
+    for size, path in paths_by_size.items():
+        native.decode(path)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            native.decode(path)
+        one = (time.perf_counter() - t0) / 5 * 1e3
+        t0 = time.perf_counter()
+        native.decode_batch([path] * 32, 8)
+        many = (time.perf_counter() - t0) / 32 * 1e3
+        rows[size] = {"decode_ms": one, "decode_batch32_ms_per_image": many}
+        log(f"decode {size}: {one:.3f} ms one image, {many:.3f} ms per image in a batch of 32 "
+            f"(8 threads)")
+    return rows
+
+
+def _train_state(tr):
+    return ({k: t.detach() for k, t in tr.train_state().items()},
+            (tr.step, tr.ema.updates, tr.optimizer.count, tr.optimizer.mini_step))
+
+
+def _finite_history(tr, what):
+    if not tr.history or not all(math.isfinite(float(m["loss"])) for m in tr.history):
+        raise SystemExit(f"{what}: a loss is not finite")
+
+
+def _expect(launches, what, **want):
+    want = no_launches(**want)
+    if launches != want:
+        raise SystemExit(f"{what} launched {launches}, not {want}")
+
+
+def _disk_epoch(trainer, repeats=4, workers=None):
+    """One timed pass through `train_step` of a train loader over the
+    trainer's dataset listed `repeats` times (every file decoded again; a
+    fresh iterator, two batches in flight): images/s, the share of the wall
+    time the loop waited for the loader (all of it, and after the first
+    batch), and the device's idle share (torch.profiler). `workers`: the
+    decoder's threads (default the trainer's)."""
+    import copy
+    ds = copy.copy(trainer.loader.dataset)
+    ds.im_files, ds.labels = ds.im_files * repeats, ds.labels * repeats
+    loader = DataLoader(ds, TRAIN_BATCH, IMGSZ, seed=0, train=True, device_augment=True,
+                        hyp=trainer.args, workers=workers or trainer.args["workers"])
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    waits, n = [], 0
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        it = iter(loader)
+        while True:
+            tw = time.perf_counter()
+            batch = next(it, None)
+            waits.append(time.perf_counter() - tw)
+            if batch is None:
+                break
+            trainer.train_step(to_device(batch, DEVICE))
+            n += len(batch["img"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us = sum(device_us(e) for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return {"images": n, "batches": len(loader), "wall_s": wall, "images_per_s": n / wall,
+            "first_batch_wait_s": waits[0], "loader_wait_share": sum(waits) / wall,
+            "loader_wait_share_after_first": sum(waits[1:]) / (wall - waits[0]),
+            "device_idle_share": 1.0 - busy_us / (wall * 1e6)}
+
+
+def phase_from_disk(resident_step_ms):
+    """The flagship trained, resumed and served from image files on disk
+    (`Trainer(data=...)`, `DetectionPredictor(<directory>)`), with the
+    decoder held first. Returns (launches, rows)."""
+    log(f"== phase 15: from disk (the decoder against the fixtures; a YOLO dataset of "
+        f"{DISK_TRAIN} train and {DISK_VAL} val images at "
+        f"{', '.join(f'{h}x{w}' for h, w in SCENE_SIZES)}; MGDT-n trained with the JAX "
+        f"defaults, b{TRAIN_BATCH}, {IMGSZ} px, 2 epochs, resumed for a third, RMSProp; the "
+        f"predictor over the val directory)")
+    rows = {"decoder_vs_cv2": _check_decoder()}
+    total = no_launches()
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        data, fmt = _write_disk_dataset(root / "pigs")
+        log(f"dataset written as {fmt} in {time.perf_counter() - t0:.2f} s "
+            f"({sum(f.stat().st_size for f in (root / 'pigs').rglob('*.' + fmt)) / 2**20:.1f} MiB)")
+        rows["format"] = fmt
+        rows["decode"] = _decode_ms({f"{h}x{w}": root / "pigs" / "images" / "train" /
+                                     f"im{k:02d}.{fmt}" for k, (h, w) in enumerate(SCENE_SIZES)})
+        over = {**DISK_OVERRIDES, "data": str(data), "project": str(root / "runs")}
+        run = root / "runs" / "run"
+
+        # training, validation every epoch, checkpoints
+        model = DetectionModel.from_npz(WEIGHTS, device=DEVICE)
+        trainer = Trainer(model, overrides=over, save_dir=run)
+        steps, n_val = len(trainer.loader), None
+        log(f"train loader: {len(trainer.loader.dataset)} images, {steps} micro-steps an epoch, "
+            f"max_gt {trainer.loader.max_gt}, decoder ingest {trainer.loader.native_eligible()}")
+        reset_counts()
+        t0 = time.perf_counter()
+        results = trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        add(launches)
+        n_val = len(trainer.val_loader)
+        epochs = DISK_OVERRIDES["epochs"]
+        log(f"trained {epochs} epochs ({epochs * steps} micro-steps, {epochs * n_val} validation "
+            f"forwards) in {wall:.2f} s; launches {launches}; validation {results}")
+        _expect(launches, "training from disk", deform_fwd=epochs * (steps + n_val),
+                deform_bwd=epochs * steps, fused_augment=epochs * steps)
+        _finite_history(trainer, "training from disk")
+        meta = json.loads((run / "weights" / "last_metadata.json").read_text())
+        back = DetectionModel.from_npz(run / "weights" / "last.npz", device=DEVICE)
+        want_names = dict(enumerate(DISK_NAMES))
+        if meta["names"] != {str(k): v for k, v in want_names.items()} or \
+                back.names != want_names or trainer.model.names != want_names:
+            raise SystemExit(f"the checkpoint does not carry the dataset's names: {meta['names']}")
+        log(f"checkpoint names {back.names}, epoch {meta['epoch']}, step {meta['step']}")
+        rows["train_wall_s"] = wall
+
+        # resume for a third epoch: the restored state is the saved one
+        saved, saved_counts = _train_state(trainer)
+        resumed = Trainer(DetectionModel.from_npz(WEIGHTS, device=DEVICE),
+                          overrides={**over, "epochs": epochs + 1, "resume": True}, save_dir=run)
+        got, got_counts = _train_state(resumed)
+        differ = [k for k in saved if not torch.equal(saved[k], got[k])]
+        log(f"resumed from {resumed.resume_path} at epoch {resumed.start_epoch}: counts "
+            f"{got_counts} (saved {saved_counts}), {len(got)} tensors, {len(differ)} differ")
+        if differ or got_counts != saved_counts or set(got) != set(saved) or \
+                resumed.start_epoch != epochs:
+            raise SystemExit(f"the resumed state is not the saved one: {differ[:5]}")
+        del trainer, saved
+        reset_counts()
+        resumed.train()
+        torch.cuda.synchronize()
+        launches = read_counts()
+        add(launches)
+        _expect(launches, "the resumed epoch", deform_fwd=steps + n_val, deform_bwd=steps,
+                fused_augment=steps)
+        _finite_history(resumed, "the resumed epoch")
+        log(f"resumed epoch: launches {launches}, losses " +
+            ", ".join(f"{float(m['loss']):.4f}" for m in resumed.history))
+
+        # the loader's share: a timed pass over the train split, four times over
+        rows["train_from_disk"] = _disk_epoch(resumed)
+        r = rows["train_from_disk"]
+        log(f"train b{TRAIN_BATCH} from disk: {r['images_per_s']:.2f} images/s ({r['images']} "
+            f"images, {r['batches']} batches, in {r['wall_s']:.3f} s), loader wait "
+            f"{r['loader_wait_share']:.1%} of the wall time (the first batch "
+            f"{r['first_batch_wait_s'] * 1e3:.1f} ms; after it "
+            f"{r['loader_wait_share_after_first']:.1%}), device idle "
+            f"{r['device_idle_share']:.1%}; phase 10's resident augmented micro-step "
+            f"{resident_step_ms:.3f} ms = {TRAIN_BATCH / resident_step_ms * 1e3:.2f} images/s")
+        rows["resident_step_ms"] = resident_step_ms
+        # the decoder's threads share the host's cores with the step: 8, 4
+        # and 2 of them, in turns
+        sweep = {}
+        for w in (8, 4, 2, 2, 4, 8):
+            sweep.setdefault(w, []).append(_disk_epoch(resumed, workers=w)["images_per_s"])
+        rows["train_from_disk_by_workers"] = sweep
+        log("train b32 from disk by decoder threads, in turns (images/s): " +
+            ", ".join(f"{w}: {' / '.join(f'{v:.2f}' for v in vs)}" for w, vs in sweep.items()))
+        del resumed
+        torch.cuda.empty_cache()
+
+        # RMSProp: two micro-steps
+        rms = Trainer(DetectionModel.from_npz(WEIGHTS, device=DEVICE),
+                      overrides={**over, "optimizer": "RMSProp", "epochs": 1, "val": False})
+        reset_counts()
+        rms.train()
+        torch.cuda.synchronize()
+        launches = read_counts()
+        add(launches)
+        _expect(launches, "RMSProp", deform_fwd=steps, deform_bwd=steps, fused_augment=steps)
+        _finite_history(rms, "RMSProp")
+        log(f"RMSProp {steps} micro-steps: losses " +
+            ", ".join(f"{float(m['loss']):.4f}" for m in rms.history) +
+            f"; optimizer {rms.optimizer.kind}, updates {rms.optimizer.count}")
+        del rms
+        torch.cuda.empty_cache()
+
+        # the predictor over the val directory
+        val_dir = root / "pigs" / "images" / "val"
+        model = DetectionModel.from_npz(run / "weights" / "last.npz", device=DEVICE)
+        p = _entry_predictor(model, DEVICE, half=True)
+        files = sorted(val_dir.glob(f"*.{fmt}"))
+        for b in ENTRY_BATCHES:
+            res, launches, rows[f"predictor_dir_b{b}"] = _timed_predict(
+                p, val_dir, b, f"predictor over the directory b{b}", n=len(files))
+            add(launches)
+            if [r.path for r in res] != [str(f) for f in files]:
+                raise SystemExit("the predictor's paths are not the directory's files")
+            rows[f"predictor_dir_b{b}"]["decode_letterbox_ms"] = \
+                rows[f"predictor_dir_b{b}"]["preprocess_ms"]
+        del p, model
+        torch.cuda.empty_cache()
+        hold = str(val_dir / f"im0[0-{DISK_HOLD - 1}].{fmt}")
+        with float32_exact():
+            outs = [_entry_predictor(DetectionModel.from_npz(run / "weights" / "last.npz",
+                                                             device=dev), dev)(hold, batch=8)
+                    for dev in (DEVICE, "cpu")]
+        rows["card_vs_cpu_box_px"] = _hold_results(
+            *outs, f"float32 predictor over {DISK_HOLD} files, card vs CPU")
+    log(f"launches during the from-disk path: {total}")
+    return total, rows
+
+
 # which paths run each kernel (its launches must be counted on each); the
 # first is the kernel's own main path
 KERNEL_PATHS = {"deform_fwd": ("serving", "training", "augmented training",
-                               "ablation family", "serving entry points", "K1 variant A/B"),
-                "deform_bwd": ("training", "augmented training", "ablation family"),
+                               "ablation family", "serving entry points", "from disk",
+                               "K1 variant A/B"),
+                "deform_bwd": ("training", "augmented training", "ablation family",
+                               "from disk"),
                 "deform_fwd_simt": ("DCN A/B", "K1 variant A/B"),
                 "deform_bwd_simt": ("DCN A/B",),
-                "fused_augment": ("augmented training", "K3 A/B"),
+                "fused_augment": ("augmented training", "from disk", "K3 A/B"),
                 "fused_augment_simt": ("K3 A/B",),
                 **{name: ("K1 variant A/B",) for name in ALL_VARIANTS}}
 
@@ -2140,7 +2448,7 @@ def main() -> int:
     phase_fixed_batch(trainer, batch)
     del trainer, batch
     torch.cuda.empty_cache()
-    augmented, aug_ms = phase_augmented_training()
+    augmented, aug_ms, step_ms = phase_augmented_training()
     torch.cuda.empty_cache()
     phase_card_vs_cpu()
     phase_train_card_vs_cpu()
@@ -2150,9 +2458,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     entry, entry_rows = phase_serving_entry_points()
     torch.cuda.empty_cache()
+    disk, disk_rows = phase_from_disk(step_ms["augmented"])
+    torch.cuda.empty_cache()
     ab_launches, ab_rows, hopper_rows, plan_rows = phase_variant_ab()
     paths = {"serving": serving, "training": training, "augmented training": augmented,
-             "ablation family": ablation, "serving entry points": entry, "DCN A/B": dcn_ab,
+             "ablation family": ablation, "serving entry points": entry, "from disk": disk,
+             "DCN A/B": dcn_ab,
              "K3 A/B": k3_ab, "K1 variant A/B": ab_launches}
     for k in kernels:
         k["launches_by_path"] = {p: paths[p][k["name"]] for p in KERNEL_PATHS[k["name"]]}
@@ -2175,6 +2486,7 @@ def main() -> int:
                              for n, r in ablation_rows.items() if r["dcn"]}
         if k["name"] == "deform_fwd":
             k["serving_entry_points"] = entry_rows
+            k["from_disk"] = disk_rows
         if k["name"] in ALL_VARIANTS:
             k["ab"] = [r for r in ab_rows if r["variant"] == k["name"]]
         if k["name"] in FIRST_DESIGNS:

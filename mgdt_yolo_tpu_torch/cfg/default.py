@@ -46,13 +46,18 @@ CFG_DEFAULTS = {
 }
 
 TRAIN_DEFAULTS = {
+    "data": None,             # dataset YAML or directory; None: the synthetic scenes
     "epochs": 100,            # training epochs
     "patience": 50,           # early-stop patience (epochs without fitness gain)
     "batch": 16,              # global batch size
     "imgsz": 640,             # square train/val image size
     "save": True,             # write checkpoints
     "save_period": -1,        # extra checkpoint every N epochs (<1 disables)
-    "optimizer": "auto",      # SGD | AdamW | auto
+    "cache": False,           # decoded train/val images kept: ram (True) or disk (.npy)
+    "fraction": 1.0,          # share of the train images used (the first ones, sorted)
+    "single_cls": False,      # every class taken as class 0
+    "resume": False,          # carry on the newest run's weights/last under `project`
+    "optimizer": "auto",      # SGD | AdamW | RMSProp | auto
     "seed": 0,                # data shuffle and augmentation seed
     "cos_lr": False,          # cosine LR schedule instead of linear
     "close_mosaic": 0,        # disable mosaic for the last N epochs
@@ -111,8 +116,9 @@ NEUTRAL_KEYS = (
     "plots",      # the port draws no plots; plots change no weight and no metric
 )
 
-# the optimizer names the port's `Optimizer` takes (the JAX chain's but RMSProp)
-PORTED_OPTIMIZERS = ("auto", "SGD", "sgd", "AdamW", "Adam", "adamw", "adam", "NAdam", "RAdam")
+# the optimizer names the port's `Optimizer` takes (the JAX chain's)
+PORTED_OPTIMIZERS = ("auto", "SGD", "sgd", "AdamW", "Adam", "adamw", "adam", "NAdam", "RAdam",
+                     "RMSProp")
 
 # typed key groups, as the JAX package's `cfg/__init__.py` checks them
 CFG_FLOAT_KEYS = ("warmup_epochs", "box", "cls", "dfl", "degrees", "shear")

@@ -25,7 +25,8 @@ integer (`tests/test_torch_letterbox.py`).
 """
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -134,3 +135,25 @@ def letterbox(img: np.ndarray, new_shape=(640, 640), color=(114, 114, 114),
     out[...] = np.asarray(color, np.uint8)
     out[top:top + img.shape[0], left:left + img.shape[1]] = img
     return out, ratio, (dw, dh)
+
+
+def resize_long_side(item: Dict, imgsz: int) -> Dict:
+    """An item (`img` BGR uint8, `boxes` xyxy pixels, `cls`) resized so its
+    long side is `imgsz`, boxes scaled with it, as the JAX
+    `resize_long_side(augment=True)` does before augmentation (the JAX
+    loader's only call): r = imgsz / max(h, w), the new sides
+    min(ceil(side * r), imgsz), cv2's INTER_LINEAR (`resize_linear`)."""
+    img = item["img"]
+    h0, w0 = img.shape[:2]
+    r = imgsz / max(h0, w0)
+    if r == 1:
+        return item
+    w = min(math.ceil(w0 * r), imgsz)
+    h = min(math.ceil(h0 * r), imgsz)
+    out = dict(item, img=resize_linear(img, (w, h)))
+    if len(item.get("boxes", ())):
+        boxes = item["boxes"].copy()
+        boxes[:, [0, 2]] *= w / w0
+        boxes[:, [1, 3]] *= h / h0
+        out["boxes"] = boxes
+    return out

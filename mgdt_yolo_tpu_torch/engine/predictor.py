@@ -13,9 +13,15 @@ unset), `iou`, `max_det`, `agnostic_nms`, `imgsz`, `augment`, `half`
 in place). The predictor's `save` default is False, as the reference's
 Python API has it.
 
-Not ported, and refused: file, directory, video and stream sources, which
-need an image decoder on the card's host (ROADMAP queue 1, item 4), and
-`save` and `save_crop`, which draw (item 5); the JAX predictor's callbacks.
+Sources are the JAX loader's (`data.loaders.load_inference_source`): numpy
+BGR images and lists of them, and image files, directories and globs,
+decoded by the port's decoder (`native`) on the helper thread that
+letterboxes, one batch ahead; `Results.path` is then the file's path and
+`save_txt` writes `<stem>.txt`. A file the decoder cannot read is logged
+and skipped. Not ported, and refused: video, stream and screenshot
+sources and the `bmp`, `tif`, `tiff` and `webp` formats (ROADMAP queue 1),
+`save` and `save_crop`, which draw (item 5), and the JAX predictor's
+callbacks.
 
 `predict` is the fixed-size path beside it: an NHWC RGB batch already at the
 model's size, with the serving settings of the JAX benchmark (`bench.py`).
@@ -33,6 +39,7 @@ import torch
 
 from ..cfg.default import CFG_DEFAULTS
 from ..data.augment import letterbox
+from ..data.loaders import LoadImagesAndVideos, load_inference_source
 from ..device import names_device, resolve_device
 from ..ops.boxes import scale_boxes
 from ..ops.nms import non_max_suppression
@@ -40,9 +47,6 @@ from .results import Results
 
 CONF, IOU, MAX_DET, PRE_TOPK, BLOCK = 0.25, 0.7, 300, 1024, 256
 PREDICT_DEFAULTS = {**CFG_DEFAULTS, "save": False}
-NO_DECODER = ("only numpy images (BGR uint8, (h, w, 3)) and lists of them are taken: file, "
-              "directory, video and stream sources need an image decoder on the card's host, "
-              "which is not ported yet (ROADMAP queue 1, item 4)")
 NO_DRAWING = "{} draws, and drawing without cv2 is not ported yet (ROADMAP queue 1, item 5)"
 
 
@@ -98,18 +102,31 @@ def infer(model, x: torch.Tensor, conf: float, iou: float, max_det: int,
 
 
 def load_source(source) -> List[Dict]:
-    """A source as a list of {img (BGR uint8 HWC), path}: a numpy image or a
-    list or tuple of them (named `array<i>.jpg`, as the JAX loader names
-    them). Raises for any other source."""
-    items = source if isinstance(source, (list, tuple)) else [source]
+    """A source as a list of {path} and, for images in memory, {img (BGR
+    uint8 HWC)}: numpy images (named `array<i>.jpg`, as the JAX loader
+    names them) are taken as they are, files are listed to be decoded a
+    batch at a time (`decode_items`)."""
+    src = load_inference_source(source)
+    if isinstance(src, LoadImagesAndVideos):
+        return [{"path": f} for f in src.files]
     out = []
-    for i, im in enumerate(items):
-        if not isinstance(im, np.ndarray):
-            raise NotImplementedError(f"{type(im).__name__} source: {NO_DECODER}")
+    for it in src:
+        im = it["img"]
         if im.ndim != 3 or im.shape[2] != 3 or im.dtype != np.uint8:
             raise ValueError(f"an image must be (h, w, 3) uint8 BGR, got {im.shape} {im.dtype}")
-        out.append({"img": im, "path": f"array{i}.jpg"})
+        out.append({"img": im, "path": it["path"]})
     return out
+
+
+def decode_items(chunk: List[Dict]) -> List[Dict]:
+    """`chunk` with every file decoded (together, on the decoder's
+    threads); a file the decoder cannot read is logged and dropped."""
+    files = [c["path"] for c in chunk if "img" not in c]
+    if not files:
+        return chunk
+    decoded = {it["path"]: it for it in LoadImagesAndVideos.decode_batch(files)}
+    return [c if "img" in c else decoded[c["path"]] for c in chunk
+            if "img" in c or c["path"] in decoded]
 
 
 def _device_of(value) -> torch.device:
@@ -159,9 +176,12 @@ class BasePredictor:
         return letterbox_batch(imgs, self.args.imgsz)
 
     def _prepare(self, chunk):
-        """Host side of one batch: letterbox, and pinned memory on the GPU
-        so the upload is an asynchronous copy."""
+        """Host side of one batch: decode its files, letterbox, and pinned
+        memory on the GPU so the upload is an asynchronous copy."""
         t0 = time.perf_counter()
+        chunk = decode_items(chunk)
+        if not chunk:
+            return chunk, [], None, (time.perf_counter() - t0) * 1e3
         x, meta = self.preprocess([c["img"] for c in chunk])
         x = torch.from_numpy(x)
         if self.device.type == "cuda":
@@ -172,8 +192,8 @@ class BasePredictor:
     def stream_inference(self, source, batch: int = 1) -> Iterator[Results]:
         """Results one image at a time, `batch` images a device step. A
         helper thread letterboxes batch i + 1 while batch i runs; `speed`
-        holds each image's share of its batch's preprocess (the letterbox)
-        and inference (upload, forward, NMS, download) in ms."""
+        holds each image's share of its batch's preprocess (decode and
+        letterbox) and inference (upload, forward, NMS, download) in ms."""
         if self.model is None:
             raise RuntimeError("call setup_model(model) first")
         a = self.args
@@ -185,6 +205,8 @@ class BasePredictor:
                 chunk, meta, x, pre_ms = pending.result()
                 if i + 1 < len(chunks):
                     pending = pool.submit(self._prepare, chunks[i + 1])
+                if not chunk:  # every file of the batch was unreadable
+                    continue
                 t0 = time.perf_counter()
                 det, counts = infer(self.model, x.to(self.device, non_blocking=True),
                                     a.conf or CONF, a.iou, a.max_det, a.agnostic_nms,

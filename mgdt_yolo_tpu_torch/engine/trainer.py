@@ -1,22 +1,27 @@
 """Training engine: the JAX trainer's optimizer, step and loop in PyTorch
-(`mgdt_yolo_tpu/engine/trainer.py`) with `device_augment=True`, without
-resume.
+(`mgdt_yolo_tpu/engine/trainer.py`) with `device_augment=True`, on the
+synthetic scenes or a YOLO-format dataset on disk (`data=`), with resume.
 
 `check_train_args` holds the overrides to the JAX configuration's rules
 before anything is built: an unknown key raises `SyntaxError` with the JAX
 suggestions, a value of the wrong type as the JAX `check_cfg_types` does,
-and a key the port does not honour yet (`resume`, `single_cls`, `rect`,
-`save_json`, RMSProp, ...) raises wherever it differs from the JAX default.
+and a key the port does not honour yet (`rect`, `save_json`,
+`label_smoothing`, ...) raises wherever it differs from the JAX default.
 
 `Optimizer` is the JAX trainer's optax chain step for step: SGD (Nesterov)
-or AdamW chosen as `optimizer="auto"` chooses, gradients summed over
+or AdamW chosen as `optimizer="auto"` chooses, or RMSProp, gradients summed over
 `accumulate` micro-batches (optax.MultiSteps, schedules indexed by optimizer
 updates), then clipped to a global norm of 10, then weight decay on
 conv/linear kernels only, with the bias group's learning rate warming down
 from `warmup_bias_lr` while the others warm up from 0. The groups are read
 from the parameters' flax names (`weights.flax_keys`), as the JAX trainer
 reads them: BatchNorm's scale gets no decay and the main rate, every `bias`
-(BatchNorm's included) the bias schedule.
+(BatchNorm's included) the bias schedule. RMSProp is JAX's
+`optax.rmsprop(lr_schedule, momentum=momentum)` after the same scaling and
+clipping: optax's `scale_by_rms` (decay 0.9, eps 1e-8 inside the square
+root), the rate, then a constant-momentum trace; no weight decay and no
+bias group (not `torch.optim.RMSprop`, whose alpha is 0.99 and eps outside
+the root).
 
 `Trainer` runs micro-batches (raw uint8 batches augmented on the device
 first, mosaic closed for the last `close_mosaic` epochs; the forward in
@@ -25,6 +30,9 @@ keeps an EMA of the parameters that advances only on batches that stepped
 the optimizer, and after every epoch validates with the EMA parameters and
 the current BatchNorm statistics, writes `results.csv`, `weights/last.npz`
 and, by fitness, `weights/best.npz`, and stops early on a fitness plateau.
+Each checkpoint also writes `<name>_resume.npz`, the state a resume needs
+(raw parameters, batch statistics, EMA, optimizer moments); `resume=True`
+carries on the newest `*/weights/last` under `project` at its next epoch.
 """
 from __future__ import annotations
 
@@ -42,7 +50,7 @@ from ..cfg.default import (AUGMENT_KEYS, CFG_BOOL_KEYS, CFG_DEFAULTS, CFG_FLOAT_
                            CFG_FRACTION_KEYS, CFG_INT_KEYS, NEUTRAL_KEYS, PORTED_OPTIMIZERS,
                            TRAIN_DEFAULTS)
 from ..data.build import DataLoader, to_device
-from ..data.synthetic import val_dataset
+from ..data.synthetic import SyntheticDetectionDataset, val_dataset
 from ..device import names_device
 from ..ops.device_augment import apply_augment, augment_draws
 from ..utils.loss import DetectionLoss
@@ -83,6 +91,8 @@ class Optimizer:
             self.kind = "sgd"
         elif name in ("AdamW", "Adam", "adamw", "adam", "NAdam", "RAdam"):
             self.kind = "adam"     # the JAX chain takes all of these as AdamW
+        elif name == "RMSProp":
+            self.kind = "rmsprop"
         else:
             raise ValueError(f"optimizer {name!r} is not ported")
         self.name, self.lr0, self.lrf, self.momentum = name, lr0, lrf, momentum
@@ -104,8 +114,8 @@ class Optimizer:
         def zeros():
             return [torch.zeros_like(p) for p in self.params]
         self.acc = zeros() if self.accumulate > 1 else None
-        self.mu = zeros()     # SGD trace / Adam first moment
-        self.nu = zeros() if self.kind == "adam" else None
+        self.mu = zeros()     # SGD / RMSProp trace, Adam first moment
+        self.nu = zeros() if self.kind in ("adam", "rmsprop") else None
 
     def hyperparams(self) -> Dict[str, float]:
         """lr, bias_lr and momentum of the next update."""
@@ -137,12 +147,31 @@ class Optimizer:
         self.count += 1
         return True
 
+    def state(self) -> Dict[str, list]:
+        """The tensors of the optimizer's state, by kind (`mu`, `nu`, `acc`,
+        each a list in the parameters' order, absent where unused)."""
+        return {k: v for k, v in (("mu", self.mu), ("nu", self.nu), ("acc", self.acc))
+                if v is not None}
+
     def _update(self, grads):
         h = self.hyperparams()
         u = torch._foreach_mul(grads, float(self.accumulate))
         norm = global_norm(u)
         torch._foreach_mul_(u, torch.where(norm < MAX_GRAD_NORM, 1.0, MAX_GRAD_NORM / norm))
         dec = self.decay
+        if self.kind == "rmsprop":
+            # scale_by_rms: nu = (1 - 0.9) g^2 + 0.9 nu, g * rsqrt(nu + eps);
+            # then -lr, then the trace mu = u + momentum mu
+            torch._foreach_mul_(self.nu, 0.9)
+            torch._foreach_add_(self.nu, torch._foreach_mul(torch._foreach_mul(u, u), 0.1))
+            den = torch._foreach_add(self.nu, 1e-8)
+            torch._foreach_rsqrt_(den)
+            torch._foreach_mul_(u, den)
+            torch._foreach_mul_(u, -h["lr"])
+            torch._foreach_mul_(self.mu, self.momentum)
+            torch._foreach_add_(self.mu, u)
+            torch._foreach_add_(self.params, self.mu)
+            return
         if self.kind == "sgd":
             if dec:
                 torch._foreach_add_([u[i] for i in dec], [self.params[i] for i in dec],
@@ -315,20 +344,75 @@ def check_rebuildable(model) -> None:
                          "(models.CONFIGS) to save checkpoints")
 
 
+def dataset_dict(data, model=None) -> Dict:
+    """`check_det_dataset(data)`, its `names` set on `model` (whose `nc`
+    must be theirs), as the JAX trainer sets them."""
+    from ..data.utils import check_det_dataset
+    d = check_det_dataset(data)
+    if model is not None and d.get("names"):
+        names = {int(k): str(v) for k, v in d["names"].items()}
+        if len(names) != model.nc:
+            raise ValueError(f"the dataset {data!r} names {len(names)} classes and the model "
+                             f"has nc={model.nc}")
+        model.names = names
+    return d
+
+
+def get_dataset(args: Mapping, train: bool = True, model=None):
+    """The JAX trainer's `get_dataset`: the synthetic scenes for `data` None
+    or "synthetic" (64 train / 16 validation scenes at min(imgsz, 320) px
+    from `seed` / `seed + 1`), else the `train` or `val` split of a dataset
+    YAML or directory as a `YOLODataset` (`dataset_dict` sets its names on
+    `model`)."""
+    data = args.get("data")
+    if data in (None, "synthetic", "synthetic.yaml"):
+        nc = model.nc if model is not None else 2
+        if not train:
+            return val_dataset(args["imgsz"], nc, args["seed"])
+        return SyntheticDetectionDataset(n=64, imgsz=min(args["imgsz"], 320), nc=nc,
+                                         seed=args["seed"])
+    from ..data.dataset import YOLODataset
+    d = dataset_dict(data, model)
+    split = d.get("train" if train else "val") or d.get("val") or d.get("train")
+    return YOLODataset(str(split), cache=args.get("cache", False),
+                       single_cls=args.get("single_cls", False),
+                       fraction=args.get("fraction", 1.0) if train else 1.0,
+                       workers=args.get("workers", 8))
+
+
+def build_loader(args: Mapping, train: bool = True, model=None) -> DataLoader:
+    """The loader the JAX trainer builds over `get_dataset`: batch `batch`,
+    seeded, device augment on the train split as `device_augment` says."""
+    ds = get_dataset(args, train, model)
+    return DataLoader(ds, args["batch"], args["imgsz"], seed=args["seed"], train=train,
+                      device_augment=bool(args["device_augment"]) and train, hyp=args,
+                      workers=args.get("workers", 8))
+
+
+def resume_state_path(npz) -> Path:
+    """Where the resume state of the checkpoint `npz` is written."""
+    npz = Path(npz)
+    return npz.with_name(f"{npz.stem}_resume.npz")
+
+
 class Trainer:
     """Trains a `DetectionModel` over a training `data.build.DataLoader`.
 
     `overrides` replace keys of `cfg.default.TRAIN_DEFAULTS` and are held to
     the JAX configuration first (`check_train_args`: an unknown key, a
     wrong type or a key the port does not honour raises); the loader's
-    `device_augment` must match theirs. `steps_per_epoch` defaults to the
-    loader's length. With `save_dir`, every epoch writes
-    `<save_dir>/results.csv` and `weights/last.npz` (EMA parameters,
-    current batch statistics), and `weights/best.npz` when its fitness is
-    the best so far. Validation runs on `val_loader`, by default the JAX
-    trainer's synthetic validation set (`data.synthetic.val_dataset`).
+    `device_augment` must match theirs. Without a `loader`, the train split
+    of `data` is loaded (`build_loader`: the synthetic scenes when `data`
+    is None). `steps_per_epoch` defaults to the loader's length. With
+    `save_dir`, every epoch writes `<save_dir>/results.csv` and
+    `weights/last.npz` (EMA parameters, current batch statistics) with its
+    resume state, and `weights/best.npz` when its fitness is the best so
+    far. Validation runs on `val_loader`, by default the `val` split of
+    `data` (the JAX trainer's synthetic validation set when it is None).
     `augment_fn(batch, step)` replaces the default device augmentation,
-    which draws from a generator seeded from (`seed`, step).
+    which draws from a generator seeded from (`seed`, step). With
+    `resume=True`, the newest `*/weights/last` under `project` is restored
+    here (`load_resume`) and training carries on at its next epoch.
     """
 
     def __init__(self, model, loader=None, overrides: Optional[Dict] = None,
@@ -340,6 +424,10 @@ class Trainer:
         if loader is not None and loader.device_augment != bool(a["device_augment"]):
             raise ValueError(f"the loader's device_augment={loader.device_augment} does not "
                              f"match the trainer's device_augment={a['device_augment']}")
+        if loader is None:
+            loader = build_loader(a, True, model)
+        elif a["data"] not in (None, "synthetic", "synthetic.yaml"):
+            dataset_dict(a["data"], model)
         self.model, self.loader, self.val_loader = model.train(), loader, val_loader
         self.device = model.device
         self.save_dir = Path(save_dir) if save_dir is not None else None
@@ -362,6 +450,7 @@ class Trainer:
         self.ema = EMA(named)
         self.step = 0         # micro-batches taken: drives the assigner's anneal
         self.epoch = 0
+        self.start_epoch = 0  # the first epoch `train` runs (after a resume, the next one)
         self.amp = bool(a["amp"]) and self.device.type == "cuda"
         # close_mosaic as a step threshold: mosaic off from this micro-step on
         self.mosaic_off_step = ((a["epochs"] - a["close_mosaic"]) * nb
@@ -373,6 +462,70 @@ class Trainer:
         self.best_fitness = 0.0
         self.stopper = EarlyStopping(a["patience"])
         self.validator = self._val_model = None
+        self.resume_path = None
+        if a["resume"]:
+            found = self.find_resume_checkpoint()
+            if found is not None:
+                self.load_resume(found)
+
+    def find_resume_checkpoint(self) -> Optional[Path]:
+        """The newest `*/weights/last.npz` with a resume state under
+        `project` (runs/detect by default), as the JAX trainer finds its
+        `*/weights/last`; None, with a warning, where there is none."""
+        root = Path(self.args.get("project") or "runs/detect")
+        cands = sorted((p for p in root.glob("*/weights/last.npz")
+                        if resume_state_path(p).is_file()),
+                       key=lambda p: resume_state_path(p).stat().st_mtime, reverse=True)
+        if not cands:
+            LOGGER.warning("resume requested but no checkpoint found")
+            return None
+        return cands[0]
+
+    @torch.no_grad()
+    def load_resume(self, npz) -> None:
+        """Restore the checkpoint `npz`'s training state: raw and EMA
+        parameters, batch statistics, the optimizer's moments, accumulation
+        and count, `step`, `ema_updates`, `epoch` (training carries on at
+        the next) and `best_fitness`. The model must be pinned to the deform
+        semantics the checkpoint was trained under, or this raises, as the
+        JAX trainer refuses to flip kernels mid-run."""
+        from ..weights import read_metadata
+        meta = read_metadata(npz)
+        sem = meta.get("deform_semantics")
+        if sem in ("exact", "windowed") and sem != self.model.deform_semantics:
+            raise RuntimeError(
+                f"resume: the checkpoint {npz} was trained with {sem.upper()} deform semantics "
+                f"and the model is pinned to {self.model.deform_semantics!r}; refusing to flip "
+                f"kernels mid-run: set_deform_semantics({sem!r}) or train from scratch")
+        opt = meta.get("optimizer", {})
+        if opt.get("kind") != self.optimizer.kind or \
+                opt.get("accumulate") != self.optimizer.accumulate:
+            raise ValueError(f"resume: the checkpoint's optimizer {opt} is not this run's "
+                             f"({self.optimizer.kind}, accumulate {self.optimizer.accumulate})")
+        with np.load(str(resume_state_path(npz))) as f:
+            for k, t in self.train_state().items():
+                t.copy_(torch.from_numpy(f[k]))
+        self.optimizer.count, self.optimizer.mini_step = opt["count"], opt["mini_step"]
+        self.step, self.ema.updates = int(meta["step"]), int(meta["ema_updates"])
+        self.epoch = int(meta["epoch"])
+        self.start_epoch = self.epoch + 1
+        self.best_fitness = float(meta.get("best_fitness", 0.0))
+        self.resume_path = Path(npz)
+        LOGGER.info(f"resumed from {npz} at epoch {self.start_epoch} (step {self.step}, "
+                    f"fitness {self.best_fitness:.4f})")
+
+    def train_state(self) -> Dict[str, torch.Tensor]:
+        """Every tensor of the training state, by name, as `<name>_resume.npz`
+        holds them: `param/`, `buffer/` and `ema/` by the model's names, and
+        the optimizer's `mu/`, `nu/` and `acc/` by its parameters' names."""
+        m = self.model
+        state = {f"param/{n}": p for n, p in m.named_parameters()}
+        state.update({f"buffer/{n}": b for n, b in m.named_buffers()})
+        state.update({f"ema/{n}": e for n, e in zip(self.ema.names, self.ema.values)})
+        names = [n for n, _ in m.named_parameters()]
+        for kind, tensors in self.optimizer.state().items():
+            state.update({f"{kind}/{n}": t for n, t in zip(names, tensors)})
+        return state
 
     def augment(self, batch: Dict[str, torch.Tensor], step: int):
         """The default `augment_fn`: draws seeded from (seed, step), mosaic
@@ -425,7 +578,7 @@ class Trainer:
         """All epochs over the loader, as the JAX trainer's loop runs them;
         returns the last validation's results."""
         a = self.args
-        for epoch in range(a["epochs"]):
+        for epoch in range(self.start_epoch, a["epochs"]):
             self.epoch = epoch
             self.loader.set_epoch(epoch)
             # loss parts summed on the device; one host sync per epoch
@@ -465,8 +618,7 @@ class Trainer:
         if self.validator is None:
             a = self.args
             if self.val_loader is None:
-                self.val_loader = DataLoader(val_dataset(a["imgsz"], self.model.nc, a["seed"]),
-                                             a["batch"], a["imgsz"], train=False)
+                self.val_loader = build_loader(a, False, self.model)
             self.validator = DetectionValidator(a)
             self._val_model = copy.deepcopy(self.model)
         vm, ema = self._val_model, self.ema.state()
@@ -492,16 +644,23 @@ class Trainer:
 
     def save_checkpoint(self, name: str = "last") -> Path:
         """`<save_dir>/weights/<name>.npz` (EMA parameters and the current
-        batch statistics, flax keys) and its metadata, which records the
-        deform semantics the weights were trained under."""
-        m = self.model
+        batch statistics, flax keys), its metadata, which records the class
+        names and the deform semantics the weights were trained under, and
+        `<name>_resume.npz`, the rest of the training state
+        (`train_state`)."""
+        m, o = self.model, self.optimizer
         check_rebuildable(m)
         meta = {"imgsz": self.args["imgsz"], "nc": m.nc, "stride": list(m.stride),
-                "names": {str(i): str(i) for i in range(m.nc)},
+                "names": {str(k): str(v) for k, v in m.names.items()},
                 "model_yaml": m.model_yaml,
                 "deform_semantics": m.deform_semantics, "layout": "NHWC",
                 "output": "(1, 4+nc, A) xywh+scores", "epoch": self.epoch,
                 "step": self.step, "ema_updates": self.ema.updates,
-                "best_fitness": float(self.best_fitness)}
-        return save_npz(m, self.save_dir / "weights" / f"{name}.npz", meta,
+                "best_fitness": float(self.best_fitness),
+                "optimizer": {"name": o.name, "kind": o.kind, "accumulate": o.accumulate,
+                              "count": o.count, "mini_step": o.mini_step}}
+        path = save_npz(m, self.save_dir / "weights" / f"{name}.npz", meta,
                         params=self.ema.state())
+        np.savez(str(resume_state_path(path)),
+                 **{k: v.detach().cpu().numpy() for k, v in self.train_state().items()})
+        return path

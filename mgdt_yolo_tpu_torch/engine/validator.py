@@ -10,8 +10,11 @@ anchor a candidate (`multi_label`), classes kept apart unless
 blocks of 1024, `max_det` survivors. Detections and labels go back through
 each image's letterbox (`scale_boxes` with its `ratio_pad`) and feed
 `match_predictions`, `DetMetrics`, `ConfusionMatrix` and
-`counting_agreement`, as in the JAX validator. Not ported: COCO json and
-COCOeval, plots, rectangular batches.
+`counting_agreement`, as in the JAX validator. Called without a loader,
+it validates on the `val` split of `args["data"]` (a dataset YAML or
+directory; the JAX trainer's synthetic validation set when it is None),
+as the JAX validator does standalone. Not ported: COCO json and COCOeval,
+plots, rectangular batches.
 """
 from __future__ import annotations
 
@@ -54,9 +57,13 @@ class DetectionValidator:
                                    multi_label=True, agnostic=a["agnostic_nms"],
                                    pre_topk=VAL_PRE_TOPK, block=VAL_BLOCK, nc=model.nc)
 
-    def __call__(self, model, loader) -> Dict[str, float]:
+    def __call__(self, model, loader=None) -> Dict[str, float]:
         """Validate `model` (put in `eval()` mode) over `loader`, a
-        validation `DataLoader` (`train=False`)."""
+        validation `DataLoader` (`train=False`); by default the `val` split
+        of `args["data"]` (`engine.trainer.build_loader`)."""
+        if loader is None:
+            from .trainer import build_loader
+            loader = build_loader(self.args, False, model)
         model.eval()
         metrics = DetMetrics()
         cm = ConfusionMatrix(model.nc)

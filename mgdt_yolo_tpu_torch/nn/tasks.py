@@ -228,13 +228,17 @@ class DetectionModel(nn.Module):
     def from_npz(cls, path, device=None):
         """The model a flat flax npz holds: the config and `nc` that
         `<stem>_metadata.json` beside it names (`model_yaml`, `nc`; the
-        flagship where it names no config), filled from the npz and pinned
-        to the deform semantics the metadata records."""
+        flagship where it names no config), filled from the npz, pinned to
+        the deform semantics the metadata records and named by its class
+        `names`."""
         from ..weights import load_npz, read_metadata
         dev = resolve_device(device)
         meta = read_metadata(path)
         model = cls(meta.get("model_yaml"), nc=meta.get("nc"), device="cpu")
         load_npz(model, path)
+        names = meta.get("names")
+        if isinstance(names, dict) and len(names) == model.nc:
+            model.names = {int(k): str(v) for k, v in names.items()}
         return model.to(dev)
 
     @property

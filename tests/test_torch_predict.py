@@ -223,8 +223,13 @@ def test_predictor_streams_and_half(flagship):
 def test_unported_sources_and_outputs_raise(flagship):
     pm, _ = flagship
     p = DetectionPredictor(overrides={"imgsz": IMGSZ, "device": "cpu"}).setup_model(pm)
-    for source in ("bus.jpg", Path("images"), ["a.jpg"], 0):
-        with pytest.raises(NotImplementedError, match="item 4"):
+    # file sources are read since the from-disk path (`tests/test_torch_loaders.py`):
+    # missing ones raise as JAX's loader does; streams need a video decoder
+    for source in ("bus.jpg", Path("images"), ["a.jpg"]):
+        with pytest.raises(FileNotFoundError):
+            p(source)
+    for source in (0, "rtsp://camera/1"):
+        with pytest.raises(NotImplementedError, match="queue 1"):
             p(source)
     with pytest.raises(ValueError, match="uint8"):
         p(np.zeros((8, 8, 3), np.float32))

@@ -151,12 +151,12 @@ def test_type_errors_match_jax(key, value):
 
 
 # the JAX keys the port does not honour yet, each at a value other than its
-# default (the JAX reference: engine/trainer.py :419 resume, :305
-# single_cls; engine/validator.py :215 agnostic_nms; RMSProp at :147)
-UNHONOURED_CASES = [("resume", True), ("single_cls", True),
-                    ("rect", True), ("save_json", True), ("optimizer", "RMSProp"),
-                    ("fraction", 0.5), ("label_smoothing", 0.1), ("cache", "ram"),
-                    ("device", "cuda:0")]
+# default (`resume`, `single_cls`, `fraction`, `cache` and RMSProp are
+# honoured since the from-disk path; `tests/test_torch_dataset.py` and
+# `tests/test_torch_resume.py` check their behaviour)
+UNHONOURED_CASES = [("rect", True), ("save_json", True), ("label_smoothing", 0.1),
+                    ("device", "cuda:0"), ("dropout", 0.1), ("overlap_mask", False),
+                    ("mask_ratio", 8), ("save_hybrid", True), ("tp", 2)]
 
 
 @pytest.fixture(scope="module")

@@ -134,12 +134,17 @@ def test_validation_collate_and_loader_match_jax():
     assert len(loader) == len(batches) == 3 and len(batches[-1]["img"]) == 1
     assert loader.max_gt == 8 and not loader.device_augment
     np.testing.assert_array_equal(np.concatenate([b["img"] for b in batches]), got["img"])
-    big = {"img": np.zeros((80, 64, 3), np.uint8), "boxes": np.zeros((0, 4), np.float32),
-           "cls": np.zeros(0, np.float32)}
-    with pytest.raises(ValueError, match="resize"):
-        letterbox(big["img"], (IMGSZ, IMGSZ))
-    with pytest.raises(ValueError, match="resize"):
-        collate([big], IMGSZ, 8, train=False)
+    # an item larger than the square is shrunk (cv2's INTER_LINEAR) since the
+    # from-disk path, as JAX's collate shrinks it; a 2x down-ratio is exact
+    big = {"img": SyntheticDetectionDataset(n=1, imgsz=2 * IMGSZ, seed=3)[0]["img"],
+           "boxes": np.asarray([[10, 20, 60, 90]], np.float32), "cls": np.ones(1, np.float32)}
+    got_lb, want_lb = letterbox(big["img"], (IMGSZ, IMGSZ)), jax_letterbox(
+        big["img"], (IMGSZ, IMGSZ), scaleup=False)
+    np.testing.assert_array_equal(got_lb[0], want_lb[0])
+    assert got_lb[1:] == want_lb[1:] and got_lb[1] == (0.5, 0.5)
+    got, want = collate([big], IMGSZ, 8, train=False), jax_collate([big], IMGSZ, 8, train=False)
+    for k in ("img", "gt_labels", "gt_bboxes", "mask_gt"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 def test_val_dataset_is_the_jax_trainers():
