@@ -167,11 +167,29 @@ Phases, each of which passes or ends the script with a non-zero exit:
    letterbox ms per image) and the float32 predictor on the card against
    the CPU over 8 of its files (the same detections and classes, boxes
    within 0.5 px).
+16. the facade, on phase 15's dataset: `YOLO("weights/mgdt_n_synth.npz")`
+   predicting over the val directory (fused, bf16) bit for bit as phase
+   15's `DetectionPredictor`, at b1 and b32 in turns with it (images/s;
+   K1 once per forward); the float32 facade on the card against the CPU
+   over 8 files (phase 15's limits); `cal_model_count_error` and
+   `cal_counting_metrics` over the directory in float32 on the card equal
+   to the CPU's (counts, TP/FP/FN, MAE/MSE/MAPE, R^2; ms per image); the
+   command line in process (`cfg.entrypoint`, K1 counted) and then
+   `python -m mgdt_yolo_tpu_torch predict` and `python -m
+   mgdt_yolo_tpu_torch.utils.counting --metrics` in their own processes
+   (exit code, the per-image detection counts they log, wall time); export
+   to npz and pt2 at 640 px and `AutoBackend` over each against the live
+   float32 forward at b1 and b8 (bit for bit expected, else within 1e-5 of
+   its magnitude; K1 launched once inside each forward of the program), the
+   program against the eager float32 module in turns at b1 and b32 (CUDA
+   events); `benchmark(formats=["torch", "pt2"])` at b1 and b32; and
+   `YOLO(<flagship YAML>).train(data=..., epochs=1)`, `.val()` and
+   `.predict()` (K3, K2 and K1 once per micro-step, K1 once per forward).
    Phase 10 runs before phase 8, and phases 8, 9 and 11 run after it,
    because the CPU work leaves the host's threads busy, which slows the
    host-bound steps; phase 13 runs after phase 11, phase 14 after phase
-   13, phase 15 after phase 14, and phase 12, which times kernels only,
-   runs last.
+   13, phase 15 after phase 14, phase 16 after phase 15, and phase 12,
+   which times kernels only, runs last.
 
 The last lines are the kernel table as JSON, the card's name and power
 limit, and `{"ok": true, "device": {...}}`. Without a CUDA device the script
@@ -193,7 +211,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from mgdt_yolo_tpu_torch.cfg.default import UNAUGMENTED
+from mgdt_yolo_tpu_torch.cfg.default import TRAIN_DEFAULTS, UNAUGMENTED
 from mgdt_yolo_tpu_torch.data.augment import letterbox
 from mgdt_yolo_tpu_torch.data.build import DataLoader, collate, collate_raw, to_device
 from mgdt_yolo_tpu_torch import native
@@ -227,6 +245,7 @@ from mgdt_yolo_tpu_torch.utils.measure import (HBM_BYTES_PER_S, PEAK_FLOPS, cuda
                                                float32_exact, gpu_name_and_power)
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 WEIGHTS = ROOT / "weights" / "mgdt_n_synth.npz"
 IMGSZ = 640
 DEVICE = "cuda"
@@ -295,6 +314,8 @@ def no_launches(**counts):
 
 
 def log(msg=""):
+    if msg.startswith("== phase"):  # each phase's start, on the script's clock
+        msg = f"{msg} [{time.perf_counter() - T_START:.1f} s]"
     print(msg, flush=True)
 
 
@@ -2275,10 +2296,11 @@ def _disk_epoch(trainer, repeats=4, workers=None):
             "device_idle_share": 1.0 - busy_us / (wall * 1e6)}
 
 
-def phase_from_disk(resident_step_ms):
+def phase_from_disk(resident_step_ms, root):
     """The flagship trained, resumed and served from image files on disk
     (`Trainer(data=...)`, `DetectionPredictor(<directory>)`), with the
-    decoder held first. Returns (launches, rows)."""
+    decoder held first; the dataset is written under `root` (phase 16 reads
+    it too). Returns (launches, rows)."""
     log(f"== phase 15: from disk (the decoder against the fixtures; a YOLO dataset of "
         f"{DISK_TRAIN} train and {DISK_VAL} val images at "
         f"{', '.join(f'{h}x{w}' for h, w in SCENE_SIZES)}; MGDT-n trained with the JAX "
@@ -2291,131 +2313,387 @@ def phase_from_disk(resident_step_ms):
         for k in total:
             total[k] += launches[k]
 
-    with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp)
-        t0 = time.perf_counter()
-        data, fmt = _write_disk_dataset(root / "pigs")
-        log(f"dataset written as {fmt} in {time.perf_counter() - t0:.2f} s "
-            f"({sum(f.stat().st_size for f in (root / 'pigs').rglob('*.' + fmt)) / 2**20:.1f} MiB)")
-        rows["format"] = fmt
-        rows["decode"] = _decode_ms({f"{h}x{w}": root / "pigs" / "images" / "train" /
-                                     f"im{k:02d}.{fmt}" for k, (h, w) in enumerate(SCENE_SIZES)})
-        over = {**DISK_OVERRIDES, "data": str(data), "project": str(root / "runs")}
-        run = root / "runs" / "run"
+    t0 = time.perf_counter()
+    data, fmt = _write_disk_dataset(root / "pigs")
+    log(f"dataset written as {fmt} in {time.perf_counter() - t0:.2f} s "
+        f"({sum(f.stat().st_size for f in (root / 'pigs').rglob('*.' + fmt)) / 2**20:.1f} MiB)")
+    rows["format"] = fmt
+    rows["decode"] = _decode_ms({f"{h}x{w}": root / "pigs" / "images" / "train" /
+                                 f"im{k:02d}.{fmt}" for k, (h, w) in enumerate(SCENE_SIZES)})
+    over = {**DISK_OVERRIDES, "data": str(data), "project": str(root / "runs")}
+    run = root / "runs" / "run"
 
-        # training, validation every epoch, checkpoints
-        model = DetectionModel.from_npz(WEIGHTS, device=DEVICE)
-        trainer = Trainer(model, overrides=over, save_dir=run)
-        steps, n_val = len(trainer.loader), None
-        log(f"train loader: {len(trainer.loader.dataset)} images, {steps} micro-steps an epoch, "
-            f"max_gt {trainer.loader.max_gt}, decoder ingest {trainer.loader.native_eligible()}")
-        reset_counts()
-        t0 = time.perf_counter()
-        results = trainer.train()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = read_counts()
+    # training, validation every epoch, checkpoints
+    model = DetectionModel.from_npz(WEIGHTS, device=DEVICE)
+    trainer = Trainer(model, overrides=over, save_dir=run)
+    steps, n_val = len(trainer.loader), None
+    log(f"train loader: {len(trainer.loader.dataset)} images, {steps} micro-steps an epoch, "
+        f"max_gt {trainer.loader.max_gt}, decoder ingest {trainer.loader.native_eligible()}")
+    reset_counts()
+    t0 = time.perf_counter()
+    results = trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    add(launches)
+    n_val = len(trainer.val_loader)
+    epochs = DISK_OVERRIDES["epochs"]
+    log(f"trained {epochs} epochs ({epochs * steps} micro-steps, {epochs * n_val} validation "
+        f"forwards) in {wall:.2f} s; launches {launches}; validation {results}")
+    _expect(launches, "training from disk", deform_fwd=epochs * (steps + n_val),
+            deform_bwd=epochs * steps, fused_augment=epochs * steps)
+    _finite_history(trainer, "training from disk")
+    meta = json.loads((run / "weights" / "last_metadata.json").read_text())
+    back = DetectionModel.from_npz(run / "weights" / "last.npz", device=DEVICE)
+    want_names = dict(enumerate(DISK_NAMES))
+    if meta["names"] != {str(k): v for k, v in want_names.items()} or \
+            back.names != want_names or trainer.model.names != want_names:
+        raise SystemExit(f"the checkpoint does not carry the dataset's names: {meta['names']}")
+    log(f"checkpoint names {back.names}, epoch {meta['epoch']}, step {meta['step']}")
+    rows["train_wall_s"] = wall
+
+    # resume for a third epoch: the restored state is the saved one
+    saved, saved_counts = _train_state(trainer)
+    resumed = Trainer(DetectionModel.from_npz(WEIGHTS, device=DEVICE),
+                      overrides={**over, "epochs": epochs + 1, "resume": True}, save_dir=run)
+    got, got_counts = _train_state(resumed)
+    differ = [k for k in saved if not torch.equal(saved[k], got[k])]
+    log(f"resumed from {resumed.resume_path} at epoch {resumed.start_epoch}: counts "
+        f"{got_counts} (saved {saved_counts}), {len(got)} tensors, {len(differ)} differ")
+    if differ or got_counts != saved_counts or set(got) != set(saved) or \
+            resumed.start_epoch != epochs:
+        raise SystemExit(f"the resumed state is not the saved one: {differ[:5]}")
+    del trainer, saved
+    reset_counts()
+    resumed.train()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    add(launches)
+    _expect(launches, "the resumed epoch", deform_fwd=steps + n_val, deform_bwd=steps,
+            fused_augment=steps)
+    _finite_history(resumed, "the resumed epoch")
+    log(f"resumed epoch: launches {launches}, losses " +
+        ", ".join(f"{float(m['loss']):.4f}" for m in resumed.history))
+
+    # the loader's share: a timed pass over the train split, four times over
+    rows["train_from_disk"] = _disk_epoch(resumed)
+    r = rows["train_from_disk"]
+    log(f"train b{TRAIN_BATCH} from disk: {r['images_per_s']:.2f} images/s ({r['images']} "
+        f"images, {r['batches']} batches, in {r['wall_s']:.3f} s), loader wait "
+        f"{r['loader_wait_share']:.1%} of the wall time (the first batch "
+        f"{r['first_batch_wait_s'] * 1e3:.1f} ms; after it "
+        f"{r['loader_wait_share_after_first']:.1%}), device idle "
+        f"{r['device_idle_share']:.1%}; phase 10's resident augmented micro-step "
+        f"{resident_step_ms:.3f} ms = {TRAIN_BATCH / resident_step_ms * 1e3:.2f} images/s")
+    rows["resident_step_ms"] = resident_step_ms
+    # the decoder's threads share the host's cores with the step: 8, 4
+    # and 2 of them, in turns
+    sweep = {}
+    for w in (8, 4, 2, 2, 4, 8):
+        sweep.setdefault(w, []).append(_disk_epoch(resumed, workers=w)["images_per_s"])
+    rows["train_from_disk_by_workers"] = sweep
+    log("train b32 from disk by decoder threads, in turns (images/s): " +
+        ", ".join(f"{w}: {' / '.join(f'{v:.2f}' for v in vs)}" for w, vs in sweep.items()))
+    del resumed
+    torch.cuda.empty_cache()
+
+    # RMSProp: two micro-steps
+    rms = Trainer(DetectionModel.from_npz(WEIGHTS, device=DEVICE),
+                  overrides={**over, "optimizer": "RMSProp", "epochs": 1, "val": False})
+    reset_counts()
+    rms.train()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    add(launches)
+    _expect(launches, "RMSProp", deform_fwd=steps, deform_bwd=steps, fused_augment=steps)
+    _finite_history(rms, "RMSProp")
+    log(f"RMSProp {steps} micro-steps: losses " +
+        ", ".join(f"{float(m['loss']):.4f}" for m in rms.history) +
+        f"; optimizer {rms.optimizer.kind}, updates {rms.optimizer.count}")
+    del rms
+    torch.cuda.empty_cache()
+
+    # the predictor over the val directory
+    val_dir = root / "pigs" / "images" / "val"
+    model = DetectionModel.from_npz(run / "weights" / "last.npz", device=DEVICE)
+    p = _entry_predictor(model, DEVICE, half=True)
+    files = sorted(val_dir.glob(f"*.{fmt}"))
+    for b in ENTRY_BATCHES:
+        res, launches, rows[f"predictor_dir_b{b}"] = _timed_predict(
+            p, val_dir, b, f"predictor over the directory b{b}", n=len(files))
         add(launches)
-        n_val = len(trainer.val_loader)
-        epochs = DISK_OVERRIDES["epochs"]
-        log(f"trained {epochs} epochs ({epochs * steps} micro-steps, {epochs * n_val} validation "
-            f"forwards) in {wall:.2f} s; launches {launches}; validation {results}")
-        _expect(launches, "training from disk", deform_fwd=epochs * (steps + n_val),
-                deform_bwd=epochs * steps, fused_augment=epochs * steps)
-        _finite_history(trainer, "training from disk")
-        meta = json.loads((run / "weights" / "last_metadata.json").read_text())
-        back = DetectionModel.from_npz(run / "weights" / "last.npz", device=DEVICE)
-        want_names = dict(enumerate(DISK_NAMES))
-        if meta["names"] != {str(k): v for k, v in want_names.items()} or \
-                back.names != want_names or trainer.model.names != want_names:
-            raise SystemExit(f"the checkpoint does not carry the dataset's names: {meta['names']}")
-        log(f"checkpoint names {back.names}, epoch {meta['epoch']}, step {meta['step']}")
-        rows["train_wall_s"] = wall
-
-        # resume for a third epoch: the restored state is the saved one
-        saved, saved_counts = _train_state(trainer)
-        resumed = Trainer(DetectionModel.from_npz(WEIGHTS, device=DEVICE),
-                          overrides={**over, "epochs": epochs + 1, "resume": True}, save_dir=run)
-        got, got_counts = _train_state(resumed)
-        differ = [k for k in saved if not torch.equal(saved[k], got[k])]
-        log(f"resumed from {resumed.resume_path} at epoch {resumed.start_epoch}: counts "
-            f"{got_counts} (saved {saved_counts}), {len(got)} tensors, {len(differ)} differ")
-        if differ or got_counts != saved_counts or set(got) != set(saved) or \
-                resumed.start_epoch != epochs:
-            raise SystemExit(f"the resumed state is not the saved one: {differ[:5]}")
-        del trainer, saved
-        reset_counts()
-        resumed.train()
-        torch.cuda.synchronize()
-        launches = read_counts()
-        add(launches)
-        _expect(launches, "the resumed epoch", deform_fwd=steps + n_val, deform_bwd=steps,
-                fused_augment=steps)
-        _finite_history(resumed, "the resumed epoch")
-        log(f"resumed epoch: launches {launches}, losses " +
-            ", ".join(f"{float(m['loss']):.4f}" for m in resumed.history))
-
-        # the loader's share: a timed pass over the train split, four times over
-        rows["train_from_disk"] = _disk_epoch(resumed)
-        r = rows["train_from_disk"]
-        log(f"train b{TRAIN_BATCH} from disk: {r['images_per_s']:.2f} images/s ({r['images']} "
-            f"images, {r['batches']} batches, in {r['wall_s']:.3f} s), loader wait "
-            f"{r['loader_wait_share']:.1%} of the wall time (the first batch "
-            f"{r['first_batch_wait_s'] * 1e3:.1f} ms; after it "
-            f"{r['loader_wait_share_after_first']:.1%}), device idle "
-            f"{r['device_idle_share']:.1%}; phase 10's resident augmented micro-step "
-            f"{resident_step_ms:.3f} ms = {TRAIN_BATCH / resident_step_ms * 1e3:.2f} images/s")
-        rows["resident_step_ms"] = resident_step_ms
-        # the decoder's threads share the host's cores with the step: 8, 4
-        # and 2 of them, in turns
-        sweep = {}
-        for w in (8, 4, 2, 2, 4, 8):
-            sweep.setdefault(w, []).append(_disk_epoch(resumed, workers=w)["images_per_s"])
-        rows["train_from_disk_by_workers"] = sweep
-        log("train b32 from disk by decoder threads, in turns (images/s): " +
-            ", ".join(f"{w}: {' / '.join(f'{v:.2f}' for v in vs)}" for w, vs in sweep.items()))
-        del resumed
-        torch.cuda.empty_cache()
-
-        # RMSProp: two micro-steps
-        rms = Trainer(DetectionModel.from_npz(WEIGHTS, device=DEVICE),
-                      overrides={**over, "optimizer": "RMSProp", "epochs": 1, "val": False})
-        reset_counts()
-        rms.train()
-        torch.cuda.synchronize()
-        launches = read_counts()
-        add(launches)
-        _expect(launches, "RMSProp", deform_fwd=steps, deform_bwd=steps, fused_augment=steps)
-        _finite_history(rms, "RMSProp")
-        log(f"RMSProp {steps} micro-steps: losses " +
-            ", ".join(f"{float(m['loss']):.4f}" for m in rms.history) +
-            f"; optimizer {rms.optimizer.kind}, updates {rms.optimizer.count}")
-        del rms
-        torch.cuda.empty_cache()
-
-        # the predictor over the val directory
-        val_dir = root / "pigs" / "images" / "val"
-        model = DetectionModel.from_npz(run / "weights" / "last.npz", device=DEVICE)
-        p = _entry_predictor(model, DEVICE, half=True)
-        files = sorted(val_dir.glob(f"*.{fmt}"))
-        for b in ENTRY_BATCHES:
-            res, launches, rows[f"predictor_dir_b{b}"] = _timed_predict(
-                p, val_dir, b, f"predictor over the directory b{b}", n=len(files))
-            add(launches)
-            if [r.path for r in res] != [str(f) for f in files]:
-                raise SystemExit("the predictor's paths are not the directory's files")
-            rows[f"predictor_dir_b{b}"]["decode_letterbox_ms"] = \
-                rows[f"predictor_dir_b{b}"]["preprocess_ms"]
-        del p, model
-        torch.cuda.empty_cache()
-        hold = str(val_dir / f"im0[0-{DISK_HOLD - 1}].{fmt}")
-        with float32_exact():
-            outs = [_entry_predictor(DetectionModel.from_npz(run / "weights" / "last.npz",
-                                                             device=dev), dev)(hold, batch=8)
-                    for dev in (DEVICE, "cpu")]
-        rows["card_vs_cpu_box_px"] = _hold_results(
-            *outs, f"float32 predictor over {DISK_HOLD} files, card vs CPU")
+        if [r.path for r in res] != [str(f) for f in files]:
+            raise SystemExit("the predictor's paths are not the directory's files")
+        rows[f"predictor_dir_b{b}"]["decode_letterbox_ms"] = \
+            rows[f"predictor_dir_b{b}"]["preprocess_ms"]
+    del p, model
+    torch.cuda.empty_cache()
+    hold = str(val_dir / f"im0[0-{DISK_HOLD - 1}].{fmt}")
+    with float32_exact():
+        outs = [_entry_predictor(DetectionModel.from_npz(run / "weights" / "last.npz",
+                                                         device=dev), dev)(hold, batch=8)
+                for dev in (DEVICE, "cpu")]
+    rows["card_vs_cpu_box_px"] = _hold_results(
+        *outs, f"float32 predictor over {DISK_HOLD} files, card vs CPU")
     log(f"launches during the from-disk path: {total}")
+    return total, rows
+
+
+# phase 16: the facade, the command line, counting over a folder, export
+# and AutoBackend, on phase 15's dataset. The float32 card-vs-CPU holds take
+# phase 15's limits; AutoBackend is held to the live float32 forward at b1
+# and b8, bit for bit expected, else within FACADE_EXPORT_TOL of its magnitude
+FACADE_BATCHES = (1, 8)
+FACADE_EXPORT_TOL = 1e-5
+FACADE_TRAIN = {"epochs": 1}
+
+
+def _same_bits(got, want, name):
+    """The same paths and the same detection rows, bit for bit."""
+    if [r.path for r in got] != [r.path for r in want] or any(
+            g.boxes.data.shape != w.boxes.data.shape or
+            not np.array_equal(g.boxes.data, w.boxes.data) for g, w in zip(got, want)):
+        raise SystemExit(f"{name}: the facade's results are not the predictor's bit for bit")
+    n = sum(len(r) for r in got)
+    log(f"{name}: {len(got)} images, {n} detections, bit for bit the predictor's")
+    if n == 0:
+        raise SystemExit(f"{name}: no detection to compare")
+
+
+def _timed(fn):
+    """(result, wall s, launches) of one run of `fn` after a synchronise."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, read_counts()
+
+
+def _facade_vs_predictor(val_dir, n):
+    """The facade's `predict` against phase 15's `DetectionPredictor` (fused,
+    bf16) at b1 and b32, in turns: predictor, facade, facade, predictor.
+    Returns (launches of the facade's runs, rows)."""
+    from mgdt_yolo_tpu_torch import YOLO
+    y = YOLO(WEIGHTS, device=DEVICE)
+    p = _entry_predictor(DetectionModel.from_npz(WEIGHTS, device=DEVICE), DEVICE, half=True)
+    total, rows = no_launches(), {}
+    for b in ENTRY_BATCHES:
+        def run_p():
+            return p(val_dir, batch=b)
+
+        def run_f():
+            return y.predict(val_dir, imgsz=IMGSZ, half=True, batch=b)
+        run_p(), run_f()  # warm-up
+        times = {"predictor": [], "facade": []}
+        for who in ("predictor", "facade", "facade", "predictor"):
+            res, wall, launches = _timed(run_p if who == "predictor" else run_f)
+            want = -(-n // b)
+            if launches != no_launches(deform_fwd=want):
+                raise SystemExit(f"{who} b{b}: launched {launches}, not K1 {want} times")
+            if who == "facade":
+                for k in total:
+                    total[k] += launches[k]
+            times[who].append(n / wall)
+            rows.setdefault(f"results_{who}_b{b}", res)
+        _same_bits(rows.pop(f"results_facade_b{b}"), rows.pop(f"results_predictor_b{b}"),
+                   f"facade b{b}")
+        rows[f"b{b}"] = {"predictor_images_per_s": times["predictor"],
+                         "facade_images_per_s": times["facade"]}
+        log(f"predict over the directory b{b}, in turns (images/s): predictor "
+            f"{' / '.join(f'{v:.2f}' for v in times['predictor'])}, facade "
+            f"{' / '.join(f'{v:.2f}' for v in times['facade'])}")
+    return y, total, rows
+
+
+def _cli(args):
+    """One command line in its own process: (wall s to its end, stdout)."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", *args], capture_output=True, text=True,
+                         timeout=600, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise SystemExit(f"{' '.join(args[:2])} exited {out.returncode}: {out.stderr[-3000:]}")
+    return wall, out.stdout
+
+
+def _logged_counts(text, pattern):
+    return {m.group(1): int(m.group(2)) for m in re.finditer(pattern, text, re.M)}
+
+
+def _export_round_trip(y, root):
+    """npz and pt2 at IMGSZ; AutoBackend over each against the live float32
+    forward at FACADE_BATCHES; K1 counted inside the program's forward; the
+    program and the eager module timed in turns. Returns (launches, rows)."""
+    from mgdt_yolo_tpu_torch.nn.autobackend import AutoBackend
+    rows, total = {}, no_launches()
+    arts = {}
+    for fmt in ("npz", "pt2"):
+        t0 = time.perf_counter()
+        arts[fmt] = y.export(format=fmt, imgsz=IMGSZ, project=str(root / "export"))[0]
+        rows[f"export_{fmt}_s"] = time.perf_counter() - t0
+    log(f"exported {arts} in {rows['export_npz_s']:.2f} s (npz) and {rows['export_pt2_s']:.2f} s "
+        f"(pt2)")
+    live = AutoBackend(y.model, IMGSZ)
+    backs = {fmt: AutoBackend(a, IMGSZ, device=DEVICE) for fmt, a in arts.items()}
+    for b in FACADE_BATCHES:
+        x = torch.rand((b, IMGSZ, IMGSZ, 3), generator=torch.Generator().manual_seed(b)
+                       ).to(DEVICE)
+        want = live(x)
+        for fmt, back in backs.items():
+            reset_counts()
+            got = back(x)
+            torch.cuda.synchronize()
+            launches = read_counts()
+            if launches != no_launches(deform_fwd=1):
+                raise SystemExit(f"{fmt} forward b{b} launched {launches}, not K1 once")
+            for k in total:
+                total[k] += launches[k]
+            d = (got - want).abs().max().item()
+            scale = max(want.abs().max().item(), 1.0)
+            rows[f"{fmt}_b{b}_max_abs_diff"] = d
+            log(f"AutoBackend {fmt} b{b}: max |diff| from the live forward {d:.3e} (magnitude "
+                f"{scale:.1f}); K1 launched inside it {launches['deform_fwd']} time(s)")
+            if d > FACADE_EXPORT_TOL * scale:
+                raise SystemExit(f"AutoBackend {fmt} b{b} is not the live forward")
+    for b in ENTRY_BATCHES:
+        x = torch.rand((b, IMGSZ, IMGSZ, 3), generator=torch.Generator().manual_seed(b)
+                       ).to(DEVICE)
+        ms = {"eager": [], "pt2": []}
+        for who in ("eager", "pt2", "pt2", "eager"):
+            ms[who].append(cuda_time_ms(lambda: (live if who == "eager" else backs["pt2"])(x),
+                                        iters=10, windows=3))
+        rows[f"forward_ms_b{b}"] = ms
+        log(f"float32 forward b{b}, in turns (ms): eager {' / '.join(f'{v:.3f}' for v in ms['eager'])}"
+            f", pt2 {' / '.join(f'{v:.3f}' for v in ms['pt2'])}")
+    return arts, total, rows
+
+
+def phase_facade(root):
+    """The `YOLO` facade, the command line and counting over phase 15's val
+    directory, export and AutoBackend, and the facade's training. Returns
+    (launches, rows)."""
+    from mgdt_yolo_tpu_torch import YOLO
+    from mgdt_yolo_tpu_torch.cfg import entrypoint
+    from mgdt_yolo_tpu_torch.utils.benchmarks import benchmark
+    from mgdt_yolo_tpu_torch.utils.counting import cal_counting_metrics, cal_model_count_error
+    log(f"== phase 16: the YOLO facade, the command line and counting over phase 15's val "
+        f"directory; export to npz and pt2 and AutoBackend; the facade's train, val and "
+        f"predict")
+    t_phase = time.perf_counter()
+    data = root / "pigs" / "data.yaml"
+    val_dir = root / "pigs" / "images" / "val"
+    n = len(list(val_dir.iterdir()))
+    total = no_launches()
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    y, launches, rows = _facade_vs_predictor(val_dir, n)
+    add(launches)
+    hold = str(val_dir / f"im0[0-{DISK_HOLD - 1}].*")
+    with float32_exact():
+        outs = [YOLO(WEIGHTS, device=dev).predict(hold, imgsz=IMGSZ, batch=8)
+                for dev in (DEVICE, "cpu")]
+    rows["card_vs_cpu_box_px"] = _hold_results(
+        *outs, f"float32 facade over {DISK_HOLD} files, card vs CPU")
+
+    log(f"facade against the predictor and the float32 hold: {time.perf_counter() - t_phase:.1f} s")
+    # counting over the directory: the float32 card against the CPU
+    counted = {}
+    with float32_exact():
+        for dev in (DEVICE, "cpu"):
+            yd = YOLO(WEIGHTS, device=dev)
+            t0 = time.perf_counter()
+            if dev == DEVICE:
+                reset_counts()
+            errs = cal_model_count_error(yd, str(val_dir), imgsz=IMGSZ)
+            agree = cal_counting_metrics(yd, str(val_dir), imgsz=IMGSZ)
+            if dev == DEVICE:
+                torch.cuda.synchronize()
+                launches = read_counts()
+                add(launches)
+                if launches != no_launches(deform_fwd=2 * n):
+                    raise SystemExit(f"counting launched {launches}, not K1 {2 * n} times")
+                rows["counting_ms_per_image"] = (time.perf_counter() - t0) / (2 * n) * 1e3
+            counted[dev] = (errs, agree)
+            log(f"counting on {dev}: {time.perf_counter() - t0:.1f} s")
+    (ce, ca), (pe, pa) = counted[DEVICE], counted["cpu"]
+    log(f"counting on the card (float32): errors {ce}; agreement {ca}; "
+        f"{rows['counting_ms_per_image']:.3f} ms per image and function")
+    if ce != pe or ca != pa:
+        raise SystemExit(f"counting on the card {ce} {ca} is not the CPU's {pe} {pa}")
+    rows["counting"] = {"errors": ce, "agreement": {"stats": ca["stats"], "r2": ca["r2"]}}
+    log("counting: the card's counts, TP/FP/FN, MAE/MSE/MAPE and R^2 equal the CPU's")
+
+    # the command line: in process (K1 counted), then in its own processes
+    reset_counts()
+    res = entrypoint(["predict", f"model={WEIGHTS}", f"source={val_dir}", "device=0",
+                      f"imgsz={IMGSZ}"])
+    torch.cuda.synchronize()
+    launches = read_counts()
+    add(launches)
+    if launches != no_launches(deform_fwd=n) or len(res) != n:
+        raise SystemExit(f"entrypoint predict launched {launches} over {len(res)} images")
+    want = {r.path: len(r) for r in res}
+    wall, text = _cli(["mgdt_yolo_tpu_torch", "predict", f"model={WEIGHTS}",
+                       f"source={val_dir}", "device=0", f"imgsz={IMGSZ}"])
+    got = _logged_counts(text, r"^(\S+\.\w+): (\d+) detections")
+    rows["cli_predict_wall_s"] = wall
+    log(f"python -m mgdt_yolo_tpu_torch predict: {wall:.2f} s from start to its last line; "
+        f"per-image counts {'equal' if got == want else 'DIFFER'} to the in-process run's")
+    if got != want:
+        raise SystemExit(f"the command line logged {got}, not {want}")
+    wall, text = _cli(["mgdt_yolo_tpu_torch.utils.counting", str(WEIGHTS), str(val_dir),
+                       "--metrics", "--conf", "0.25", "--imgsz", str(IMGSZ)])
+    got = _logged_counts(text, r"^(\S+\.\w+): (\d+) detections, \d+ labelled")
+    rows["cli_counting_wall_s"] = wall
+    log(f"python -m mgdt_yolo_tpu_torch.utils.counting --metrics: {wall:.2f} s; per-image "
+        f"counts {'equal' if got == want else 'DIFFER'} to the in-process run's")
+    if got != want or "count R^2" not in text:
+        raise SystemExit(f"the counting command line logged {got}, not {want}")
+
+    # export and AutoBackend
+    arts, launches, rows["export"] = _export_round_trip(YOLO(WEIGHTS, device=DEVICE), root)
+    add(launches)
+    yb = YOLO(WEIGHTS, device=DEVICE)
+    yb.overrides["project"] = str(root / "bench")  # where its exports go
+    for b in ENTRY_BATCHES:
+        reset_counts()
+        rows[f"benchmark_b{b}"] = benchmark(yb, imgsz=IMGSZ, formats=["torch", "pt2"], batch=b)
+        add(read_counts())
+        if not all(r["ok"] for r in rows[f"benchmark_b{b}"]):
+            raise SystemExit(f"benchmark b{b} failed: {rows[f'benchmark_b{b}']}")
+        log(f"benchmark b{b}: " + "; ".join(f"{r['format']} {r['images_per_sec']:.2f} images/s"
+                                             for r in rows[f"benchmark_b{b}"]))
+
+    # the facade trains, validates and predicts: K1, K2 and K3 launch
+    yt = YOLO(FLAGSHIP, device=DEVICE)
+    reset_counts()
+    t0 = time.perf_counter()
+    metrics = yt.train(data=str(data), project=str(root / "facade_runs"), **FACADE_TRAIN)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    add(launches)
+    steps, n_val = len(yt.trainer.loader), len(yt.trainer.val_loader)
+    _expect(launches, "YOLO.train", deform_fwd=steps + n_val, deform_bwd=steps,
+            fused_augment=steps)
+    _finite_history(yt.trainer, "YOLO.train")
+    log(f"YOLO({FLAGSHIP}).train(epochs=1): {steps} micro-steps and {n_val} validation "
+        f"forwards in {time.perf_counter() - t0:.2f} s; launches {launches}; {metrics}")
+    reset_counts()
+    vm = yt.val(data=str(data))
+    res = yt.predict(str(val_dir))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    add(launches)
+    _expect(launches, "YOLO.val and YOLO.predict",
+            deform_fwd=-(-n // TRAIN_DEFAULTS["batch"]) + n)
+    log(f"YOLO.val: {vm}; YOLO.predict: {sum(len(r) for r in res)} detections over "
+        f"{len(res)} images")
+    rows["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 16: {rows['phase_s']:.1f} s; launches {total}")
     return total, rows
 
 
@@ -2423,12 +2701,12 @@ def phase_from_disk(resident_step_ms):
 # first is the kernel's own main path
 KERNEL_PATHS = {"deform_fwd": ("serving", "training", "augmented training",
                                "ablation family", "serving entry points", "from disk",
-                               "K1 variant A/B"),
+                               "facade", "K1 variant A/B"),
                 "deform_bwd": ("training", "augmented training", "ablation family",
-                               "from disk"),
+                               "from disk", "facade"),
                 "deform_fwd_simt": ("DCN A/B", "K1 variant A/B"),
                 "deform_bwd_simt": ("DCN A/B",),
-                "fused_augment": ("augmented training", "from disk", "K3 A/B"),
+                "fused_augment": ("augmented training", "from disk", "facade", "K3 A/B"),
                 "fused_augment_simt": ("K3 A/B",),
                 **{name: ("K1 variant A/B",) for name in ALL_VARIANTS}}
 
@@ -2458,11 +2736,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     entry, entry_rows = phase_serving_entry_points()
     torch.cuda.empty_cache()
-    disk, disk_rows = phase_from_disk(step_ms["augmented"])
+    with tempfile.TemporaryDirectory() as tmp:
+        disk, disk_rows = phase_from_disk(step_ms["augmented"], Path(tmp))
+        torch.cuda.empty_cache()
+        facade, facade_rows = phase_facade(Path(tmp))
     torch.cuda.empty_cache()
     ab_launches, ab_rows, hopper_rows, plan_rows = phase_variant_ab()
     paths = {"serving": serving, "training": training, "augmented training": augmented,
              "ablation family": ablation, "serving entry points": entry, "from disk": disk,
+             "facade": facade,
              "DCN A/B": dcn_ab,
              "K3 A/B": k3_ab, "K1 variant A/B": ab_launches}
     for k in kernels:
@@ -2487,6 +2769,7 @@ def main() -> int:
         if k["name"] == "deform_fwd":
             k["serving_entry_points"] = entry_rows
             k["from_disk"] = disk_rows
+            k["facade"] = facade_rows
         if k["name"] in ALL_VARIANTS:
             k["ab"] = [r for r in ab_rows if r["variant"] == k["name"]]
         if k["name"] in FIRST_DESIGNS:

@@ -35,3 +35,10 @@ def names_device(value, device: torch.device) -> bool:
     if want.type != device.type:
         return False
     return want.index is None or device.index is None or want.index == device.index
+
+
+def parse_device(value) -> torch.device:
+    """A `device` key's device: None (CUDA), "cpu", "cuda:0", 0 or "0"."""
+    if value is not None and str(value).strip().isdigit():
+        value = int(str(value).strip())
+    return resolve_device(value)

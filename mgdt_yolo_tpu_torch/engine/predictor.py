@@ -37,10 +37,11 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
+from ..cfg import check_cfg_types, check_dict_alignment
 from ..cfg.default import CFG_DEFAULTS
 from ..data.augment import letterbox
 from ..data.loaders import LoadImagesAndVideos, load_inference_source
-from ..device import names_device, resolve_device
+from ..device import names_device, parse_device
 from ..ops.boxes import scale_boxes
 from ..ops.nms import non_max_suppression
 from .results import Results
@@ -129,13 +130,6 @@ def decode_items(chunk: List[Dict]) -> List[Dict]:
             if "img" in c or c["path"] in decoded]
 
 
-def _device_of(value) -> torch.device:
-    """The `device` key's device: None (CUDA), "cpu", "cuda:0", 0 or "0"."""
-    if value is not None and str(value).strip().isdigit():
-        value = int(str(value).strip())
-    return resolve_device(value)
-
-
 class BasePredictor:
     """Streams a source through a model in batches; see the module's text.
 
@@ -145,7 +139,6 @@ class BasePredictor:
     """
 
     def __init__(self, args: Optional[Dict] = None, overrides: Optional[Dict] = None):
-        from .trainer import check_cfg_types, check_dict_alignment
         merged = dict(PREDICT_DEFAULTS)
         for extra in (args, overrides):
             if extra:
@@ -156,7 +149,7 @@ class BasePredictor:
             if merged[key]:
                 raise NotImplementedError(NO_DRAWING.format(key))
         self.args = SimpleNamespace(**merged)
-        self.device = _device_of(self.args.device)
+        self.device = parse_device(self.args.device)
         self.model = None
         self.results: List[Results] = []
 

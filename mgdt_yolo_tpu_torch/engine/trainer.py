@@ -4,7 +4,8 @@ synthetic scenes or a YOLO-format dataset on disk (`data=`), with resume.
 
 `check_train_args` holds the overrides to the JAX configuration's rules
 before anything is built: an unknown key raises `SyntaxError` with the JAX
-suggestions, a value of the wrong type as the JAX `check_cfg_types` does,
+suggestions, a value of the wrong type as the JAX `check_cfg_types` does
+(both checks are `cfg.check_dict_alignment` and `cfg.check_cfg_types`),
 and a key the port does not honour yet (`rect`, `save_json`,
 `label_smoothing`, ...) raises wherever it differs from the JAX default.
 
@@ -37,7 +38,6 @@ carries on the newest `*/weights/last` under `project` at its next epoch.
 from __future__ import annotations
 
 import copy
-import difflib
 import logging
 import math
 from pathlib import Path
@@ -46,8 +46,8 @@ from typing import Callable, Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from ..cfg.default import (AUGMENT_KEYS, CFG_BOOL_KEYS, CFG_DEFAULTS, CFG_FLOAT_KEYS,
-                           CFG_FRACTION_KEYS, CFG_INT_KEYS, NEUTRAL_KEYS, PORTED_OPTIMIZERS,
+from ..cfg import check_cfg_types, check_dict_alignment
+from ..cfg.default import (AUGMENT_KEYS, CFG_DEFAULTS, NEUTRAL_KEYS, PORTED_OPTIMIZERS,
                            TRAIN_DEFAULTS)
 from ..data.build import DataLoader, to_device
 from ..data.synthetic import SyntheticDetectionDataset, val_dataset
@@ -266,38 +266,6 @@ def check_augment_args(a: Mapping) -> None:
         raise ValueError(f"device_augment=False with augmentation keys {on}: the host "
                          "augmentation pipeline is not ported; set them to 0 "
                          "(cfg.default.UNAUGMENTED) or use device_augment=True")
-
-
-def check_cfg_types(cfg: Mapping) -> None:
-    """Raise where a value has the wrong type for its key group, as the JAX
-    `cfg.check_cfg_types` does (a copy of its rules)."""
-    for k, v in cfg.items():
-        if v is None:
-            continue
-        if k in CFG_FLOAT_KEYS and not isinstance(v, (int, float)):
-            raise TypeError(f"'{k}={v}' must be a number (got {type(v).__name__})")
-        elif k in CFG_FRACTION_KEYS:
-            if not isinstance(v, (int, float)):
-                raise TypeError(f"'{k}={v}' must be a number (got {type(v).__name__})")
-            if not 0.0 <= v <= 1.0:
-                raise ValueError(f"'{k}={v}' must be in [0, 1]")
-        elif k in CFG_INT_KEYS and not isinstance(v, int):
-            raise TypeError(f"'{k}={v}' must be an int (got {type(v).__name__})")
-        elif k in CFG_BOOL_KEYS and not isinstance(v, bool):
-            raise TypeError(f"'{k}={v}' must be a bool (got {type(v).__name__})")
-
-
-def check_dict_alignment(base: Mapping, custom: Mapping) -> None:
-    """Raise `SyntaxError` with close matches where a key of `custom` is not
-    in `base`, as the JAX `cfg.check_dict_alignment` does."""
-    mismatched = [k for k in custom if k not in base]
-    if mismatched:
-        msgs = []
-        for k in mismatched:
-            matches = difflib.get_close_matches(k, list(base))
-            hint = f"Similar keys: {matches}. " if matches else ""
-            msgs.append(f"'{k}' is not a valid config key. {hint}")
-        raise SyntaxError("\n".join(msgs))
 
 
 def _unhonoured_reason(key: str, device) -> str:

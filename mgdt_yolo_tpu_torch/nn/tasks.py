@@ -334,3 +334,20 @@ class DetectionModel(nn.Module):
             for i, s in enumerate(self.stride):
                 getattr(head, f"cv2_{i}_2").bias.fill_(1.0)
                 getattr(head, f"cv3_{i}_2").bias.fill_(math.log(5 / self.nc / (640 / s) ** 2))
+
+
+def guess_model_task(cfg) -> str:
+    """The task a config dict's head, or a model's name, implies, as the
+    JAX `guess_model_task` reads it: classify, segment, pose, else detect
+    (`TOODHead` included)."""
+    if isinstance(cfg, dict):
+        head = str(cfg.get("head", [[""]])[-1][-2]).lower()
+    else:
+        head = str(cfg).lower()
+    if "classify" in head or "-cls" in head:
+        return "classify"
+    if "segment" in head or "-seg" in head:
+        return "segment"
+    if "pose" in head or "-pose" in head:
+        return "pose"
+    return "detect"

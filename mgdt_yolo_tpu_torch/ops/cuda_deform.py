@@ -1,6 +1,6 @@
 """Wrappers of the hand-written DCNv2 kernels and `deform_conv`, the model's
-one entry to DCNv2: a `torch.autograd.Function` that pairs the forward and
-the backward.
+one entry to DCNv2: the registered operator `mgdt::deform_fwd`, whose
+autograd formula is the operator `mgdt::deform_bwd`.
 
 * `deform_fwd` (K1, `csrc/deform_fwd.cu`) and `deform_bwd` (K2,
   `csrc/deform_bwd.cu`): the Hopper designs the main path runs. K1 contracts
@@ -31,6 +31,12 @@ without counting a launch. Any other input a kernel does not take raises
 shared memory), and nothing falls back. `launches`, `bwd_launches`,
 `simt_launches` and `bwd_simt_launches` count the four kernels' launches,
 so a run can show which kernels its path went through.
+
+`deform_fwd_op` and `deform_bwd_op` register K1 and K2 with
+`torch.library.custom_op` (fake implementations give their shapes), so that
+`torch.export` keeps K1 as one node of the exported program, which then
+launches K1 on the card and runs the plain version on the CPU, as the
+wrappers do.
 """
 from __future__ import annotations
 
@@ -247,24 +253,51 @@ def deform_bwd_simt(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                 semantics)
 
 
-class DeformConv(torch.autograd.Function):
-    """DCNv2 (no bias) with K1 as its forward and K2 as its backward; saves
-    x, offset, mask and weight, as the JAX custom VJP does. Under autocast
-    the backward runs in the forward's autocast state."""
+# K1 and K2 as PyTorch operators, so that a traced program (`torch.export`)
+# holds K1 as one opaque node whatever device it was traced on, and runs it
+# by the device of the tensors it is given: the kernel on the card, the
+# plain version on the CPU, through the wrappers above (which count the
+# launches; the wrappers are looked up when the operator runs).
+@torch.library.custom_op("mgdt::deform_fwd", mutates_args=())
+def deform_fwd_op(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+                  weight: torch.Tensor, semantics: str) -> torch.Tensor:
+    """`deform_fwd` without a bias, as the registered operator."""
+    return deform_fwd(x, offset, mask, weight, None, semantics)
 
-    @staticmethod
-    @torch.amp.custom_fwd(device_type="cuda")
-    def forward(ctx, x, offset, mask, weight, semantics):
-        ctx.semantics = semantics
-        ctx.save_for_backward(x, offset, mask, weight)
-        return deform_fwd(x, offset, mask, weight, None, semantics)
 
-    @staticmethod
-    @torch.amp.custom_bwd(device_type="cuda")
-    def backward(ctx, grad_out):
-        x, offset, mask, weight = ctx.saved_tensors
-        grads = deform_bwd(x, offset, mask, weight, grad_out.contiguous(), ctx.semantics)
-        return (*grads, None)
+@deform_fwd_op.register_fake
+def _(x, offset, mask, weight, semantics):
+    return x.new_empty((*x.shape[:3], weight.shape[3]))
+
+
+@torch.library.custom_op("mgdt::deform_bwd", mutates_args=())
+def deform_bwd_op(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+                  weight: torch.Tensor, grad_out: torch.Tensor,
+                  semantics: str) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`deform_bwd` as the registered operator."""
+    return tuple(deform_bwd(x, offset, mask, weight, grad_out, semantics))
+
+
+@deform_bwd_op.register_fake
+def _(x, offset, mask, weight, grad_out, semantics):
+    return (torch.empty_like(x), torch.empty_like(offset), torch.empty_like(mask),
+            torch.empty_like(weight))
+
+
+def _setup_context(ctx, inputs, output):
+    x, offset, mask, weight, semantics = inputs
+    ctx.semantics = semantics
+    ctx.save_for_backward(x, offset, mask, weight)
+
+
+def _backward(ctx, grad_out):
+    """K2 on the saved x, offset, mask and weight, as the JAX custom VJP."""
+    x, offset, mask, weight = ctx.saved_tensors
+    grads = deform_bwd_op(x, offset, mask, weight, grad_out.contiguous(), ctx.semantics)
+    return (*grads, None)
+
+
+deform_fwd_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def deform_conv(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
@@ -274,6 +307,6 @@ def deform_conv(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     kernels see one type and the casts' own backward restores the
     parameters' type."""
     dt = x.dtype
-    return DeformConv.apply(x.contiguous(), offset.to(dt).contiguous(),
-                            mask.to(dt).contiguous(), weight.to(dt).contiguous(),
-                            check_semantics(semantics))
+    return deform_fwd_op(x.contiguous(), offset.to(dt).contiguous(),
+                         mask.to(dt).contiguous(), weight.to(dt).contiguous(),
+                         check_semantics(semantics))
