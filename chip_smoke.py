@@ -57,6 +57,10 @@ Phases, each of which passes or ends the script with a non-zero exit:
    maps test-time augmentation gives it at 640 px (68x68 and 56x56, C 32:
    the 0.83 and 0.67 passes) in float32 and bf16, windowed, offsets +-1.5
    and +-4.0, at b8, then timed in bf16 at b32 beside its plain version and
+   its bound; K1 and K2 at the maps rectangular validation gives them at
+   640 px (61x81 and 46x81, C 32) at b8 in the 8 cases, and exact at
+   offsets +-8.0 (most corners outside K2's shared-memory window) in both
+   types, then each timed in bf16, windowed +-1.5 and exact +-8.0, beside
    its bound;
 4. serving path: the flagship MGDT-n from `weights/mgdt_n_synth.npz`, Conv+BN
    fused, bf16, 640 px, answers requests of batch 1, 8 and 32 through
@@ -185,11 +189,28 @@ Phases, each of which passes or ends the script with a non-zero exit:
    events); `benchmark(formats=["torch", "pt2"])` at b1 and b32; and
    `YOLO(<flagship YAML>).train(data=..., epochs=1)`, `.val()` and
    `.predict()` (K3, K2 and K1 once per micro-step, K1 once per forward).
+17. reference weights, on phase 15's dataset: a reference-layout `.pt`
+   (the fork's pickled module graph in fp16, `tools/reference_pt.py`)
+   written from the committed npz and loaded by `YOLO(pt)`: its state bit
+   for bit the npz's rounded through fp16, pinned exact, no key missed;
+   its float32 forward on the card against the CPU (phase 8's limits);
+   `predict` in bf16 over the 16 val JPEGs at b1 and b32 in turns with the
+   windowed npz model (images/s, K1 per launch under each semantics by
+   torch.profiler); `val` in batches of 8, square, `rect=True` and `rect=True,
+   save_json=True` in turns (seconds per pass; the batch shapes and the
+   DCN's maps, every predictions.json row one of the validator's
+   detections, the metrics the same with and without json); one fine-tuning epoch from the `.pt` (exact, device augment; K1,
+   K2 and K3 launched, the checkpoint pinned exact), then K1 and K2 per
+   launch inside its training step, exact against windowed in turns,
+   beside their bounds; and `YOLO(npz).tune` over a space of keys the port
+   honours, 2 trials of 1 epoch (each in its own run directory, fitness >=
+   0, K1, K2 and K3 launched in each). Its launches are the "reference
+   weights" path.
    Phase 10 runs before phase 8, and phases 8, 9 and 11 run after it,
    because the CPU work leaves the host's threads busy, which slows the
    host-bound steps; phase 13 runs after phase 11, phase 14 after phase
-   13, phase 15 after phase 14, phase 16 after phase 15, and phase 12,
-   which times kernels only, runs last.
+   13, phase 15 after phase 14, phase 16 after phase 15, phase 17 after
+   phase 16, and phase 12, which times kernels only, runs last.
 
 The last lines are the kernel table as JSON, the card's name and power
 limit, and `{"ok": true, "device": {...}}`. Without a CUDA device the script
@@ -241,7 +262,8 @@ from mgdt_yolo_tpu_torch.tools import (deform_ab, proto_deform_bf16_fma, proto_d
                                        proto_deform_slot_skip, proto_deform_tapwalk)
 from mgdt_yolo_tpu_torch.utils.build import build_all, nvcc_path
 from mgdt_yolo_tpu_torch.utils.measure import (HBM_BYTES_PER_S, PEAK_FLOPS, cuda_time_ms,
-                                               deform_fwd_bound_ms, device_us,
+                                               deform_bwd_bound_ms, deform_fwd_bound_ms,
+                                               device_us,
                                                float32_exact, gpu_name_and_power)
 
 ROOT = Path(__file__).resolve().parent
@@ -359,20 +381,6 @@ def _deform_inputs(B, H, W, C, O, off_range, dtype, seed=0):
 def _deform_grad(B, H, W, O, dtype, seed=1):
     g = torch.Generator().manual_seed(seed)
     return torch.randn(B, H, W, O, generator=g).to(DEVICE, dtype).contiguous()
-
-
-def _deform_bwd_bound_ms(B, H, W, C, O, dtype_name):
-    """K2's least time: read x, offset, mask, weight and the output gradient,
-    write d x, d offset, d mask and d weight, each once; against the two
-    contractions with the weight (tap gradient, weight gradient) plus the
-    sampling work per (pixel, tap, channel, corner): the recomputed sample,
-    the corner-weight gradient and the scatter into d x, 2 operations each."""
-    esize = 2 if dtype_name == "bfloat16" else 4
-    P = H * W
-    nbytes = (B * P * ((C + 18 + 9 + O) + (C + 18 + 9)) + 2 * 9 * C * O) * esize
-    flops = 2 * (2 * B * P * 9 * C * O) + 4 * 6 * B * P * 9 * C
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 # phase 3's DCN cases: (dtype, semantics, offset range); the main paths' case
@@ -608,6 +616,56 @@ def _check_tta_maps(C=32, O=32):
     return out
 
 
+# the stride-8 maps K1 and K2 take under rectangular validation at 640 px
+# (phase 17): phase 15's landscape scenes plan 488x648 (480x640, 375x500)
+# and 368x648 (720x1280, 1080x1920) batches at the flagship's stride 8 and
+# pad 0.5; held at b8 in phase 3's 8 cases, and under exact semantics also
+# at offsets +-8.0, where most corners leave K2's shared-memory window
+RECT_MAPS = ((61, 81), (46, 81))
+FAR_OFFSETS = 8.0
+
+
+def _check_rect_maps(B=8, C=32, O=32):
+    """K1 and K2 at RECT_MAPS against their plain versions in phase 3's 8
+    cases (`_hold_fwd`'s and `_hold_bwd`'s limits) and exact at offsets
+    +-FAR_OFFSETS in both types; then each timed in bf16 at b8, windowed at
+    +-1.5 and exact at +-FAR_OFFSETS, beside its bound. Returns
+    {kernel: {"HxW": row}}."""
+    out = {"deform_fwd": {}, "deform_bwd": {}}
+    cases = DCN_CASES + [(dtype, "exact", FAR_OFFSETS)
+                         for dtype in (torch.float32, torch.bfloat16)]
+    kernels = (("deform_fwd", cuda_deform.deform_fwd, deform_fwd_bound_ms),
+               ("deform_bwd", cuda_deform.deform_bwd, deform_bwd_bound_ms))
+    for H, W in RECT_MAPS:
+        rows = {name: {} for name, _, _ in kernels}
+        for dtype, semantics, off_range in cases:
+            args = _deform_inputs(B, H, W, C, O, off_range, dtype)
+            g = _deform_grad(B, H, W, O, dtype)
+            case = f"{_case_label(dtype, semantics, off_range, B)} {H}x{W}"
+            key = f"max_abs_err_{str(dtype)[6:]}_{semantics}_{off_range}"
+            rows["deform_fwd"][key] = _hold_fwd("deform_fwd", cuda_deform.deform_fwd, args,
+                                                semantics, case)
+            rows["deform_bwd"][key] = _hold_bwd("deform_bwd", cuda_deform.deform_bwd, args, g,
+                                                semantics, case)
+            del args, g
+        for name, fn, bound in kernels:
+            for semantics, off_range in (("windowed", 1.5), ("exact", FAR_OFFSETS)):
+                args = _deform_inputs(B, H, W, C, O, off_range, torch.bfloat16)
+                if name == "deform_bwd":
+                    args.append(_deform_grad(B, H, W, O, torch.bfloat16))
+                ms = cuda_time_ms(lambda: fn(*args, semantics=semantics), iters=10, windows=3)
+                bound_ms, bound_by = bound(B, H, W, C, O, "bfloat16")
+                rows[name][f"ms_{semantics}_{off_range}"] = ms
+                rows[name].update(bound_ms=bound_ms, bound_by=bound_by)
+                log(f"{name} rect map b{B} {H}x{W} bf16 {semantics} offsets +-{off_range}: "
+                    f"{ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}), {bound_ms / ms:.2%} "
+                    f"of it")
+                del args
+            out[name][f"{H}x{W}"] = rows[name]
+        torch.cuda.empty_cache()
+    return out
+
+
 # the widths K1's and K2's second plan takes: (B, H, W, C -> C), the thead
 # YAMLs' DCN on the stride-16 map at 640 px and a C 128 map
 WIDE_SHAPES = ((8, 40, 40, 64), (4, 20, 20, 128))
@@ -670,7 +728,7 @@ def _check_dcn_wide():
             errs["deform_bwd"] = max(errs["deform_bwd"], _hold_bwd(
                 "deform_bwd", cuda_deform.deform_bwd, args, g, semantics, case))
             del args, g
-        bounds = {"deform_fwd": deform_fwd_bound_ms, "deform_bwd": _deform_bwd_bound_ms}
+        bounds = {"deform_fwd": deform_fwd_bound_ms, "deform_bwd": deform_bwd_bound_ms}
         for name, fn in (("deform_fwd", cuda_deform.deform_fwd),
                          ("deform_bwd", cuda_deform.deform_bwd)):
             row = {"shape": f"({B},{H},{W},{C}->{C})", "max_abs_err": errs[name]}
@@ -702,7 +760,7 @@ def _dcn_ab(H, W, C, O):
     pairs = {"deform_fwd": (cuda_deform.deform_fwd, cuda_deform.deform_fwd_simt,
                             modulated_deform_conv2d_plain, deform_fwd_bound_ms),
              "deform_bwd": (cuda_deform.deform_bwd, cuda_deform.deform_bwd_simt,
-                            modulated_deform_conv2d_plain_bwd, _deform_bwd_bound_ms)}
+                            modulated_deform_conv2d_plain_bwd, deform_bwd_bound_ms)}
     rows = {}
     for name, (new, simt, plain, bound) in pairs.items():
         usage, simt_usage = _usage(name), _usage(f"{name}_simt")
@@ -1228,10 +1286,13 @@ def phase_kernels():
     _check_plans()
     wide = _check_dcn_wide()
     tta = _check_tta_maps()
+    rect = _check_rect_maps()
     dcn = _dcn_entries(H, W, C, O, errs, rows)
     for e in dcn:
         if e["name"] in wide:
             e["wide"] = wide[e["name"]]
+        if e["name"] in rect:
+            e["rect_maps"] = rect[e["name"]]
         if e["name"] == "deform_fwd":
             e["tta_maps"] = tta
     k3, k3_launches = _check_augment(TRAIN_BATCH, IMGSZ, IMGSZ)
@@ -1354,13 +1415,15 @@ def phase_fixed_batch(trainer, batch):
         f"{TRAIN_BATCH / ms * 1e3:.2f} train images/s")
 
 
-def phase_card_vs_cpu():
-    log("== phase 8: serving in float32 on the card against float32 on the CPU")
-    # scenes 4 and 5: two that have detections at 640 px
+def _serving_card_vs_cpu(load, what):
+    """A fused float32 forward and NMS of scenes 4 and 5 at 640 px (two
+    that have detections) on the card and on the CPU (plain DCN), the model
+    from `load(device)`, TF32 off: raw maps within 1e-2, the same NMS counts
+    (some detections) and boxes within 0.5 px. Returns the differences."""
     x = torch.from_numpy(synthetic_batch(6, IMGSZ)[4:]).float() / 255.0
     outs = []
     for dev in (DEVICE, "cpu"):
-        model = DetectionModel.from_npz(WEIGHTS, device=dev).fuse()
+        model = load(dev).fuse()
         with torch.no_grad(), float32_exact():
             decoded, feats = model(x.to(dev))
             det, counts = non_max_suppression(
@@ -1373,12 +1436,20 @@ def phase_card_vs_cpu():
     dec_err = (dg - dc).abs().max().item()
     same_counts = bool((cg == cc).all())
     box_err = (detg[..., :4] - detc[..., :4]).abs().max().item() if same_counts else None
-    log(f"raw map max |diff| {raw_err:.3e} (max |raw| {fc.abs().max().item():.3f}), "
+    log(f"{what}: raw map max |diff| {raw_err:.3e} (max |raw| {fc.abs().max().item():.3f}), "
         f"decoded max |diff| {dec_err:.3e}")
-    log(f"NMS counts card {cg.tolist()} cpu {cc.tolist()}; box max |diff| {box_err}")
+    log(f"{what}: NMS counts card {cg.tolist()} cpu {cc.tolist()}; box max |diff| {box_err}")
     # float32 without TF32 on both: differences are rounding of reordered sums
     if not (raw_err < 1e-2 and same_counts and int(cc.sum()) > 0 and box_err < 0.5):
-        raise SystemExit("the card and the CPU disagree")
+        raise SystemExit(f"{what}: the card and the CPU disagree")
+    return {"raw_max_abs_diff": raw_err, "decoded_max_abs_diff": dec_err,
+            "box_max_abs_diff": box_err, "detections": int(cc.sum())}
+
+
+def phase_card_vs_cpu():
+    log("== phase 8: serving in float32 on the card against float32 on the CPU")
+    _serving_card_vs_cpu(lambda dev: DetectionModel.from_npz(WEIGHTS, device=dev),
+                         "the npz model")
 
 
 def grad_names(model):
@@ -1650,9 +1721,11 @@ def _dcn_shape(model):
 
 def _profiled_ms(fn, calls):
     """K1's and K2's device ms per launch over `calls` calls of `fn`, from
-    torch.profiler (the kernels' own device time, not the host's gaps)."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    torch.profiler (the kernels' own device time, not the host's gaps). It
+    records the device's activity alone: the host's operators of a training
+    step or a predictor over files are tens of thousands of events, whose
+    table costs seconds each time, and no reading here uses them."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -2697,16 +2770,283 @@ def phase_facade(root):
     return total, rows
 
 
+# phase 17: reference weights. A reference-layout .pt (the fork's pickled
+# module graph, fp16; tools/reference_pt.py) written from the committed npz
+# and loaded by `YOLO(pt)`, which pins it to exact deform semantics, on
+# phase 15's dataset. Validation in batches of 8 plans phase 15's 16
+# landscape val images into a 368x648 and a 488x648 batch (RECT_MAPS)
+REF_VAL_BATCH = 8
+# keys the trainer and the device augmentation honour (the JAX default
+# space's degrees, shear, perspective, mixup and copy_paste are refused)
+REF_TUNE_SPACE = {"lr0": (1e-4, 1e-2), "momentum": (0.8, 0.95), "box": (5.0, 10.0),
+                  "cls": (0.3, 1.0), "hsv_h": (0.0, 0.03), "hsv_s": (0.3, 0.9),
+                  "translate": (0.0, 0.2), "scale": (0.2, 0.6), "fliplr": (0.0, 0.5)}
+REF_TUNE_TRIALS = 2
+
+
+def _json_rows_hold(pred_json, validator):
+    """Every predictions.json row is one of the validator's detections: per
+    image, in order, the COCO row of each detection (xyxy in the image's
+    pixels -> top-left xywh rounded to 3 decimals, the score to 5, the
+    class as category); no row of another image. Returns the row count."""
+    by_image = {}
+    for r in json.loads(Path(pred_json).read_text()):
+        by_image.setdefault(r["image_id"], []).append(r)
+    n = 0
+    for det, path in zip(validator.per_image_preds, validator.per_image_paths):
+        stem = Path(path).stem
+        image_id = int(stem) if stem.isnumeric() else stem
+        want = []
+        for x1, y1, x2, y2, conf, cls in det.astype(np.float64).tolist():
+            box = [(x1 + x2) / 2 - (x2 - x1) / 2, (y1 + y2) / 2 - (y2 - y1) / 2, x2 - x1, y2 - y1]
+            want.append({"image_id": image_id, "category_id": int(cls),
+                         "bbox": [round(v, 3) for v in box], "score": round(conf, 5)})
+        if by_image.pop(image_id, []) != want:
+            raise SystemExit(f"predictions.json: the rows of {image_id!r} are not the "
+                             f"validator's {len(want)} detections")
+        n += len(want)
+    if by_image or n == 0:
+        raise SystemExit(f"predictions.json holds rows of no validated image: {list(by_image)}")
+    return n
+
+
+# each validation pass of phase 17 and its keys
+VAL_KINDS = {"square": {}, "rect": {"rect": True},
+             "rect_json": {"rect": True, "save_json": True}}
+
+
+def _timed_val(y, data, kind, root, maps):
+    """One validation pass of the facade over the val split (batch
+    REF_VAL_BATCH, VAL_KINDS[kind]): (seconds, results, launches); `maps`
+    collects the DCN's (b, h, w) per forward."""
+    maps.clear()
+    kw = {**VAL_KINDS[kind], "save_dir": root / f"val_{kind}"}
+    out, wall, launches = _timed(lambda: y.val(data=str(data), imgsz=IMGSZ,
+                                               batch=REF_VAL_BATCH, **kw))
+    return wall, out, launches
+
+
+def phase_reference_weights(root):
+    """A reference `.pt` through the facade: its state, the float32 card
+    against the CPU, prediction and validation (rectangular, COCO json)
+    under exact semantics beside the windowed npz model, a fine-tuning
+    epoch with K2 exact against windowed, and the tuner. Returns (launches,
+    rows)."""
+    from mgdt_yolo_tpu_torch import YOLO
+    from mgdt_yolo_tpu_torch.tools.reference_pt import write_reference_pt
+    log(f"== phase 17: reference weights (a reference-layout .pt written from the committed "
+        f"npz, YOLO(pt) pinned exact) on phase 15's dataset: predict, rect val with COCO json, "
+        f"a fine-tuning epoch, {REF_TUNE_TRIALS} tune trials")
+    t_phase = time.perf_counter()
+    data = root / "pigs" / "data.yaml"
+    val_dir = root / "pigs" / "images" / "val"
+    n = len(list(val_dir.iterdir()))
+    total, rows = no_launches(), {"steps_s": {}}
+    t_lap = [t_phase]
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    def lap(step):
+        """The seconds `step` took, on the host's clock, into rows."""
+        now = time.perf_counter()
+        rows["steps_s"][step] = now - t_lap[0]
+        log(f"[phase 17: {step} took {now - t_lap[0]:.2f} s]")
+        t_lap[0] = now
+
+    # the checkpoint: the npz's state rounded through fp16, pinned exact, no miss
+    src = DetectionModel.from_npz(WEIGHTS, device="cpu")
+    t0 = time.perf_counter()
+    pt = write_reference_pt(src, root / "reference" / "best.pt")
+    t1 = time.perf_counter()
+    y = YOLO(pt, device=DEVICE)
+    t2 = time.perf_counter()
+    report = y.model.import_report
+    want = {k: v.half().float() if v.is_floating_point() else v
+            for k, v in src.state_dict().items()}
+    got = {k: v.cpu() for k, v in y.model.state_dict().items()}
+    differ = [k for k in want if k not in got or not torch.equal(got[k], want[k])]
+    rows["checkpoint"] = {"bytes": pt.stat().st_size, "write_s": t1 - t0, "load_s": t2 - t1,
+                          "matched": report["matched"],
+                          "shape_missed": len(report["shape_missed"]),
+                          "name_missed": len(report["name_missed"]), "tensors_differ": len(differ),
+                          "semantics": y.model.deform_semantics}
+    log(f"reference .pt: {pt.stat().st_size / 2**20:.2f} MiB written in {t1 - t0:.2f} s, "
+        f"YOLO(pt) in {t2 - t1:.2f} s; import {report['matched']} matched, "
+        f"{len(report['shape_missed'])} shape-missed, {len(report['name_missed'])} name-missed; "
+        f"{len(differ)} of {len(want)} tensors differ from the npz's rounded through fp16; "
+        f"semantics {y.model.deform_semantics}; config {y.overrides['model']}")
+    if differ or set(got) != set(want) or report["shape_missed"] or report["name_missed"] or \
+            y.model.deform_semantics != "exact":
+        raise SystemExit(f"the .pt model is not the npz's state through fp16, pinned exact: "
+                         f"{differ[:5]} {report}")
+
+    # the float32 forward on the card against the CPU, phase 8's limits
+    lap("checkpoint")
+    rows["card_vs_cpu"] = _serving_card_vs_cpu(
+        lambda dev: DetectionModel.from_pt(pt, device=dev)[0], "the .pt model (exact)")
+    lap("card_vs_cpu")
+
+    # predict over the val JPEGs in bf16: exact (.pt) and windowed (npz), in turns
+    preds = {"windowed": _entry_predictor(DetectionModel.from_npz(WEIGHTS, device=DEVICE),
+                                          DEVICE, half=True),
+             "exact": _entry_predictor(DetectionModel.from_pt(pt, device=DEVICE)[0], DEVICE,
+                                       half=True)}
+    for b in ENTRY_BATCHES:
+        ips = {"windowed": [], "exact": []}
+        for sem in ("windowed", "exact", "exact", "windowed"):
+            _, launches, row = _timed_predict(preds[sem], val_dir, b,
+                                              f"predict b{b} {sem}", n=n)
+            add(launches)
+            ips[sem].append(row["images_per_s"])
+        k1 = {sem: _profiled_ms(lambda: preds[sem](val_dir, batch=b), 2)["deform_fwd"]
+              for sem in ("windowed", "exact")}
+        bound_ms, bound_by = deform_fwd_bound_ms(min(b, n), IMGSZ // 8, IMGSZ // 8, 32, 32,
+                                                 "bfloat16")
+        rows[f"predict_b{b}"] = {"images_per_s": ips, "k1_ms": k1, "k1_bound_ms": bound_ms,
+                                 "k1_bound_by": bound_by}
+        log(f"predict b{b} over {n} JPEGs, in turns (images/s): windowed "
+            f"{' / '.join(f'{v:.2f}' for v in ips['windowed'])}, exact "
+            f"{' / '.join(f'{v:.2f}' for v in ips['exact'])}; K1 per launch (profiler) "
+            f"windowed {k1['windowed']:.4f} ms, exact {k1['exact']:.4f} ms at "
+            f"({min(b, n)}, {IMGSZ // 8}, {IMGSZ // 8}, 32) bf16, bound {bound_ms:.5f} ms "
+            f"({bound_by})")
+    del preds
+    torch.cuda.empty_cache()
+    lap("predict")
+
+    # validation: square, rectangular, rectangular with COCO json, in turns
+    dcn_maps = []
+    hook = _dcn(y.model).register_forward_hook(
+        lambda m, inp, out: dcn_maps.append((inp[0].shape[0], *inp[0].shape[2:])))
+    secs = {kind: [] for kind in VAL_KINDS}
+    for kind in ("square", "rect", "rect_json", "rect_json", "rect", "square"):
+        wall, results, launches = _timed_val(y, data, kind, root / "reference", dcn_maps)
+        add(launches)
+        secs[kind].append(wall)
+        want_k1 = -(-n // REF_VAL_BATCH)
+        if launches != no_launches(deform_fwd=want_k1):
+            raise SystemExit(f"{kind} val launched {launches}, not K1 {want_k1} times")
+        if kind == "rect_json":
+            shapes = [tuple(s) for s in y.validator.batch_shapes]
+            maps = sorted(set(dcn_maps))
+            rows_json = _json_rows_hold(y.validator.pred_json, y.validator)
+            rows["val_rect_json"] = {"batch_shapes": shapes, "k1_maps": maps,
+                                     "results": {k: float(v) for k, v in results.items()},
+                                     "json_rows": rows_json}
+            log(f"rect val: batch shapes {shapes}, K1 at (b, h, w) {maps}; {rows_json} "
+                f"predictions.json rows, each the validator's detection; {results}")
+            if sorted({(h // 8, w // 8) for h, w in shapes}) != sorted(RECT_MAPS) or \
+                    sorted({m[1:] for m in maps}) != sorted(RECT_MAPS):
+                raise SystemExit(f"rect val did not run the planned maps {RECT_MAPS}: {maps}")
+        else:
+            rows[f"val_{kind}"] = {"results": {k: float(v) for k, v in results.items()}}
+    hook.remove()
+    rows["val_s"] = secs
+    log(f"validation pass over {n} images, in turns (s): " + "; ".join(
+        f"{kind} {' / '.join(f'{v:.3f}' for v in secs[kind])}" for kind in VAL_KINDS))
+    if {**rows["val_rect"]["results"], "speed_ms_per_image": 0} != \
+            {**rows["val_rect_json"]["results"], "speed_ms_per_image": 0}:
+        raise SystemExit("save_json changed the rect validation's metrics")
+    lap("validate")
+
+    # a fine-tuning epoch from the .pt (exact, device augment)
+    reset_counts()
+    t0 = time.perf_counter()
+    metrics = y.train(data=str(data), epochs=1, imgsz=IMGSZ,
+                      project=str(root / "reference" / "runs"))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    add(launches)
+    tr = y.trainer
+    steps, n_val = len(tr.loader), len(tr.val_loader)
+    _expect(launches, "fine-tuning the .pt", deform_fwd=steps + n_val, deform_bwd=steps,
+            fused_augment=steps)
+    _finite_history(tr, "fine-tuning the .pt")
+    meta = json.loads((tr.save_dir / "weights" / "last_metadata.json").read_text())
+    log(f"fine-tuned 1 epoch from the .pt: {steps} micro-steps, {n_val} validation forwards in "
+        f"{time.perf_counter() - t0:.2f} s; launches {launches}; checkpoint semantics "
+        f"{meta['deform_semantics']}; {metrics}")
+    if meta["deform_semantics"] != "exact" or y.model.deform_semantics != "exact":
+        raise SystemExit("fine-tuning the .pt left its exact pin")
+    lap("fine_tune")
+    # K1 and K2 per launch inside the training step, exact against windowed in turns
+    b = to_device(next(iter(tr.loader)), DEVICE)
+    per = {"exact": [], "windowed": []}
+    tr.model.train()
+    for sem in ("exact", "windowed", "windowed", "exact"):
+        tr.model.set_deform_semantics(sem)
+        per[sem].append(_profiled_ms(lambda: tr.train_step(b), 4))
+    tr.model.set_deform_semantics("exact").eval()
+    B = int(b["img"].shape[0])
+    k1_bound, k1_by = deform_fwd_bound_ms(B, IMGSZ // 8, IMGSZ // 8, 32, 32, "bfloat16")
+    k2_bound, k2_by = deform_bwd_bound_ms(B, IMGSZ // 8, IMGSZ // 8, 32, 32, "bfloat16")
+    rows["train_step"] = {
+        "batch": B, "k1_ms": {s: [r["deform_fwd"] for r in v] for s, v in per.items()},
+        "k2_ms": {s: [r["deform_bwd"] for r in v] for s, v in per.items()},
+        "k1_bound_ms": k1_bound, "k1_bound_by": k1_by, "k2_bound_ms": k2_bound,
+        "k2_bound_by": k2_by, "steps": steps, "n_val": n_val}
+    r = rows["train_step"]
+    log(f"training step b{B} (bf16 autocast), per launch in turns (profiler): K2 exact "
+        f"{' / '.join(f'{v:.4f}' for v in r['k2_ms']['exact'])} ms, windowed "
+        f"{' / '.join(f'{v:.4f}' for v in r['k2_ms']['windowed'])} ms (bound {k2_bound:.5f} "
+        f"ms, {k2_by}); K1 exact {' / '.join(f'{v:.4f}' for v in r['k1_ms']['exact'])} ms, "
+        f"windowed {' / '.join(f'{v:.4f}' for v in r['k1_ms']['windowed'])} ms (bound "
+        f"{k1_bound:.5f} ms, {k1_by})")
+    del tr, b
+    torch.cuda.empty_cache()
+    lap("train_step_profile")
+
+    # the tuner over keys the port honours, on the windowed npz model
+    yt = YOLO(WEIGHTS, device=DEVICE)
+    trials, train = [], yt.train
+
+    def counted_train(**kw):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = train(**kw)
+        torch.cuda.synchronize()
+        trials.append({"name": kw["name"], "launches": read_counts(),
+                       "wall_s": time.perf_counter() - t0, "fitness": out.get("fitness")})
+        return out
+    yt.train = counted_train
+    project = root / "reference" / "tune"
+    best, fit, history = yt.tune(data=str(data), space=REF_TUNE_SPACE,
+                                 max_samples=REF_TUNE_TRIALS,
+                                 train_args={"epochs": 1, "imgsz": IMGSZ,
+                                             "project": str(project)})
+    for t in trials:
+        add(t["launches"])
+        log(f"tune trial {t['name']}: {t['wall_s']:.2f} s, fitness {t['fitness']:.5f}, "
+            f"launches {t['launches']}")
+        if not all(t["launches"][k] for k in ("deform_fwd", "deform_bwd", "fused_augment")) \
+                or not t["fitness"] >= 0 or not (project / t["name"] / "results.csv").is_file():
+            raise SystemExit(f"tune trial {t['name']} did not train through K1, K2 and K3 into "
+                             f"its own directory with a fitness: {t}")
+    if len(trials) != REF_TUNE_TRIALS or len(history) != REF_TUNE_TRIALS:
+        raise SystemExit(f"the tuner ran {len(trials)} trials, not {REF_TUNE_TRIALS}")
+    rows["tune"] = {"trials": [{k: v for k, v in t.items() if k != "launches"} for t in trials],
+                    "best_fitness": fit, "best": best}
+    log(f"tune: best fitness {fit:.5f} with {best}")
+    lap("tune")
+    rows["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 17: {rows['phase_s']:.1f} s; launches {total}")
+    return total, rows
+
+
 # which paths run each kernel (its launches must be counted on each); the
 # first is the kernel's own main path
 KERNEL_PATHS = {"deform_fwd": ("serving", "training", "augmented training",
                                "ablation family", "serving entry points", "from disk",
-                               "facade", "K1 variant A/B"),
+                               "facade", "reference weights", "K1 variant A/B"),
                 "deform_bwd": ("training", "augmented training", "ablation family",
-                               "from disk", "facade"),
+                               "from disk", "facade", "reference weights"),
                 "deform_fwd_simt": ("DCN A/B", "K1 variant A/B"),
                 "deform_bwd_simt": ("DCN A/B",),
-                "fused_augment": ("augmented training", "from disk", "facade", "K3 A/B"),
+                "fused_augment": ("augmented training", "from disk", "facade",
+                                  "reference weights", "K3 A/B"),
                 "fused_augment_simt": ("K3 A/B",),
                 **{name: ("K1 variant A/B",) for name in ALL_VARIANTS}}
 
@@ -2740,11 +3080,13 @@ def main() -> int:
         disk, disk_rows = phase_from_disk(step_ms["augmented"], Path(tmp))
         torch.cuda.empty_cache()
         facade, facade_rows = phase_facade(Path(tmp))
+        torch.cuda.empty_cache()
+        reference, reference_rows = phase_reference_weights(Path(tmp))
     torch.cuda.empty_cache()
     ab_launches, ab_rows, hopper_rows, plan_rows = phase_variant_ab()
     paths = {"serving": serving, "training": training, "augmented training": augmented,
              "ablation family": ablation, "serving entry points": entry, "from disk": disk,
-             "facade": facade,
+             "facade": facade, "reference weights": reference,
              "DCN A/B": dcn_ab,
              "K3 A/B": k3_ab, "K1 variant A/B": ab_launches}
     for k in kernels:
@@ -2770,6 +3112,9 @@ def main() -> int:
             k["serving_entry_points"] = entry_rows
             k["from_disk"] = disk_rows
             k["facade"] = facade_rows
+            k["reference_weights"] = reference_rows
+        if k["name"] == "deform_bwd":
+            k["reference_weights"] = {"train_step": reference_rows["train_step"]}
         if k["name"] in ALL_VARIANTS:
             k["ab"] = [r for r in ab_rows if r["variant"] == k["name"]]
         if k["name"] in FIRST_DESIGNS:

@@ -68,6 +68,8 @@ TRAIN_DEFAULTS = {
     "iou": 0.7,               # NMS IoU threshold
     "max_det": 300,           # max detections per image
     "agnostic_nms": False,    # NMS across classes (boxes of any class suppress each other)
+    "rect": False,            # rectangular validation batches (by aspect, stride-aligned)
+    "save_json": False,       # COCO json of the validation detections (predictions.json)
     # hyperparameters
     "lr0": 0.001,             # initial LR (the fork's value)
     "lrf": 0.01,              # final LR fraction

@@ -11,7 +11,9 @@ Three kinds of batch, as the JAX loader makes them:
   trainer augments them on the device (`ops/device_augment.py`);
 * validation (`train=False`): each item letterboxed to the square
   (`data.augment.letterbox`, `scaleup=False`), with `metas` holding the
-  `ratio_pad` that maps boxes back.
+  `ratio_pad` that maps boxes back; with `rect`, the images ordered by
+  aspect and each batch letterboxed to its own stride-aligned (h, w), the
+  JAX loader's rectangular plan (`_set_rectangle`).
 
 Train items are first resized so their long side is the train size
 (`resize_long_side`), as JAX's `_make_item` does. A dataset of image files
@@ -64,24 +66,26 @@ def pad_boxes(boxes, cls, max_gt: int):
     return gt_labels, gt_bboxes, mask_gt
 
 
-def collate(items, imgsz: int, max_gt: int, train: bool = True) -> Dict[str, np.ndarray]:
-    """Stack items into one batch: `img` (b, imgsz, imgsz, 3) uint8 RGB and
-    the targets of `pad_boxes`. Train items must already be square at
+def collate(items, imgsz, max_gt: int, train: bool = True) -> Dict[str, np.ndarray]:
+    """Stack items into one batch: `img` (b, h, w, 3) uint8 RGB and the
+    targets of `pad_boxes`; `imgsz` is an int (a square) or an (h, w) pair
+    (a rectangular validation batch). Train items must already be square at
     `imgsz`; validation items are letterboxed (`scaleup=False`) and the
     batch gets `metas` (`ori_shape`, `ratio_pad`, `path`) per image."""
-    imgs = np.empty((len(items), imgsz, imgsz, 3), np.uint8)
+    th, tw = (imgsz, imgsz) if isinstance(imgsz, int) else (int(imgsz[0]), int(imgsz[1]))
+    imgs = np.empty((len(items), th, tw, 3), np.uint8)
     boxes, metas = [], []
     for j, it in enumerate(items):
         img, bb = it["img"], it["boxes"]
         if not train:
-            img, ratio, pad = letterbox(img, (imgsz, imgsz))
+            img, ratio, pad = letterbox(img, (th, tw))
             if len(bb):
                 bb = bb.copy()
                 bb[:, [0, 2]] = bb[:, [0, 2]] * ratio[0] + pad[0]
                 bb[:, [1, 3]] = bb[:, [1, 3]] * ratio[1] + pad[1]
             metas.append({"ori_shape": it.get("ori_shape", it["img"].shape[:2]),
                           "ratio_pad": (ratio, pad), "path": it.get("path", "")})
-        elif img.shape[:2] != (imgsz, imgsz):
+        elif img.shape[:2] != (th, tw):
             raise ValueError(f"a {img.shape[1]}x{img.shape[0]} train item is not an {imgsz} "
                              "square: unaugmented training takes square items (the host "
                              "augmentation pipeline that places others is not ported); "
@@ -131,13 +135,17 @@ class DataLoader:
     `mosaic9`, one more for `mixup`); `device_augment=True` ships raw
     batches (`collate_raw`) for the trainer to augment on the device.
     Validation (`train=False`): dataset order, the short last batch kept,
-    `merge` 1, letterboxed batches with `metas`. `workers` threads make the
-    items (or decode a batch in C++), two batches ahead.
+    `merge` 1, letterboxed batches with `metas`; with `rect`, the order by
+    aspect and each batch's shape in `batch_shapes` (`stride`, as JAX's
+    validator passes it, the model's largest stride).
+    `workers` threads make the items (or decode a batch in C++), two
+    batches ahead.
     """
 
     def __init__(self, dataset, batch_size: int, imgsz: int, seed: int = 0,
                  train: bool = True, device_augment: bool = False,
-                 hyp: Optional[Dict] = None, workers: int = 4):
+                 hyp: Optional[Dict] = None, workers: int = 4, rect: bool = False,
+                 stride: int = 32):
         self.dataset, self.batch_size, self.imgsz = dataset, batch_size, imgsz
         self.seed, self.epoch, self.train = seed, 0, train
         self.device_augment = device_augment and train
@@ -147,6 +155,33 @@ class DataLoader:
         if train:
             merge = (9 if hyp.get("mosaic9", 0) else 4) + (1 if hyp.get("mixup", 0) else 0)
         self.max_gt = int(math.ceil(max(1, dataset.max_labels()) * merge / 8) * 8)
+        self.rect = rect and not train
+        self.batch_shapes = None
+        if self.rect:
+            self._set_rectangle(stride)
+
+    def _set_rectangle(self, stride: int):
+        """The JAX loader's plan: images sorted by aspect (h / w), and per
+        batch the shape `ceil(shape * imgsz / stride + 0.5) * stride` (the
+        pad of 0.5 JAX's validator passes), where
+        shape is (max aspect, 1) for a batch of landscapes, (1, 1 / min
+        aspect) for portraits, else square."""
+        s = np.array(self.dataset.shapes(), float)
+        ar = s[:, 0] / s[:, 1]
+        self._rect_order = np.argsort(ar).tolist()
+        ar = ar[self._rect_order]
+        bs, shapes = self.batch_size, []
+        for i in range(len(self)):
+            ari = ar[i * bs:(i + 1) * bs]
+            mini, maxi = ari.min(), ari.max()
+            shape = [1.0, 1.0]
+            if maxi < 1:
+                shape = [maxi, 1.0]
+            elif mini > 1:
+                shape = [1.0, 1.0 / mini]
+            shapes.append(shape)
+        self.batch_shapes = (np.ceil(np.array(shapes) * self.imgsz / stride + 0.5)
+                             .astype(int) * stride)
 
     def __len__(self) -> int:
         n = len(self.dataset) / self.batch_size
@@ -156,6 +191,8 @@ class DataLoader:
         self.epoch = epoch
 
     def _indices(self):
+        if self.rect:
+            return list(self._rect_order)
         idx = list(range(len(self.dataset)))
         if self.train:
             random.Random(self.seed + self.epoch).shuffle(idx)
@@ -167,10 +204,12 @@ class DataLoader:
             item = resize_long_side(item, self.imgsz)
         return item
 
-    def _collate(self, items) -> Dict[str, np.ndarray]:
+    def _collate(self, items, k: int) -> Dict[str, np.ndarray]:
+        """Batch `k` of the epoch from its items."""
         if self.device_augment:
             return collate_raw(items, self.imgsz, self.max_gt)
-        return collate(items, self.imgsz, self.max_gt, self.train)
+        shape = tuple(self.batch_shapes[k]) if self.rect else self.imgsz
+        return collate(items, shape, self.max_gt, self.train)
 
     def native_eligible(self) -> bool:
         """Whether batches go through the decoder's `load_batch`: device
@@ -228,10 +267,10 @@ class DataLoader:
                 return pool.submit(self._native_batch, chunks[k])
             return [pool.submit(self._make_item, i) for i in chunks[k]]
 
-        def result(pending):
+        def result(pending, k):
             if native:
                 return pending.result()
-            return self._collate([f.result() for f in pending])
+            return self._collate([f.result() for f in pending], k)
 
         def put(item) -> bool:
             # a consumer that leaves mid-epoch sets `stop`; without it the
@@ -247,9 +286,10 @@ class DataLoader:
         def producer():
             try:
                 pending: deque = deque(submit(k) for k in range(min(2, nb)))
-                nxt = len(pending)
+                nxt, done = len(pending), 0
                 while pending:
-                    batch = result(pending.popleft())
+                    batch = result(pending.popleft(), done)
+                    done += 1
                     if nxt < nb:
                         pending.append(submit(nxt))
                         nxt += 1

@@ -74,6 +74,7 @@ class YOLODataset:
         self.im_files = [r["im_file"] for r in records]
         self.labels = [np.concatenate([r["cls"][:, None], r["xywh"]], 1).astype(np.float32)
                        if len(r["cls"]) else np.zeros((0, 5), np.float32) for r in records]
+        self._shapes = [tuple(int(v) for v in r["shape"]) for r in records]
         LOGGER.info(f"dataset: {len(self.im_files)} images from {img_dir}")
 
     def __len__(self) -> int:
@@ -81,6 +82,11 @@ class YOLODataset:
 
     def max_labels(self) -> int:
         return max((len(lab) for lab in self.labels), default=0)
+
+    def shapes(self):
+        """(h, w) of every image, from the label scan (no decode): the
+        rectangular validation plan's input."""
+        return self._shapes
 
     def load_image(self, i: int) -> np.ndarray:
         """Image `i`, BGR uint8, through the cache when one is set."""

@@ -72,8 +72,15 @@ class SyntheticDetectionDataset:
     def max_labels(self) -> int:
         return self.max_objects
 
+    def shapes(self):
+        """(h, w) of every scene: all square."""
+        return [(self.imgsz, self.imgsz)] * self.n
+
     def __getitem__(self, i: int) -> Dict:
-        return synthetic_item(i, self.imgsz, self.nc, self.max_objects, self.seed)
+        """Scene `i` (`synthetic_item`) with the JAX dataset's file name,
+        `synthetic_<i>.jpg`, as its `path`."""
+        return {**synthetic_item(i, self.imgsz, self.nc, self.max_objects, self.seed),
+                "path": f"synthetic_{i}.jpg"}
 
 
 def val_dataset(imgsz: int, nc: int = 2, seed: int = 0) -> SyntheticDetectionDataset:

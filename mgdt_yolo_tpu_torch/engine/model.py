@@ -10,12 +10,15 @@ package's `mgdt_yolo_tpu/engine/model.py`, detect task only.
 * an `.npz` weight archive with its `<stem>_metadata.json` (the committed
   `weights/mgdt_n_synth.npz`, the port's checkpoints, the JAX exporter's
   archives), through `DetectionModel.from_npz`, pinned to the deform
-  semantics the metadata records.
+  semantics the metadata records, or
+* a reference `.pt` checkpoint (the fork's pickled module graph), through
+  `DetectionModel.from_pt`: the config its `train_args` name, the EMA
+  weights, pinned to exact deform semantics as the JAX facade pins them;
+  the checkpoint is kept as `ckpt`.
 
 Refused: a JAX orbax checkpoint directory (the JAX package's
-`YOLO(...).export(format="npz")` carries one across), a reference `.pt`
-checkpoint (ROADMAP queue 1, item 12), and the segment, pose and classify
-tasks (item 8). `track` (item 9) and `tune` (item 13) raise.
+`YOLO(...).export(format="npz")` carries one across), and the segment,
+pose and classify tasks (item 8). `track` (item 9) raises.
 
 Every method takes configuration keys as keyword arguments, over the
 facade's own (`model`, `task`), in JAX's cascade `{**self.overrides,
@@ -60,9 +63,9 @@ class YOLO:
 
     def __init__(self, model: Union[str, Path] = "yolov8n.yaml", task: Optional[str] = None,
                  device=None):
-        self.predictor = None
-        self.trainer = None
+        self.predictor = self.trainer = self.validator = None
         self.overrides: Dict[str, Any] = {}
+        self.ckpt = None
         model = str(model)
         self.task = task or guess_model_task(model)
         if self.task not in TASK_MAP:
@@ -72,7 +75,8 @@ class YOLO:
             self.model = TASK_MAP[self.task][0](model, device=self.device)
         else:
             self.model = self._load(model)
-        self.overrides.update(model=self.model.model_yaml or model, task=self.task)
+        self.overrides.setdefault("model", self.model.model_yaml or model)
+        self.overrides["task"] = self.task
 
     def _load(self, weights: str) -> DetectionModel:
         p = Path(weights)
@@ -81,10 +85,11 @@ class YOLO:
                 f"{weights!r} is a directory, as the JAX trainer's orbax checkpoints are: the "
                 f"port reads npz archives; carry it across with the JAX package's "
                 f"YOLO({weights!r}).export(format='npz')")
-        if p.suffix == ".pt":
-            raise NotImplementedError(
-                f"reference .pt checkpoints are not imported by the port yet (ROADMAP queue "
-                f"1, item 12): {weights!r}")
+        if p.suffix == ".pt" and p.is_file():
+            model, pt = DetectionModel.from_pt(p, self.device)
+            self.ckpt = pt.ckpt
+            self.overrides["model"] = pt.train_args.get("model") or "yolov8n.yaml"
+            return model
         if p.suffix == ".npz" and p.is_file():
             return load_npz_model(p, self.device)[0]
         raise FileNotFoundError(f"cannot load model from {weights!r}")
@@ -122,10 +127,15 @@ class YOLO:
         self.model.eval()
         return metrics
 
-    def val(self, **kwargs) -> Dict[str, float]:
+    def val(self, save_dir=None, **kwargs) -> Dict[str, float]:
         """Validate the model on the `val` split of `data` (the synthetic
-        validation set when it is None)."""
-        return TASK_MAP[self.task][2](self._args(kwargs, "val"))(self.model)
+        validation set when it is None); with `save_json`, predictions.json
+        goes to `save_dir` (the working directory by default, as JAX's)."""
+        args = self._args(kwargs, "val")
+        if save_dir is not None:
+            args["save_dir"] = str(save_dir)
+        self.validator = TASK_MAP[self.task][2](args)
+        return self.validator(self.model)
 
     def predict(self, source=None, stream: bool = False, **kwargs):
         """`Results` of every image of `source` (a generator with `stream`),
@@ -162,8 +172,15 @@ class YOLO:
     def track(self, source=None, **kwargs):
         raise NotImplementedError("tracking is not ported yet (ROADMAP queue 1, item 9)")
 
-    def tune(self, *args, **kwargs):
-        raise NotImplementedError("the tuner is not ported yet (ROADMAP queue 1, item 13)")
+    def tune(self, data: str = "synthetic", space: Optional[Dict] = None,
+             grace_period: int = 10, max_samples: int = 10,
+             train_args: Optional[Dict] = None, **kwargs):
+        """Hyperparameter search: `utils.tuner.run_ray_tune`, the built-in
+        seeded random search where ray does not import. Each trial trains
+        this model in place (`train`, run directory `tune_<t>`)."""
+        from ..utils.tuner import run_ray_tune
+        return run_ray_tune(self, data=data, space=space, grace_period=grace_period,
+                            max_samples=max_samples, train_args=train_args, **kwargs)
 
     # ---- info ------------------------------------------------------------
     @property

@@ -6,8 +6,8 @@ synthetic scenes or a YOLO-format dataset on disk (`data=`), with resume.
 before anything is built: an unknown key raises `SyntaxError` with the JAX
 suggestions, a value of the wrong type as the JAX `check_cfg_types` does
 (both checks are `cfg.check_dict_alignment` and `cfg.check_cfg_types`),
-and a key the port does not honour yet (`rect`, `save_json`,
-`label_smoothing`, ...) raises wherever it differs from the JAX default.
+and a key the port does not honour yet (`label_smoothing`, `dropout`,
+...) raises wherever it differs from the JAX default.
 
 `Optimizer` is the JAX trainer's optax chain step for step: SGD (Nesterov)
 or AdamW chosen as `optimizer="auto"` chooses, or RMSProp, gradients summed over
@@ -350,11 +350,15 @@ def get_dataset(args: Mapping, train: bool = True, model=None):
 
 def build_loader(args: Mapping, train: bool = True, model=None) -> DataLoader:
     """The loader the JAX trainer builds over `get_dataset`: batch `batch`,
-    seeded, device augment on the train split as `device_augment` says."""
+    seeded, device augment on the train split as `device_augment` says; the
+    validation split in rectangular batches with `rect`, aligned to the
+    model's largest stride, as the JAX validator builds it."""
     ds = get_dataset(args, train, model)
+    stride = int(max(model.stride)) if model is not None else 32
     return DataLoader(ds, args["batch"], args["imgsz"], seed=args["seed"], train=train,
                       device_augment=bool(args["device_augment"]) and train, hyp=args,
-                      workers=args.get("workers", 8))
+                      workers=args.get("workers", 8), rect=bool(args.get("rect")) and not train,
+                      stride=stride)
 
 
 def resume_state_path(npz) -> Path:
@@ -587,7 +591,8 @@ class Trainer:
             a = self.args
             if self.val_loader is None:
                 self.val_loader = build_loader(a, False, self.model)
-            self.validator = DetectionValidator(a)
+            # predictions.json (save_json) lands with the run, as in JAX
+            self.validator = DetectionValidator({**a, "save_dir": self.save_dir})
             self._val_model = copy.deepcopy(self.model)
         vm, ema = self._val_model, self.ema.state()
         with torch.no_grad():

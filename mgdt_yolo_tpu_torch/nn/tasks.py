@@ -241,6 +241,25 @@ class DetectionModel(nn.Module):
             model.names = {int(k): str(v) for k, v in names.items()}
         return model.to(dev)
 
+    @classmethod
+    def from_pt(cls, path, device=None):
+        """(model, checkpoint) of a reference `.pt` (`utils.torch_import.
+        read_torch_pt`): the config `train_args["model"]` names (JAX's
+        `yolov8n.yaml` where it names none) with the pickled model's class
+        count and names where it has them, filled non-strict from the EMA
+        weights (float32), the import's report in `model.import_report`, and
+        pinned to exact deform semantics: reference weights were trained
+        with mmcv's unbounded DCNv2."""
+        from ..utils.torch_import import load_torch_state_dict, read_torch_pt
+        dev = resolve_device(device)
+        pt = read_torch_pt(path)
+        model = cls(pt.train_args.get("model") or "yolov8n.yaml", nc=pt.nc, device="cpu")
+        model.set_deform_semantics("exact")
+        model.import_report = load_torch_state_dict(model, pt.state_dict)
+        if pt.names and len(pt.names) == model.nc:
+            model.names = dict(pt.names)
+        return model.to(dev), pt
+
     @property
     def device(self) -> torch.device:
         return next(self.parameters()).device

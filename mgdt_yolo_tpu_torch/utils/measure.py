@@ -22,6 +22,21 @@ def deform_fwd_bound_ms(B, H, W, C, O, dtype_name):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def deform_bwd_bound_ms(B, H, W, C, O, dtype_name):
+    """The DCNv2 backward's least time on the card, in ms, and what bounds
+    it: x, offset, mask, weight and the output gradient read once, d x,
+    d offset, d mask and d weight written once, against the two
+    contractions with the weight (tap gradient, weight gradient) plus the
+    sampling work per (pixel, tap, channel, corner): the recomputed sample,
+    the corner-weight gradient and the scatter into d x, 2 operations each."""
+    esize = 2 if dtype_name == "bfloat16" else 4
+    P = H * W
+    nbytes = (B * P * ((C + 18 + 9 + O) + (C + 18 + 9)) + 2 * 9 * C * O) * esize
+    flops = 2 * (2 * B * P * 9 * C * O) + 4 * 6 * B * P * 9 * C
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
 class float32_exact:
     """TF32 off for cuDNN convolutions and matrix products inside the block,
     so float32 on the card is compared as float32."""

@@ -153,8 +153,10 @@ def test_type_errors_match_jax(key, value):
 # the JAX keys the port does not honour yet, each at a value other than its
 # default (`resume`, `single_cls`, `fraction`, `cache` and RMSProp are
 # honoured since the from-disk path; `tests/test_torch_dataset.py` and
-# `tests/test_torch_resume.py` check their behaviour)
-UNHONOURED_CASES = [("rect", True), ("save_json", True), ("label_smoothing", 0.1),
+# `tests/test_torch_resume.py` check their behaviour; `rect` and `save_json`
+# since the rectangular validation, `tests/test_torch_rect_val.py` and
+# `tests/test_torch_val_json.py`)
+UNHONOURED_CASES = [("half", True), ("fsdp", True), ("label_smoothing", 0.1),
                     ("device", "cuda:0"), ("dropout", 0.1), ("overlap_mask", False),
                     ("mask_ratio", 8), ("save_hybrid", True), ("tp", 2)]
 
