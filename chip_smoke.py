@@ -67,7 +67,8 @@ Phases, each of which passes or ends the script with a non-zero exit:
    `predict` on synthetic scenes; K1 must have launched once per forward,
    and no other kernel;
 5. serving throughput (images/s) at batch 1, 32 and 128;
-6. training path, unaugmented (`cfg.default.UNAUGMENTED`, no validation):
+6. training path, unaugmented (`cfg.default.UNAUGMENTED`: the host pipeline
+   with every augmentation key at 0; no validation):
    the same weights unfused in `train()` mode, bf16 autocast, 640 px, the
    `Trainer` with the JAX defaults (SGD, accumulate 2) over a loader of
    labelled synthetic scenes at batch 32: a few optimizer updates and a
@@ -75,8 +76,8 @@ Phases, each of which passes or ends the script with a non-zero exit:
    kernels and the variants never), every loss be finite and the DCN weight
    get a finite, non-zero gradient;
 7. training on one fixed batch: the loss must fall; train images/s at b32;
-10. augmented training path: `Trainer.train()` with the JAX defaults
-   (`device_augment=True`: mosaic 1.0, scale 0.5, translate 0.1, HSV
+10. augmented training path: `Trainer.train()` with the JAX defaults but
+   `device_augment=True` (mosaic 1.0, scale 0.5, translate 0.1, HSV
    0.015/0.7/0.4; validation with the EMA weights after every epoch), SGD,
    b32, 640 px, 2 epochs of 2 micro-steps, `close_mosaic=1`: K3 and K2 once
    per micro-step (the SIMT K3 never), K1 once per micro-step and once per
@@ -156,7 +157,7 @@ Phases, each of which passes or ends the script with a non-zero exit:
    cut from the seeded scenes at phase 14's four sizes, JPEG through PIL,
    their labels, a dataset YAML),
    decode ms per image at each size; `Trainer(data=...)` with the JAX
-   defaults (device augment, validation every epoch, SGD), b32, 640 px, 2
+   defaults but device augment (validation every epoch, SGD), b32, 640 px, 2
    epochs (K3, K2 and K1 once per micro-step, K1 once per validation
    forward, no other kernel; finite losses; the checkpoint carries the
    dataset's names), `resume=True` for a third epoch (the restored state
@@ -187,8 +188,9 @@ Phases, each of which passes or ends the script with a non-zero exit:
    its magnitude; K1 launched once inside each forward of the program), the
    program against the eager float32 module in turns at b1 and b32 (CUDA
    events); `benchmark(formats=["torch", "pt2"])` at b1 and b32; and
-   `YOLO(<flagship YAML>).train(data=..., epochs=1)`, `.val()` and
-   `.predict()` (K3, K2 and K1 once per micro-step, K1 once per forward).
+   `YOLO(<flagship YAML>).train(data=..., epochs=1, device_augment=True)`,
+   `.val()` and `.predict()` (K3, K2 and K1 once per micro-step, K1 once
+   per forward).
 17. reference weights, on phase 15's dataset: a reference-layout `.pt`
    (the fork's pickled module graph in fp16, `tools/reference_pt.py`)
    written from the committed npz and loaded by `YOLO(pt)`: its state bit
@@ -202,15 +204,32 @@ Phases, each of which passes or ends the script with a non-zero exit:
    detections, the metrics the same with and without json); one fine-tuning epoch from the `.pt` (exact, device augment; K1,
    K2 and K3 launched, the checkpoint pinned exact), then K1 and K2 per
    launch inside its training step, exact against windowed in turns,
-   beside their bounds; and `YOLO(npz).tune` over a space of keys the port
-   honours, 2 trials of 1 epoch (each in its own run directory, fitness >=
+   beside their bounds; and `YOLO(npz).tune` over a space of keys the device
+   pipeline honours, with `device_augment=True`, 2 trials of 1 epoch (each in its own run directory, fitness >=
    0, K1, K2 and K3 launched in each). Its launches are the "reference
    weights" path.
+18. host augmentation, on phase 15's dataset: the flagship from the committed
+   weights through `Trainer.train()` with `device_augment=False` (JAX's
+   default: the host pipeline, cv2's arithmetic in numpy with its hot
+   loops in C++), b16, 640 px,
+   bf16, 2 micro-steps under the JAX defaults and 2 with degrees 10, shear
+   2, perspective 0.0005, mixup 0.5, mosaic9 0.5 and copy_paste 0.5 asked
+   with `device_augment=True` (the fallback: K1 and K2 once per micro-step,
+   K3 never; finite losses; `max_gt` for mosaic9 and mixup); a float32
+   training step on 4 images of the first host batch on the card against
+   the CPU (phase 13's limits, against the CPU's float64 step); the
+   pipeline's items/s with 1 and 8 threads, with its C++ hot loops and
+   with their numpy versions; a timed pass of the train loop (images/s, the share of its
+   wall time spent waiting for batches, the device's idle share) beside
+   phase 15's device path; and one `YOLO.tune` trial drawn from JAX's
+   default space (1 epoch, 2 micro-steps and a validation pass; K1 and K2,
+   no K3). Its launches are the "host augmentation" path.
    Phase 10 runs before phase 8, and phases 8, 9 and 11 run after it,
    because the CPU work leaves the host's threads busy, which slows the
    host-bound steps; phase 13 runs after phase 11, phase 14 after phase
    13, phase 15 after phase 14, phase 16 after phase 15, phase 17 after
-   phase 16, and phase 12, which times kernels only, runs last.
+   phase 16, phase 18 after phase 17, and phase 12, which times kernels
+   only, runs last.
 
 The last lines are the kernel table as JSON, the card's name and power
 limit, and `{"ok": true, "device": {...}}`. Without a CUDA device the script
@@ -277,10 +296,10 @@ TRAIN_BATCH = 32
 # scenes without validation, as they did before the augmented path existed
 TRAIN_OVERRIDES = {"optimizer": "SGD", "batch": TRAIN_BATCH, "epochs": 1, "val": False,
                    **UNAUGMENTED}
-# phase 10: the JAX defaults (device augment, validation every epoch)
+# phase 10: the JAX defaults but device augment (validation every epoch)
 AUG_EPOCHS, AUG_STEPS = 2, 2
 AUG_OVERRIDES = {"optimizer": "SGD", "batch": TRAIN_BATCH, "epochs": AUG_EPOCHS,
-                 "close_mosaic": 1}
+                 "close_mosaic": 1, "device_augment": True}
 # every variant kernel: the five variants (by their Hopper designs) and
 # their first designs, each (wrapper, plain version)
 ALL_VARIANTS = {**VARIANTS, **{simt: (fn, plain) for simt, fn, plain in FIRST_DESIGNS.values()}}
@@ -1490,22 +1509,24 @@ def _planted(fault):
     return wrong
 
 
-def _float32_train_step(dev, batch, fault=None, name=None):
+def _float32_train_step(dev, batch, fault=None, name=None, dtype=torch.float32):
     """Loss parts and the `grad_names` gradients of one float32 training
     forward and backward on `dev`: of the flagship from its weights, or of
     the config `name` (nc=2) from the port's seeded init; `fault` plants
-    `_planted(fault)` into the DCN's backward."""
+    `_planted(fault)` into the DCN's backward. `dtype=torch.float64` (the
+    CPU only) runs the model in float64 (the loss takes its maps in
+    float32 as always)."""
     model = (DetectionModel.from_npz(WEIGHTS, device=dev) if name is None else
-             DetectionModel(name, nc=ABLATION_NC, device=dev)).train()
+             DetectionModel(name, nc=ABLATION_NC, device=dev)).train().to(dtype)
     crit = Trainer(model, overrides={**TRAIN_OVERRIDES, "amp": False},
                    steps_per_epoch=1).criterion
-    b = to_device(batch, dev)
+    b = {k: v.to(dtype) if v.is_floating_point() else v for k, v in to_device(batch, dev).items()}
     real = cuda_deform.deform_bwd
     if fault:
         cuda_deform.deform_bwd = lambda *a: _planted(fault)(*real(*a))
     try:
         with float32_exact():
-            out = crit(model.forward_feats(b["img"].float() / 255.0), b, 0)
+            out = crit(model.forward_feats(b["img"].to(dtype) / 255.0), b, 0)
             out.total.backward()
     finally:
         cuda_deform.deform_bwd = real
@@ -2237,7 +2258,8 @@ def phase_serving_entry_points():
 # phase 14's sizes, JPEG (PIL's encoder, quality 95, 4:2:0)
 DISK_TRAIN, DISK_VAL, DISK_HOLD = 64, 16, 8
 DISK_NAMES = ("piglet", "sow")
-DISK_OVERRIDES = {"optimizer": "SGD", "batch": TRAIN_BATCH, "epochs": 2, "workers": 8}
+DISK_OVERRIDES = {"optimizer": "SGD", "batch": TRAIN_BATCH, "epochs": 2, "workers": 8,
+                  "device_augment": True}
 # the decoder's JPEG limit against cv2's decode (the fixtures' PNG twins):
 # the grey levels nvJPEG's IDCT may differ by (3 on the fixtures, on an
 # H100), and JAX's mean bound (tests/test_native_loader.py)
@@ -2333,21 +2355,15 @@ def _expect(launches, what, **want):
         raise SystemExit(f"{what} launched {launches}, not {want}")
 
 
-def _disk_epoch(trainer, repeats=4, workers=None):
-    """One timed pass through `train_step` of a train loader over the
-    trainer's dataset listed `repeats` times (every file decoded again; a
-    fresh iterator, two batches in flight): images/s, the share of the wall
+def _timed_train_loop(trainer, loader):
+    """One timed pass of `trainer.train_step` over `loader` (a fresh
+    iterator, two batches in flight): images/s (over the whole pass, and
+    with the wait for the first batch taken out), the share of the wall
     time the loop waited for the loader (all of it, and after the first
-    batch), and the device's idle share (torch.profiler). `workers`: the
-    decoder's threads (default the trainer's)."""
-    import copy
-    ds = copy.copy(trainer.loader.dataset)
-    ds.im_files, ds.labels = ds.im_files * repeats, ds.labels * repeats
-    loader = DataLoader(ds, TRAIN_BATCH, IMGSZ, seed=0, train=True, device_augment=True,
-                        hyp=trainer.args, workers=workers or trainer.args["workers"])
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    batch), and the device's idle share (torch.profiler, the device's
+    activity alone, as `_profiled_ms` records it)."""
     waits, n = [], 0
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         it = iter(loader)
@@ -2364,9 +2380,30 @@ def _disk_epoch(trainer, repeats=4, workers=None):
     busy_us = sum(device_us(e) for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA)
     return {"images": n, "batches": len(loader), "wall_s": wall, "images_per_s": n / wall,
+            "images_per_s_after_first": n / (wall - waits[0]),
             "first_batch_wait_s": waits[0], "loader_wait_share": sum(waits) / wall,
             "loader_wait_share_after_first": sum(waits[1:]) / (wall - waits[0]),
             "device_idle_share": 1.0 - busy_us / (wall * 1e6)}
+
+
+def _repeated(dataset, repeats):
+    """A copy of a file dataset that lists its files `repeats` times (every
+    file decoded again)."""
+    import copy
+    ds = copy.copy(dataset)
+    ds.im_files, ds.labels = ds.im_files * repeats, ds.labels * repeats
+    return ds
+
+
+def _disk_epoch(trainer, repeats=4, workers=None, dataset=None):
+    """`_timed_train_loop` over a train loader, routed and batched as the
+    trainer's, of `dataset` (default the trainer's) listed `repeats` times.
+    `workers`: the loader's threads (default the trainer's)."""
+    ds = _repeated(dataset or trainer.loader.dataset, repeats)
+    loader = DataLoader(ds, trainer.args["batch"], IMGSZ, seed=0, train=True,
+                        device_augment=trainer.device_augment, hyp=trainer.args,
+                        workers=workers or trainer.args["workers"])
+    return _timed_train_loop(trainer, loader)
 
 
 def phase_from_disk(resident_step_ms, root):
@@ -2518,7 +2555,7 @@ def phase_from_disk(resident_step_ms, root):
 # and b8, bit for bit expected, else within FACADE_EXPORT_TOL of its magnitude
 FACADE_BATCHES = (1, 8)
 FACADE_EXPORT_TOL = 1e-5
-FACADE_TRAIN = {"epochs": 1}
+FACADE_TRAIN = {"epochs": 1, "device_augment": True}
 
 
 def _same_bits(got, want, name):
@@ -2777,7 +2814,8 @@ def phase_facade(root):
 # landscape val images into a 368x648 and a 488x648 batch (RECT_MAPS)
 REF_VAL_BATCH = 8
 # keys the trainer and the device augmentation honour (the JAX default
-# space's degrees, shear, perspective, mixup and copy_paste are refused)
+# space's degrees, shear, perspective, mixup and copy_paste route a trial to
+# the host pipeline: phase 18 tunes over that space)
 REF_TUNE_SPACE = {"lr0": (1e-4, 1e-2), "momentum": (0.8, 0.95), "box": (5.0, 10.0),
                   "cls": (0.3, 1.0), "hsv_h": (0.0, 0.03), "hsv_s": (0.3, 0.9),
                   "translate": (0.0, 0.2), "scale": (0.2, 0.6), "fliplr": (0.0, 0.5)}
@@ -2954,7 +2992,7 @@ def phase_reference_weights(root):
     # a fine-tuning epoch from the .pt (exact, device augment)
     reset_counts()
     t0 = time.perf_counter()
-    metrics = y.train(data=str(data), epochs=1, imgsz=IMGSZ,
+    metrics = y.train(data=str(data), epochs=1, imgsz=IMGSZ, device_augment=True,
                       project=str(root / "reference" / "runs"))
     torch.cuda.synchronize()
     launches = read_counts()
@@ -3016,6 +3054,7 @@ def phase_reference_weights(root):
     best, fit, history = yt.tune(data=str(data), space=REF_TUNE_SPACE,
                                  max_samples=REF_TUNE_TRIALS,
                                  train_args={"epochs": 1, "imgsz": IMGSZ,
+                                             "device_augment": True,
                                              "project": str(project)})
     for t in trials:
         add(t["launches"])
@@ -3036,13 +3075,234 @@ def phase_reference_weights(root):
     return total, rows
 
 
+# phase 18: the host augmentation pipeline (`device_augment=False`, JAX's
+# default) on phase 15's dataset: HOST_STEPS micro-steps at HOST_BATCH under
+# the JAX defaults, as many with every key only the host pipeline honours
+# (asked with `device_augment=True`, which falls back with JAX's warning), the
+# float32 step on HOST_HOLD images of the first host batch card vs CPU at
+# phase 13's limits, then timed passes over the train split listed several
+# times: the pipeline's items/s by thread count (HOST_THREADS: threads ->
+# times listed), the host path's train loop (its wait share) and the device
+# path's at the same batch size (HOST_REPEATS times); and one tune trial from
+# JAX's default space
+HOST_BATCH, HOST_STEPS, HOST_HOLD, HOST_REPEATS = 16, 2, 4, 4
+HOST_ALL_ON = {"degrees": 10.0, "shear": 2.0, "perspective": 0.0005, "mixup": 0.5,
+               "mosaic9": 0.5, "copy_paste": 0.5}
+HOST_THREADS = {1: 2, 8: 4}
+
+
+def _host_overrides(data, root, **kw):
+    """The JAX defaults on phase 15's dataset, the share of its train split
+    that makes HOST_STEPS batches, no validation."""
+    return {"data": str(data), "batch": HOST_BATCH, "epochs": 1, "val": False,
+            "fraction": HOST_BATCH * HOST_STEPS / DISK_TRAIN, "optimizer": "SGD",
+            "workers": 8, "project": str(root), **kw}
+
+
+def _host_train(over, run, what):
+    """`Trainer.train()` of the flagship on the host path (counted): K1 and
+    K2 once a micro-step, K3 never; finite losses. Returns (trainer,
+    launches, wall seconds)."""
+    trainer = Trainer(DetectionModel.from_npz(WEIGHTS, device=DEVICE), overrides=over,
+                      save_dir=run)
+    loader = trainer.loader
+    if trainer.device_augment or not loader.host_augment or trainer.augment_fn is not None:
+        raise SystemExit(f"{what}: the trainer did not take the host pipeline")
+    steps = len(loader)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    _expect(launches, what, deform_fwd=steps, deform_bwd=steps)
+    _finite_history(trainer, what)
+    log(f"{what}: {steps} micro-steps of b{HOST_BATCH} in {wall:.2f} s "
+        f"({steps * HOST_BATCH / wall:.2f} images/s, the first epoch's start included), "
+        f"max_gt {loader.max_gt}, losses " +
+        ", ".join(f"{float(m['loss']):.4f}" for m in trainer.history) + f"; launches {launches}")
+    return trainer, launches, wall
+
+
+def _host_items_per_s(dataset, hyp, workers):
+    """The host pipeline alone: one pass of a HOST_BATCH train loader over
+    `dataset` with `workers` threads: items/s over the pass, and after the
+    first batch (the pool's start taken out)."""
+    loader = DataLoader(dataset, HOST_BATCH, IMGSZ, seed=0, train=True, hyp=hyp,
+                        workers=workers)
+    t0 = time.perf_counter()
+    it = iter(loader)
+    n = first = len(next(it)["img"])
+    t1 = time.perf_counter()
+    n += sum(len(b["img"]) for b in it)
+    t2 = time.perf_counter()
+    return {"items": n, "items_per_s": n / (t2 - t0),
+            "items_per_s_after_first": (n - first) / (t2 - t1)}
+
+
+def _host_card_vs_cpu(trainer):
+    """The first host batch the trainer trained on (a fresh loader over a
+    fresh dataset, so the same empty buffer and draws): its first HOST_HOLD
+    images through one training step, float32 on the card against the
+    model in float64 on the CPU, loss parts to PARTS_TOL and the DCN
+    weight's gradient to GRAD_TOL. The float64 step is the reference
+    because the float32 one on the CPU is not one on these images:
+    letterbox and mosaic padding make the early BatchNorms' statistics
+    cancel, and the CPU's float32 result moves with its thread count (on
+    one thread the DCN weight's gradient 7.5% of its scale from the float64
+    one on a batch like this, on eight 2.6e-4, measured on a CPU; on the
+    card's host 8.2e-3, `PERF.md` section 6)."""
+    from mgdt_yolo_tpu_torch.engine.trainer import build_loader
+    batch = next(iter(build_loader(trainer.args, True, trainer.model)))
+    batch = {k: np.ascontiguousarray(v[:HOST_HOLD]) for k, v in batch.items()}
+    (pg, gg), (pc, gc) = (_float32_train_step(dev, batch, dtype=dt)
+                          for dev, dt in ((DEVICE, torch.float32), ("cpu", torch.float64)))
+    gaps = _grad_gaps(gg, gc)
+    dcn = "model_16.DyDCNV2.weight"
+    parts = ((pg - pc.float()).abs() / pc.float().abs()).tolist()
+    ok = max(parts) <= PARTS_TOL and gaps[dcn] <= GRAD_TOL and gc[dcn].abs().max().item() > 0
+    log(f"a step on {HOST_HOLD} images of the first host batch, card float32 vs CPU float64: "
+        f"parts card {pg.tolist()} cpu {pc.tolist()} (relative {parts}); DCN weight gradient "
+        f"gap {gaps[dcn]:.3e} {'ok' if ok else 'FAIL'}; the other gradients " +
+        ", ".join(f"{n} {g:.3e}" for n, g in gaps.items() if n != dcn))
+    if not ok:
+        raise SystemExit("the card's float32 step on a host batch disagrees with the CPU's")
+    return {"parts_card": pg.tolist(), "parts_cpu_float64": pc.tolist(), "grad_gaps": gaps}
+
+
+def _loop_line(r):
+    return (f"{r['images_per_s']:.2f} images/s over {r['images']} images in {r['batches']} "
+            f"batches ({r['images_per_s_after_first']:.2f} with the wait for the first batch, "
+            f"{r['first_batch_wait_s'] * 1e3:.1f} ms, taken out), loader wait "
+            f"{r['loader_wait_share']:.1%} of the wall time ({r['loader_wait_share_after_first']:.1%}"
+            f" after the first batch), device idle {r['device_idle_share']:.1%}")
+
+
+def phase_host_augmentation(root):
+    """The flagship trained through the host augmentation pipeline on phase
+    15's dataset. Returns (launches, rows)."""
+    from mgdt_yolo_tpu_torch import YOLO
+    from mgdt_yolo_tpu_torch.engine.trainer import get_dataset
+    from mgdt_yolo_tpu_torch.utils.tuner import SEARCH_SPACE
+    log(f"== phase 18: host augmentation (device_augment=False, cv2's arithmetic in numpy, "
+        f"its hot loops in C++) on "
+        f"phase 15's dataset: MGDT-n, b{HOST_BATCH}, {IMGSZ} px, bf16, {HOST_STEPS} micro-steps "
+        f"under the JAX defaults and {HOST_STEPS} with {HOST_ALL_ON}; card vs CPU; the "
+        f"pipeline's items/s over the train split listed several times ("
+        f"{', '.join(f'{w} threads {k}x' for w, k in HOST_THREADS.items())}) and the train "
+        f"loop on the host and the device path over it {HOST_REPEATS}x; one tune trial from "
+        f"JAX's default space")
+    t_phase = time.perf_counter()
+    t_lap = [t_phase]
+    data = root / "pigs" / "data.yaml"
+    runs = root / "host"
+    total, rows = no_launches(), {"steps_s": {}}
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    def lap(step):
+        """The seconds `step` took, on the host's clock, into rows."""
+        now = time.perf_counter()
+        rows["steps_s"][step] = now - t_lap[0]
+        log(f"[phase 18: {step} took {now - t_lap[0]:.2f} s]")
+        t_lap[0] = now
+
+    tr, launches, wall = _host_train(_host_overrides(data, runs), runs / "defaults",
+                                     "JAX defaults")
+    add(launches)
+    rows["defaults"] = {"train_wall_s": wall, "images_per_s": HOST_STEPS * HOST_BATCH / wall,
+                        "max_gt": tr.loader.max_gt}
+    all_on, launches, wall = _host_train(
+        _host_overrides(data, runs, device_augment=True, **HOST_ALL_ON), runs / "all_on",
+        "every host-only key (device_augment=True, fallen back)")
+    add(launches)
+    rows["all_on"] = {"train_wall_s": wall, "images_per_s": HOST_STEPS * HOST_BATCH / wall,
+                      "max_gt": all_on.loader.max_gt}
+    want_gt = int(math.ceil(all_on.loader.dataset.max_labels() * 10 / 8) * 8)
+    if all_on.loader.max_gt != want_gt:
+        raise SystemExit(f"max_gt {all_on.loader.max_gt} with mosaic9 and mixup, not {want_gt}")
+    del all_on
+    lap("train")
+    rows["card_vs_cpu"] = _host_card_vs_cpu(tr)
+    lap("card_vs_cpu")
+
+    # the timed passes over the whole train split, listed several times
+    split = get_dataset({**tr.args, "fraction": 1.0}, True, tr.model)
+    rows["items_per_s_by_threads"] = {w: _host_items_per_s(_repeated(split, k), tr.args, w)
+                                      for w, k in HOST_THREADS.items()}
+    log("host pipeline by threads: " + "; ".join(
+        f"{w}: {r['items_per_s']:.2f} items/s over {r['items']} items, "
+        f"{r['items_per_s_after_first']:.2f} after the first batch"
+        for w, r in rows["items_per_s_by_threads"].items()))
+    lap("items_per_s")
+    reset_counts()
+    rows["train_loop"] = r = _disk_epoch(tr, HOST_REPEATS, dataset=split)
+    launches = read_counts()
+    add(launches)
+    steps = r["batches"]
+    _expect(launches, "the timed host loop", deform_fwd=steps, deform_bwd=steps)
+    log(f"train b{HOST_BATCH} on the host path: {_loop_line(r)}")
+    del tr
+    lap("host_loop")
+    # the device path at the same batch size, after the same two micro-steps
+    # (not counted: it is the comparison, not the host path)
+    dev = Trainer(DetectionModel.from_npz(WEIGHTS, device=DEVICE),
+                  overrides=_host_overrides(data, runs, device_augment=True))
+    if not dev.device_augment or dev.augment_fn is None:
+        raise SystemExit("the comparison's trainer did not take the device path")
+    dev.train()
+    rows["device_loop"] = d = _disk_epoch(dev, HOST_REPEATS, dataset=split)
+    log(f"train b{HOST_BATCH} on the device path from disk: {_loop_line(d)}; the host path "
+        f"at {r['images_per_s'] / d['images_per_s']:.3f}x its images/s "
+        f"({r['images_per_s_after_first'] / d['images_per_s_after_first']:.3f}x after the "
+        f"first batch)")
+    del dev, split
+    torch.cuda.empty_cache()
+    lap("device_loop")
+
+    # one trial of JAX's default space through the facade
+    yt = YOLO(str(WEIGHTS), device=DEVICE)
+    reset_counts()
+    t0 = time.perf_counter()
+    best, fit, history = yt.tune(
+        data=str(data), max_samples=1,
+        train_args={k: v for k, v in _host_overrides(data, runs / "tune").items()
+                    if k not in ("data", "val")})
+    torch.cuda.synchronize()
+    launches = read_counts()
+    add(launches)
+    tr = yt.trainer
+    steps, n_val = len(tr.loader), len(tr.val_loader)
+    drawn = {k: history[0][k] for k in ("degrees", "shear", "perspective", "mixup",
+                                        "copy_paste")}
+    _expect(launches, "the tune trial", deform_fwd=steps + n_val, deform_bwd=steps)
+    _finite_history(tr, "the tune trial")
+    if list(best) != list(SEARCH_SPACE) or not all(v > 0 for v in drawn.values()) or \
+            tr.device_augment or not fit >= 0 or \
+            not (runs / "tune" / "tune_0" / "results.csv").is_file():
+        raise SystemExit(f"the tune trial did not train JAX's default space on the host: {best}")
+    rows["tune"] = {"wall_s": time.perf_counter() - t0, "fitness": fit, "drawn": drawn}
+    log(f"tune trial from JAX's default space (drawn {drawn}): {steps} micro-steps and "
+        f"{n_val} validation forwards in {rows['tune']['wall_s']:.2f} s, fitness {fit:.5f}, "
+        f"launches {launches}")
+    lap("tune")
+    rows["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 18: {rows['phase_s']:.1f} s; launches {total}")
+    return total, rows
+
+
 # which paths run each kernel (its launches must be counted on each); the
 # first is the kernel's own main path
 KERNEL_PATHS = {"deform_fwd": ("serving", "training", "augmented training",
                                "ablation family", "serving entry points", "from disk",
-                               "facade", "reference weights", "K1 variant A/B"),
+                               "facade", "reference weights", "host augmentation",
+                               "K1 variant A/B"),
                 "deform_bwd": ("training", "augmented training", "ablation family",
-                               "from disk", "facade", "reference weights"),
+                               "from disk", "facade", "reference weights",
+                               "host augmentation"),
                 "deform_fwd_simt": ("DCN A/B", "K1 variant A/B"),
                 "deform_bwd_simt": ("DCN A/B",),
                 "fused_augment": ("augmented training", "from disk", "facade",
@@ -3082,11 +3342,13 @@ def main() -> int:
         facade, facade_rows = phase_facade(Path(tmp))
         torch.cuda.empty_cache()
         reference, reference_rows = phase_reference_weights(Path(tmp))
+        torch.cuda.empty_cache()
+        host, host_rows = phase_host_augmentation(Path(tmp))
     torch.cuda.empty_cache()
     ab_launches, ab_rows, hopper_rows, plan_rows = phase_variant_ab()
     paths = {"serving": serving, "training": training, "augmented training": augmented,
              "ablation family": ablation, "serving entry points": entry, "from disk": disk,
-             "facade": facade, "reference weights": reference,
+             "facade": facade, "reference weights": reference, "host augmentation": host,
              "DCN A/B": dcn_ab,
              "K3 A/B": k3_ab, "K1 variant A/B": ab_launches}
     for k in kernels:
@@ -3115,6 +3377,8 @@ def main() -> int:
             k["reference_weights"] = reference_rows
         if k["name"] == "deform_bwd":
             k["reference_weights"] = {"train_step": reference_rows["train_step"]}
+        if k["name"] in ("deform_fwd", "deform_bwd"):
+            k["host_augmentation"] = host_rows
         if k["name"] in ALL_VARIANTS:
             k["ab"] = [r for r in ab_rows if r["variant"] == k["name"]]
         if k["name"] in FIRST_DESIGNS:

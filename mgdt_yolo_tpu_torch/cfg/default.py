@@ -3,14 +3,16 @@ literals (the GPU host has no PyYAML).
 
 `CFG_DEFAULTS` is its full key set with its defaults: a key outside it is
 not a configuration key at all. `TRAIN_DEFAULTS` holds the keys that the
-port's trainer and validator honour, with the same values but one:
-`device_augment` is True here. The JAX default (False) selects the host
-augmentation pipeline, which needs cv2 and is not ported; the device
-pipeline is the port's only augmentation, so `device_augment=False` requires
-every augmentation key at 0 (`UNAUGMENTED`). `NEUTRAL_KEYS` are the keys the
-port accepts at any value because they change neither the weights nor the
-metrics; every other key of `CFG_DEFAULTS` must keep its default, or the
-`Trainer` raises (`engine/trainer.check_train_args`).
+port's trainer and validator honour, with the same values. As in JAX,
+`device_augment=False` (the default) augments on the host
+(`data.augment.train_transform`, cv2's arithmetic in numpy) and
+`device_augment=True` on the device, unless a key the device pipeline cannot
+honour (`degrees`, `shear`, `perspective`, `mixup`, `copy_paste`,
+`mosaic9`) is set, which falls back to the host with JAX's warning.
+`UNAUGMENTED` sets every augmentation key to 0 on the host path. `NEUTRAL_KEYS`
+are the keys the port accepts at any value because they change neither the
+weights nor the metrics; every other key of `CFG_DEFAULTS` must keep its
+default, or the `Trainer` raises (`engine/trainer.check_train_args`).
 """
 CFG_DEFAULTS = {
     "task": "detect", "mode": "train", "model": None, "data": None,
@@ -86,25 +88,27 @@ TRAIN_DEFAULTS = {
     "hsv_h": 0.015,           # HSV hue jitter fraction
     "hsv_s": 0.7,             # HSV saturation jitter fraction
     "hsv_v": 0.4,             # HSV value jitter fraction
-    "degrees": 0.0,           # rotation: not supported on the device
+    "degrees": 0.0,           # rotation (+/- degrees; host pipeline only)
     "translate": 0.1,         # translation (+/- fraction)
     "scale": 0.5,             # scale (+/- gain)
-    "shear": 0.0,             # shear: not supported on the device
-    "perspective": 0.0,       # perspective: not supported on the device
+    "shear": 0.0,             # shear (+/- degrees; host pipeline only)
+    "perspective": 0.0,       # perspective (+/- fraction; host pipeline only)
     "flipud": 0.0,            # vertical flip probability
     "fliplr": 0.0,            # horizontal flip probability (the fork's value)
     "mosaic": 1.0,            # mosaic probability
-    "mosaic9": 0.0,           # 3x3 mosaic: not supported on the device
-    "device_augment": True,   # mosaic/warp/flip/HSV on the device (the JAX default is False)
-    "mixup": 0.0,             # mixup: not supported on the device
-    "copy_paste": 0.0,        # copy-paste: not supported on the device
+    "mosaic9": 0.0,           # 3x3 mosaic probability (host pipeline only)
+    "device_augment": False,  # mosaic/warp/flip/HSV on the device (K3) instead of the host
+    "mixup": 0.0,             # mixup probability (host pipeline only)
+    "copy_paste": 0.0,        # copy-paste probability (segment items only: item 8)
 }
 
-# every augmentation key; with device_augment=False each must be 0
+# every augmentation key
 AUGMENT_KEYS = ("hsv_h", "hsv_s", "hsv_v", "degrees", "translate", "scale", "shear",
                 "perspective", "flipud", "fliplr", "mosaic", "mosaic9", "mixup", "copy_paste")
 
-# overrides for training on unaugmented scenes (square items at the train size)
+# overrides for training without augmentation: the host path with every key 0
+# (an item letterboxed to the train size; Albumentations' p=0.01 filters stay,
+# as in JAX)
 UNAUGMENTED = {"device_augment": False, **dict.fromkeys(AUGMENT_KEYS, 0.0)}
 
 # keys accepted at any value: they change neither the weights nor the metrics

@@ -1,9 +1,22 @@
-"""The letterbox: an aspect-preserving resize and pad, without cv2.
+"""The host augmentation pipeline and the letterbox, without cv2.
 
-A copy of the JAX package's `letterbox` (`mgdt_yolo_tpu/data/augment.py`),
-which resizes with `cv2.resize(..., INTER_LINEAR)`. The card's host has no
-cv2, so `resize_linear` computes cv2's 8-bit bilinear resize in numpy, by
-cv2's own fixed-point recipe:
+Counterparts of the JAX package's `mgdt_yolo_tpu/data/augment.py`, each by
+name: `letterbox`, `resize_long_side`, `augment_hsv`, `box_candidates`,
+`random_perspective`, `mosaic4`, `mosaic9`, `bbox_ioa`, `copy_paste`,
+`Albumentations` (its native path), `mixup` and `train_transform`, the
+pipeline the JAX trainer runs with its default `device_augment=False`:
+mosaic (4 or 9 tiles), the affine or perspective warp, mixup,
+Albumentations' four p=0.01 filters, the HSV jitter and the flips. Every
+random draw is the JAX function's, in its order and on the same
+`random.Random`, so the same seed gives the same boxes, classes and rng
+state; the pixels come from `data/imgproc.py`, cv2's arithmetic in numpy.
+Detect items only: an item carrying `masks` or `keypoints` raises (the
+segment and pose tasks are ROADMAP queue 1 item 8). The JAX
+`Albumentations` hands its work to the `albumentations` package where that
+imports; the port always takes the native path.
+
+`resize_linear` computes cv2's 8-bit bilinear resize in numpy, by cv2's
+own fixed-point recipe:
 
 1. each output column's source coordinate `(i + 0.5) * (src / dst) - 0.5`
    in float32 (the scale a double, as cv2 takes it: `1 / (dst / src)`),
@@ -26,9 +39,12 @@ integer (`tests/test_torch_letterbox.py`).
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+import random
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
+
+from . import imgproc
 
 COEF_BITS = 11
 COEF_SCALE = 1 << COEF_BITS  # cv2's INTER_RESIZE_COEF_SCALE
@@ -157,3 +173,357 @@ def resize_long_side(item: Dict, imgsz: int) -> Dict:
         boxes[:, [1, 3]] *= h / h0
         out["boxes"] = boxes
     return out
+
+
+PAD = (114, 114, 114)
+TASK_KEYS = ("masks", "keypoints")
+
+
+def _detect_only(items) -> None:
+    """Raise for an item of the segment or pose task."""
+    for it in items:
+        keys = [k for k in TASK_KEYS if k in it]
+        if keys:
+            raise NotImplementedError(
+                f"an item carrying {keys}: the port's host augmentation takes detect items "
+                "only; the segment and pose tasks are ROADMAP queue 1 item 8")
+
+
+def augment_hsv(img: np.ndarray, hgain: float = 0.015, sgain: float = 0.7,
+                vgain: float = 0.4, rng: Optional[random.Random] = None) -> np.ndarray:
+    """The HSV jitter through per-channel LUTs, as the JAX `augment_hsv`:
+    three uniform(-1, 1) gains drawn whenever any gain is set. BGR uint8."""
+    rng = rng or random
+    if hgain or sgain or vgain:
+        r = np.array([rng.uniform(-1, 1) for _ in range(3)]) * [hgain, sgain, vgain] + 1
+        x = np.arange(0, 256, dtype=r.dtype)
+        lut_hue = ((x * r[0]) % 180).astype(np.uint8)
+        lut_sat = np.clip(x * r[1], 0, 255).astype(np.uint8)
+        lut_val = np.clip(x * r[2], 0, 255).astype(np.uint8)
+        img = imgproc.hsv_luts(img, lut_hue, lut_sat, lut_val)
+    return img
+
+
+def box_candidates(box1: np.ndarray, box2: np.ndarray, wh_thr: float = 2,
+                   ar_thr: float = 100, area_thr: float = 0.1,
+                   eps: float = 1e-16) -> np.ndarray:
+    """The boxes that survived the warp: wider and taller than `wh_thr`
+    pixels, above `area_thr` of their area before it, aspect below
+    `ar_thr`. Boxes as (4, n) columns."""
+    w1, h1 = box1[2] - box1[0], box1[3] - box1[1]
+    w2, h2 = box2[2] - box2[0], box2[3] - box2[1]
+    ar = np.maximum(w2 / (h2 + eps), h2 / (w2 + eps))
+    return ((w2 > wh_thr) & (h2 > wh_thr) &
+            (w2 * h2 / (w1 * h1 + eps) > area_thr) & (ar < ar_thr))
+
+
+def random_perspective(img: np.ndarray, boxes_xyxy: np.ndarray, cls: np.ndarray,
+                       degrees: float = 0.0, translate: float = 0.1,
+                       scale: float = 0.5, shear: float = 0.0,
+                       perspective: float = 0.0,
+                       border: Tuple[int, int] = (0, 0),
+                       rng: Optional[random.Random] = None):
+    """The JAX `random_perspective` for detect items: the matrix
+    M = T @ S @ R @ P @ C from its draws (in double, bit for bit JAX's),
+    the image warped by it (affine, or perspective where `perspective` is
+    set; skipped where M is the identity and there is no border) onto
+    (h, w) = the image's size plus twice `border`, the boxes' corners
+    mapped, clipped, and kept by `box_candidates`. Returns (img, boxes,
+    cls)."""
+    rng = rng or random
+    h = img.shape[0] + border[0] * 2
+    w = img.shape[1] + border[1] * 2
+
+    C = np.eye(3)
+    C[0, 2] = -img.shape[1] / 2
+    C[1, 2] = -img.shape[0] / 2
+    P = np.eye(3)
+    P[2, 0] = rng.uniform(-perspective, perspective)
+    P[2, 1] = rng.uniform(-perspective, perspective)
+    R = np.eye(3)
+    a = rng.uniform(-degrees, degrees)
+    s = rng.uniform(1 - scale, 1 + scale)
+    R[:2] = imgproc.rotation_matrix_2d((0, 0), a, s)
+    S = np.eye(3)
+    S[0, 1] = math.tan(rng.uniform(-shear, shear) * math.pi / 180)
+    S[1, 0] = math.tan(rng.uniform(-shear, shear) * math.pi / 180)
+    T = np.eye(3)
+    T[0, 2] = rng.uniform(0.5 - translate, 0.5 + translate) * w
+    T[1, 2] = rng.uniform(0.5 - translate, 0.5 + translate) * h
+    M = T @ S @ R @ P @ C
+    if (border[0] != 0) or (border[1] != 0) or (M != np.eye(3)).any():
+        if perspective:
+            img = imgproc.warp_perspective(img, M, (w, h), PAD)
+        else:
+            img = imgproc.warp_affine(img, M[:2], (w, h), PAD)
+
+    n = len(boxes_xyxy)
+    if n:
+        xy = np.ones((n * 4, 3))
+        xy[:, :2] = boxes_xyxy[:, [0, 1, 2, 3, 0, 3, 2, 1]].reshape(n * 4, 2)
+        xy = xy @ M.T
+        xy = (xy[:, :2] / xy[:, 2:3] if perspective else xy[:, :2]).reshape(n, 8)
+        x = xy[:, [0, 2, 4, 6]]
+        y = xy[:, [1, 3, 5, 7]]
+        new = np.stack([x.min(1), y.min(1), x.max(1), y.max(1)], axis=1)
+        new[:, [0, 2]] = new[:, [0, 2]].clip(0, w)
+        new[:, [1, 3]] = new[:, [1, 3]].clip(0, h)
+        keep = box_candidates(boxes_xyxy.T * s, new.T)
+        boxes_xyxy = new[keep]
+        cls = cls[keep]
+    return img, boxes_xyxy, cls
+
+
+def _merge(all_boxes, all_cls):
+    boxes = np.concatenate(all_boxes) if all_boxes else np.zeros((0, 4), np.float32)
+    cls = np.concatenate(all_cls) if all_cls else np.zeros((0,), np.float32)
+    return boxes, cls
+
+
+def mosaic4(items: List[Dict], imgsz: int, rng: Optional[random.Random] = None):
+    """The 4-image mosaic of the JAX `mosaic4`: a (2s, 2s) canvas of 114, a
+    centre drawn in [s/2, 3s/2) on each axis, each item anchored there by
+    one corner (the first top-left, then top-right, bottom-left,
+    bottom-right), its boxes shifted with it and clipped to the canvas.
+    Returns (canvas, boxes, cls); the caller crops back to s with
+    `random_perspective(border=-s // 2)`."""
+    _detect_only(items[:4])
+    rng = rng or random
+    s = imgsz
+    yc = int(rng.uniform(s // 2, 2 * s - s // 2))
+    xc = int(rng.uniform(s // 2, 2 * s - s // 2))
+    canvas = np.full((s * 2, s * 2, 3), 114, dtype=np.uint8)
+    all_boxes, all_cls = [], []
+    for i, item in enumerate(items[:4]):
+        img = item["img"]
+        h, w = img.shape[:2]
+        left, top = i in (0, 2), i in (0, 1)
+        x1a = max(xc - w, 0) if left else xc
+        x2a = xc if left else min(xc + w, 2 * s)
+        y1a = max(yc - h, 0) if top else yc
+        y2a = yc if top else min(yc + h, 2 * s)
+        kw, kh = x2a - x1a, y2a - y1a
+        x1b, x2b = (w - kw, w) if left else (0, kw)
+        y1b, y2b = (h - kh, h) if top else (0, kh)
+        canvas[y1a:y2a, x1a:x2a] = img[y1b:y2b, x1b:x2b]
+        padw, padh = x1a - x1b, y1a - y1b
+        if len(item["boxes"]):
+            b = item["boxes"].copy()
+            b[:, [0, 2]] += padw
+            b[:, [1, 3]] += padh
+            all_boxes.append(b)
+            all_cls.append(item["cls"])
+    boxes, cls = _merge(all_boxes, all_cls)
+    boxes[:, [0, 2]] = boxes[:, [0, 2]].clip(0, 2 * s)
+    boxes[:, [1, 3]] = boxes[:, [1, 3]].clip(0, 2 * s)
+    return canvas, boxes, cls
+
+
+def mosaic9(items: List[Dict], imgsz: int, rng: Optional[random.Random] = None):
+    """The 9-image mosaic of the JAX `mosaic9`: the first item in the centre
+    of a (3s, 3s) canvas, the others around it clockwise from the top, each
+    placed by its neighbours' sizes, then the window [s/2, s/2 + 2s) cut
+    out, so the caller's `random_perspective(border=-s // 2)` crops it as
+    it crops `mosaic4`. Takes no draw. Returns (canvas, boxes, cls)."""
+    _detect_only(items[:9])
+    s = imgsz
+    img9 = np.full((s * 3, s * 3, 3), 114, dtype=np.uint8)
+    hp = wp = -1
+    h0 = w0 = s
+    all_boxes, all_cls = [], []
+    for i, item in enumerate(items[:9]):
+        img = item["img"]
+        h, w = img.shape[:2]
+        if i == 0:  # centre
+            h0, w0 = h, w
+            c = s, s, s + w, s + h
+        elif i == 1:  # top
+            c = s, s - h, s + w, s
+        elif i == 2:  # top right
+            c = s + wp, s - h, s + wp + w, s
+        elif i == 3:  # right
+            c = s + w0, s, s + w0 + w, s + h
+        elif i == 4:  # bottom right
+            c = s + w0, s + hp, s + w0 + w, s + hp + h
+        elif i == 5:  # bottom
+            c = s + w0 - w, s + h0, s + w0, s + h0 + h
+        elif i == 6:  # bottom left
+            c = s + w0 - wp - w, s + h0, s + w0 - wp, s + h0 + h
+        elif i == 7:  # left
+            c = s - w, s + h0 - h, s, s + h0
+        else:  # top left
+            c = s - w, s + h0 - hp - h, s, s + h0 - hp
+        padw, padh = c[:2]
+        x1, y1, x2, y2 = (max(v, 0) for v in c)
+        img9[y1:y2, x1:x2] = img[y1 - padh:y1 - padh + (y2 - y1),
+                                 x1 - padw:x1 - padw + (x2 - x1)]
+        hp, wp = h, w
+        if len(item["boxes"]):
+            b = item["boxes"].copy()
+            b[:, [0, 2]] += padw
+            b[:, [1, 3]] += padh
+            all_boxes.append(b)
+            all_cls.append(item["cls"])
+    off = s // 2
+    canvas = img9[off:off + 2 * s, off:off + 2 * s]
+    boxes, cls = _merge(all_boxes, all_cls)
+    boxes -= off
+    boxes[:, [0, 2]] = boxes[:, [0, 2]].clip(0, 2 * s)
+    boxes[:, [1, 3]] = boxes[:, [1, 3]].clip(0, 2 * s)
+    return canvas, boxes, cls
+
+
+def bbox_ioa(box1: np.ndarray, box2: np.ndarray, eps: float = 1e-7) -> np.ndarray:
+    """Intersection over box2's area, (n, m), for xyxy boxes."""
+    ix1 = np.maximum(box1[:, None, 0], box2[None, :, 0])
+    iy1 = np.maximum(box1[:, None, 1], box2[None, :, 1])
+    ix2 = np.minimum(box1[:, None, 2], box2[None, :, 2])
+    iy2 = np.minimum(box1[:, None, 3], box2[None, :, 3])
+    inter = np.clip(ix2 - ix1, 0, None) * np.clip(iy2 - iy1, 0, None)
+    area2 = ((box2[:, 2] - box2[:, 0]) * (box2[:, 3] - box2[:, 1]))[None]
+    return inter / (area2 + eps)
+
+
+def copy_paste(img: np.ndarray, boxes: np.ndarray, cls: np.ndarray,
+               masks: np.ndarray, p: float = 0.5,
+               rng: Optional[random.Random] = None):
+    """Segment copy-paste, as the JAX `copy_paste`: of the instances whose
+    left-right flipped box overlaps every box by IoA < 0.30, round(p * n)
+    drawn by `rng.sample` are pasted flipped (the pixels under the flipped
+    mask), their labels and masks added. It needs per-instance masks (n, H,
+    W), so the pipeline reaches it only for segment items (ROADMAP queue 1
+    item 8); without masks it returns its inputs and draws nothing."""
+    rng = rng or random
+    if not p or masks is None or not len(masks):
+        return img, boxes, cls, masks
+    h, w = img.shape[:2]
+    flip_boxes = boxes.copy()
+    flip_boxes[:, [0, 2]] = w - boxes[:, [2, 0]]
+    ioa = bbox_ioa(flip_boxes, boxes)
+    candidates = np.nonzero((ioa < 0.30).all(1))[0]
+    k = round(p * len(candidates))
+    if k == 0:
+        return img, boxes, cls, masks
+    picks = rng.sample(list(candidates), k=k)
+    img = img.copy()
+    flipped_img = img[:, ::-1]
+    new_boxes, new_cls, new_masks = [boxes], [cls], [masks]
+    for j in picks:
+        fm = masks[j][:, ::-1]
+        sel = fm > 0.5
+        img[sel] = flipped_img[sel]
+        new_boxes.append(flip_boxes[j:j + 1])
+        new_cls.append(cls[j:j + 1])
+        new_masks.append(fm[None])
+    return (img, np.concatenate(new_boxes), np.concatenate(new_cls),
+            np.concatenate(new_masks))
+
+
+class Albumentations:
+    """The JAX `Albumentations` on its native path: with probability `p`
+    (and only for an image with labels), Blur, MedianBlur, ToGray and CLAHE,
+    each at p=0.01 in that order, each with its own draw: a box filter and
+    a median filter of size `rng.choice([3, 5, 7])`, grey by the RGB
+    weights, and CLAHE (clip limit uniform in [1, 4), 8x8 tiles) on the L
+    channel of LAB. As in JAX, ToGray and CLAHE take the BGR data as RGB.
+    None of them moves a pixel, so boxes and classes pass through."""
+
+    def __init__(self, p: float = 1.0):
+        self.p = p
+
+    @staticmethod
+    def _native(img: np.ndarray, rng) -> np.ndarray:
+        if rng.random() < 0.01:
+            img = imgproc.box_blur(img, rng.choice([3, 5, 7]))
+        if rng.random() < 0.01:
+            img = imgproc.median_blur(img, rng.choice([3, 5, 7]))
+        if rng.random() < 0.01:
+            img = imgproc.gray_to_bgr(imgproc.rgb_to_gray(img))
+        if rng.random() < 0.01:
+            clip = rng.uniform(1.0, 4.0)
+            lab = imgproc.rgb_to_lab(img)
+            lab[:, :, 0] = imgproc.clahe(lab[:, :, 0], clip, (8, 8))
+            img = imgproc.lab_to_rgb(lab)
+        return img
+
+    def __call__(self, img, boxes_xyxy, cls, rng: Optional[random.Random] = None):
+        rng = rng or random
+        if not len(cls) or rng.random() >= self.p:
+            return img, boxes_xyxy, cls
+        return self._native(img, rng), boxes_xyxy, cls
+
+
+ALBUMENTATIONS = Albumentations(p=1.0)
+
+
+def mixup(item_a: Dict, item_b: Dict, rng: Optional[random.Random] = None) -> Dict:
+    """The JAX `mixup`: a Beta(32, 32) blend of two images of one shape (the
+    ratio from numpy's generator seeded by `rng.randrange(2**31)`), with
+    the union of their labels."""
+    rng = rng or random
+    r = np.random.default_rng(rng.randrange(2 ** 31)).beta(32.0, 32.0)
+    img = (item_a["img"].astype(np.float32) * r +
+           item_b["img"].astype(np.float32) * (1 - r)).astype(np.uint8)
+    boxes = np.concatenate([item_a["boxes"], item_b["boxes"]])
+    cls = np.concatenate([item_a["cls"], item_b["cls"]])
+    return {"img": img, "boxes": boxes, "cls": cls}
+
+
+def _letterboxed(item: Dict, shape) -> Tuple[np.ndarray, np.ndarray]:
+    """`item`'s image letterboxed to `shape` (scaleup) and its boxes mapped."""
+    img, r, (dw, dh) = letterbox(item["img"], shape, scaleup=True)
+    boxes = item["boxes"].copy()
+    if len(boxes):
+        boxes[:, [0, 2]] = boxes[:, [0, 2]] * r[0] + dw
+        boxes[:, [1, 3]] = boxes[:, [1, 3]] * r[1] + dh
+    return img, boxes
+
+
+def train_transform(item: Dict, imgsz: int, hyp: Mapping, buffer: List[Dict],
+                    rng: Optional[random.Random] = None) -> Dict:
+    """The JAX `train_transform` for a detect item: with probability
+    `mosaic` (and 3 items in `buffer`) a mosaic of it and items drawn from
+    `buffer` (9 tiles with probability `mosaic9` and 8 in the buffer),
+    else the item letterboxed to `imgsz`; then `random_perspective` back to
+    `imgsz` square; mixup with probability `mixup` (always drawn) with a
+    letterboxed buffer item; `ALBUMENTATIONS`; `augment_hsv`; the flips.
+    `hyp` maps the keys of `cfg/default.py` (the mosaic9, mixup,
+    copy_paste and flip keys default to JAX's fallbacks). `copy_paste`
+    needs masks, so it is a no-op here, as it is in JAX for a detect item.
+    Mutates nothing; returns {"img", "boxes", "cls"}."""
+    _detect_only([item])
+    rng = rng or random
+    use_mosaic = rng.random() < hyp.get("mosaic", 1.0)
+    if use_mosaic and len(buffer) >= 3:
+        use9 = (rng.random() < hyp.get("mosaic9", 0.0)) and len(buffer) >= 8
+        n_extra = 8 if use9 else 3
+        picks = [item] + [buffer[rng.randrange(len(buffer))] for _ in range(n_extra)]
+        img, boxes, cls = mosaic9(picks, imgsz) if use9 else mosaic4(picks, imgsz, rng)
+        border = (-imgsz // 2, -imgsz // 2)
+    else:
+        img, boxes = _letterboxed(item, (imgsz, imgsz))
+        cls = item["cls"]
+        border = (0, 0)
+    img, boxes, cls = random_perspective(
+        img, boxes, cls, degrees=hyp["degrees"], translate=hyp["translate"],
+        scale=hyp["scale"], shear=hyp["shear"], perspective=hyp["perspective"],
+        border=border, rng=rng)
+    # drawn whatever the buffer holds, so later draws do not depend on it
+    if rng.random() < hyp.get("mixup", 0.0) and buffer:
+        other = buffer[rng.randrange(len(buffer))]
+        o_img, o_boxes = _letterboxed(other, img.shape[:2])
+        mixed = mixup({"img": img, "boxes": boxes, "cls": cls},
+                      {"img": o_img, "boxes": o_boxes, "cls": other["cls"]}, rng)
+        img, boxes, cls = mixed["img"], mixed["boxes"], mixed["cls"]
+    img, boxes, cls = ALBUMENTATIONS(img, boxes, cls, rng)
+    img = augment_hsv(img, hyp["hsv_h"], hyp["hsv_s"], hyp["hsv_v"], rng)
+    h, w = img.shape[:2]
+    if rng.random() < hyp.get("flipud", 0.0):
+        img = np.flipud(img).copy()
+        if len(boxes):
+            boxes[:, [1, 3]] = h - boxes[:, [3, 1]]
+    if rng.random() < hyp.get("fliplr", 0.0):
+        img = np.fliplr(img).copy()
+        if len(boxes):
+            boxes[:, [0, 2]] = w - boxes[:, [2, 0]]
+    return {"img": img, "boxes": boxes, "cls": cls}

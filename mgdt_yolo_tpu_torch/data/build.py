@@ -4,8 +4,9 @@ counterparts of `collate`, `collate_raw` and `DataLoader` in
 
 Three kinds of batch, as the JAX loader makes them:
 
-* train, `device_augment=False`: square items already at the train size,
-  stacked unaugmented (`collate`);
+* train, `device_augment=False` (the JAX default): each item through the
+  host augmentation pipeline (`data.augment.train_transform`) to an
+  imgsz square, then stacked (`collate`);
 * train, `device_augment=True`: raw top-left-anchored uint8 squares with
   their content size `img_hw` and unaugmented labels (`collate_raw`); the
   trainer augments them on the device (`ops/device_augment.py`);
@@ -16,11 +17,20 @@ Three kinds of batch, as the JAX loader makes them:
   JAX loader's rectangular plan (`_set_rectangle`).
 
 Train items are first resized so their long side is the train size
-(`resize_long_side`), as JAX's `_make_item` does. A dataset of image files
-(`YOLODataset`) without a cache is ingested, in the device-augment case,
-by the decoder's threaded `load_batch` (decode, resize, paste in C++); the
-images it declines are redone through the item path, as JAX redoes them.
-A producer thread keeps two batches in flight ahead of the consumer.
+(`resize_long_side`), as JAX's `_make_item` does. On the host path the
+item at epoch position p is transformed with a `random.Random` seeded
+`(seed * 1000003 + epoch * 7919 + p) & 0x7FFFFFFF` and the dataset's
+`buffer`: the last 32 resized items before it, kept across epochs, from
+which the mosaic and mixup draw their partners. The JAX loader fills that
+buffer as its threads finish, so its batches depend on their timing unless
+`workers=1`; here the buffer of each position is the one JAX's `workers=1`
+gives, whatever the thread count: items are decoded ahead in parallel, each
+transform is handed the buffer of its position, and the transforms run in
+parallel. A dataset of image files (`YOLODataset`) without a cache is
+ingested, in the device-augment case, by the decoder's threaded
+`load_batch` (decode, resize, paste in C++); the images it declines are
+redone through the item path, as JAX redoes them. A producer thread keeps
+two batches in flight ahead of the consumer.
 """
 from __future__ import annotations
 
@@ -30,15 +40,16 @@ import random
 import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, List, Mapping, Optional
 
 import numpy as np
 import torch
 
 from . import augment
-from .augment import resize_long_side
+from .augment import resize_long_side, train_transform
 
 PAD_VALUE = 114
+BUFFER_SIZE = 32   # the JAX dataset's mosaic/mixup buffer
 
 
 def letterbox(img: np.ndarray, new_shape=(640, 640)):
@@ -69,9 +80,9 @@ def pad_boxes(boxes, cls, max_gt: int):
 def collate(items, imgsz, max_gt: int, train: bool = True) -> Dict[str, np.ndarray]:
     """Stack items into one batch: `img` (b, h, w, 3) uint8 RGB and the
     targets of `pad_boxes`; `imgsz` is an int (a square) or an (h, w) pair
-    (a rectangular validation batch). Train items must already be square at
-    `imgsz`; validation items are letterboxed (`scaleup=False`) and the
-    batch gets `metas` (`ori_shape`, `ratio_pad`, `path`) per image."""
+    (a rectangular validation batch). Train items are the host pipeline's
+    `imgsz` squares; validation items are letterboxed (`scaleup=False`) and
+    the batch gets `metas` (`ori_shape`, `ratio_pad`, `path`) per image."""
     th, tw = (imgsz, imgsz) if isinstance(imgsz, int) else (int(imgsz[0]), int(imgsz[1]))
     imgs = np.empty((len(items), th, tw, 3), np.uint8)
     boxes, metas = [], []
@@ -85,11 +96,6 @@ def collate(items, imgsz, max_gt: int, train: bool = True) -> Dict[str, np.ndarr
                 bb[:, [1, 3]] = bb[:, [1, 3]] * ratio[1] + pad[1]
             metas.append({"ori_shape": it.get("ori_shape", it["img"].shape[:2]),
                           "ratio_pad": (ratio, pad), "path": it.get("path", "")})
-        elif img.shape[:2] != (th, tw):
-            raise ValueError(f"a {img.shape[1]}x{img.shape[0]} train item is not an {imgsz} "
-                             "square: unaugmented training takes square items (the host "
-                             "augmentation pipeline that places others is not ported); "
-                             "use device_augment=True")
         imgs[j] = img[..., ::-1]  # BGR -> RGB, stays uint8
         boxes.append(bb)
     gt_labels, gt_bboxes, mask_gt = pad_boxes(boxes, [it["cls"] for it in items], max_gt)
@@ -132,8 +138,11 @@ class DataLoader:
     batches dropped, items resized to the train size on their long side,
     targets padded to `max_gt = ceil(max_labels * merge / 8) * 8`, where
     `merge` is the room of the merges `hyp` asks for (4 for a mosaic, 9 for
-    `mosaic9`, one more for `mixup`); `device_augment=True` ships raw
-    batches (`collate_raw`) for the trainer to augment on the device.
+    `mosaic9`, one more for `mixup`); the items go through the host
+    pipeline with `hyp` (the keys of `cfg/default.py`, which a `Trainer`
+    gives a loader built without them; iterating the host path with none
+    raises), or, with `device_augment=True`, raw batches
+    (`collate_raw`) are shipped for the trainer to augment on the device.
     Validation (`train=False`): dataset order, the short last batch kept,
     `merge` 1, letterboxed batches with `metas`; with `rect`, the order by
     aspect and each batch's shape in `batch_shapes` (`stride`, as JAX's
@@ -150,15 +159,24 @@ class DataLoader:
         self.seed, self.epoch, self.train = seed, 0, train
         self.device_augment = device_augment and train
         self.workers = max(1, workers)
-        hyp = hyp or {}
-        merge = 1
-        if train:
-            merge = (9 if hyp.get("mosaic9", 0) else 4) + (1 if hyp.get("mixup", 0) else 0)
-        self.max_gt = int(math.ceil(max(1, dataset.max_labels()) * merge / 8) * 8)
+        self.set_hyp(hyp)
+        # the mosaic/mixup buffer: the dataset's, as JAX keeps it there
+        self.buffer = getattr(dataset, "buffer", None)
+        if self.buffer is None:
+            self.buffer = []
         self.rect = rect and not train
         self.batch_shapes = None
         if self.rect:
             self._set_rectangle(stride)
+
+    def set_hyp(self, hyp: Optional[Mapping]) -> None:
+        """Take `hyp` and size `max_gt` for the merges it asks for (None:
+        a mosaic of 4, as the JAX loader sizes it)."""
+        self.hyp = hyp
+        h, merge = hyp or {}, 1
+        if self.train:
+            merge = (9 if h.get("mosaic9", 0) else 4) + (1 if h.get("mixup", 0) else 0)
+        self.max_gt = int(math.ceil(max(1, self.dataset.max_labels()) * merge / 8) * 8)
 
     def _set_rectangle(self, stride: int):
         """The JAX loader's plan: images sorted by aspect (h / w), and per
@@ -203,6 +221,31 @@ class DataLoader:
         if self.train:
             item = resize_long_side(item, self.imgsz)
         return item
+
+    @property
+    def host_augment(self) -> bool:
+        """Whether the train items go through the host pipeline."""
+        return self.train and not self.device_augment
+
+    def _transform(self, item: Dict, picks: List[Dict], pos: int, epoch: int) -> Dict:
+        """`train_transform` of the item at epoch position `pos` with the
+        buffer `picks`, its rng seeded as the JAX loader seeds it."""
+        rng = random.Random((self.seed * 1000003 + epoch * 7919 + pos) & 0x7FFFFFFF)
+        return train_transform(item, self.imgsz, self.hyp, picks, rng)
+
+    def _schedule(self, pool, items, k: int, epoch: int):
+        """Hand the transforms of batch `k` to the pool, in epoch order:
+        each item gets the buffer of its position, then joins it. `items`
+        are the futures of its resized items."""
+        futs = []
+        for j, f in enumerate(items):
+            item = f.result()
+            futs.append(pool.submit(self._transform, item, list(self.buffer),
+                                    k * self.batch_size + j, epoch))
+            self.buffer.append(item)
+            if len(self.buffer) > BUFFER_SIZE:
+                self.buffer.pop(0)
+        return futs
 
     def _collate(self, items, k: int) -> Dict[str, np.ndarray]:
         """Batch `k` of the epoch from its items."""
@@ -251,26 +294,38 @@ class DataLoader:
                 "mask_gt": mask_gt}
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        if self.host_augment and self.hyp is None:
+            raise ValueError("a host-path train loader needs `hyp`: build it with hyp=..., or "
+                             "hand it to a Trainer, which gives it its arguments")
         idx = self._indices()
         nb, bs = len(self), self.batch_size
         chunks = [idx[k * bs:(k + 1) * bs] for k in range(nb)]
-        native = self.native_eligible()
+        native, host, epoch = self.native_eligible(), self.host_augment, self.epoch
         # the native path: whole batches, two at a time; the item path: the
-        # items of the two batches in flight on `workers` threads
+        # items of the two batches in flight on `workers` threads, and on
+        # the host path their transforms, scheduled in epoch order
         pool = ThreadPoolExecutor(2 if native else self.workers,
                                   thread_name_prefix="mgdt-data")
         q: queue.Queue = queue.Queue(maxsize=4)
         stop = threading.Event()
+        pending: deque = deque()      # the batches in flight, in order
+        ahead: Dict[int, list] = {}   # host path: transforms handed out ahead
 
         def submit(k):
             if native:
                 return pool.submit(self._native_batch, chunks[k])
             return [pool.submit(self._make_item, i) for i in chunks[k]]
 
-        def result(pending, k):
+        def result(items, k):
             if native:
-                return pending.result()
-            return self._collate([f.result() for f in pending], k)
+                return items.result()
+            if host:
+                # this batch's transforms, and the next one's, so the pool
+                # has work while this batch's last items finish
+                items = ahead.pop(k, None) or self._schedule(pool, items, k, epoch)
+                if pending:
+                    ahead[k + 1] = self._schedule(pool, pending[0], k + 1, epoch)
+            return self._collate([f.result() for f in items], k)
 
         def put(item) -> bool:
             # a consumer that leaves mid-epoch sets `stop`; without it the
@@ -285,7 +340,7 @@ class DataLoader:
 
         def producer():
             try:
-                pending: deque = deque(submit(k) for k in range(min(2, nb)))
+                pending.extend(submit(k) for k in range(min(2, nb)))
                 nxt, done = len(pending), 0
                 while pending:
                     batch = result(pending.popleft(), done)

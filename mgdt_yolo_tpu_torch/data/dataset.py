@@ -12,7 +12,7 @@ from __future__ import annotations
 import logging
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -52,7 +52,9 @@ class YOLODataset:
     sets every class to 0; `cache` keeps decoded images in memory
     ("ram"/True) or as `.npy` files beside them ("disk"). A file whose
     format the port does not decode (`bmp`, `tif`, `tiff`, `webp`) raises
-    `native.UnsupportedFormat`, naming it."""
+    `native.UnsupportedFormat`, naming it. `buffer` holds the train
+    loader's last resized items, the mosaic and mixup partners, across
+    epochs."""
 
     def __init__(self, img_dir: str, fraction: float = 1.0, single_cls: bool = False,
                  cache=False, nc: Optional[int] = None, workers: int = 8):
@@ -76,6 +78,7 @@ class YOLODataset:
                        if len(r["cls"]) else np.zeros((0, 5), np.float32) for r in records]
         self._shapes = [tuple(int(v) for v in r["shape"]) for r in records]
         LOGGER.info(f"dataset: {len(self.im_files)} images from {img_dir}")
+        self.buffer: List[Dict] = []
 
     def __len__(self) -> int:
         return len(self.im_files)

@@ -2,15 +2,13 @@
 labels.
 
 A copy of the JAX package's `SyntheticDetectionDataset`
-(`mgdt_yolo_tpu/data/dataset.py`, unaugmented), the scenes the committed
-weights were trained on, so a benchmark feeds trained-density inputs and the
-trainer has labelled data. Same seed, same pixels, same boxes. The JAX
-trainer resizes its 320 px training scenes to the train size with cv2; the
-port makes them at the train size instead.
+(`mgdt_yolo_tpu/data/dataset.py`), the scenes the committed weights were
+trained on, so a benchmark feeds trained-density inputs and the trainer has
+labelled data. Same seed, same pixels, same boxes.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 
@@ -58,13 +56,15 @@ def synthetic_batch(batch: int, imgsz: int = 640, nc: int = 2, n: int = 64,
 
 
 class SyntheticDetectionDataset:
-    """`n` labelled scenes at `imgsz`, unaugmented; items as the JAX
-    dataset's (`img` BGR uint8, `boxes` xyxy pixels, `cls`)."""
+    """`n` labelled scenes at `imgsz`; items as the JAX dataset's (`img` BGR
+    uint8, `boxes` xyxy pixels, `cls`). `buffer` holds the train loader's
+    last resized items, the mosaic and mixup partners, across epochs."""
 
     def __init__(self, n: int = 64, imgsz: int = 320, nc: int = 2,
                  max_objects: int = 6, seed: int = 0):
         self.n, self.imgsz, self.nc = n, imgsz, nc
         self.max_objects, self.seed = max_objects, seed
+        self.buffer: List[Dict] = []
 
     def __len__(self) -> int:
         return self.n

@@ -1,6 +1,14 @@
 """Training engine: the JAX trainer's optimizer, step and loop in PyTorch
-(`mgdt_yolo_tpu/engine/trainer.py`) with `device_augment=True`, on the
-synthetic scenes or a YOLO-format dataset on disk (`data=`), with resume.
+(`mgdt_yolo_tpu/engine/trainer.py`), on the synthetic scenes or a
+YOLO-format dataset on disk (`data=`), with resume.
+
+Augmentation is routed as JAX routes it (`check_augment_args`): the host
+pipeline (`data.augment.train_transform`, run by the loader's threads) with
+the JAX default `device_augment=False`, the device pipeline
+(`ops/device_augment.py`, K3) with `device_augment=True`, except where a key
+the device pipeline cannot honour is set (`degrees`, `shear`,
+`perspective`, `mixup`, `copy_paste`, `mosaic9`): then JAX's warning is
+logged and the host pipeline runs.
 
 `check_train_args` holds the overrides to the JAX configuration's rules
 before anything is built: an unknown key raises `SyntaxError` with the JAX
@@ -24,8 +32,11 @@ root), the rate, then a constant-momentum trace; no weight decay and no
 bias group (not `torch.optim.RMSprop`, whose alpha is 0.99 and eps outside
 the root).
 
-`Trainer` runs micro-batches (raw uint8 batches augmented on the device
-first, mosaic closed for the last `close_mosaic` epochs; the forward in
+`Trainer` runs micro-batches (the host pipeline's batches, or raw uint8
+batches augmented on the device first; mosaic closed for the last
+`close_mosaic` epochs: on the host from that epoch (none when
+`close_mosaic` exceeds `epochs`, as in JAX), on the device from that
+micro-step; the forward in
 bf16 autocast on the GPU with float32 parameters, the loss in float32),
 keeps an EMA of the parameters that advances only on batches that stepped
 the optimizer, and after every epoch validates with the EMA parameters and
@@ -47,8 +58,7 @@ import numpy as np
 import torch
 
 from ..cfg import check_cfg_types, check_dict_alignment
-from ..cfg.default import (AUGMENT_KEYS, CFG_DEFAULTS, NEUTRAL_KEYS, PORTED_OPTIMIZERS,
-                           TRAIN_DEFAULTS)
+from ..cfg.default import CFG_DEFAULTS, NEUTRAL_KEYS, PORTED_OPTIMIZERS, TRAIN_DEFAULTS
 from ..data.build import DataLoader, to_device
 from ..data.synthetic import SyntheticDetectionDataset, val_dataset
 from ..device import names_device
@@ -224,9 +234,8 @@ class EMA:
 
 def device_augment_unsupported(args: Mapping) -> Dict[str, float]:
     """The augmentation keys the device pipeline cannot honour, where set:
-    full random perspective, mixup, copy-paste and the 3x3 mosaic. The JAX
-    trainer falls back to its host pipeline for them; the port has none,
-    so the `Trainer` raises."""
+    full random perspective, mixup, copy-paste and the 3x3 mosaic; the
+    trainer takes the host pipeline for them, as JAX's does."""
     return {k: args.get(k, 0) for k in
             ("degrees", "shear", "perspective", "mixup", "copy_paste", "mosaic9")
             if args.get(k, 0)}
@@ -251,21 +260,20 @@ class EarlyStopping:
         return stop
 
 
-def check_augment_args(a: Mapping) -> None:
-    """Raise where the keys ask for augmentation the port cannot run:
-    keys outside the device pipeline, or any augmentation key with
-    `device_augment=False` (the host pipeline is not ported)."""
-    if a["device_augment"]:
-        unsupported = device_augment_unsupported(a)
-        if unsupported:
-            raise ValueError(f"device_augment=True cannot honour {unsupported}, and the host "
-                             "augmentation pipeline they need is not ported")
-        return
-    on = {k: a[k] for k in AUGMENT_KEYS if a[k]}
-    if on:
-        raise ValueError(f"device_augment=False with augmentation keys {on}: the host "
-                         "augmentation pipeline is not ported; set them to 0 "
-                         "(cfg.default.UNAUGMENTED) or use device_augment=True")
+def uses_device_augment(a: Mapping) -> bool:
+    """Whether the device pipeline runs: `device_augment` set and no key it
+    cannot honour."""
+    return bool(a["device_augment"]) and not device_augment_unsupported(a)
+
+
+def check_augment_args(a: Mapping) -> bool:
+    """JAX's routing: True where the device pipeline runs. With
+    `device_augment=True` and a key it cannot honour set, JAX's warning is
+    logged and the host pipeline runs (False)."""
+    if a["device_augment"] and not uses_device_augment(a):
+        LOGGER.warning(f"device_augment=True cannot honor {device_augment_unsupported(a)} — "
+                       "falling back to the host augmentation pipeline")
+    return uses_device_augment(a)
 
 
 def _unhonoured_reason(key: str, device) -> str:
@@ -350,13 +358,14 @@ def get_dataset(args: Mapping, train: bool = True, model=None):
 
 def build_loader(args: Mapping, train: bool = True, model=None) -> DataLoader:
     """The loader the JAX trainer builds over `get_dataset`: batch `batch`,
-    seeded, device augment on the train split as `device_augment` says; the
+    seeded, the train split augmented on the device or the host as
+    `uses_device_augment` routes it, with `args` as its hyperparameters; the
     validation split in rectangular batches with `rect`, aligned to the
     model's largest stride, as the JAX validator builds it."""
     ds = get_dataset(args, train, model)
     stride = int(max(model.stride)) if model is not None else 32
     return DataLoader(ds, args["batch"], args["imgsz"], seed=args["seed"], train=train,
-                      device_augment=bool(args["device_augment"]) and train, hyp=args,
+                      device_augment=uses_device_augment(args) and train, hyp=args,
                       workers=args.get("workers", 8), rect=bool(args.get("rect")) and not train,
                       stride=stride)
 
@@ -373,16 +382,18 @@ class Trainer:
     `overrides` replace keys of `cfg.default.TRAIN_DEFAULTS` and are held to
     the JAX configuration first (`check_train_args`: an unknown key, a
     wrong type or a key the port does not honour raises); the loader's
-    `device_augment` must match theirs. Without a `loader`, the train split
-    of `data` is loaded (`build_loader`: the synthetic scenes when `data`
-    is None). `steps_per_epoch` defaults to the loader's length. With
+    `device_augment` must match the routing (`check_augment_args`), and a
+    host-path loader built without `hyp` takes the trainer's arguments.
+    Without a `loader`, the train split of `data` is loaded
+    (`build_loader`: the synthetic scenes when `data` is None). `steps_per_epoch` defaults to the loader's length. With
     `save_dir`, every epoch writes `<save_dir>/results.csv` and
     `weights/last.npz` (EMA parameters, current batch statistics) with its
     resume state, and `weights/best.npz` when its fitness is the best so
     far. Validation runs on `val_loader`, by default the `val` split of
     `data` (the JAX trainer's synthetic validation set when it is None).
     `augment_fn(batch, step)` replaces the default device augmentation,
-    which draws from a generator seeded from (`seed`, step). With
+    which draws from a generator seeded from (`seed`, step); on the host
+    path there is none unless given. With
     `resume=True`, the newest `*/weights/last` under `project` is restored
     here (`load_resume`) and training carries on at its next epoch.
     """
@@ -392,14 +403,19 @@ class Trainer:
                  augment_fn: Optional[Callable] = None):
         self.args = a = check_train_args(overrides,
                                          None if model is None else model.device)
-        check_augment_args(a)
-        if loader is not None and loader.device_augment != bool(a["device_augment"]):
+        self.device_augment = check_augment_args(a)
+        if loader is not None and loader.device_augment != self.device_augment:
             raise ValueError(f"the loader's device_augment={loader.device_augment} does not "
-                             f"match the trainer's device_augment={a['device_augment']}")
+                             f"match the trainer's, {self.device_augment} (device_augment="
+                             f"{a['device_augment']}, unsupported on the device: "
+                             f"{device_augment_unsupported(a) or 'none'})")
         if loader is None:
             loader = build_loader(a, True, model)
-        elif a["data"] not in (None, "synthetic", "synthetic.yaml"):
-            dataset_dict(a["data"], model)
+        else:
+            if loader.hyp is None:
+                loader.set_hyp(a)
+            if a["data"] not in (None, "synthetic", "synthetic.yaml"):
+                dataset_dict(a["data"], model)
         self.model, self.loader, self.val_loader = model.train(), loader, val_loader
         self.device = model.device
         self.save_dir = Path(save_dir) if save_dir is not None else None
@@ -424,10 +440,11 @@ class Trainer:
         self.epoch = 0
         self.start_epoch = 0  # the first epoch `train` runs (after a resume, the next one)
         self.amp = bool(a["amp"]) and self.device.type == "cuda"
-        # close_mosaic as a step threshold: mosaic off from this micro-step on
+        # close_mosaic on the device as a step threshold: mosaic off from this
+        # micro-step on (the host path closes it by epoch, in `train`)
         self.mosaic_off_step = ((a["epochs"] - a["close_mosaic"]) * nb
-                                if a["close_mosaic"] else None)
-        self.augment_fn = augment_fn or (self.augment if a["device_augment"] else None)
+                                if a["close_mosaic"] and self.device_augment else None)
+        self.augment_fn = augment_fn or (self.augment if self.device_augment else None)
         self.draws = None     # the default augmentation's last draws
         self.history = []     # every micro-step's metrics (device tensors)
         self.metrics = {}     # the last validation's results
@@ -553,6 +570,13 @@ class Trainer:
         for epoch in range(self.start_epoch, a["epochs"]):
             self.epoch = epoch
             self.loader.set_epoch(epoch)
+            # JAX closes it at epoch `epochs - close_mosaic`, so never when
+            # that is negative; a resume past it keeps it closed
+            if a["close_mosaic"] and not self.device_augment and \
+                    epoch >= a["epochs"] - a["close_mosaic"] >= 0 and \
+                    self.loader.hyp.get("mosaic"):
+                LOGGER.info("closing mosaic augmentation")
+                self.loader.set_hyp({**self.loader.hyp, "mosaic": 0.0})
             # loss parts summed on the device; one host sync per epoch
             msum, seen = None, 0
             for batch in self.loader:

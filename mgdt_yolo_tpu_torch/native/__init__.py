@@ -14,6 +14,9 @@ with the compiler's message, and nothing falls back to another decoder.
 * `decode(path)` / `decode_batch(paths)`: the full-size BGR image
   `cv2.imread` gives, EXIF orientation applied.
 
+The host augmentation's hot loops, `src/host_augment.cpp`, are built the
+same way and bound by `data/imgproc.py`.
+
 Formats: JPEG (where the machine has a CUDA device) and PNG. Any other
 suffix of `IMG_FORMATS` (`bmp`, `tif`, `tiff`, `webp`) raises
 `UnsupportedFormat`, naming it; `decode` raises `DecodeError` for a file

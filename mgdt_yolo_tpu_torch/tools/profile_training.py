@@ -7,7 +7,9 @@ Loads the flagship MGDT-n from `weights/mgdt_n_synth.npz`, unfused, in
 `train()` mode, and takes micro-steps of the `Trainer` (the JAX defaults
 with SGD: accumulate = round(64 / batch), bf16 autocast, float32
 parameters) on one resident batch of labelled synthetic 640 px scenes:
-unaugmented (`cfg.default.UNAUGMENTED`) by default, or, with
+unaugmented (`cfg.default.UNAUGMENTED`: the host pipeline with every key at
+0, which leaves these square scenes as they are but for Albumentations'
+p=0.01 filters) by default, or, with
 `--device-augment`, a raw batch that every micro-step augments on the card
 first (mosaic, warp, K3's flip + HSV + normalise, at the JAX defaults).
 Prints, with the card's name and power limit:
@@ -77,7 +79,7 @@ def main(argv=None):
     ds = SyntheticDetectionDataset(n=args.batch, imgsz=640, seed=0)
     loader = DataLoader(ds, args.batch, 640, device_augment=args.device_augment)
     overrides = {"optimizer": "SGD", "batch": args.batch, "val": False,
-                 **({} if args.device_augment else UNAUGMENTED)}
+                 **({"device_augment": True} if args.device_augment else UNAUGMENTED)}
     trainer = Trainer(model, loader, overrides=overrides)
     steps = max(args.steps // trainer.accumulate, 1) * trainer.accumulate
     batch = to_device(next(iter(loader)), dev)

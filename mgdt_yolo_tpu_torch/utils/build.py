@@ -10,7 +10,9 @@ together and waits for all of them.
 The image decoder, `native/src/host_loader.cpp` (name `HOST_LOADER`), is
 built the same way by g++: with nvJPEG (`-DMGDT_NVJPEG`, the toolkit's
 headers and libraries) where a CUDA device is present, else with its PNG
-decoder alone; `build_all` takes it among the names.
+decoder alone; so is the host augmentation's C++ (`native/src/
+host_augment.cpp`, name `HOST_AUGMENT`, floating point contraction off).
+`build_all` takes both among the names.
 """
 from __future__ import annotations
 
@@ -30,6 +32,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 HOST_LOADER = "host_loader"
 HOST_SRC = PKG_ROOT / "native" / "src" / f"{HOST_LOADER}.cpp"
 HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+HOST_AUGMENT = "host_augment"
+HOST_AUGMENT_SRC = PKG_ROOT / "native" / "src" / f"{HOST_AUGMENT}.cpp"
+HOST_AUGMENT_FLAGS = (*HOST_FLAGS, "-ffp-contract=off")
 
 
 def nvcc_path() -> str:
@@ -66,6 +71,10 @@ def library_path(name: str) -> Path:
         h = hashlib.sha256(HOST_SRC.read_bytes())
         h.update(" ".join(host_command()).encode())
         return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    if name == HOST_AUGMENT:
+        h = hashlib.sha256(HOST_AUGMENT_SRC.read_bytes())
+        h.update(" ".join(HOST_AUGMENT_FLAGS).encode())
+        return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
@@ -83,6 +92,8 @@ def _start_build(name: str):
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     if name == HOST_LOADER:
         cmd = ["g++", "-o", str(tmp), *host_command()]
+    elif name == HOST_AUGMENT:
+        cmd = ["g++", "-o", str(tmp), *HOST_AUGMENT_FLAGS, str(HOST_AUGMENT_SRC)]
     else:
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     try:
@@ -94,13 +105,13 @@ def _start_build(name: str):
 
 
 def build_all(names=None) -> dict:
-    """Build every named source (default: all of `csrc/*.cu` and the
-    decoder) in parallel.
+    """Build every named source (default: all of `csrc/*.cu`, the decoder
+    and the host augmentation's C++) in parallel.
 
     Returns {name: compiler output ('' where the library was already built)}.
     Raises RuntimeError with the compiler's output if any build fails.
     """
-    names = names or [*sorted(p.stem for p in CSRC.glob("*.cu")), HOST_LOADER]
+    names = names or [*sorted(p.stem for p in CSRC.glob("*.cu")), HOST_LOADER, HOST_AUGMENT]
     started = {n: _start_build(n) for n in names}
     logs, failed = {}, []
     for name, (proc, tmp, out) in started.items():
@@ -120,7 +131,7 @@ def build_all(names=None) -> dict:
 
 @functools.cache
 def load_library(name: str, signatures: tuple) -> ctypes.CDLL:
-    """Build `csrc/<name>.cu` (or the decoder, `HOST_LOADER`) if needed and load it (once per process), with
+    """Build `csrc/<name>.cu` (or `HOST_LOADER`, `HOST_AUGMENT`) if needed and load it (once per process), with
     the C signatures of its functions set: `signatures` is a tuple of
     (function name, restype, argtypes tuple). Pointers and the stream are
     `ctypes.c_void_p`, so ctypes passes them whole."""

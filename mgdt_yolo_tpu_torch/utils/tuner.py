@@ -6,16 +6,13 @@ key order, so its hyperparameters are the JAX search's bit for bit, and
 trains the model in place under the run name `tune_<t>`. `run_ray_tune`
 takes that search where ray does not import, as JAX's does.
 
-Two places where the port parts from JAX on purpose:
-
-* every drawn configuration is held to the trainer's rules
-  (`check_train_args`, `check_augment_args`) before the first trial: JAX's
-  default space draws `degrees`, `shear`, `perspective`, `mixup` and
-  `copy_paste` above 0 in every trial, which the JAX trainer hands to its
-  host cv2 pipeline and the port cannot run (ROADMAP queue 1, item 15), so
-  the search raises naming them instead of failing trial after trial;
-* an exception inside a trial ends the search (JAX scores the trial -1 and
-  goes on), so a failing kernel launch cannot hide behind a finished tune.
+JAX's default space draws `degrees`, `shear`, `perspective`, `mixup` and
+`copy_paste` above 0 in every trial; the trainer takes them through the host
+augmentation pipeline, as JAX's does, so every trial trains. Every drawn
+configuration is held to the trainer's rules (`check_train_args`) before the
+first trial. One place where the port parts from JAX on purpose: an
+exception inside a trial ends the search (JAX scores the trial -1 and goes
+on), so a failing kernel launch cannot hide behind a finished tune.
 """
 from __future__ import annotations
 
@@ -23,7 +20,7 @@ import logging
 import random
 from typing import Dict, Optional
 
-from ..engine.trainer import check_augment_args, check_train_args, device_augment_unsupported
+from ..engine.trainer import check_train_args
 
 LOGGER = logging.getLogger(__name__)
 
@@ -59,22 +56,10 @@ def _sample(rng: random.Random, space: Optional[Dict] = None) -> Dict[str, float
 
 
 def check_trials(configs, base: Dict) -> None:
-    """Raise before any training where a trial's keys would be refused: the
-    augmentation keys the port has no pipeline for (named, with the queue
-    item), or any key `check_train_args` refuses."""
-    checked = [check_train_args({**cfg, **base}) for cfg in configs]
-    refused = {}
-    for args in checked:
-        for k in device_augment_unsupported(args):
-            refused[k] = refused.get(k, 0) + 1
-    if refused:
-        raise ValueError(
-            f"the search space draws {', '.join(refused)} above 0 (in {max(refused.values())} "
-            f"of {len(configs)} trials): the port trains with the device augmentation "
-            f"pipeline only, and the host pipeline these keys need is not ported (ROADMAP "
-            f"queue 1, item 15); tune over a space without them")
-    for args in checked:
-        check_augment_args(args)
+    """Raise before any training where a trial's keys would be refused by
+    `check_train_args`."""
+    for cfg in configs:
+        check_train_args({**cfg, **base})
 
 
 def run_tune(model, data: str = "synthetic", n_trials: int = 10, epochs_per_trial: int = 10,

@@ -195,8 +195,14 @@ def test_refused_sources_tasks_and_modes_raise(tmp_path):
     y = YOLO("yolov8n.yaml", device="cpu")
     with pytest.raises(NotImplementedError, match="item 9"):
         y.track("x.png")
-    with pytest.raises(ValueError, match="degrees.*shear.*perspective.*mixup.*copy_paste"):
-        y.tune()
+    # JAX's default space is no longer refused: each trial trains with it
+    calls = []
+    y.train = lambda **kw: calls.append(kw) or {"fitness": 0.0}
+    y.tune(max_samples=2)
+    assert len(calls) == 2 and all(kw[k] > 0 for kw in calls
+                                   for k in ("degrees", "shear", "perspective", "mixup",
+                                             "copy_paste"))
+    del y.train
     with pytest.raises(NotImplementedError, match="item 8"):
         y.val(task="pose")
     with pytest.raises(TypeError, match="conf"):

@@ -95,13 +95,11 @@ def _close(got, want, rel, what, atol=0.0):
 # ---------------------------------------------------------------------------
 
 def test_train_defaults_match_yaml():
-    """Every key has the JAX default but `device_augment`, the documented
-    deviation: the JAX default selects the host (cv2) pipeline, not ported."""
+    """Every key has the JAX default, `device_augment=False` (the host
+    augmentation pipeline) included."""
     yaml_cfg = yaml_load(ROOT / "mgdt_yolo_tpu/cfg/default.yaml")
+    assert TRAIN_DEFAULTS["device_augment"] is False
     for k, v in TRAIN_DEFAULTS.items():
-        if k == "device_augment":
-            assert v is True and yaml_cfg[k] is False
-            continue
         assert yaml_cfg[k] == v, k
 
 
@@ -231,6 +229,11 @@ def test_synthetic_data_and_collate_match_jax():
     for k in ("img", "gt_labels", "gt_bboxes", "mask_gt"):
         assert got[k].dtype == want[k].dtype
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    # the host path takes its hyperparameters from the caller or a Trainer
+    with pytest.raises(ValueError, match="needs `hyp`"):
+        list(loader)
+    loader.set_hyp(TRAIN_DEFAULTS)
+    assert loader.max_gt == 24
     batches = list(loader)
     assert len(batches) == 1 and batches[0]["img"].shape == (4, 96, 96, 3)
 
@@ -581,20 +584,25 @@ UNSUPPORTED_CASES = [{}, {"degrees": 10.0, "mixup": 0.3}, {"shear": 2.0},
                                                          "mosaic9-copy_paste-perspective"])
 def test_device_augment_unsupported_matches_jax_and_raises(keys):
     """The same keys as the JAX guard; where JAX falls back to its host
-    pipeline the port raises, and `device_augment=False` with any
-    augmentation key set raises too."""
+    pipeline the port's `Trainer` does too (its loader on the host path, no
+    device augmentation function), and with `device_augment=False` every
+    augmentation key is taken by the host pipeline."""
     from mgdt_yolo_tpu.cfg import get_cfg
     args = {**TRAIN_DEFAULTS, **keys}
     assert device_augment_unsupported(args) == jax_unsupported(
         get_cfg(overrides={**keys, "device_augment": True})) == keys
-    if keys:
-        with pytest.raises(ValueError, match="not ported"):
-            Trainer(None, overrides=keys)
-    else:
-        check_augment_args(args)
-    with pytest.raises(ValueError, match="host augmentation pipeline is not ported"):
-        check_augment_args({**args, "device_augment": False})
-    check_augment_args({**args, **UNAUGMENTED})
+    pm = _port_model()
+    over = {**OVERRIDES, **keys, "device_augment": True, "imgsz": IMGSZ}
+    tr = Trainer(pm, overrides=over, steps_per_epoch=STEPS_PER_EPOCH)
+    assert tr.device_augment is (not keys) and tr.loader.device_augment is (not keys)
+    assert (tr.augment_fn is None) is bool(keys)
+    assert check_augment_args(args) is False and check_augment_args(
+        {**args, "device_augment": True}) is (not keys)
+    assert check_augment_args({**args, **UNAUGMENTED}) is False
+    host = Trainer(pm, overrides={**over, "device_augment": False},
+                   steps_per_epoch=STEPS_PER_EPOCH)
+    assert host.loader.host_augment and host.augment_fn is None
+    assert all(host.loader.hyp[k] == v for k, v in keys.items())
 
 
 def test_close_mosaic_is_a_step_threshold():
@@ -665,7 +673,7 @@ def test_cpu_train_with_augment_and_val(tmp_path):
     pm = _port_model()
     ds = SyntheticDetectionDataset(n=4, imgsz=IMGSZ, seed=2)
     over = {"optimizer": "SGD", "batch": 2, "epochs": 2, "imgsz": IMGSZ, "close_mosaic": 1,
-            "amp": False}
+            "amp": False, "device_augment": True}
     with pytest.raises(ValueError, match="device_augment"):
         Trainer(pm, DataLoader(ds, 2, IMGSZ), overrides=over)
     tr = Trainer(pm, DataLoader(ds, 2, IMGSZ, device_augment=True), overrides=over,

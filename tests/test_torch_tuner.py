@@ -5,11 +5,11 @@ package's (`mgdt_yolo_tpu/utils/tuner.py`), on the CPU.
   space in its key order on both sides);
 * a search over a stub model whose fitness is scripted: the same trials,
   run names, train arguments, history and best configuration;
-* the two places the port parts from JAX on purpose (ROADMAP queue 3): the
-  default space, whose `degrees`, `shear`, `perspective`, `mixup` and
-  `copy_paste` the port cannot train with, raises before any trial (JAX
-  fails each trial and scores it -1); an exception inside a trial ends the
-  search (JAX scores it -1 and goes on);
+* JAX's default space, whose `degrees`, `shear`, `perspective`, `mixup`
+  and `copy_paste` the trainer takes through the host pipeline: every trial
+  trains, with JAX's keywords;
+* the place the port parts from JAX on purpose (ROADMAP queue 3): an
+  exception inside a trial ends the search (JAX scores it -1 and goes on);
 * the facade's `tune` over a space of keys the port honours, two trials
   of one epoch on a small dataset, each in its own run directory.
 """
@@ -29,7 +29,8 @@ HONOURED_SPACE = {"lr0": (1e-4, 1e-2), "momentum": (0.6, 0.98), "weight_decay": 
                   "box": (0.02, 0.2), "cls": (0.2, 4.0), "hsv_h": (0.0, 0.1),
                   "hsv_s": (0.0, 0.9), "translate": (0.0, 0.9), "scale": (0.0, 0.9),
                   "fliplr": (0.0, 1.0), "mosaic": (0.0, 1.0)}
-REFUSED = ("degrees", "shear", "perspective", "mixup", "copy_paste")
+# keys only the host augmentation pipeline honours
+HOST_ONLY = ("degrees", "shear", "perspective", "mixup", "copy_paste")
 
 
 class StubModel:
@@ -86,28 +87,23 @@ def test_ray_fallback_matches_jax():
 
 def test_default_space_raises_naming_its_five_keys():
     """Every trial of JAX's default space draws the five keys above 0; the
-    port refuses before training anything, naming them and the queue item,
-    where JAX trains each trial into an exception and scores it -1."""
-    ours = StubModel([0.0] * 3)
-    with pytest.raises(ValueError) as err:
-        tuner.run_tune(ours, n_trials=3)
-    for k in REFUSED:
-        assert k in str(err.value)
-    assert "mosaic9" not in str(err.value) and "item 15" in str(err.value)
-    assert ours.calls == []
-    calls = []
-
-    def jax_trial(**kw):  # a trainer that cannot run the drawn keys, in every trial
-        calls.append(kw)
-        raise ValueError(f"unsupported {REFUSED}")
-    best, fit, history = jax_tuner.run_tune(type("M", (), {"train": staticmethod(jax_trial)})(),
-                                            n_trials=3)
-    assert (best, fit) == (None, -1.0) and [h["fitness"] for h in history] == [-1.0] * 3
-    assert len(calls) == 3
-    # a space holding one of them is refused too; without them it runs
-    with pytest.raises(ValueError, match="mixup"):
-        tuner.run_tune(StubModel([0.0]), n_trials=1,
-                       space={**HONOURED_SPACE, "mixup": (0.0, 1.0)})
+    port trains each trial with them, as JAX does (the same calls, history
+    and best), each routed to the host pipeline, and a space holding one of
+    them trains too."""
+    from mgdt_yolo_tpu_torch.engine.trainer import check_augment_args, check_train_args
+    ours, theirs = StubModel([0.1, 0.6, 0.3]), StubModel([0.1, 0.6, 0.3])
+    got, want = tuner.run_tune(ours, n_trials=3), jax_tuner.run_tune(theirs, n_trials=3)
+    assert got == want and got[1] == 0.6
+    assert ours.calls == theirs.calls and len(ours.calls) == 3
+    for kw in ours.calls:
+        assert all(kw[k] > 0 for k in HOST_ONLY)
+        args = check_train_args({k: v for k, v in kw.items() if k != "name"})
+        assert check_augment_args(args) is False
+        assert check_augment_args({**args, "device_augment": True}) is False
+    mixed = StubModel([0.7])
+    assert tuner.run_tune(mixed, n_trials=1, space={**HONOURED_SPACE, "mixup": (0.0, 1.0)}
+                          )[1] == 0.7
+    assert mixed.calls[0]["mixup"] > 0
     assert tuner.run_tune(StubModel([0.7]), n_trials=1, space=HONOURED_SPACE)[1] == 0.7
 
 
