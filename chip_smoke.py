@@ -224,11 +224,30 @@ Phases, each of which passes or ends the script with a non-zero exit:
    phase 15's device path; and one `YOLO.tune` trial drawn from JAX's
    default space (1 epoch, 2 micro-steps and a validation pass; K1 and K2,
    no K3). Its launches are the "host augmentation" path.
+19. callbacks and drawing, on phase 15's dataset: `YOLO(npz).train` for 1
+   epoch at b16 with `plots=True`, a callback on each of the 25 hooks and
+   the MLflow file store on (`MGDT_MLFLOW_DIR`): the trainer's 9 hooks in
+   JAX's order, `events.jsonl` one row of JAX's keys, the MLflow run's
+   layout, `labels.jpg`, `train_batch0.jpg`, `val_batch0_{labels,pred}.jpg`
+   and `confusion_matrix.png` at their sizes, the in-training validation in
+   bf16; whether `torch.utils.tensorboard` imports; `.val()` in float32 and
+   with `half=True`, each mAP50-95 logged and their detections told apart;
+   `.predict(save=True, save_crop=True)` at b1 and b32 against the same
+   without `save`, in turns, over the 16 val JPEGs listed 8 times (128
+   images: 4 full batches at b32; images/s, the share of the wall time in
+   drawing and encoding); every JPEG it wrote read back through the card's
+   decoder and held as the CPU tests hold cv2's reading
+   (`draw.jpeg_reading`: within a mean of 1 grey level of
+   `draw.jpeg_reference`, and its PSNR at most 0.5 dB below the card's
+   reading of libjpeg's own q95 file of the same array, written by PIL).
+   Its launches are the "callbacks and drawing" path. Phases 1-18 train and
+   validate with `plots=False`, and phases 16-17 validate in bf16
+   (`half=True`), as they did before this phase existed.
    Phase 10 runs before phase 8, and phases 8, 9 and 11 run after it,
    because the CPU work leaves the host's threads busy, which slows the
    host-bound steps; phase 13 runs after phase 11, phase 14 after phase
    13, phase 15 after phase 14, phase 16 after phase 15, phase 17 after
-   phase 16, phase 18 after phase 17, and phase 12, which times kernels
+   phase 16, phase 18 after phase 17, phase 19 after phase 18, and phase 12, which times kernels
    only, runs last.
 
 The last lines are the kernel table as JSON, the card's name and power
@@ -240,6 +259,7 @@ from __future__ import annotations
 import ctypes
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -251,7 +271,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from mgdt_yolo_tpu_torch.cfg.default import TRAIN_DEFAULTS, UNAUGMENTED
+from mgdt_yolo_tpu_torch.cfg.default import CFG_DEFAULTS, TRAIN_DEFAULTS, UNAUGMENTED
 from mgdt_yolo_tpu_torch.data.augment import letterbox
 from mgdt_yolo_tpu_torch.data.build import DataLoader, collate, collate_raw, to_device
 from mgdt_yolo_tpu_torch import native
@@ -293,13 +313,16 @@ DEVICE = "cuda"
 TRAIN_BATCH = 32
 # the JAX trainer's defaults, with SGD chosen explicitly; batch 32 gives
 # accumulate = round(64 / 32) = 2. Phases 6, 7 and 9 train on unaugmented
-# scenes without validation, as they did before the augmented path existed
+# scenes without validation, as they did before the augmented path existed.
+# Phases 1-18 train and validate with `plots=False` (NO_PLOTS), as they did
+# before the port drew: drawing is phase 19's to measure
+NO_PLOTS = {"plots": False}
 TRAIN_OVERRIDES = {"optimizer": "SGD", "batch": TRAIN_BATCH, "epochs": 1, "val": False,
-                   **UNAUGMENTED}
+                   **UNAUGMENTED, **NO_PLOTS}
 # phase 10: the JAX defaults but device augment (validation every epoch)
 AUG_EPOCHS, AUG_STEPS = 2, 2
 AUG_OVERRIDES = {"optimizer": "SGD", "batch": TRAIN_BATCH, "epochs": AUG_EPOCHS,
-                 "close_mosaic": 1, "device_augment": True}
+                 "close_mosaic": 1, "device_augment": True, **NO_PLOTS}
 # every variant kernel: the five variants (by their Hopper designs) and
 # their first designs, each (wrapper, plain version)
 ALL_VARIANTS = {**VARIANTS, **{simt: (fn, plain) for simt, fn, plain in FIRST_DESIGNS.values()}}
@@ -2259,7 +2282,7 @@ def phase_serving_entry_points():
 DISK_TRAIN, DISK_VAL, DISK_HOLD = 64, 16, 8
 DISK_NAMES = ("piglet", "sow")
 DISK_OVERRIDES = {"optimizer": "SGD", "batch": TRAIN_BATCH, "epochs": 2, "workers": 8,
-                  "device_augment": True}
+                  "device_augment": True, **NO_PLOTS}
 # the decoder's JPEG limit against cv2's decode (the fixtures' PNG twins):
 # the grey levels nvJPEG's IDCT may differ by (3 on the fixtures, on an
 # H100), and JAX's mean bound (tests/test_native_loader.py)
@@ -2555,7 +2578,7 @@ def phase_from_disk(resident_step_ms, root):
 # and b8, bit for bit expected, else within FACADE_EXPORT_TOL of its magnitude
 FACADE_BATCHES = (1, 8)
 FACADE_EXPORT_TOL = 1e-5
-FACADE_TRAIN = {"epochs": 1, "device_augment": True}
+FACADE_TRAIN = {"epochs": 1, "device_augment": True, **NO_PLOTS}
 
 
 def _same_bits(got, want, name):
@@ -2793,7 +2816,7 @@ def phase_facade(root):
     log(f"YOLO({FLAGSHIP}).train(epochs=1): {steps} micro-steps and {n_val} validation "
         f"forwards in {time.perf_counter() - t0:.2f} s; launches {launches}; {metrics}")
     reset_counts()
-    vm = yt.val(data=str(data))
+    vm = yt.val(data=str(data), half=True)  # bf16, as before the dtype repair
     res = yt.predict(str(val_dir))
     torch.cuda.synchronize()
     launches = read_counts()
@@ -2855,10 +2878,12 @@ VAL_KINDS = {"square": {}, "rect": {"rect": True},
 
 def _timed_val(y, data, kind, root, maps):
     """One validation pass of the facade over the val split (batch
-    REF_VAL_BATCH, VAL_KINDS[kind]): (seconds, results, launches); `maps`
-    collects the DCN's (b, h, w) per forward."""
+    REF_VAL_BATCH, VAL_KINDS[kind]; bf16 with `half=True` and no plots, as
+    these passes ran before the standalone validator's float32 default):
+    (seconds, results, launches); `maps` collects the DCN's (b, h, w) per
+    forward."""
     maps.clear()
-    kw = {**VAL_KINDS[kind], "save_dir": root / f"val_{kind}"}
+    kw = {**VAL_KINDS[kind], "save_dir": root / f"val_{kind}", "half": True, **NO_PLOTS}
     out, wall, launches = _timed(lambda: y.val(data=str(data), imgsz=IMGSZ,
                                                batch=REF_VAL_BATCH, **kw))
     return wall, out, launches
@@ -2993,7 +3018,7 @@ def phase_reference_weights(root):
     reset_counts()
     t0 = time.perf_counter()
     metrics = y.train(data=str(data), epochs=1, imgsz=IMGSZ, device_augment=True,
-                      project=str(root / "reference" / "runs"))
+                      project=str(root / "reference" / "runs"), **NO_PLOTS)
     torch.cuda.synchronize()
     launches = read_counts()
     add(launches)
@@ -3055,7 +3080,7 @@ def phase_reference_weights(root):
                                  max_samples=REF_TUNE_TRIALS,
                                  train_args={"epochs": 1, "imgsz": IMGSZ,
                                              "device_augment": True,
-                                             "project": str(project)})
+                                             "project": str(project), **NO_PLOTS})
     for t in trials:
         add(t["launches"])
         log(f"tune trial {t['name']}: {t['wall_s']:.2f} s, fitness {t['fitness']:.5f}, "
@@ -3096,7 +3121,7 @@ def _host_overrides(data, root, **kw):
     that makes HOST_STEPS batches, no validation."""
     return {"data": str(data), "batch": HOST_BATCH, "epochs": 1, "val": False,
             "fraction": HOST_BATCH * HOST_STEPS / DISK_TRAIN, "optimizer": "SGD",
-            "workers": 8, "project": str(root), **kw}
+            "workers": 8, "project": str(root), **NO_PLOTS, **kw}
 
 
 def _host_train(over, run, what):
@@ -3294,15 +3319,261 @@ def phase_host_augmentation(root):
     return total, rows
 
 
+# phase 19: the callback bus, its file loggers and the drawing
+PLOT_BATCH = 16
+PLOT_FILES = {"labels.jpg": (1200, 1200), "val_batch0_labels.jpg": None,
+              "val_batch0_pred.jpg": None, "train_batch0.jpg": None,
+              "confusion_matrix.png": (840, 960)}
+TRAIN_HOOK_ORDER = ["on_pretrain_routine_start", "on_pretrain_routine_end", "on_train_start",
+                    "on_train_epoch_start", "on_train_batch_end", "on_train_epoch_end",
+                    "on_model_save", "on_fit_epoch_end", "on_train_end"]
+# the predictor is timed over the val JPEGs listed this many times (links
+# under other names): 128 images, so b32 runs 4 full batches a window
+PREDICT_REPEATS = 8
+PREDICT_BATCHES = (1, 32)
+
+
+def _grid_hw(n, h, w):
+    k = int(math.ceil(min(n, 16) ** 0.5))
+    return k * h, k * w
+
+
+def _libjpeg_q95(img, path):
+    """libjpeg's own quality-95 4:2:0 file of a BGR (or grey) array, through
+    PIL (the bytes cv2.imwrite writes, `tests/test_torch_plotting.py`):
+    its size in bytes."""
+    from PIL import Image
+    Image.fromarray(img if img.ndim == 2 else np.ascontiguousarray(img[..., ::-1])).save(
+        path, quality=95, subsampling=2)
+    return path.stat().st_size
+
+
+def phase_plots(root):
+    """The callback bus, the file loggers and the drawing on phase 15's
+    dataset: `YOLO.train` with `plots=True`, every hook recorded, the MLflow
+    store on; `.val()` in float32 and with `half=True`; `.predict(save=True,
+    save_crop=True)` at b1 and b32 against the same without `save`, over the
+    val JPEGs listed PREDICT_REPEATS times; every JPEG written read back by
+    the card's decoder. Returns (launches, rows)."""
+    import hashlib
+    from mgdt_yolo_tpu_torch import YOLO
+    from mgdt_yolo_tpu_torch.engine import predictor as predictor_mod
+    from mgdt_yolo_tpu_torch.utils import callbacks, draw
+    log(f"== phase 19: the callback bus, its file loggers and the drawing on phase 15's "
+        f"dataset: YOLO.train b{PLOT_BATCH} 1 epoch with plots=True, every hook recorded and "
+        f"the MLflow store; val float32 and half=True; predict with save and save_crop at "
+        f"{' and '.join(f'b{b}' for b in PREDICT_BATCHES)} over the val JPEGs listed "
+        f"{PREDICT_REPEATS} times; every JPEG read back through the card's decoder")
+    t_phase = time.perf_counter()
+    data = root / "pigs" / "data.yaml"
+    val_dir = root / "pigs" / "images" / "val"
+    files = sorted(val_dir.iterdir())
+    total, rows = no_launches(), {}
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+    try:
+        from torch.utils.tensorboard import SummaryWriter  # noqa: F401
+        rows["tensorboard"] = "imports"
+    except ImportError as e:
+        rows["tensorboard"] = f"does not import ({e})"
+    log(f"torch.utils.tensorboard on this host: {rows['tensorboard']}")
+
+    # every image the port writes: its path -> the digest of the array drawn,
+    # each distinct array kept once
+    written, arrays, imwrite = {}, {}, draw.imwrite
+
+    def keep(path, img):
+        img = np.ascontiguousarray(img)
+        key = (hashlib.sha1(img.tobytes()).hexdigest(), img.shape)
+        arrays.setdefault(key, img.copy())
+        written[str(path)] = key
+        return imwrite(path, img)
+    hooks = []
+    draw.imwrite = keep
+    Trainer.init_callbacks = lambda self: (callbacks.CallbackMixin.init_callbacks(self), [
+        self.add_callback(h, lambda t, h=h: hooks.append(h)) for h in callbacks.HOOKS])
+    mlruns = root / "mlruns"
+    os.environ["MGDT_MLFLOW_DIR"] = str(mlruns)
+    try:
+        y = YOLO(str(WEIGHTS), device=DEVICE)
+        reset_counts()
+        t0 = time.perf_counter()
+        y.train(data=str(data), epochs=1, batch=PLOT_BATCH, optimizer="SGD", workers=8,
+                project=str(root / "plots"), name="train", plots=True)
+        torch.cuda.synchronize()
+        launches = read_counts()
+    finally:
+        del Trainer.init_callbacks
+        os.environ.pop("MGDT_MLFLOW_DIR", None)
+    add(launches)
+    tr = y.trainer
+    steps, n_val = len(tr.loader), len(tr.val_loader)
+    _expect(launches, "the plots=True training", deform_fwd=steps + n_val, deform_bwd=steps)
+    want_hooks = TRAIN_HOOK_ORDER[:4] + ["on_train_batch_end"] * steps + TRAIN_HOOK_ORDER[5:]
+    if hooks != want_hooks:
+        raise SystemExit(f"the trainer fired {hooks}, not JAX's {want_hooks}")
+    if not tr.validator.args["half"] or not tr.amp:
+        raise SystemExit("the in-training validation did not run under the trainer's bf16 amp")
+    run = tr.save_dir
+    events = [json.loads(line) for line in (run / "events.jsonl").read_text().splitlines()]
+    keys = ["t", "epoch", "box_loss", "cls_loss", "dfl_loss",
+            *[k for k, v in tr.metrics.items() if isinstance(v, (int, float))]]
+    if len(events) != 1 or list(events[0]) != keys:
+        raise SystemExit(f"events.jsonl holds {events}, not one row of {keys}")
+    exps = [p for p in mlruns.iterdir() if p.is_dir()]
+    mruns = [p for p in exps[0].iterdir() if p.is_dir()] if len(exps) == 1 else []
+    if len(mruns) != 1 or sorted(p.name for p in mruns[0].iterdir()) != \
+            ["artifacts", "meta.yaml", "metrics", "params", "tags"] or \
+            "status: 3" not in (mruns[0] / "meta.yaml").read_text() or \
+            len(list((mruns[0] / "params").iterdir())) != len(CFG_DEFAULTS) or \
+            not (mruns[0] / "artifacts" / "last.npz").is_file():
+        raise SystemExit(f"the MLflow store under {mlruns} is not the file store's layout")
+    sizes = {**PLOT_FILES,
+             "train_batch0.jpg": _grid_hw(PLOT_BATCH, IMGSZ, IMGSZ),
+             "val_batch0_labels.jpg": _grid_hw(PLOT_BATCH, IMGSZ, IMGSZ),
+             "val_batch0_pred.jpg": _grid_hw(PLOT_BATCH, IMGSZ, IMGSZ)}
+    for name, hw in sizes.items():
+        got = native.decode(run / name).shape[:2]
+        if got != hw:
+            raise SystemExit(f"{name} is {got}, not {hw}")
+    rows["train"] = {"wall_s": time.perf_counter() - t0, "plot_train_start_s": tr.plot_seconds,
+                     "hooks": len(hooks), "launches": launches}
+    log(f"YOLO.train with plots: {steps} micro-steps + {n_val} validation forwards in "
+        f"{rows['train']['wall_s']:.2f} s, the train-start plots {tr.plot_seconds:.3f} s of it "
+        f"(labels.jpg over {len(tr.loader.dataset)} items, train_batch0.jpg); hooks "
+        f"{hooks}; events.jsonl {events[0]}; {sorted(sizes)} at their sizes; launches "
+        f"{launches}")
+
+    # the standalone validator's dtype: float32, and bf16 with half=True
+    reset_counts()
+    maps, preds = {}, {}
+    for name, kw in (("float32", {}), ("bf16", {"half": True})):
+        res = y.val(data=str(data), batch=PLOT_BATCH, plots=False, **kw)
+        maps[name] = {k: res[k] for k in ("map50", "map")}
+        preds[name] = y.validator.per_image_preds
+    launches = read_counts()
+    add(launches)
+    if all(a.shape == b.shape and np.array_equal(a, b)
+           for a, b in zip(preds["float32"], preds["bf16"])):
+        raise SystemExit("val(half=True) gave the float32 run's detections")
+    rows["val_dtype"] = maps
+    log(f"standalone val mAP50-95: float32 {maps['float32']['map']:.6f}, half=True (bf16) "
+        f"{maps['bf16']['map']:.6f}; mAP50 {maps['float32']['map50']:.6f} / "
+        f"{maps['bf16']['map50']:.6f}; launches {launches}")
+
+    # predict with and without save / save_crop, in turns, over the val JPEGs
+    # listed PREDICT_REPEATS times
+    src = root / "plots" / "predict_src"
+    src.mkdir(parents=True)
+    for k in range(PREDICT_REPEATS):
+        for f in files:
+            (src / f"{f.stem}_{k}{f.suffix}").symlink_to(f)
+    n_src = PREDICT_REPEATS * len(files)
+    spent = [0.0]
+    save = predictor_mod.BasePredictor._save
+
+    def timed_save(self, r):
+        t = time.perf_counter()
+        save(self, r)
+        spent[0] += time.perf_counter() - t
+    predictor_mod.BasePredictor._save = timed_save
+    rows["predict"] = {}
+    try:
+        for b in PREDICT_BATCHES:
+            for saving in (False, True, False, True):
+                kw = {"save": True, "save_crop": True} if saving else {}
+                out = root / "plots" / f"predict_b{b}"
+                # a warm-up call builds the facade's predictor, then it is timed
+                y.predict(str(val_dir), batch=b, project=str(root / "plots"),
+                          name=f"predict_b{b}", **kw)
+                reset_counts()
+                spent[0] = 0.0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = y.predictor(str(src), batch=b)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = read_counts()
+                add(launches)
+                if len(res) != n_src or launches["deform_fwd"] != -(-n_src // b):
+                    raise SystemExit(f"predict b{b} over {n_src} images gave {len(res)} results "
+                                     f"in {launches['deform_fwd']} K1 launches")
+                key = f"b{b}_{'save' if saving else 'plain'}"
+                r = rows["predict"].setdefault(key, {"images": n_src, "batches": -(-n_src // b),
+                                                     "images_per_s": [], "draw_share": []})
+                r["images_per_s"].append(n_src / wall)
+                r["draw_share"].append(spent[0] / wall)
+                if saving:
+                    for rr in res:
+                        stem = Path(rr.path).stem
+                        if not (out / f"{stem}.jpg").is_file():
+                            raise SystemExit(f"predict(save=True) did not write {stem}.jpg")
+                        for c in {int(v) for v in rr.boxes.cls}:
+                            if not (out / "crops" / rr.names[c] / f"{stem}.jpg").is_file():
+                                raise SystemExit(f"save_crop did not write crops of {c}")
+    finally:
+        predictor_mod.BasePredictor._save = save
+        draw.imwrite = imwrite
+    for key, r in rows["predict"].items():
+        log(f"predict {key} over {n_src} images ({r['batches']} batches): images/s {', '.join(f'{v:.2f}' for v in r['images_per_s'])}; "
+            f"drawing + encoding share of the wall time "
+            f"{', '.join(f'{v:.4f}' for v in r['draw_share'])}")
+
+    # every JPEG written, read back through the card's decoder and held as the
+    # CPU tests hold cv2's reading (draw.jpeg_reading): within a mean of
+    # JPEG_READ_MEAN grey levels of draw.jpeg_reference, and its PSNR at most
+    # JPEG_READ_PSNR_DB below the card's reading of libjpeg's own q95 file of
+    # the same array
+    lib_path, per_key = root / "plots" / "libjpeg_q95.jpg", {}
+    worst = {"mean_diff": 0.0, "max_diff": 0, "psnr_gap_db": -math.inf, "min_psnr_db": math.inf,
+             "size_ratio": 0.0}
+    n_jpeg = 0
+    for path, key in written.items():
+        if not path.endswith(".jpg"):
+            continue
+        img = arrays[key]
+        if key not in per_key:
+            lib_size = _libjpeg_q95(img, lib_path)
+            per_key[key] = (native.decode(lib_path), draw.jpeg_reference(img), lib_size)
+        lib_back, ref, lib_size = per_key[key]
+        got = draw.jpeg_reading(native.decode(path), img, lib_back, ref)
+        n_jpeg += 1
+        worst = {"mean_diff": max(worst["mean_diff"], got["mean_diff"]),
+                 "max_diff": max(worst["max_diff"], got["max_diff"]),
+                 "psnr_gap_db": max(worst["psnr_gap_db"], got["psnr_gap_db"]),
+                 "min_psnr_db": min(worst["min_psnr_db"], got["psnr_db"]),
+                 "size_ratio": max(worst["size_ratio"], Path(path).stat().st_size / lib_size)}
+        if not got["holds"]:
+            raise SystemExit(f"{path}: the card reads it {got['mean_diff']:.4f} grey levels on "
+                             f"average from the reference reading (limit {draw.JPEG_READ_MEAN}) "
+                             f"at {got['psnr_db']:.3f} dB against libjpeg's q95 file's "
+                             f"{got['libjpeg_psnr_db']:.3f} (at most {draw.JPEG_READ_PSNR_DB} "
+                             f"below)")
+    rows["jpeg_readback"] = {"files": n_jpeg, "arrays": len(per_key), **worst}
+    log(f"{n_jpeg} JPEGs ({len(per_key)} distinct arrays) read back through the card's decoder: "
+        f"on average at most {worst['mean_diff']:.4f} grey levels from the reference reading "
+        f"(limit {draw.JPEG_READ_MEAN}; single pixels up to {worst['max_diff']}); PSNR at most "
+        f"{worst['psnr_gap_db']:.4f} dB below the card's reading of libjpeg's q95 file (limit "
+        f"{draw.JPEG_READ_PSNR_DB}), the least {worst['min_psnr_db']:.2f} dB; at most "
+        f"{worst['size_ratio']:.4f}x libjpeg's size")
+    rows["launches"] = total
+    rows["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 19: {rows['phase_s']:.1f} s; launches {total}")
+    log(f"phase 19 rows: {json.dumps(rows, default=float)}")
+    return total, rows
+
+
 # which paths run each kernel (its launches must be counted on each); the
 # first is the kernel's own main path
 KERNEL_PATHS = {"deform_fwd": ("serving", "training", "augmented training",
                                "ablation family", "serving entry points", "from disk",
                                "facade", "reference weights", "host augmentation",
-                               "K1 variant A/B"),
+                               "callbacks and drawing", "K1 variant A/B"),
                 "deform_bwd": ("training", "augmented training", "ablation family",
                                "from disk", "facade", "reference weights",
-                               "host augmentation"),
+                               "host augmentation", "callbacks and drawing"),
                 "deform_fwd_simt": ("DCN A/B", "K1 variant A/B"),
                 "deform_bwd_simt": ("DCN A/B",),
                 "fused_augment": ("augmented training", "from disk", "facade",
@@ -3344,11 +3615,14 @@ def main() -> int:
         reference, reference_rows = phase_reference_weights(Path(tmp))
         torch.cuda.empty_cache()
         host, host_rows = phase_host_augmentation(Path(tmp))
+        torch.cuda.empty_cache()
+        plots, plot_rows = phase_plots(Path(tmp))
     torch.cuda.empty_cache()
     ab_launches, ab_rows, hopper_rows, plan_rows = phase_variant_ab()
     paths = {"serving": serving, "training": training, "augmented training": augmented,
              "ablation family": ablation, "serving entry points": entry, "from disk": disk,
              "facade": facade, "reference weights": reference, "host augmentation": host,
+             "callbacks and drawing": plots,
              "DCN A/B": dcn_ab,
              "K3 A/B": k3_ab, "K1 variant A/B": ab_launches}
     for k in kernels:
@@ -3379,6 +3653,7 @@ def main() -> int:
             k["reference_weights"] = {"train_step": reference_rows["train_step"]}
         if k["name"] in ("deform_fwd", "deform_bwd"):
             k["host_augmentation"] = host_rows
+            k["callbacks_and_drawing"] = plot_rows
         if k["name"] in ALL_VARIANTS:
             k["ab"] = [r for r in ab_rows if r["variant"] == k["name"]]
         if k["name"] in FIRST_DESIGNS:

@@ -9,9 +9,10 @@ port's trainer and validator honour, with the same values. As in JAX,
 `device_augment=True` on the device, unless a key the device pipeline cannot
 honour (`degrees`, `shear`, `perspective`, `mixup`, `copy_paste`,
 `mosaic9`) is set, which falls back to the host with JAX's warning.
-`UNAUGMENTED` sets every augmentation key to 0 on the host path. `NEUTRAL_KEYS`
-are the keys the port accepts at any value because they change neither the
-weights nor the metrics; every other key of `CFG_DEFAULTS` must keep its
+`UNAUGMENTED` sets every augmentation key to 0 on the host path. `plots`
+is honoured: it draws, and takes one batch from the loader before training
+as JAX does. `NEUTRAL_KEYS` are the keys the port accepts at any value
+because they change neither the weights nor the metrics; every other key of `CFG_DEFAULTS` must keep its
 default, or the `Trainer` raises (`engine/trainer.check_train_args`).
 """
 CFG_DEFAULTS = {
@@ -72,6 +73,8 @@ TRAIN_DEFAULTS = {
     "agnostic_nms": False,    # NMS across classes (boxes of any class suppress each other)
     "rect": False,            # rectangular validation batches (by aspect, stride-aligned)
     "save_json": False,       # COCO json of the validation detections (predictions.json)
+    "plots": True,            # labels.jpg, train_batch0.jpg (one batch taken from the
+                              # loader before training), val batch 0, confusion matrix
     # hyperparameters
     "lr0": 0.001,             # initial LR (the fork's value)
     "lrf": 0.01,              # final LR fraction
@@ -119,7 +122,6 @@ NEUTRAL_KEYS = (
     "name",
     "exist_ok",   # reuse of that directory
     "device",     # only where it names the model's device (checked by the Trainer)
-    "plots",      # the port draws no plots; plots change no weight and no metric
 )
 
 # the optimizer names the port's `Optimizer` takes (the JAX chain's)

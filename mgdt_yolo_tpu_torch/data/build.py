@@ -293,6 +293,24 @@ class DataLoader:
         return {"img": imgs, "img_hw": hw, "gt_labels": gt_labels, "gt_bboxes": gt_bboxes,
                 "mask_gt": mask_gt}
 
+    def first_batch(self) -> Dict[str, np.ndarray]:
+        """Batch 0 of the epoch, made at once, as JAX's trainer draws one
+        from its loader for `train_batch0.jpg` before training: on the host
+        path its items, and no others, join the buffer (what JAX's
+        `workers=1` loader gives when its iterator is closed at once)."""
+        if self.host_augment and self.hyp is None:
+            raise ValueError("a host-path train loader needs `hyp`")
+        if len(self) == 0:
+            raise ValueError("the loader has no batch")
+        chunk = self._indices()[:self.batch_size]
+        if self.native_eligible():
+            return self._native_batch(chunk)
+        with ThreadPoolExecutor(self.workers, thread_name_prefix="mgdt-data") as pool:
+            items = [pool.submit(self._make_item, i) for i in chunk]
+            if self.host_augment:
+                items = self._schedule(pool, items, 0, self.epoch)
+            return self._collate([f.result() for f in items], 0)
+
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         if self.host_augment and self.hyp is None:
             raise ValueError("a host-path train loader needs `hyp`: build it with hyp=..., or "

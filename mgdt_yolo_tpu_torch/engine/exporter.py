@@ -13,7 +13,8 @@
 
 Each export writes `<stem>_metadata.json` beside the artifact with JAX's
 keys (imgsz, nc, stride, names, model_yaml, deform_semantics, layout,
-output) and the task. `stablehlo` raises naming `pt2`; `saved_model` and
+output) and the task. The hooks `on_export_start` and `on_export_end` fire
+as in JAX. `stablehlo` raises naming `pt2`; `saved_model` and
 `tflite` need TensorFlow, which the port does not use (ROADMAP queue 1,
 item 14).
 """
@@ -30,6 +31,7 @@ import torch
 import torch.nn as nn
 
 from ..cfg import get_cfg
+from ..utils.callbacks import CallbackMixin
 from ..weights import save_npz
 
 LOGGER = logging.getLogger(__name__)
@@ -63,7 +65,7 @@ def metadata(model, imgsz: int) -> dict:
             "layout": "NHWC", "output": "(1, 4+nc, A) xywh+scores", "task": "detect"}
 
 
-class Exporter:
+class Exporter(CallbackMixin):
     """`Exporter(args)(model, fmt=None)` -> [path of the artifact]; `args`
     (a configuration from `cfg.get_cfg`, or a dict of overrides it checks)
     give `format`, `imgsz` and `project` (the directory, by default
@@ -71,6 +73,7 @@ class Exporter:
 
     def __init__(self, args=None):
         self.args = args if hasattr(args, "imgsz") else get_cfg(None, args)
+        self.init_callbacks()
 
     def __call__(self, model, fmt: Optional[str] = None) -> List[str]:
         fmt = (fmt or self.args.format or "pt2").lower()
@@ -79,6 +82,7 @@ class Exporter:
         if fmt not in EXPORT_FORMATS:
             raise ValueError(f"unknown export format {fmt!r}; available: "
                              f"{list(EXPORT_FORMATS)}")
+        self.run_callbacks("on_export_start")
         imgsz = int(self.args.imgsz)
         out_dir = Path(self.args.project or "runs/export")
         out_dir.mkdir(parents=True, exist_ok=True)
@@ -91,6 +95,7 @@ class Exporter:
             self.export_pt2(model, imgsz, path)
             (path.parent / f"{path.stem}_metadata.json").write_text(json.dumps(meta, indent=1))
         LOGGER.info(f"export: {fmt} ({time.perf_counter() - t0:.1f} s) -> {path}")
+        self.run_callbacks("on_export_end")
         return [str(path)]
 
     @staticmethod

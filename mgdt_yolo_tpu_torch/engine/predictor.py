@@ -16,12 +16,17 @@ Python API has it.
 Sources are the JAX loader's (`data.loaders.load_inference_source`): numpy
 BGR images and lists of them, and image files, directories and globs,
 decoded by the port's decoder (`native`) on the helper thread that
-letterboxes, one batch ahead; `Results.path` is then the file's path and
-`save_txt` writes `<stem>.txt`. A file the decoder cannot read is logged
-and skipped. Not ported, and refused: video, stream and screenshot
-sources and the `bmp`, `tif`, `tiff` and `webp` formats (ROADMAP queue 1),
-`save` and `save_crop`, which draw (item 5), and the JAX predictor's
-callbacks.
+letterboxes, one batch ahead; `Results.path` is then the file's path. A
+file the decoder cannot read is logged and skipped. Under
+`<project>/<name>` (runs/detect/predict by default), `save` writes
+`<stem>.jpg` of `Results.plot()`, `save_txt` `labels/<stem>.txt` and
+`save_crop` `crops/<class>/<stem>.jpg` of every detection
+(`utils.plotting.save_one_box`), as the JAX predictor does. The hooks
+`on_predict_start`, `on_predict_postprocess_end` (each batch, with
+`batch_items` its source items) and `on_predict_end` fire as in JAX. Not
+ported, and refused: video, stream and screenshot sources, so also the
+writing of video, and the `bmp`, `tif`, `tiff` and `webp` formats
+(ROADMAP queue 1, item 4).
 
 `predict` is the fixed-size path beside it: an NHWC RGB batch already at the
 model's size, with the serving settings of the JAX benchmark (`bench.py`).
@@ -44,11 +49,13 @@ from ..data.loaders import LoadImagesAndVideos, load_inference_source
 from ..device import names_device, parse_device
 from ..ops.boxes import scale_boxes
 from ..ops.nms import non_max_suppression
+from ..utils.callbacks import CallbackMixin
+from ..utils import draw
+from ..utils.plotting import save_one_box
 from .results import Results
 
 CONF, IOU, MAX_DET, PRE_TOPK, BLOCK = 0.25, 0.7, 300, 1024, 256
 PREDICT_DEFAULTS = {**CFG_DEFAULTS, "save": False}
-NO_DRAWING = "{} draws, and drawing without cv2 is not ported yet (ROADMAP queue 1, item 5)"
 
 
 @torch.no_grad()
@@ -130,7 +137,7 @@ def decode_items(chunk: List[Dict]) -> List[Dict]:
             if "img" in c or c["path"] in decoded]
 
 
-class BasePredictor:
+class BasePredictor(CallbackMixin):
     """Streams a source through a model in batches; see the module's text.
 
     `DetectionPredictor(overrides={...})`, then `setup_model(model)`, then
@@ -145,10 +152,8 @@ class BasePredictor:
                 check_dict_alignment(CFG_DEFAULTS, extra)
                 merged.update(extra)
         check_cfg_types(merged)
-        for key in ("save", "save_crop"):
-            if merged[key]:
-                raise NotImplementedError(NO_DRAWING.format(key))
         self.args = SimpleNamespace(**merged)
+        self.init_callbacks()
         self.device = parse_device(self.args.device)
         self.model = None
         self.results: List[Results] = []
@@ -192,6 +197,8 @@ class BasePredictor:
         a = self.args
         items = load_source(source)
         chunks = [items[s:s + batch] for s in range(0, len(items), batch)]
+        self.dataset_bs = batch
+        self.run_callbacks("on_predict_start")
         with ThreadPoolExecutor(1, thread_name_prefix="mgdt-letterbox") as pool:
             pending = pool.submit(self._prepare, chunks[0]) if chunks else None
             for i in range(len(chunks)):
@@ -213,15 +220,29 @@ class BasePredictor:
                             det_to_original(det[j][:int(counts[j])].copy(), a.imgsz, meta[j]),
                             speed=dict(speed))
                     for j, c in enumerate(chunk)]
+                self.batch_items = chunk
+                self.run_callbacks("on_predict_postprocess_end")
                 for r in self.results:
-                    if a.save_txt:
-                        self._save_txt(r)
+                    if a.save or a.save_txt or a.save_crop:
+                        self._save(r)
                     yield r
+        self.run_callbacks("on_predict_end")
 
-    def _save_txt(self, r: Results):
-        save_dir = Path(self.args.project or "runs/detect") / (self.args.name or "predict")
+    def _save(self, r: Results):
+        """What `save`, `save_txt` and `save_crop` write of one result."""
+        a = self.args
+        save_dir = Path(a.project or "runs/detect") / (a.name or "predict")
         save_dir.mkdir(parents=True, exist_ok=True)
-        r.save_txt(save_dir / "labels" / f"{Path(r.path).stem}.txt", self.args.save_conf)
+        stem = Path(r.path).stem
+        if a.save:
+            draw.imwrite(save_dir / f"{stem}.jpg", r.plot())
+        if a.save_txt:
+            r.save_txt(save_dir / "labels" / f"{stem}.txt", a.save_conf)
+        if a.save_crop:
+            for row in r.boxes.data:
+                cname = str(r.names.get(int(row[5]), int(row[5])))
+                save_one_box(row[:4], r.orig_img,  # BGR in, RGB crop, BGR file
+                             file=save_dir / "crops" / cname / f"{stem}.jpg")
 
     def __call__(self, source, stream: bool = False, batch: int = 1):
         gen = self.stream_inference(source, batch)

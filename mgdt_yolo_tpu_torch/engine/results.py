@@ -3,10 +3,10 @@ package's `mgdt_yolo_tpu/engine/results.py`.
 
 numpy-backed, as there: the predictor and the server bring detections back
 to the host, rescaled to the original image, and wrap them here. `cpu`,
-`numpy`, `cuda` and `to` return the object itself. Not ported: drawing
-(`plot`, `save_crop`), which needs a renderer without cv2 (ROADMAP queue 1,
-item 5), and the masks, keypoints and probabilities of the segment, pose
-and classify tasks (item 8).
+`numpy`, `cuda` and `to` return the object itself. `plot` and `save_crop`
+draw and write with the port's rasteriser and writers (`utils/draw.py`,
+`utils/plotting.py`). Not ported: the masks, keypoints and probabilities
+of the segment, pose and classify tasks (ROADMAP queue 1, item 8).
 """
 from __future__ import annotations
 
@@ -16,7 +16,8 @@ from typing import Dict, Optional
 
 import numpy as np
 
-NOT_DRAWN = "drawing without cv2 is not ported yet (ROADMAP queue 1, item 5)"
+PLOT_PALETTE = [(56, 56, 255), (31, 112, 255), (29, 178, 255), (49, 210, 207),
+                (10, 249, 72), (23, 204, 146), (134, 219, 61), (52, 147, 26)]
 
 
 class SimpleClass:
@@ -179,11 +180,32 @@ class Results(SimpleClass):
             out[c] = out.get(c, 0) + 1
         return out
 
-    def plot(self, *args, **kwargs):
-        raise NotImplementedError(NOT_DRAWN)
+    def plot(self, line_width: Optional[int] = None, font_scale: float = 0.5) -> np.ndarray:
+        """The detections drawn on a copy of the original (BGR) image, as
+        JAX's `plot` draws them: per class a colour of an 8-colour palette,
+        a `LINE_8` box and "<name> <conf>" at (x1, max(y1 - 4, 12))."""
+        from ..utils import draw
+        img = np.ascontiguousarray(self.orig_img).copy()
+        lw = line_width or max(round(sum(img.shape) / 2 * 0.003), 2)
+        for row in self.boxes.data:
+            x1, y1, x2, y2 = row[:4].astype(int)
+            conf, c = row[-2], int(row[-1])
+            color = PLOT_PALETTE[c % len(PLOT_PALETTE)]
+            draw.rectangle(img, (x1, y1), (x2, y2), color, lw)
+            draw.put_text(img, f"{self.names.get(c, c)} {conf:.2f}", (x1, max(y1 - 4, 12)),
+                          font_scale, color, max(lw - 1, 1))
+        return img
 
-    def save_crop(self, *args, **kwargs):
-        raise NotImplementedError(NOT_DRAWN)
+    def save_crop(self, save_dir, file_name="im.jpg"):
+        """Each detection's crop (BGR, `utils.plotting.save_one_box`) to
+        `<save_dir>/<class name>/<stem>.jpg`, numbered where taken."""
+        from ..utils.plotting import save_one_box
+        save_dir = Path(save_dir)
+        stem = Path(file_name).stem
+        for row in self.boxes.data:
+            cname = str(self.names.get(int(row[-1]), int(row[-1])))
+            save_one_box(row[:4], self.orig_img.copy(), file=save_dir / cname / f"{stem}.jpg",
+                         BGR=True)
 
     def save_txt(self, txt_file, save_conf: bool = False):
         """One line per detection, "cls x y w h [conf]", normalised xywh."""

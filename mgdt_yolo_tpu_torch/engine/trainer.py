@@ -45,12 +45,21 @@ and, by fitness, `weights/best.npz`, and stops early on a fitness plateau.
 Each checkpoint also writes `<name>_resume.npz`, the state a resume needs
 (raw parameters, batch statistics, EMA, optimizer moments); `resume=True`
 carries on the newest `*/weights/last` under `project` at its next epoch.
+
+`train` fires the JAX trainer's 9 hooks at its points (`add_callback`,
+`utils/callbacks.py`) with JAX's loggers attached first
+(`utils/callbacks_integrations.py`: `events.jsonl` and the optional
+TensorBoard, MLflow and wandb ones, all writing under `save_dir`); with
+`plots` and a `save_dir` it draws `labels.jpg` and `train_batch0.jpg`
+before the first epoch, from a batch taken from the loader as JAX takes
+one, and the validator draws its first batch and the confusion matrix.
 """
 from __future__ import annotations
 
 import copy
 import logging
 import math
+import time
 from pathlib import Path
 from typing import Callable, Dict, Mapping, Optional
 
@@ -63,6 +72,7 @@ from ..data.build import DataLoader, to_device
 from ..data.synthetic import SyntheticDetectionDataset, val_dataset
 from ..device import names_device
 from ..ops.device_augment import apply_augment, augment_draws
+from ..utils.callbacks import CallbackMixin
 from ..utils.loss import DetectionLoss
 from ..weights import flax_keys, save_npz
 from .validator import DetectionValidator
@@ -376,7 +386,7 @@ def resume_state_path(npz) -> Path:
     return npz.with_name(f"{npz.stem}_resume.npz")
 
 
-class Trainer:
+class Trainer(CallbackMixin):
     """Trains a `DetectionModel` over a training `data.build.DataLoader`.
 
     `overrides` replace keys of `cfg.default.TRAIN_DEFAULTS` and are held to
@@ -395,7 +405,9 @@ class Trainer:
     which draws from a generator seeded from (`seed`, step); on the host
     path there is none unless given. With
     `resume=True`, the newest `*/weights/last` under `project` is restored
-    here (`load_resume`) and training carries on at its next epoch.
+    here (`load_resume`) and training carries on at its next epoch. The
+    validation runs in bf16 exactly where the training does (`amp` on the
+    card), passed to the validator as its `half`.
     """
 
     def __init__(self, model, loader=None, overrides: Optional[Dict] = None,
@@ -403,6 +415,7 @@ class Trainer:
                  augment_fn: Optional[Callable] = None):
         self.args = a = check_train_args(overrides,
                                          None if model is None else model.device)
+        self.init_callbacks()
         self.device_augment = check_augment_args(a)
         if loader is not None and loader.device_augment != self.device_augment:
             raise ValueError(f"the loader's device_augment={loader.device_augment} does not "
@@ -564,11 +577,21 @@ class Trainer:
                 "dfl": out.parts[2], "grad_norm": grad_norm}
 
     def train(self) -> Dict[str, float]:
-        """All epochs over the loader, as the JAX trainer's loop runs them;
-        returns the last validation's results."""
+        """All epochs over the loader, as the JAX trainer's loop runs them,
+        firing its hooks at its points (the loggers of
+        `utils.callbacks_integrations` attached first); returns the last
+        validation's results."""
+        from ..utils.callbacks_integrations import add_integration_callbacks
+        add_integration_callbacks(self)
+        self.run_callbacks("on_pretrain_routine_start")
         a = self.args
+        self.run_callbacks("on_pretrain_routine_end")
+        self.run_callbacks("on_train_start")
+        if a["plots"] and self.save_dir is not None:
+            self.plot_train_start()
         for epoch in range(self.start_epoch, a["epochs"]):
             self.epoch = epoch
+            self.run_callbacks("on_train_epoch_start")
             self.loader.set_epoch(epoch)
             # JAX closes it at epoch `epochs - close_mosaic`, so never when
             # that is negative; a resume past it keeps it closed
@@ -585,7 +608,10 @@ class Trainer:
                 part = torch.stack([m["box"], m["cls"], m["dfl"]])
                 msum = part if msum is None else msum + part
                 seen += 1
+                self.run_callbacks("on_train_batch_end")
             mloss = msum.cpu().numpy() / seen if msum is not None else np.zeros(3)
+            self.loss_items = dict(zip(("box_loss", "cls_loss", "dfl_loss"), mloss))
+            self.run_callbacks("on_train_epoch_end")
             fit = 0.0
             if a["val"]:
                 self.metrics = self.validate()
@@ -602,11 +628,51 @@ class Trainer:
                         self.save_checkpoint("best")
                     if a["save_period"] > 0 and epoch % a["save_period"] == 0:
                         self.save_checkpoint(f"epoch{epoch}")
+                self.run_callbacks("on_model_save")
+            self.run_callbacks("on_fit_epoch_end")
             LOGGER.info(f"epoch {epoch + 1}/{a['epochs']} box {mloss[0]:.4f} "
                         f"cls {mloss[1]:.4f} dfl {mloss[2]:.4f} fitness {fit:.4f}")
             if self.stopper(epoch, fit):
                 break
+        self.run_callbacks("on_train_end")
         return self.metrics
+
+    def plot_train_start(self) -> None:
+        """JAX's `_plot_train_start`: `labels.jpg` from the labels of up to
+        1000 dataset items and `train_batch0.jpg` from the loader's first
+        batch, which, as in JAX, is taken from the loader before training
+        (`DataLoader.first_batch`: its items join the mosaic buffer). A
+        failure is logged and training goes on, as in JAX. The seconds it
+        took are kept in `plot_seconds`."""
+        from ..utils.plotting import plot_images, plot_labels
+        t0 = time.perf_counter()
+        try:
+            names = self.model.names or {}
+            ds = self.loader.dataset
+            rows = []
+            for i in range(min(len(ds), 1000)):
+                it = ds[i]
+                h, w = it["img"].shape[:2]
+                b = np.asarray(it["boxes"], np.float32).reshape(-1, 4)
+                if len(b):
+                    xywh = np.stack([(b[:, 0] + b[:, 2]) / 2 / w, (b[:, 1] + b[:, 3]) / 2 / h,
+                                     (b[:, 2] - b[:, 0]) / w, (b[:, 3] - b[:, 1]) / h], -1)
+                    rows.append((xywh, np.asarray(it["cls"]).ravel()))
+            if rows:
+                plot_labels(np.concatenate([r[0] for r in rows]),
+                            np.concatenate([r[1] for r in rows]), names, str(self.save_dir))
+            batch = self.loader.first_batch()
+            if "img" in batch:
+                boxes = [np.concatenate(
+                    [batch["gt_bboxes"][j][batch["mask_gt"][j]],
+                     np.ones((int(batch["mask_gt"][j].sum()), 1)),
+                     batch["gt_labels"][j][batch["mask_gt"][j]][:, None]], 1)
+                    for j in range(len(batch["img"]))]
+                plot_images(batch["img"].astype(np.float32) / 255.0, boxes, names,
+                            str(self.save_dir / "train_batch0.jpg"))
+        except Exception as e:  # drawing must never end a run
+            LOGGER.warning(f"train-start plots failed: {e}")
+        self.plot_seconds = time.perf_counter() - t0
 
     def validate(self) -> Dict[str, float]:
         """Validate a copy of the model holding the EMA parameters and the
@@ -615,8 +681,10 @@ class Trainer:
             a = self.args
             if self.val_loader is None:
                 self.val_loader = build_loader(a, False, self.model)
-            # predictions.json (save_json) lands with the run, as in JAX
-            self.validator = DetectionValidator({**a, "save_dir": self.save_dir})
+            # predictions.json (save_json) and the plots land with the run,
+            # as in JAX; bf16 exactly where the trainer's amp is
+            self.validator = DetectionValidator({**a, "save_dir": self.save_dir,
+                                                 "half": self.amp})
             self._val_model = copy.deepcopy(self.model)
         vm, ema = self._val_model, self.ema.state()
         with torch.no_grad():

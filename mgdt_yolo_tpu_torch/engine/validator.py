@@ -2,8 +2,10 @@
 counting metrics on the host; the counterpart of `DetectionValidator` in
 `mgdt_yolo_tpu/engine/validator.py`.
 
-The model runs unfused in `eval()` mode, under bf16 autocast on the GPU when
-`amp` is on (float32 otherwise), then NMS with the val protocol: conf
+The model runs unfused in `eval()` mode, in float32, or under bf16 autocast
+with `half=True` on any device, as the JAX validator casts to bf16 only
+under `half`; the `Trainer` validates with `half` set to its own bf16 `amp`,
+as JAX's in-training validation runs under the trainer's dtype. Then NMS with the val protocol: conf
 `args["conf"]` (0.001 when unset), IoU `args["iou"]`, every class of an
 anchor a candidate (`multi_label`), classes kept apart unless
 `args["agnostic_nms"]`, a 4096-deep candidate pool resolved in
@@ -23,7 +25,13 @@ int `image_id`, the category through `class_map`, COCO's 91 ids for a
 `val2017` split of a `coco` dataset), written to
 `<args["save_dir"]>/predictions.json` (the working directory without
 one); COCOeval refreshes the mAP only where pycocotools imports and the
-split's annotations exist, as in JAX (`eval_json`). Not ported: plots.
+split's annotations exist, as in JAX (`eval_json`).
+
+With `plots` and a `save_dir`, the first batch is drawn with its labels
+and its detections (`val_batch0_labels.jpg`, `val_batch0_pred.jpg`) and
+the confusion matrix is written (`confusion_matrix.png`); a drawing
+failure is logged and validation goes on, as in JAX. The hooks
+`on_val_start` and `on_val_end` fire as in JAX.
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ import torch
 from ..cfg.default import TRAIN_DEFAULTS
 from ..ops.boxes import scale_boxes
 from ..ops.nms import non_max_suppression
+from ..utils.callbacks import CallbackMixin
 from ..utils.metrics import ConfusionMatrix, DetMetrics, counting_agreement, match_predictions
 
 LOGGER = logging.getLogger(__name__)
@@ -55,14 +64,15 @@ def coco80_to_coco91_class():
             76, 77, 78, 79, 80, 81, 82, 84, 85, 86, 87, 88, 89, 90]
 
 
-class DetectionValidator:
+class DetectionValidator(CallbackMixin):
     """`validator(model, loader)` -> {precision, recall, map50, map, fitness,
     speed_ms_per_image}. `args` replace keys of `cfg.default.TRAIN_DEFAULTS`
-    (`conf`, `iou`, `max_det`, `agnostic_nms`, `amp`, `rect`, `save_json`)
-    and may name `save_dir`."""
+    (`conf`, `iou`, `max_det`, `agnostic_nms`, `rect`, `save_json`), and
+    may set `half` (bf16), `plots` and `save_dir`."""
 
     def __init__(self, args: Optional[Dict] = None):
-        self.args = {**TRAIN_DEFAULTS, **(args or {})}
+        self.args = {**TRAIN_DEFAULTS, "half": False, **(args or {})}
+        self.init_callbacks()
         self.iouv = np.linspace(0.5, 0.95, 10)
         self.is_coco = False
         self.class_map = list(range(1000))
@@ -134,8 +144,7 @@ class DetectionValidator:
         x = img.to(dev)
         if not x.is_floating_point():
             x = x.float() / 255.0
-        amp = bool(a["amp"]) and dev.type == "cuda"
-        with torch.autocast(dev.type, dtype=torch.bfloat16, enabled=amp):
+        with torch.autocast(dev.type, dtype=torch.bfloat16, enabled=bool(a["half"])):
             decoded, _ = model(x)
         return non_max_suppression(decoded.float(), conf_thres=a["conf"] or 0.001,
                                    iou_thres=a["iou"], max_det=a["max_det"],
@@ -156,10 +165,14 @@ class DetectionValidator:
         self.jdict, self.batch_shapes = [], []
         self._coco_split(loader)
         save_json = bool(self.args.get("save_json"))
+        plots = bool(self.args.get("plots")) and self.args.get("save_dir") is not None
+        self.run_callbacks("on_val_start")
         t0 = time.time()
-        for batch in loader:
+        for bi, batch in enumerate(loader):
             dets, counts = self.infer(model, torch.from_numpy(batch["img"]))
             dets, counts = dets.cpu().numpy(), counts.cpu().numpy()
+            if bi == 0 and plots:
+                self.plot_val_batch(batch, dets, counts, model.names)
             in_shape = tuple(batch["img"].shape[1:3])  # rect: each batch its own (h, w)
             self.batch_shapes.append(in_shape)
             for j in range(len(dets)):
@@ -182,10 +195,34 @@ class DetectionValidator:
                 paths.append(m.get("path", ""))
         results = metrics.process()
         self.metrics, self.confusion_matrix = metrics, cm
+        if plots:
+            try:
+                cm.plot(save_dir=str(self.args["save_dir"]), names=model.names)
+            except Exception as e:  # drawing must never end a validation
+                LOGGER.warning(f"confusion-matrix plot failed: {e}")
         self.per_image_preds, self.per_image_gts = per_image_preds, per_image_gts
         self.per_image_paths = paths
         self.counting_stats, self.count_r2 = counting_agreement(
             per_image_preds, per_image_gts, list(range(model.nc)))
         results = self.eval_json(results)
         results["speed_ms_per_image"] = (time.time() - t0) / max(len(per_image_preds), 1) * 1000
+        self.run_callbacks("on_val_end")
         return results
+
+    def plot_val_batch(self, batch, dets, counts, names) -> None:
+        """`val_batch0_labels.jpg` and `val_batch0_pred.jpg` under
+        `save_dir`: the batch's letterboxed images with their labels and
+        their detections, as JAX's `_plot_val_batch` draws them."""
+        from ..utils.plotting import plot_images
+        try:
+            save_dir = Path(str(self.args["save_dir"]))
+            imgs = batch["img"].astype(np.float32) / 255.0
+            gt = [np.concatenate([batch["gt_bboxes"][j][batch["mask_gt"][j]],
+                                  np.ones((int(batch["mask_gt"][j].sum()), 1)),
+                                  batch["gt_labels"][j][batch["mask_gt"][j]][:, None]], 1)
+                  for j in range(len(imgs))]
+            plot_images(imgs, gt, names or {}, str(save_dir / "val_batch0_labels.jpg"))
+            pred = [dets[j][:int(counts[j])] for j in range(len(imgs))]
+            plot_images(imgs, pred, names or {}, str(save_dir / "val_batch0_pred.jpg"))
+        except Exception as e:  # drawing must never end a validation
+            LOGGER.warning(f"val plots failed: {e}")

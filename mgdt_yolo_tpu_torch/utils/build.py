@@ -10,9 +10,10 @@ together and waits for all of them.
 The image decoder, `native/src/host_loader.cpp` (name `HOST_LOADER`), is
 built the same way by g++: with nvJPEG (`-DMGDT_NVJPEG`, the toolkit's
 headers and libraries) where a CUDA device is present, else with its PNG
-decoder alone; so is the host augmentation's C++ (`native/src/
-host_augment.cpp`, name `HOST_AUGMENT`, floating point contraction off).
-`build_all` takes both among the names.
+decoder alone; so are the host augmentation's C++ (`native/src/
+host_augment.cpp`, name `HOST_AUGMENT`, floating point contraction off) and
+the drawing and image writers' (`native/src/host_draw.cpp`, name
+`HOST_DRAW`, with zlib). `build_all` takes all three among the names.
 """
 from __future__ import annotations
 
@@ -35,6 +36,12 @@ HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 HOST_AUGMENT = "host_augment"
 HOST_AUGMENT_SRC = PKG_ROOT / "native" / "src" / f"{HOST_AUGMENT}.cpp"
 HOST_AUGMENT_FLAGS = (*HOST_FLAGS, "-ffp-contract=off")
+HOST_DRAW = "host_draw"
+HOST_DRAW_SRC = PKG_ROOT / "native" / "src" / f"{HOST_DRAW}.cpp"
+HOST_DRAW_FLAGS = (*HOST_FLAGS, "-ffp-contract=off")
+# the g++-built sources besides the decoder: name -> (source, arguments after it)
+HOST_SOURCES = {HOST_AUGMENT: (HOST_AUGMENT_SRC, HOST_AUGMENT_FLAGS, ()),
+                HOST_DRAW: (HOST_DRAW_SRC, HOST_DRAW_FLAGS, ("-lz",))}
 
 
 def nvcc_path() -> str:
@@ -71,9 +78,10 @@ def library_path(name: str) -> Path:
         h = hashlib.sha256(HOST_SRC.read_bytes())
         h.update(" ".join(host_command()).encode())
         return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
-    if name == HOST_AUGMENT:
-        h = hashlib.sha256(HOST_AUGMENT_SRC.read_bytes())
-        h.update(" ".join(HOST_AUGMENT_FLAGS).encode())
+    if name in HOST_SOURCES:
+        src, flags, libs = HOST_SOURCES[name]
+        h = hashlib.sha256(src.read_bytes())
+        h.update(" ".join((*flags, *libs)).encode())
         return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
@@ -92,8 +100,9 @@ def _start_build(name: str):
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     if name == HOST_LOADER:
         cmd = ["g++", "-o", str(tmp), *host_command()]
-    elif name == HOST_AUGMENT:
-        cmd = ["g++", "-o", str(tmp), *HOST_AUGMENT_FLAGS, str(HOST_AUGMENT_SRC)]
+    elif name in HOST_SOURCES:
+        src, flags, libs = HOST_SOURCES[name]
+        cmd = ["g++", "-o", str(tmp), *flags, str(src), *libs]
     else:
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     try:
@@ -111,7 +120,7 @@ def build_all(names=None) -> dict:
     Returns {name: compiler output ('' where the library was already built)}.
     Raises RuntimeError with the compiler's output if any build fails.
     """
-    names = names or [*sorted(p.stem for p in CSRC.glob("*.cu")), HOST_LOADER, HOST_AUGMENT]
+    names = names or [*sorted(p.stem for p in CSRC.glob("*.cu")), HOST_LOADER, *HOST_SOURCES]
     started = {n: _start_build(n) for n in names}
     logs, failed = {}, []
     for name, (proc, tmp, out) in started.items():
@@ -131,7 +140,7 @@ def build_all(names=None) -> dict:
 
 @functools.cache
 def load_library(name: str, signatures: tuple) -> ctypes.CDLL:
-    """Build `csrc/<name>.cu` (or `HOST_LOADER`, `HOST_AUGMENT`) if needed and load it (once per process), with
+    """Build `csrc/<name>.cu` (or `HOST_LOADER`, `HOST_AUGMENT`, `HOST_DRAW`) if needed and load it (once per process), with
     the C signatures of its functions set: `signatures` is a tuple of
     (function name, restype, argtypes tuple). Pointers and the stream are
     `ctypes.c_void_p`, so ctypes passes them whole."""

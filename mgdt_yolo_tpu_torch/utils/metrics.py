@@ -210,6 +210,26 @@ class ConfusionMatrix:
             if p_ not in mp:
                 self.matrix[int(d[p_, 5]), self.nc] += 1
 
+    def normalized(self) -> np.ndarray:
+        """The matrix with each column (true class) summed to 1, as JAX's
+        `plot` normalises it."""
+        m = self.matrix.astype(np.float64)
+        return m / (m.sum(0, keepdims=True) + 1e-9)
+
+    def plot(self, save_dir: str = ".", names: Dict[int, str] | None = None,
+             normalize: bool = True) -> str:
+        """`<save_dir>/confusion_matrix.png` (960 x 840, JAX's figsize (8, 7)
+        at dpi 120): the matrix, normalised per true class, rows predicted
+        and columns true, `background` last, its cells above 0.005
+        annotated when `nc < 30`, as JAX draws it (`utils/charts.py`)."""
+        from pathlib import Path
+
+        from .charts import plot_confusion_matrix
+        m = self.normalized() if normalize else self.matrix.astype(np.float64)
+        labels = [str((names or {}).get(i, i)) for i in range(self.nc)] + ["background"]
+        return plot_confusion_matrix(m, labels, self.nc < 30,
+                                     Path(save_dir) / "confusion_matrix.png")
+
 
 # ---------------------------------------------------------------------------
 # Fork counting metrics — the paper's headline numbers

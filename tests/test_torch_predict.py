@@ -21,6 +21,7 @@ The JAX models are pinned to the windowed DCN. Tolerances:
 """
 from pathlib import Path
 
+import cv2
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -220,7 +221,12 @@ def test_predictor_streams_and_half(flagship):
     assert r.boxes.data.dtype == np.float32 and np.isfinite(r.boxes.data).all()
 
 
-def test_unported_sources_and_outputs_raise(flagship):
+def _psnr(a, b) -> float:
+    mse = np.mean((a.astype(np.float64) - b) ** 2)
+    return 10 * np.log10(255 ** 2 / mse) if mse else np.inf
+
+
+def test_unported_sources_and_outputs_raise(flagship, tmp_path):
     pm, _ = flagship
     p = DetectionPredictor(overrides={"imgsz": IMGSZ, "device": "cpu"}).setup_model(pm)
     # file sources are read since the from-disk path (`tests/test_torch_loaders.py`):
@@ -233,13 +239,27 @@ def test_unported_sources_and_outputs_raise(flagship):
             p(source)
     with pytest.raises(ValueError, match="uint8"):
         p(np.zeros((8, 8, 3), np.float32))
-    for key in ("save", "save_crop"):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            DetectionPredictor(overrides={key: True, "device": "cpu"})
+    # `save` and `save_crop` are drawn and written since the drawing slice
+    # (`tests/test_torch_plotting.py` holds the drawing to JAX's)
+    imgs = _images(EXACT_SIZES[:2], seed=5)
+    saver = DetectionPredictor(overrides={"imgsz": IMGSZ, "conf": 0.001, "device": "cpu",
+                                          "save": True, "save_crop": True,
+                                          "project": str(tmp_path), "name": "p"})
+    results = saver.setup_model(pm)(imgs)
+    out = tmp_path / "p"
+    for r in results:
+        stem = Path(r.path).stem
+        written, drawn = cv2.imread(str(out / f"{stem}.jpg")), r.plot()
+        assert written.shape == r.orig_img.shape
+        cv2_q95 = cv2.imdecode(cv2.imencode(".jpg", drawn)[1], cv2.IMREAD_COLOR)
+        assert _psnr(written, drawn) >= _psnr(cv2_q95, drawn) - 0.5
+        for c in {int(v) for v in r.boxes.cls}:
+            assert (out / "crops" / str(r.names.get(c, c)) / f"{stem}.jpg").is_file()
+    assert sum(len(r) for r in results) > 0
     r = Results(np.zeros((4, 4, 3), np.uint8), "a.jpg", {})
-    for fn in (r.plot, r.save_crop):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            fn()
+    np.testing.assert_array_equal(r.plot(), r.orig_img)
+    r.save_crop(tmp_path / "empty")
+    assert not (tmp_path / "empty").exists()
     with pytest.raises(SyntaxError):
         DetectionPredictor(overrides={"confidence": 0.5, "device": "cpu"})
     with pytest.raises(ValueError, match="the model is on"):

@@ -208,8 +208,13 @@ def test_neutral_keys_and_defaults_build(cpu_model):
     Trainer(cpu_model, None, steps_per_epoch=STEPS_PER_EPOCH)
     Trainer(cpu_model, None, overrides=UNAUGMENTED, steps_per_epoch=STEPS_PER_EPOCH)
     neutral = {"workers": 0, "verbose": False, "project": "p", "name": "n", "exist_ok": True,
-               "device": "cpu", "plots": False}
+               "device": "cpu"}
     assert set(neutral) == set(NEUTRAL_KEYS)
+    # `plots` draws, and takes JAX's extra batch from the loader before
+    # training: an honoured key since the drawing slice
+    assert "plots" in TRAIN_DEFAULTS and TRAIN_DEFAULTS["plots"] is CFG_DEFAULTS["plots"]
+    assert Trainer(cpu_model, None, overrides={**OVERRIDES, "plots": False},
+                   steps_per_epoch=STEPS_PER_EPOCH).args["plots"] is False
     tr = Trainer(cpu_model, None, overrides={**OVERRIDES, **neutral},
                  steps_per_epoch=STEPS_PER_EPOCH)
     assert tr.optimizer.lr0 == OVERRIDES["lr0"]

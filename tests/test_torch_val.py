@@ -6,6 +6,11 @@ Tolerances, each with its reason:
 
 * metrics, letterbox, collate and `scale_boxes`: exact (a copy of the same
   numpy arithmetic);
+* the standalone validator with `half=True`, bf16 on both sides (JAX's
+  `with_dtype(bf16)`, the port's bf16 autocast, on the CPU too): mAP50
+  and mAP50-95 within 0.01 of JAX's (the two round different tensors to
+  bf16: per image the counts of detections differ by a few), while the
+  port's float32 and bf16 runs differ;
 * the validator, float32, windowed DCN on both sides: per image the same
   number of detections and classes, boxes within 1e-3 px and scores within
   1e-5 (the model's raw maps agree to ~1e-5, `tests/test_torch_model.py`),
@@ -193,7 +198,7 @@ def test_validator_matches_jax(case, jax_model):
     ds = SyntheticDetectionDataset(n=n, imgsz=size, seed=1)
     if name == "val-set":
         ds = val_dataset(IMGSZ, seed=0)
-    pv = DetectionValidator({**args, "amp": False})
+    pv = DetectionValidator(args)  # standalone: float32 unless `half`, whatever `amp`
     got = pv(DetectionModel.from_npz(NPZ, device="cpu"), DataLoader(ds, 8, imgsz, train=False))
     assert len(pv.per_image_preds) == len(jv._per_image_preds) == n
     total = 0
@@ -217,3 +222,34 @@ def test_validator_matches_jax(case, jax_model):
         assert sum(int(t.any()) for t in pv.metrics._tp) > 0 and got["map50"] > 0.1
     print(f"{name}: {total} detections, " +
           ", ".join(f"{k} {got[k]:.6f}" for k in ("precision", "recall", "map50", "map")))
+
+
+def test_standalone_half_runs_bf16_as_jax():
+    """The dtype follows `half`, as in JAX: float32 by default whatever
+    `amp` (the trainer's gate), bf16 autocast with `half=True` on the CPU
+    too; the bf16 metrics are held to JAX's `half=True` validator's."""
+    args = {"imgsz": 128, "batch": 8}
+    jm = JaxDetectionModel("mspa_c2f_gd_tood_yolov8.yaml")  # with_dtype casts it in place
+    jm.set_deform_semantics("windowed")
+    jv = JaxValidator(args=get_cfg(overrides={**args, "plots": False, "half": True}))
+    want = jv(jm, _nest(NPZ), dataset=JaxSynthetic(n=8, imgsz=96, seed=1))
+    model = DetectionModel.from_npz(NPZ, device="cpu")
+    runs = {}
+    for name, over in (("float32", {"amp": True}), ("bf16", {"half": True})):
+        pv = DetectionValidator({**args, **over})
+        runs[name] = (pv(model, DataLoader(SyntheticDetectionDataset(n=8, imgsz=96, seed=1), 8,
+                                           128, train=False)), pv.per_image_preds)
+    got, preds = runs["bf16"]
+    for k in ("map50", "map"):
+        assert abs(got[k] - want[k]) <= 0.01, (k, got[k], want[k])
+    assert got["map50"] > 0.1
+    assert any(a.shape != b.shape or not np.array_equal(a, b)
+               for a, b in zip(preds, runs["float32"][1]))
+    print("bf16 " + ", ".join(f"{k} {got[k]:.6f} (JAX {want[k]:.6f}, port float32 "
+                              f"{runs['float32'][0][k]:.6f})" for k in ("map50", "map")))
+    # the facade's `val(half=...)` reaches the validator (the CLI's `val half=True` calls it)
+    from mgdt_yolo_tpu_torch import YOLO
+    y = YOLO(str(NPZ), device="cpu")
+    for half in (False, True):
+        y.val(imgsz=IMGSZ, batch=16, half=half, plots=False)
+        assert y.validator.args["half"] is half
