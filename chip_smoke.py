@@ -98,7 +98,7 @@ Phases, each of which passes or ends the script with a non-zero exit:
    640 px scenes, mosaic on, HSV off and on: labels equal, boxes and
    pixels within the stated tolerance.
 13. the ablation family: the seven other models of the paper's ablation
-   matrix (`models.CONFIGS`: YOLOv8's PAN with `Detect` at reg_max 4 or
+   matrix (`models.ABLATION`: YOLOv8's PAN with `Detect` at reg_max 4 or
    TOOD on the stride-16 map, and GOLD-YOLO's neck with either head; C2f or
    MSPA-C2f backbones), n-scale, nc=2, full width and depth, 640 px, from
    the port's seeded init (no trained weights exist): each serves a fused
@@ -243,11 +243,31 @@ Phases, each of which passes or ends the script with a non-zero exit:
    Its launches are the "callbacks and drawing" path. Phases 1-18 train and
    validate with `plots=False`, and phases 16-17 validate in bf16
    (`half=True`), as they did before this phase existed.
+20. segment and pose: YOLOv8's `yolov8n-seg` (nc 2) and `yolov8n-pose`
+   (nc 1) at 640 px from the port's seeded init (no such weights are in
+   the repository): a float32 fused forward of two noise images on the
+   card against the CPU from BatchNorm statistics of one batch of scenes
+   (every raw map, mask coefficient, prototype or raw keypoint within phase
+   8's 1e-2 of its magnitude; decoded boxes 0.5 px, the other decoded
+   channels 1e-3 of their magnitude; the predictor's NMS, which like JAX's
+   takes every channel after the box as a class score, equal on one
+   decoded tensor); `YOLO(npz).train` (the seeded init through an npz)
+   for 1 epoch of 64 synthetic scenes with their masks or keypoints at
+   b16 in bf16 through the host pipeline, with validation, the training
+   loop's images/s by the trainer's hooks; `.val()` in float32; the
+   predictor (fused, bf16) over 32 mixed-size scenes at b1 and b32; npz
+   export, and `YOLO(npz)` and `AutoBackend(npz)` bit for bit the live
+   float32 forward. No hand kernel is on this path (the heads wrap
+   `Detect`; the segment and pose trainers augment on the host): every
+   count must stay 0, and each kernel's row records it
+   (`segment_and_pose_launches`). Its lines end with `phase 20 rows:
+   {json}`.
    Phase 10 runs before phase 8, and phases 8, 9 and 11 run after it,
    because the CPU work leaves the host's threads busy, which slows the
    host-bound steps; phase 13 runs after phase 11, phase 14 after phase
    13, phase 15 after phase 14, phase 16 after phase 15, phase 17 after
-   phase 16, phase 18 after phase 17, phase 19 after phase 18, and phase 12, which times kernels
+   phase 16, phase 18 after phase 17, phase 19 after phase 18, phase 20
+   after phase 19, and phase 12, which times kernels
    only, runs last.
 
 The last lines are the kernel table as JSON, the card's name and power
@@ -256,6 +276,8 @@ exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import ctypes
 import json
 import math
@@ -282,7 +304,8 @@ from mgdt_yolo_tpu_torch.engine.predictor import (DetectionPredictor, infer, let
                                                   predict)
 from mgdt_yolo_tpu_torch.engine.serve import InferenceServer
 from mgdt_yolo_tpu_torch.engine.trainer import Trainer
-from mgdt_yolo_tpu_torch.models import CONFIGS, FLAGSHIP
+from mgdt_yolo_tpu_torch.models import ABLATION as ABLATION_CONFIGS
+from mgdt_yolo_tpu_torch.models import FLAGSHIP
 from mgdt_yolo_tpu_torch.nn.modules.block import DyDCNv2
 from mgdt_yolo_tpu_torch.nn.tasks import DetectionModel
 from mgdt_yolo_tpu_torch.ops import cuda_deform, cuda_deform_variants, cuda_image
@@ -1743,7 +1766,7 @@ def phase_augment_card_vs_cpu():
 
 # phase 13: the seven other models of the ablation matrix, n-scale, full
 # width and depth, nc=2, from the port's seeded init (no trained weights)
-ABLATION = tuple(n for n in CONFIGS if n != FLAGSHIP)
+ABLATION = tuple(n for n in ABLATION_CONFIGS if n != FLAGSHIP)
 ABLATION_NC = 2
 ABLATION_SERVE, ABLATION_RATE, ABLATION_TRAIN, ABLATION_STEPS = 8, 32, 16, 2
 # batch 16 with nbs 32: accumulate 2, so the two micro-steps make one update
@@ -1784,13 +1807,13 @@ def _profiled_ms(fn, calls):
     return out
 
 
-def _calibrated_state(name):
-    """`name`'s seeded init with every BatchNorm's statistics set to those
+def _calibrated_state(name, nc=ABLATION_NC):
+    """`name`'s seeded init (`nc` classes) with every BatchNorm's statistics set to those
     of one batch of synthetic scenes (one train-mode forward at momentum 1).
     At the plain seeded init the deep features are so small that every
     anchor of a level scores its class prior to float32 rounding, so NMS
     would order ties by rounding."""
-    model = DetectionModel(name, nc=ABLATION_NC, device=DEVICE).train()
+    model = DetectionModel(name, nc=nc, device=DEVICE).train()
     for m in model.modules():
         if isinstance(m, torch.nn.BatchNorm2d):
             m.momentum = 1.0
@@ -2378,15 +2401,18 @@ def _expect(launches, what, **want):
         raise SystemExit(f"{what} launched {launches}, not {want}")
 
 
-def _timed_train_loop(trainer, loader):
+def _timed_train_loop(trainer, loader, profile=True):
     """One timed pass of `trainer.train_step` over `loader` (a fresh
     iterator, two batches in flight): images/s (over the whole pass, and
     with the wait for the first batch taken out), the share of the wall
     time the loop waited for the loader (all of it, and after the first
     batch), and the device's idle share (torch.profiler, the device's
-    activity alone, as `_profiled_ms` records it)."""
+    activity alone, as `_profiled_ms` records it; None without `profile`,
+    which spares the profiler's seconds of event processing)."""
     waits, n = [], 0
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) \
+        if profile else contextlib.nullcontext()
+    with prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         it = iter(loader)
@@ -2401,18 +2427,17 @@ def _timed_train_loop(trainer, loader):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy_us = sum(device_us(e) for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
+                  if e.device_type == torch.autograd.DeviceType.CUDA) if profile else None
     return {"images": n, "batches": len(loader), "wall_s": wall, "images_per_s": n / wall,
             "images_per_s_after_first": n / (wall - waits[0]),
             "first_batch_wait_s": waits[0], "loader_wait_share": sum(waits) / wall,
             "loader_wait_share_after_first": sum(waits[1:]) / (wall - waits[0]),
-            "device_idle_share": 1.0 - busy_us / (wall * 1e6)}
+            "device_idle_share": None if busy_us is None else 1.0 - busy_us / (wall * 1e6)}
 
 
 def _repeated(dataset, repeats):
     """A copy of a file dataset that lists its files `repeats` times (every
     file decoded again)."""
-    import copy
     ds = copy.copy(dataset)
     ds.im_files, ds.labels = ds.im_files * repeats, ds.labels * repeats
     return ds
@@ -3565,6 +3590,300 @@ def phase_plots(root):
     return total, rows
 
 
+# phase 20: YOLOv8's segment and pose models at n-scale, from the port's
+# seeded init (no such weights are in the repository), by their YAML names;
+# nc 2 for segment, the pose YAML's own 1
+SEG_POSE = {"yolov8n-seg.yaml": 2, "yolov8n-pose.yaml": 1}
+SEG_POSE_TRAIN, SEG_POSE_SCENES, SEG_POSE_BATCHES = 16, 32, (1, 32)
+# the timed training loop's steps (after the trainer's one functional
+# epoch) and those of the same step on one resident batch; how many times
+# the predictor's window lists the scenes at each batch: b1 128 requests,
+# b32 8 full batches; a b32 window that keeps no detection runs again at
+# the validator's conf, so that NMS has rows to sort
+SEG_POSE_STEPS, SEG_POSE_RESIDENT = 16, 8
+SEG_POSE_REPEATS, SEG_POSE_LOW_CONF = {1: 4, 32: 8}, 0.001
+
+
+def _aux_arrays(aux):
+    """The aux output's arrays in order: the raw maps, then the coefficients
+    and prototypes, or the raw keypoints."""
+    maps, *rest = aux
+    return [*maps, *rest]
+
+
+def _seg_pose_card_vs_cpu(name, nc):
+    """A float32 fused forward of two noise images on the card and on the
+    CPU (plain ops), from `_calibrated_state`: every raw map and aux array
+    (coefficients and prototypes, or raw keypoints) within phase 8's 1e-2 of
+    its magnitude (at least 1), the decoded boxes within 0.5 px and the
+    other decoded channels (class scores, then the coefficients or the
+    keypoints in pixels) within 1e-3 of their magnitude (at least 1); then
+    the predictor's NMS (no class count, so every channel after the box is
+    a class score, as JAX's) on the card and on the CPU given the same
+    decoded tensor (the CPU's) at a threshold that passes ~1000 anchors:
+    the same counts (some detections), boxes and scores within 1e-4; NMS
+    on each device's own output is logged, as phase 13 logs it. Returns the
+    differences."""
+    x = torch.rand((2, IMGSZ, IMGSZ, 3), generator=torch.Generator().manual_seed(20))
+    state, outs = _calibrated_state(name, nc), []
+    for dev in (DEVICE, "cpu"):
+        model = DetectionModel(name, nc=nc, device=dev)
+        model.load_state_dict(state)
+        model.fuse()
+        with torch.no_grad(), float32_exact():
+            decoded, aux = model(x.to(dev))
+        outs.append(([a.cpu() for a in _aux_arrays(aux)], decoded.cpu()))
+    (ag, dg), (ac, dc) = outs
+    raw_err = max((a - b).abs().max().item() / max(1.0, b.abs().max().item())
+                  for a, b in zip(ag, ac))
+    box_err = (dg[:, :4] - dc[:, :4]).abs().max().item()
+    rest_err = (dg[:, 4:] - dc[:, 4:]).abs().max().item() / max(1.0, dc[:, 4:].abs().max().item())
+    ranked = dc[:, 4:].amax(1).flatten().sort(descending=True).values
+    thr = float(ranked[min(999, len(ranked) - 1)])
+    kw = dict(conf_thres=thr, iou_thres=predictor.IOU, max_det=predictor.MAX_DET,
+              pre_topk=predictor.PRE_TOPK, block=predictor.BLOCK)
+    (det_g, cnt_g), (det_c, cnt_c) = ((t.cpu() for t in non_max_suppression(dc.to(dev), **kw))
+                                      for dev in (DEVICE, "cpu"))
+    same = torch.equal(cnt_g, cnt_c) and int(cnt_c.sum()) > 0
+    nms_err = (det_g - det_c).abs().max().item() if same else None
+    past_nc = int((det_c[..., 5] >= nc).sum())
+    own_g = non_max_suppression(dg.to(DEVICE), **kw)[1].cpu()
+    ok = raw_err <= 1e-2 and box_err < 0.5 and rest_err <= 1e-3 and same and nms_err <= 1e-4
+    log(f"{name} float32 card vs CPU: raw maps and aux max |diff| / max(1, max |x|) "
+        f"{raw_err:.3e} (limit 1e-2), decoded boxes {box_err:.3e} px, other channels "
+        f"{rest_err:.3e} of their magnitude; NMS at conf {thr:.6f} on the same decoded tensor: "
+        f"kept card {cnt_g.tolist()} cpu {cnt_c.tolist()} ({past_nc} rows of a class past nc, "
+        f"the reference's ranking of the extra channels), max |diff| {nms_err}; on each "
+        f"device's own output: card {own_g.tolist()} (logged) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{name}: the card and the CPU disagree")
+    return {"raw_max_rel_diff": raw_err, "box_max_abs_diff": box_err,
+            "channels_max_rel_diff": rest_err, "nms_kept": int(cnt_c.sum()),
+            "nms_max_abs_diff": nms_err, "rows_past_nc": past_nc}
+
+
+class _KeepFirst:
+    """A loader that keeps the first batch it yields (`first`)."""
+
+    def __init__(self, loader):
+        self.loader, self.first = loader, None
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        for batch in self.loader:
+            if self.first is None:
+                self.first = batch
+            yield batch
+
+
+def _timed_train(name, nc, root):
+    """`YOLO(name).train` on the synthetic scenes of its task at IMGSZ (64
+    scenes, b SEG_POSE_TRAIN, bf16 autocast, the host pipeline with masks or
+    keypoints; one epoch, then the validation on 16 scenes), the epoch's
+    four steps timed by the trainer's hooks; then the trainer's timed loop
+    (`_timed_train_loop`) over SEG_POSE_STEPS batches of fresh scenes of the
+    task through the same pipeline: images/s with and without the first
+    batch, the loader's wait share and the device's idle share; then the
+    same step SEG_POSE_RESIDENT times on that loop's first batch, with no
+    loader threads running (not profiled). Returns (facade, launches,
+    row)."""
+    from mgdt_yolo_tpu_torch import YOLO
+    marks = {}
+    init = Trainer.init_callbacks
+
+    def timed_init(self):
+        init(self)
+        for hook in ("on_train_epoch_start", "on_train_epoch_end", "on_fit_epoch_end"):
+            self.add_callback(hook, lambda t, hook=hook: (torch.cuda.synchronize(),
+                                                          marks.__setitem__(hook,
+                                                                            time.perf_counter())))
+    # the seeded init at `nc` classes, as an npz the facade loads (its name
+    # gives the task, as JAX's facade reads it)
+    from mgdt_yolo_tpu_torch.engine.exporter import metadata
+    from mgdt_yolo_tpu_torch.weights import save_npz
+    seeded = DetectionModel(name, nc=nc, device="cpu")
+    npz = save_npz(seeded, root / "seg_pose_init" / f"{Path(name).stem}.npz",
+                   metadata(seeded, IMGSZ))
+    y = YOLO(str(npz), device=DEVICE)
+    if (y.model.nc, y.task, y.model.task) != (nc, seeded.task, seeded.task):
+        raise SystemExit(f"{name}: YOLO(npz) gave nc {y.model.nc}, task {y.task}")
+    Trainer.init_callbacks = timed_init
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = y.train(epochs=1, batch=SEG_POSE_TRAIN, imgsz=IMGSZ, optimizer="SGD",
+                          workers=8, project=str(root / "seg_pose"), name=name, **NO_PLOTS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+    finally:
+        Trainer.init_callbacks = init
+    tr = y.trainer
+    _finite_history(tr, f"{name} training")
+    extra = "mask" if y.task == "segment" else "kpt"
+    if tr.amp != (DEVICE == "cuda") or \
+            not {"box_map50", f"{extra}_map50", "fitness"} <= set(metrics) or \
+            not all(math.isfinite(v) for v in metrics.values()):
+        raise SystemExit(f"{name}: the training's validation gave {metrics} (amp {tr.amp})")
+    n = len(tr.loader) * SEG_POSE_TRAIN
+    loop = marks["on_train_epoch_end"] - marks["on_train_epoch_start"]
+    row = {"steps": len(tr.loader), "images": n, "epoch_images_per_s": n / loop,
+           "epoch_loop_s": loop, "val_s": marks["on_fit_epoch_end"] - marks["on_train_epoch_end"],
+           "wall_s": wall, "criterion": type(tr.criterion).__name__,
+           "val": {k: float(v) for k, v in metrics.items()}}
+    planes = "masks" if y.task == "segment" else "keypoints"
+    log(f"{name} YOLO.train b{SEG_POSE_TRAIN} bf16, 1 epoch of {n} synthetic scenes at {IMGSZ} "
+        f"px with their {planes}: {row['epoch_images_per_s']:.2f} images/s over its "
+        f"{row['steps']} steps ({loop:.3f} s, the first batch's cold start included), "
+        f"validation {row['val_s']:.3f} s, wall {wall:.3f} s; box mAP50 "
+        f"{metrics['box_map50']:.4f}, {extra} mAP50 {metrics[f'{extra}_map50']:.4f}; "
+        f"launches {launches}")
+    ds = SyntheticDetectionDataset(n=SEG_POSE_STEPS * SEG_POSE_TRAIN, imgsz=IMGSZ, nc=nc,
+                                   seed=1, task=y.task)
+    loader = DataLoader(ds, SEG_POSE_TRAIN, IMGSZ, seed=0, train=True,
+                        device_augment=tr.device_augment, hyp=tr.args,
+                        workers=tr.args["workers"])
+    if tr.device_augment or not loader.host_augment:
+        raise SystemExit(f"{name}: the timed loop did not take the host pipeline")
+    keep = _KeepFirst(loader)
+    reset_counts()
+    t0 = time.perf_counter()
+    row["loop"] = r = _timed_train_loop(tr, keep)
+    # the loop's call in all: its wall, then the profiler's event processing
+    row["loop_call_s"] = time.perf_counter() - t0
+    row["resident"] = q = _timed_train_loop(tr, [keep.first] * SEG_POSE_RESIDENT,
+                                            profile=False)
+    loop_launches = read_counts()
+    if r["batches"] != SEG_POSE_STEPS or not all(bool(torch.isfinite(p).all())
+                                                 for p in tr.model.parameters()):
+        raise SystemExit(f"{name}: the timed loop ran {r['batches']} steps, or left "
+                         "non-finite weights")
+    log(f"{name} train b{SEG_POSE_TRAIN} bf16 on the host path with its {planes}: "
+        f"{_loop_line(r)} (the call {row['loop_call_s']:.2f} s with the profiler's "
+        f"processing); the same step on its first batch, resident, "
+        f"{SEG_POSE_RESIDENT} times: {q['images_per_s']:.2f} images/s; launches "
+        f"{loop_launches}")
+    return y, [launches, loop_launches], row
+
+
+def _timed_seg_pose_predict(y, scenes, batch, repeats, **kw):
+    """The predictor (fused, bf16; `kw` its other settings) at `batch` once
+    over a batch of `scenes` (at b1 one scene of each size) to warm up, then
+    timed over `scenes` listed `repeats` times: images/s, the detections
+    kept, and the launches."""
+    p = _entry_predictor(copy.deepcopy(y.model), DEVICE, half=True, **kw)
+    p(scenes[:max(batch, len(SCENE_SIZES))], batch=batch)
+    window = scenes * repeats
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    results = p(window, batch=batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    if len(results) != len(window) or not all(np.isfinite(r.boxes.data).all() for r in results):
+        raise SystemExit("the segment/pose predictor gave malformed or non-finite results")
+    return launches, {"images": len(window), "images_per_s": len(window) / wall,
+                      "wall_s": wall, "detections": sum(len(r) for r in results)}
+
+
+def phase_seg_pose(root):
+    """YOLOv8's segment and pose models (n-scale, 640 px, seeded init): the
+    float32 forward card vs CPU, `YOLO(...).train` (bf16, b16, one epoch of
+    the synthetic scenes with their masks or keypoints, with validation)
+    and a timed loop of SEG_POSE_STEPS steps, `val` (float32), `predict` at
+    b1 and b32 (fused, bf16) over the scenes listed SEG_POSE_REPEATS times
+    (b32 again at conf SEG_POSE_LOW_CONF if it kept no detection), and npz export and reload
+    (`YOLO(npz)`, `AutoBackend`) held bit for bit to the live model. No
+    hand kernel is on this path (the `Detect`-based heads run no DCN, and
+    the segment and pose trainers augment on the host): every count must
+    stay 0. Returns (launches, rows)."""
+    from mgdt_yolo_tpu_torch import YOLO
+    from mgdt_yolo_tpu_torch.nn.autobackend import AutoBackend
+    log(f"== phase 20: segment and pose ({', '.join(SEG_POSE)}, {IMGSZ} px, seeded init): "
+        f"float32 card vs CPU, YOLO.train b{SEG_POSE_TRAIN} bf16 with validation, then "
+        f"{SEG_POSE_STEPS} timed steps and {SEG_POSE_RESIDENT} on a resident batch, val, "
+        f"predict over {SEG_POSE_SCENES} scenes listed "
+        f"{' and '.join(f'{k}x at b{b}' for b, k in SEG_POSE_REPEATS.items())}, npz export "
+        f"and reload")
+    t_phase = time.perf_counter()
+    total, rows = no_launches(), {}
+    scenes = _scenes(SEG_POSE_SCENES)
+    for name, nc in SEG_POSE.items():
+        t_lap = [time.perf_counter()]
+        row = {"steps_s": {}}
+
+        def lap(step):
+            """The seconds `step` took, on the host's clock, into the row."""
+            now = time.perf_counter()
+            row["steps_s"][step] = now - t_lap[0]
+            t_lap[0] = now
+
+        row["card_vs_cpu"] = _seg_pose_card_vs_cpu(name, nc)
+        lap("card_vs_cpu")
+        y, runs, row["train"] = _timed_train(name, nc, root)
+        lap("train_and_loops")
+        reset_counts()
+        t0 = time.perf_counter()
+        val = y.val(batch=SEG_POSE_TRAIN, imgsz=IMGSZ)
+        torch.cuda.synchronize()
+        row["val_s"] = time.perf_counter() - t0
+        runs.append(read_counts())
+        if set(val) != set(row["train"]["val"]):
+            raise SystemExit(f"{name}: val gave {sorted(val)}")
+        row["val"] = {k: float(v) for k, v in val.items()}
+        lap("val")
+        for b in SEG_POSE_BATCHES:
+            launches, row[f"predict_b{b}"] = _timed_seg_pose_predict(
+                y, scenes, b, SEG_POSE_REPEATS[b])
+            runs.append(launches)
+            lap(f"predict_b{b}")
+        b = max(SEG_POSE_BATCHES)
+        if not row[f"predict_b{b}"]["detections"]:
+            launches, row[f"predict_b{b}_conf{SEG_POSE_LOW_CONF}"] = _timed_seg_pose_predict(
+                y, scenes, b, SEG_POSE_REPEATS[b], conf=SEG_POSE_LOW_CONF)
+            runs.append(launches)
+            lap(f"predict_b{b}_conf{SEG_POSE_LOW_CONF}")
+        path = y.export(format="npz", imgsz=IMGSZ, project=str(root / "seg_pose_export"))[0]
+        meta = json.loads(Path(path).with_name(Path(path).stem + "_metadata.json").read_text())
+        x = torch.rand((2, IMGSZ, IMGSZ, 3), generator=torch.Generator().manual_seed(21))
+        reset_counts()
+        with torch.no_grad(), float32_exact():
+            live = y.model.eval()(x.to(DEVICE))[0]
+            back = AutoBackend(path, imgsz=IMGSZ, device=DEVICE).forward(x)
+            again = YOLO(path, device=DEVICE)
+            reloaded = again.model(x.to(DEVICE))[0]
+        torch.cuda.synchronize()
+        runs.append(read_counts())
+        if meta["task"] != y.task or again.task != y.task or not torch.equal(back, live) or \
+                not torch.equal(reloaded, live):
+            raise SystemExit(f"{name}: the npz export did not reload bit for bit "
+                             f"(task {meta['task']} / {again.task})")
+        row["export_npz"] = {"task": meta["task"], "decoded": list(live.shape)}
+        lap("export_npz")
+        for launches in runs:
+            for k in total:
+                total[k] += launches[k]
+        _expect(total, f"{name}'s segment/pose path")
+        rates = ", ".join(f"{key[len('predict_'):]} {r['images_per_s']:.2f} images/s over "
+                          f"{r['images']} ({r['detections']} detections)"
+                          for key, r in row.items() if key.startswith("predict_"))
+        log(f"{name}: val (float32) {row['val_s']:.3f} s, box mAP50 {val['box_map50']:.4f}; "
+            f"predict {rates}; npz export and reload bit for bit, decoded "
+            f"{row['export_npz']['decoded']}; seconds by step: " +
+            ", ".join(f"{k} {v:.2f}" for k, v in row["steps_s"].items()))
+        rows[name] = row
+        del y
+        torch.cuda.empty_cache()
+    rows["launches"] = total
+    rows["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 20: {rows['phase_s']:.1f} s; launches {total}")
+    log(f"phase 20 rows: {json.dumps(rows, default=float)}")
+    return total, rows
+
+
 # which paths run each kernel (its launches must be counted on each); the
 # first is the kernel's own main path
 KERNEL_PATHS = {"deform_fwd": ("serving", "training", "augmented training",
@@ -3617,12 +3936,14 @@ def main() -> int:
         host, host_rows = phase_host_augmentation(Path(tmp))
         torch.cuda.empty_cache()
         plots, plot_rows = phase_plots(Path(tmp))
+        torch.cuda.empty_cache()
+        seg_pose, seg_pose_rows = phase_seg_pose(Path(tmp))
     torch.cuda.empty_cache()
     ab_launches, ab_rows, hopper_rows, plan_rows = phase_variant_ab()
     paths = {"serving": serving, "training": training, "augmented training": augmented,
              "ablation family": ablation, "serving entry points": entry, "from disk": disk,
              "facade": facade, "reference weights": reference, "host augmentation": host,
-             "callbacks and drawing": plots,
+             "callbacks and drawing": plots, "segment and pose": seg_pose,
              "DCN A/B": dcn_ab,
              "K3 A/B": k3_ab, "K1 variant A/B": ab_launches}
     for k in kernels:
@@ -3634,6 +3955,8 @@ def main() -> int:
         # the SIMT DCN kernels' the DCN A/B, the SIMT K3's the K3 A/B, each
         # variant's the variant A/B
         k["launches"] = k["launches_by_path"][KERNEL_PATHS[k["name"]][0]]
+        # no kernel is on the segment and pose path: its count, 0, recorded
+        k["segment_and_pose_launches"] = seg_pose[k["name"]]
         if k["name"] == "fused_augment":
             k["apply_augment_ms"] = aug_ms
         if k["name"] in ("deform_fwd", "deform_bwd"):

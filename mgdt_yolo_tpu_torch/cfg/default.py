@@ -86,6 +86,8 @@ TRAIN_DEFAULTS = {
     "box": 7.5,               # box loss gain
     "cls": 0.5,               # cls loss gain
     "dfl": 1.5,               # dfl loss gain
+    "pose": 12.0,             # keypoint loss gain (pose task)
+    "kobj": 1.0,              # keypoint visibility loss gain (pose task)
     "nbs": 64,                # nominal batch size for loss/wd scaling
     # augmentation
     "hsv_h": 0.015,           # HSV hue jitter fraction
@@ -102,7 +104,7 @@ TRAIN_DEFAULTS = {
     "mosaic9": 0.0,           # 3x3 mosaic probability (host pipeline only)
     "device_augment": False,  # mosaic/warp/flip/HSV on the device (K3) instead of the host
     "mixup": 0.0,             # mixup probability (host pipeline only)
-    "copy_paste": 0.0,        # copy-paste probability (segment items only: item 8)
+    "copy_paste": 0.0,        # copy-paste probability (segment items only)
 }
 
 # every augmentation key

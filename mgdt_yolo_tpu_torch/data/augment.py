@@ -10,8 +10,12 @@ Albumentations' four p=0.01 filters, the HSV jitter and the flips. Every
 random draw is the JAX function's, in its order and on the same
 `random.Random`, so the same seed gives the same boxes, classes and rng
 state; the pixels come from `data/imgproc.py`, cv2's arithmetic in numpy.
-Detect items only: an item carrying `masks` or `keypoints` raises (the
-segment and pose tasks are ROADMAP queue 1 item 8). The JAX
+Items of the segment and pose tasks carry per-instance `masks` (n, H, W)
+float32 and `keypoints` (n, k, 3) through every geometric step as JAX's
+do: the masks warped by the same matrix (cv2's bilinear float32 warp),
+resized nearest, placed in the mosaic planes and flipped; the keypoints
+mapped, their visibility cleared outside the frame, flipped with
+`flip_idx`; mixup and Albumentations skip such items, as in JAX. The JAX
 `Albumentations` hands its work to the `albumentations` package where that
 imports; the port always takes the native path.
 
@@ -154,11 +158,12 @@ def letterbox(img: np.ndarray, new_shape=(640, 640), color=(114, 114, 114),
 
 
 def resize_long_side(item: Dict, imgsz: int) -> Dict:
-    """An item (`img` BGR uint8, `boxes` xyxy pixels, `cls`) resized so its
-    long side is `imgsz`, boxes scaled with it, as the JAX
-    `resize_long_side(augment=True)` does before augmentation (the JAX
-    loader's only call): r = imgsz / max(h, w), the new sides
-    min(ceil(side * r), imgsz), cv2's INTER_LINEAR (`resize_linear`)."""
+    """An item (`img` BGR uint8, `boxes` xyxy pixels, `cls`, optional
+    `masks` and `keypoints`) resized so its long side is `imgsz`, labels
+    scaled with it, as the JAX `resize_long_side(augment=True)` does before
+    augmentation (the JAX loader's only call): r = imgsz / max(h, w), the
+    new sides min(ceil(side * r), imgsz), cv2's INTER_LINEAR
+    (`resize_linear`), the masks INTER_NEAREST."""
     img = item["img"]
     h0, w0 = img.shape[:2]
     r = imgsz / max(h0, w0)
@@ -172,6 +177,13 @@ def resize_long_side(item: Dict, imgsz: int) -> Dict:
         boxes[:, [0, 2]] *= w / w0
         boxes[:, [1, 3]] *= h / h0
         out["boxes"] = boxes
+    if "keypoints" in item:
+        kp = item["keypoints"].copy()
+        kp[..., 0] *= w / w0
+        kp[..., 1] *= h / h0
+        out["keypoints"] = kp
+    if "masks" in item and len(item["masks"]):
+        out["masks"] = np.stack([imgproc.resize_nearest(m, (w, h)) for m in item["masks"]])
     return out
 
 
@@ -179,14 +191,37 @@ PAD = (114, 114, 114)
 TASK_KEYS = ("masks", "keypoints")
 
 
-def _detect_only(items) -> None:
-    """Raise for an item of the segment or pose task."""
-    for it in items:
-        keys = [k for k in TASK_KEYS if k in it]
-        if keys:
-            raise NotImplementedError(
-                f"an item carrying {keys}: the port's host augmentation takes detect items "
-                "only; the segment and pose tasks are ROADMAP queue 1 item 8")
+def warp_masks(masks: np.ndarray, M: np.ndarray, dsize, perspective: bool) -> np.ndarray:
+    """Per-instance float32 masks (n, H, W) warped by `M` onto `dsize` (w,
+    h) with a border of 0, as JAX warps each with cv2. Each plane is
+    computed only where it can be nonzero: over the output box of its
+    nonzero source extent grown by the bilinear reach (1 px) and 2 px for
+    the rounding of the inverse matrix; every other output pixel's four taps
+    are 0, so it is 0 in the whole warp too (a perspective whose horizon
+    crosses that extent is computed whole)."""
+    w, h = dsize
+    out = np.zeros((len(masks), h, w), np.float32)
+    for k, m in enumerate(masks):
+        rows = np.flatnonzero(m.any(1))
+        if not rows.size:
+            continue
+        cols = np.flatnonzero(m.any(0))
+        corners = np.array([[cols[0] - 1, rows[0] - 1, 1], [cols[-1] + 1, rows[0] - 1, 1],
+                            [cols[0] - 1, rows[-1] + 1, 1], [cols[-1] + 1, rows[-1] + 1, 1]],
+                           np.float64) @ M.T
+        region = None
+        if not perspective or (corners[:, 2] > 0).all():
+            xy = corners[:, :2] / corners[:, 2:] if perspective else corners[:, :2]
+            x0, y0 = (max(int(math.floor(v)) - 2, 0) for v in xy.min(0))
+            x1, y1 = (int(math.ceil(v)) + 3 for v in xy.max(0))
+            region = (x0, y0, min(max(x1, x0), w), min(max(y1, y0), h))
+            if region[0] >= region[2] or region[1] >= region[3]:
+                continue
+        plane = m.astype(np.float32)
+        out[k] = (imgproc.warp_perspective(plane, M, dsize, (0.0,), region=region)
+                  if perspective else
+                  imgproc.warp_affine(plane, M[:2], dsize, (0.0,), region=region))
+    return out
 
 
 def augment_hsv(img: np.ndarray, hgain: float = 0.015, sgain: float = 0.7,
@@ -222,14 +257,19 @@ def random_perspective(img: np.ndarray, boxes_xyxy: np.ndarray, cls: np.ndarray,
                        scale: float = 0.5, shear: float = 0.0,
                        perspective: float = 0.0,
                        border: Tuple[int, int] = (0, 0),
-                       rng: Optional[random.Random] = None):
-    """The JAX `random_perspective` for detect items: the matrix
+                       rng: Optional[random.Random] = None,
+                       masks: Optional[np.ndarray] = None,
+                       keypoints: Optional[np.ndarray] = None):
+    """The JAX `random_perspective`: the matrix
     M = T @ S @ R @ P @ C from its draws (in double, bit for bit JAX's),
     the image warped by it (affine, or perspective where `perspective` is
     set; skipped where M is the identity and there is no border) onto
     (h, w) = the image's size plus twice `border`, the boxes' corners
-    mapped, clipped, and kept by `box_candidates`. Returns (img, boxes,
-    cls)."""
+    mapped, clipped, and kept by `box_candidates` (at 0.01 of their area
+    where masks ride, else 0.1). `masks` (n, H, W) are warped by the same
+    matrix (`warp_masks`), `keypoints` (n, k, 3) mapped with their
+    visibility cleared outside the output. Returns (img, boxes, cls,
+    extras), extras holding the `masks` and `keypoints` given."""
     rng = rng or random
     h = img.shape[0] + border[0] * 2
     w = img.shape[1] + border[1] * 2
@@ -268,10 +308,28 @@ def random_perspective(img: np.ndarray, boxes_xyxy: np.ndarray, cls: np.ndarray,
         new = np.stack([x.min(1), y.min(1), x.max(1), y.max(1)], axis=1)
         new[:, [0, 2]] = new[:, [0, 2]].clip(0, w)
         new[:, [1, 3]] = new[:, [1, 3]].clip(0, h)
-        keep = box_candidates(boxes_xyxy.T * s, new.T)
+        keep = box_candidates(boxes_xyxy.T * s, new.T,
+                              area_thr=0.01 if masks is not None and len(masks) else 0.1)
         boxes_xyxy = new[keep]
         cls = cls[keep]
-    return img, boxes_xyxy, cls
+        if masks is not None and len(masks):
+            masks = warp_masks(masks, M, (w, h), bool(perspective))[keep]
+        if keypoints is not None and len(keypoints):
+            nk = keypoints.shape[1]
+            pts = np.ones((n * nk, 3))
+            pts[:, :2] = keypoints[..., :2].reshape(n * nk, 2)
+            pts = pts @ M.T
+            pxy = (pts[:, :2] / pts[:, 2:3] if perspective else pts[:, :2]).reshape(n, nk, 2)
+            inside = ((pxy[..., 0] >= 0) & (pxy[..., 0] < w) &
+                      (pxy[..., 1] >= 0) & (pxy[..., 1] < h))
+            vis = np.where(inside, keypoints[..., 2], 0.0)
+            keypoints = np.concatenate([pxy, vis[..., None]], -1)[keep]
+    extras = {}
+    if masks is not None:
+        extras["masks"] = masks
+    if keypoints is not None:
+        extras["keypoints"] = keypoints
+    return img, boxes_xyxy, cls, extras
 
 
 def _merge(all_boxes, all_cls):
@@ -280,20 +338,57 @@ def _merge(all_boxes, all_cls):
     return boxes, cls
 
 
+def _tile_planes(items, item, n: int, size: int, dst, src, shift, with_masks: bool,
+                 with_kpts: bool):
+    """The mosaic planes of one tile's `n` objects: masks on a (size, size)
+    canvas, its `src` window (y1, y2, x1, x2) of the item's planes at `dst`,
+    and keypoints shifted by `shift` (padw, padh); a box-only tile of a
+    keypoint mosaic gets all-invisible slots of the others' count. Returns
+    (masks or None, keypoints or None)."""
+    planes = kpts = None
+    if with_masks:
+        planes = np.zeros((n, size, size), np.float32)
+        if "masks" in item and len(item["masks"]):
+            (ya, yb, xa, xb), (y1, y2, x1, x2) = dst, src
+            planes[:, ya:yb, xa:xb] = item["masks"][:n, y1:y2, x1:x2]
+    if with_kpts:
+        if "keypoints" in item and len(item["keypoints"]):
+            kpts = item["keypoints"].copy()
+            kpts[..., 0] += shift[0]
+            kpts[..., 1] += shift[1]
+        else:
+            nk = next(it["keypoints"].shape[1] for it in items if "keypoints" in it)
+            kpts = np.zeros((n, nk, 3), np.float32)
+    return planes, kpts
+
+
+def _extras(with_masks, with_kpts, all_masks, all_kpts, size: int) -> Dict:
+    extras = {}
+    if with_masks:
+        extras["masks"] = (np.concatenate(all_masks) if all_masks
+                           else np.zeros((0, size, size), np.float32))
+    if with_kpts:
+        extras["keypoints"] = (np.concatenate(all_kpts) if all_kpts
+                               else np.zeros((0, 17, 3), np.float32))
+    return extras
+
+
 def mosaic4(items: List[Dict], imgsz: int, rng: Optional[random.Random] = None):
     """The 4-image mosaic of the JAX `mosaic4`: a (2s, 2s) canvas of 114, a
     centre drawn in [s/2, 3s/2) on each axis, each item anchored there by
     one corner (the first top-left, then top-right, bottom-left,
-    bottom-right), its boxes shifted with it and clipped to the canvas.
-    Returns (canvas, boxes, cls); the caller crops back to s with
+    bottom-right), its boxes shifted with it and clipped to the canvas, its
+    masks and keypoints placed with it (`_tile_planes`). Returns (canvas,
+    boxes, cls, extras); the caller crops back to s with
     `random_perspective(border=-s // 2)`."""
-    _detect_only(items[:4])
     rng = rng or random
     s = imgsz
     yc = int(rng.uniform(s // 2, 2 * s - s // 2))
     xc = int(rng.uniform(s // 2, 2 * s - s // 2))
     canvas = np.full((s * 2, s * 2, 3), 114, dtype=np.uint8)
-    all_boxes, all_cls = [], []
+    with_masks = any("masks" in it for it in items[:4])
+    with_kpts = any("keypoints" in it for it in items[:4])
+    all_boxes, all_cls, all_masks, all_kpts = [], [], [], []
     for i, item in enumerate(items[:4]):
         img = item["img"]
         h, w = img.shape[:2]
@@ -313,10 +408,14 @@ def mosaic4(items: List[Dict], imgsz: int, rng: Optional[random.Random] = None):
             b[:, [1, 3]] += padh
             all_boxes.append(b)
             all_cls.append(item["cls"])
+            m, k = _tile_planes(items[:4], item, len(b), 2 * s, (y1a, y2a, x1a, x2a),
+                                (y1b, y2b, x1b, x2b), (padw, padh), with_masks, with_kpts)
+            all_masks += [m] if m is not None else []
+            all_kpts += [k] if k is not None else []
     boxes, cls = _merge(all_boxes, all_cls)
     boxes[:, [0, 2]] = boxes[:, [0, 2]].clip(0, 2 * s)
     boxes[:, [1, 3]] = boxes[:, [1, 3]].clip(0, 2 * s)
-    return canvas, boxes, cls
+    return canvas, boxes, cls, _extras(with_masks, with_kpts, all_masks, all_kpts, 2 * s)
 
 
 def mosaic9(items: List[Dict], imgsz: int, rng: Optional[random.Random] = None):
@@ -324,13 +423,15 @@ def mosaic9(items: List[Dict], imgsz: int, rng: Optional[random.Random] = None):
     of a (3s, 3s) canvas, the others around it clockwise from the top, each
     placed by its neighbours' sizes, then the window [s/2, s/2 + 2s) cut
     out, so the caller's `random_perspective(border=-s // 2)` crops it as
-    it crops `mosaic4`. Takes no draw. Returns (canvas, boxes, cls)."""
-    _detect_only(items[:9])
+    it crops `mosaic4`, masks and keypoints placed and cut with it. Takes no
+    draw. Returns (canvas, boxes, cls, extras)."""
     s = imgsz
     img9 = np.full((s * 3, s * 3, 3), 114, dtype=np.uint8)
+    with_masks = any("masks" in it for it in items[:9])
+    with_kpts = any("keypoints" in it for it in items[:9])
     hp = wp = -1
     h0 = w0 = s
-    all_boxes, all_cls = [], []
+    all_boxes, all_cls, all_masks, all_kpts = [], [], [], []
     for i, item in enumerate(items[:9]):
         img = item["img"]
         h, w = img.shape[:2]
@@ -364,13 +465,23 @@ def mosaic9(items: List[Dict], imgsz: int, rng: Optional[random.Random] = None):
             b[:, [1, 3]] += padh
             all_boxes.append(b)
             all_cls.append(item["cls"])
+            src = (y1 - padh, y1 - padh + (y2 - y1), x1 - padw, x1 - padw + (x2 - x1))
+            m, k = _tile_planes(items[:9], item, len(b), 3 * s, (y1, y2, x1, x2), src,
+                                (padw, padh), with_masks, with_kpts)
+            all_masks += [m] if m is not None else []
+            all_kpts += [k] if k is not None else []
     off = s // 2
     canvas = img9[off:off + 2 * s, off:off + 2 * s]
     boxes, cls = _merge(all_boxes, all_cls)
     boxes -= off
     boxes[:, [0, 2]] = boxes[:, [0, 2]].clip(0, 2 * s)
     boxes[:, [1, 3]] = boxes[:, [1, 3]].clip(0, 2 * s)
-    return canvas, boxes, cls
+    extras = _extras(with_masks, with_kpts, all_masks, all_kpts, 3 * s)
+    if with_masks:
+        extras["masks"] = extras["masks"][:, off:off + 2 * s, off:off + 2 * s]
+    if with_kpts:
+        extras["keypoints"][..., :2] -= off
+    return canvas, boxes, cls, extras
 
 
 def bbox_ioa(box1: np.ndarray, box2: np.ndarray, eps: float = 1e-7) -> np.ndarray:
@@ -391,8 +502,8 @@ def copy_paste(img: np.ndarray, boxes: np.ndarray, cls: np.ndarray,
     left-right flipped box overlaps every box by IoA < 0.30, round(p * n)
     drawn by `rng.sample` are pasted flipped (the pixels under the flipped
     mask), their labels and masks added. It needs per-instance masks (n, H,
-    W), so the pipeline reaches it only for segment items (ROADMAP queue 1
-    item 8); without masks it returns its inputs and draws nothing."""
+    W), so the pipeline reaches it only for segment items; without masks it
+    returns its inputs and draws nothing."""
     rng = rng or random
     if not p or masks is None or not len(masks):
         return img, boxes, cls, masks
@@ -480,50 +591,93 @@ def _letterboxed(item: Dict, shape) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def train_transform(item: Dict, imgsz: int, hyp: Mapping, buffer: List[Dict],
-                    rng: Optional[random.Random] = None) -> Dict:
-    """The JAX `train_transform` for a detect item: with probability
-    `mosaic` (and 3 items in `buffer`) a mosaic of it and items drawn from
-    `buffer` (9 tiles with probability `mosaic9` and 8 in the buffer),
-    else the item letterboxed to `imgsz`; then `random_perspective` back to
-    `imgsz` square; mixup with probability `mixup` (always drawn) with a
-    letterboxed buffer item; `ALBUMENTATIONS`; `augment_hsv`; the flips.
-    `hyp` maps the keys of `cfg/default.py` (the mosaic9, mixup,
-    copy_paste and flip keys default to JAX's fallbacks). `copy_paste`
-    needs masks, so it is a no-op here, as it is in JAX for a detect item.
-    Mutates nothing; returns {"img", "boxes", "cls"}."""
-    _detect_only([item])
+                    rng: Optional[random.Random] = None,
+                    flip_idx: Optional[List[int]] = None) -> Dict:
+    """The JAX `train_transform`: with probability `mosaic` (and 3 items in
+    `buffer`) a mosaic of the item and items drawn from `buffer` (9 tiles
+    with probability `mosaic9` and 8 in the buffer), else the item
+    letterboxed to `imgsz` (its masks resized nearest into the letterbox,
+    its keypoints mapped); copy-paste with probability `copy_paste` where
+    masks ride; then `random_perspective` back to `imgsz` square; mixup with
+    probability `mixup` (always drawn) with a letterboxed buffer item, and
+    `ALBUMENTATIONS`, for detect items only; `augment_hsv`; the flips, the
+    left-right one swapping keypoints by `flip_idx`. `hyp` maps the keys of
+    `cfg/default.py` (the mosaic9, mixup, copy_paste and flip keys default
+    to JAX's fallbacks). Mutates nothing; returns {"img", "boxes", "cls"}
+    and the item's `masks` / `keypoints`."""
     rng = rng or random
+    task_keys = [k for k in TASK_KEYS if k in item]
     use_mosaic = rng.random() < hyp.get("mosaic", 1.0)
     if use_mosaic and len(buffer) >= 3:
         use9 = (rng.random() < hyp.get("mosaic9", 0.0)) and len(buffer) >= 8
         n_extra = 8 if use9 else 3
         picks = [item] + [buffer[rng.randrange(len(buffer))] for _ in range(n_extra)]
-        img, boxes, cls = mosaic9(picks, imgsz) if use9 else mosaic4(picks, imgsz, rng)
+        img, boxes, cls, extras = mosaic9(picks, imgsz) if use9 else mosaic4(picks, imgsz, rng)
         border = (-imgsz // 2, -imgsz // 2)
     else:
-        img, boxes = _letterboxed(item, (imgsz, imgsz))
-        cls = item["cls"]
+        img0, r, (dw, dh) = letterbox(item["img"], (imgsz, imgsz), scaleup=True)
+        boxes = item["boxes"].copy()
+        if len(boxes):
+            boxes[:, [0, 2]] = boxes[:, [0, 2]] * r[0] + dw
+            boxes[:, [1, 3]] = boxes[:, [1, 3]] * r[1] + dh
+        img, cls, extras = img0, item["cls"], {}
+        if "masks" in item:
+            h0, w0 = item["img"].shape[:2]
+            nh, nw = int(round(h0 * r[1])), int(round(w0 * r[0]))
+            planes = np.zeros((len(item["masks"]), img.shape[0], img.shape[1]), np.float32)
+            ty, tx = int(round(dh - 0.1)), int(round(dw - 0.1))
+            for k, m in enumerate(item["masks"]):
+                planes[k, ty:ty + nh, tx:tx + nw] = imgproc.resize_nearest(m, (nw, nh))
+            extras["masks"] = planes
+        if "keypoints" in item:
+            kp = item["keypoints"].copy()
+            kp[..., 0] = kp[..., 0] * r[0] + dw
+            kp[..., 1] = kp[..., 1] * r[1] + dh
+            extras["keypoints"] = kp
         border = (0, 0)
-    img, boxes, cls = random_perspective(
+    cp = hyp.get("copy_paste", 0.0)
+    if cp and "masks" in extras and len(extras["masks"]):
+        img, boxes, cls, extras["masks"] = copy_paste(img, boxes, cls, extras["masks"], p=cp,
+                                                      rng=rng)
+    img, boxes, cls, extras = random_perspective(
         img, boxes, cls, degrees=hyp["degrees"], translate=hyp["translate"],
         scale=hyp["scale"], shear=hyp["shear"], perspective=hyp["perspective"],
-        border=border, rng=rng)
+        border=border, rng=rng, masks=extras.get("masks"), keypoints=extras.get("keypoints"))
     # drawn whatever the buffer holds, so later draws do not depend on it
-    if rng.random() < hyp.get("mixup", 0.0) and buffer:
+    if rng.random() < hyp.get("mixup", 0.0) and buffer and not task_keys:
         other = buffer[rng.randrange(len(buffer))]
         o_img, o_boxes = _letterboxed(other, img.shape[:2])
         mixed = mixup({"img": img, "boxes": boxes, "cls": cls},
                       {"img": o_img, "boxes": o_boxes, "cls": other["cls"]}, rng)
         img, boxes, cls = mixed["img"], mixed["boxes"], mixed["cls"]
-    img, boxes, cls = ALBUMENTATIONS(img, boxes, cls, rng)
+    if not task_keys:
+        img, boxes, cls = ALBUMENTATIONS(img, boxes, cls, rng)
     img = augment_hsv(img, hyp["hsv_h"], hyp["hsv_s"], hyp["hsv_v"], rng)
     h, w = img.shape[:2]
+    masks, kpts = extras.get("masks"), extras.get("keypoints")
     if rng.random() < hyp.get("flipud", 0.0):
         img = np.flipud(img).copy()
         if len(boxes):
             boxes[:, [1, 3]] = h - boxes[:, [3, 1]]
+        if masks is not None and len(masks):
+            masks = masks[:, ::-1].copy()
+        if kpts is not None and len(kpts):
+            kpts = kpts.copy()
+            kpts[..., 1] = np.where(kpts[..., 2] > 0, h - kpts[..., 1], 0.0)
     if rng.random() < hyp.get("fliplr", 0.0):
         img = np.fliplr(img).copy()
         if len(boxes):
             boxes[:, [0, 2]] = w - boxes[:, [2, 0]]
-    return {"img": img, "boxes": boxes, "cls": cls}
+        if masks is not None and len(masks):
+            masks = masks[:, :, ::-1].copy()
+        if kpts is not None and len(kpts):
+            kpts = kpts.copy()
+            kpts[..., 0] = np.where(kpts[..., 2] > 0, w - kpts[..., 0], 0.0)
+            if flip_idx is not None:
+                kpts = kpts[:, list(flip_idx)]
+    out = {"img": img, "boxes": boxes, "cls": cls}
+    if masks is not None:
+        out["masks"] = masks
+    if kpts is not None:
+        out["keypoints"] = kpts
+    return out

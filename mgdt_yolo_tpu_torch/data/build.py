@@ -45,7 +45,7 @@ from typing import Dict, Iterator, List, Mapping, Optional
 import numpy as np
 import torch
 
-from . import augment
+from . import augment, imgproc
 from .augment import resize_long_side, train_transform
 
 PAD_VALUE = 114
@@ -77,12 +77,18 @@ def pad_boxes(boxes, cls, max_gt: int):
     return gt_labels, gt_bboxes, mask_gt
 
 
-def collate(items, imgsz, max_gt: int, train: bool = True) -> Dict[str, np.ndarray]:
+def collate(items, imgsz, max_gt: int, train: bool = True,
+            mask_ratio: int = 4) -> Dict[str, np.ndarray]:
     """Stack items into one batch: `img` (b, h, w, 3) uint8 RGB and the
     targets of `pad_boxes`; `imgsz` is an int (a square) or an (h, w) pair
     (a rectangular validation batch). Train items are the host pipeline's
     `imgsz` squares; validation items are letterboxed (`scaleup=False`) and
-    the batch gets `metas` (`ori_shape`, `ratio_pad`, `path`) per image."""
+    the batch gets `metas` (`ori_shape`, `ratio_pad`, `path`) per image.
+    Items of the segment and pose tasks add, as JAX's `collate` does,
+    `masks` (b, max_gt, h // mask_ratio, w // mask_ratio) float32, each
+    kept object's mask resized nearest (not letterboxed), and `keypoints`
+    (b, max_gt, k, 3), shaped by the first item that has any objects;
+    a batch whose items with keypoints hold no object gets none."""
     th, tw = (imgsz, imgsz) if isinstance(imgsz, int) else (int(imgsz[0]), int(imgsz[1]))
     imgs = np.empty((len(items), th, tw, 3), np.uint8)
     boxes, metas = [], []
@@ -100,8 +106,34 @@ def collate(items, imgsz, max_gt: int, train: bool = True) -> Dict[str, np.ndarr
         boxes.append(bb)
     gt_labels, gt_bboxes, mask_gt = pad_boxes(boxes, [it["cls"] for it in items], max_gt)
     out = {"img": imgs, "gt_labels": gt_labels, "gt_bboxes": gt_bboxes, "mask_gt": mask_gt}
+    out.update(instance_planes(items, (th, tw), max_gt, mask_ratio))
     if not train:
         out["metas"] = metas
+    return out
+
+
+def instance_planes(items, shape, max_gt: int, mask_ratio: int = 4) -> Dict[str, np.ndarray]:
+    """`collate`'s per-object planes of the items that carry `masks` or
+    `keypoints` (see there); {} for detect items."""
+    b, (th, tw) = len(items), shape
+    out, kpts = {}, None
+    if any("masks" in it for it in items):
+        mh, mw = th // mask_ratio, tw // mask_ratio
+        out["masks"] = np.zeros((b, max_gt, mh, mw), np.float32)
+    for j, it in enumerate(items):
+        n = min(len(it["boxes"]), max_gt)
+        if not n:
+            continue
+        if "masks" in out and "masks" in it:
+            for k in range(n):
+                out["masks"][j, k] = imgproc.resize_nearest(it["masks"][k], (mw, mh))
+        if "keypoints" in it:
+            kp = it["keypoints"]
+            if kpts is None:
+                kpts = np.zeros((b, max_gt, kp.shape[1], kp.shape[2]), np.float32)
+            kpts[j, :n] = kp[:n]
+    if kpts is not None:
+        out["keypoints"] = kpts
     return out
 
 
@@ -231,7 +263,8 @@ class DataLoader:
         """`train_transform` of the item at epoch position `pos` with the
         buffer `picks`, its rng seeded as the JAX loader seeds it."""
         rng = random.Random((self.seed * 1000003 + epoch * 7919 + pos) & 0x7FFFFFFF)
-        return train_transform(item, self.imgsz, self.hyp, picks, rng)
+        return train_transform(item, self.imgsz, self.hyp, picks, rng,
+                               flip_idx=getattr(self.dataset, "flip_idx", None))
 
     def _schedule(self, pool, items, k: int, epoch: int):
         """Hand the transforms of batch `k` to the pool, in epoch order:

@@ -5,7 +5,8 @@ for its warps, colour conversions and filters. The card's host has no cv2,
 so each primitive here computes what cv2 5.0 computes on uint8 images, by
 cv2's own arithmetic, found by experiment against cv2 5.0.0 on the CPU:
 
-* `warp_affine` / `warp_perspective` (INTER_LINEAR, BORDER_CONSTANT): the
+* `warp_affine` / `warp_perspective` (INTER_LINEAR, BORDER_CONSTANT; uint8,
+  or float32, the masks, with the same blend unrounded, bit for bit): the
   matrix inverted in double as cv2 inverts it, then cast to float32; per
   output pixel the source coordinate in float32, `fma(M0, x, y*M1 + M2)`
   (perspective: that over `fma(M6, x, y*M7 + M8)`), its floor and
@@ -132,8 +133,11 @@ def invert_3x3(M) -> np.ndarray:
 def _sample(img: np.ndarray, sx: np.ndarray, sy: np.ndarray, border,
             plain: bool = False) -> np.ndarray:
     """Bilinear samples of `img` (H, W, C) uint8 at float32 source
-    coordinates (h, w), cv2's float32 blend; taps outside take `border`."""
-    if not plain:
+    coordinates (h, w), cv2's float32 blend; taps outside take `border`.
+    A float32 image (the masks) takes the same blend without the rounding,
+    in numpy, as cv2 warps a float32 image."""
+    floating = img.dtype == F32
+    if not plain and not floating:
         img = _u8(img)
         sx, sy = np.ascontiguousarray(sx, F32), np.ascontiguousarray(sy, F32)
         H, W, C = img.shape
@@ -146,8 +150,8 @@ def _sample(img: np.ndarray, sx: np.ndarray, sy: np.ndarray, border,
     h, w = sx.shape
     # two border pixels on every side: a coordinate clamped to [-2, W] keeps
     # both its taps on the border whenever either lies outside
-    pad = np.empty((H + 4, W + 4, C), np.uint8)
-    pad[...] = np.asarray(border, np.uint8)[:C]
+    pad = np.empty((H + 4, W + 4, C), img.dtype)
+    pad[...] = np.asarray(border, img.dtype)[:C]
     pad[2:-2, 2:-2] = img
     flat = pad.reshape(-1, C)
     fx, fy = np.floor(sx), np.floor(sy)
@@ -160,6 +164,8 @@ def _sample(img: np.ndarray, sx: np.ndarray, sy: np.ndarray, border,
     a = _fma(ax, p01 - p00, p00)
     b = _fma(ax, p11 - p10, p10)
     v = _fma(ay, b - a, a)
+    if floating:
+        return v.reshape(h, w, C)
     return np.clip(np.rint(v), 0, 255).astype(np.uint8).reshape(h, w, C)
 
 
@@ -167,32 +173,64 @@ def _as3(img: np.ndarray):
     return (img, False) if img.ndim == 3 else (img[..., None], True)
 
 
-def warp_affine(img: np.ndarray, M, dsize: Tuple[int, int], border_value=(0, 0, 0),
-                plain: bool = False) -> np.ndarray:
-    """`cv2.warpAffine(img, M, dsize, borderValue=border_value)` (INTER_LINEAR,
-    BORDER_CONSTANT) for a uint8 (H, W[, C]) image; `M` (2, 3) maps source
-    to output, `dsize` is (width, height)."""
-    x3, squeeze = _as3(img)
+def resize_nearest(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """`cv2.resize(img, size, interpolation=cv2.INTER_NEAREST)` for an (H, W[,
+    C]) image of any type; `size` is (width, height). Output index i reads
+    min(floor(i * (1 / (dst / src))), src - 1) on each axis, in double, as
+    cv2 does."""
+    dw, dh = size
+    h, w = img.shape[:2]
+    xs = np.minimum(np.floor(np.arange(dw) * (1.0 / (dw / w))).astype(np.int64), w - 1)
+    ys = np.minimum(np.floor(np.arange(dh) * (1.0 / (dh / h))).astype(np.int64), h - 1)
+    return np.ascontiguousarray(img[ys][:, xs])
+
+
+def _grid(dsize, region):
+    """The output columns and rows to compute: all of `dsize` (w, h), or the
+    `region` (x0, y0, x1, y1) of it."""
     w, h = dsize
-    m = invert_affine(M).astype(F32).ravel()
-    x = np.arange(w, dtype=F32)[None, :]
-    y = np.arange(h, dtype=F32)[:, None]
-    mx, my = y * m[1] + m[2], y * m[4] + m[5]
-    out = _sample(x3, _fma(m[0], x, mx), _fma(m[3], x, my), border_value, plain)
+    x0, y0, x1, y1 = region or (0, 0, w, h)
+    return (np.arange(x0, x1, dtype=F32)[None, :], np.arange(y0, y1, dtype=F32)[:, None],
+            (x0, y0, x1, y1))
+
+
+def _place(out, dsize, box, border_value, squeeze):
+    """`out`, computed over `box` (x0, y0, x1, y1), in an output of `dsize`
+    filled with `border_value` elsewhere."""
+    w, h = dsize
+    x0, y0, x1, y1 = box
+    if (x0, y0, x1, y1) != (0, 0, w, h):
+        full = np.empty((h, w, out.shape[2]), out.dtype)
+        full[...] = np.asarray(border_value, out.dtype)[:out.shape[2]]
+        full[y0:y1, x0:x1] = out
+        out = full
     return out[..., 0] if squeeze else out
 
 
-def warp_perspective(img: np.ndarray, M, dsize: Tuple[int, int],
-                     border_value=(0, 0, 0), plain: bool = False) -> np.ndarray:
-    """`cv2.warpPerspective(img, M, dsize, borderValue=border_value)`
-    (INTER_LINEAR, BORDER_CONSTANT) for a uint8 image; `M` (3, 3) maps
-    source to output. An output pixel whose homogeneous weight is 0 takes
-    the border value."""
+def warp_affine(img: np.ndarray, M, dsize: Tuple[int, int], border_value=(0, 0, 0),
+                plain: bool = False, region=None) -> np.ndarray:
+    """`cv2.warpAffine(img, M, dsize, borderValue=border_value)` (INTER_LINEAR,
+    BORDER_CONSTANT) for a uint8 or float32 (H, W[, C]) image; `M` (2, 3)
+    maps source to output, `dsize` is (width, height). With `region` (x0,
+    y0, x1, y1) only those output pixels are computed (each as the whole
+    warp computes it), the rest take the border value."""
     x3, squeeze = _as3(img)
-    w, h = dsize
+    m = invert_affine(M).astype(F32).ravel()
+    x, y, box = _grid(dsize, region)
+    mx, my = y * m[1] + m[2], y * m[4] + m[5]
+    out = _sample(x3, _fma(m[0], x, mx), _fma(m[3], x, my), border_value, plain)
+    return _place(out, dsize, box, border_value, squeeze)
+
+
+def warp_perspective(img: np.ndarray, M, dsize: Tuple[int, int],
+                     border_value=(0, 0, 0), plain: bool = False, region=None) -> np.ndarray:
+    """`cv2.warpPerspective(img, M, dsize, borderValue=border_value)`
+    (INTER_LINEAR, BORDER_CONSTANT) for a uint8 or float32 image; `M` (3, 3)
+    maps source to output. An output pixel whose homogeneous weight is 0 takes
+    the border value. `region` as for `warp_affine`."""
+    x3, squeeze = _as3(img)
     m = invert_3x3(M).astype(F32).ravel()
-    x = np.arange(w, dtype=F32)[None, :]
-    y = np.arange(h, dtype=F32)[:, None]
+    x, y, box = _grid(dsize, region)
     mx, my, mw = y * m[1] + m[2], y * m[4] + m[5], y * m[7] + m[8]
     ww = _fma(m[6], x, mw)
     with np.errstate(divide="ignore", invalid="ignore"):
@@ -201,7 +239,7 @@ def warp_perspective(img: np.ndarray, M, dsize: Tuple[int, int],
     bad = ~(np.isfinite(sx) & np.isfinite(sy))
     sx[bad], sy[bad] = -3.0, -3.0
     out = _sample(x3, sx.astype(F32), sy.astype(F32), border_value, plain)
-    return out[..., 0] if squeeze else out
+    return _place(out, dsize, box, border_value, squeeze)
 
 
 # ---------------------------------------------------------------------------

@@ -55,15 +55,37 @@ def synthetic_batch(batch: int, imgsz: int = 640, nc: int = 2, n: int = 64,
     return np.ascontiguousarray(np.tile(tile, (reps, 1, 1, 1))[:batch])
 
 
+def task_labels(item: Dict, task: str, imgsz: int) -> Dict:
+    """A scene's per-object planes for the segment and pose tasks, as the
+    JAX dataset adds them: `masks` (n, s, s) float32, 1 inside each box's
+    integer-truncated extent; `keypoints` (n, 17, 3), the top-left corner,
+    the centre and the bottom-right corner visible (2), the other 14 at 0."""
+    if task == "segment":
+        masks = np.zeros((len(item["boxes"]), imgsz, imgsz), np.float32)
+        for j, (x1, y1, x2, y2) in enumerate(item["boxes"]):
+            masks[j, int(y1):int(y2), int(x1):int(x2)] = 1.0
+        return {**item, "masks": masks}
+    if task == "pose":
+        k = np.zeros((len(item["boxes"]), 17, 3), np.float32)
+        for j, (x1, y1, x2, y2) in enumerate(item["boxes"]):
+            k[j, 0] = [x1, y1, 2]
+            k[j, 1] = [(x1 + x2) / 2, (y1 + y2) / 2, 2]
+            k[j, 2] = [x2, y2, 2]
+        return {**item, "keypoints": k}
+    return item
+
+
 class SyntheticDetectionDataset:
     """`n` labelled scenes at `imgsz`; items as the JAX dataset's (`img` BGR
-    uint8, `boxes` xyxy pixels, `cls`). `buffer` holds the train loader's
-    last resized items, the mosaic and mixup partners, across epochs."""
+    uint8, `boxes` xyxy pixels, `cls`), with `masks` or `keypoints` for the
+    `segment` and `pose` tasks (`task_labels`). `buffer` holds the train
+    loader's last resized items, the mosaic and mixup partners, across
+    epochs."""
 
     def __init__(self, n: int = 64, imgsz: int = 320, nc: int = 2,
-                 max_objects: int = 6, seed: int = 0):
+                 max_objects: int = 6, seed: int = 0, task: str = "detect"):
         self.n, self.imgsz, self.nc = n, imgsz, nc
-        self.max_objects, self.seed = max_objects, seed
+        self.max_objects, self.seed, self.task = max_objects, seed, task
         self.buffer: List[Dict] = []
 
     def __len__(self) -> int:
@@ -79,12 +101,22 @@ class SyntheticDetectionDataset:
     def __getitem__(self, i: int) -> Dict:
         """Scene `i` (`synthetic_item`) with the JAX dataset's file name,
         `synthetic_<i>.jpg`, as its `path`."""
-        return {**synthetic_item(i, self.imgsz, self.nc, self.max_objects, self.seed),
-                "path": f"synthetic_{i}.jpg"}
+        item = synthetic_item(i, self.imgsz, self.nc, self.max_objects, self.seed)
+        return task_labels({**item, "path": f"synthetic_{i}.jpg"}, self.task, self.imgsz)
 
 
-def val_dataset(imgsz: int, nc: int = 2, seed: int = 0) -> SyntheticDetectionDataset:
+def synthetic_size(imgsz: int, task: str = "detect") -> int:
+    """The scenes' size the JAX trainer picks without data: min(imgsz, 320),
+    the full `imgsz` for the segment and pose tasks (their masks must
+    match the train size)."""
+    return imgsz if task in ("segment", "pose") else min(imgsz, 320)
+
+
+def val_dataset(imgsz: int, nc: int = 2, seed: int = 0,
+                task: str = "detect") -> SyntheticDetectionDataset:
     """The validation set the JAX trainer makes when it has no data
-    (`BaseTrainer.get_dataset(train=False)`): 16 scenes at min(imgsz, 320)
-    px from `seed + 1`; the validation loader letterboxes them to imgsz."""
-    return SyntheticDetectionDataset(n=16, imgsz=min(imgsz, 320), nc=nc, seed=seed + 1)
+    (`BaseTrainer.get_dataset(train=False)`): 16 scenes at
+    `synthetic_size` px from `seed + 1`; the validation loader letterboxes
+    them to imgsz."""
+    return SyntheticDetectionDataset(n=16, imgsz=synthetic_size(imgsz, task), nc=nc,
+                                     seed=seed + 1, task=task)

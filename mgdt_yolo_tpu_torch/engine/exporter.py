@@ -5,15 +5,17 @@
   included, input (B, imgsz, imgsz, 3) NHWC float in [0, 1] with the batch
   dimension dynamic (JAX's symbolic `b`), output the decoded (B, 4+nc, A),
   saved with `torch.export.save`. It is the port's counterpart of JAX's
-  `stablehlo` artifact. The DCN is the registered operator
-  `mgdt::deform_fwd` (`ops/cuda_deform.py`), one node of the program, so
-  the program launches K1 on the card; it is traced on the model's device.
+  `stablehlo` artifact; as there, a segment or pose model's program gives
+  its decoded (B, 4+nc+nm, A) or (B, 4+nc+nk, A) and no prototypes. The
+  DCN is the registered operator `mgdt::deform_fwd` (`ops/cuda_deform.py`),
+  one node of the program, so the program launches K1 on the card; it is
+  traced on the model's device.
 * `npz`: the flat flax-keyed weight archive the JAX package reads
   (`weights.save_npz`).
 
 Each export writes `<stem>_metadata.json` beside the artifact with JAX's
 keys (imgsz, nc, stride, names, model_yaml, deform_semantics, layout,
-output) and the task. The hooks `on_export_start` and `on_export_end` fire
+output) and the model's task. The hooks `on_export_start` and `on_export_end` fire
 as in JAX. `stablehlo` raises naming `pt2`; `saved_model` and
 `tflite` need TensorFlow, which the port does not use (ROADMAP queue 1,
 item 14).
@@ -62,7 +64,7 @@ def metadata(model, imgsz: int) -> dict:
             "names": {str(k): str(v) for k, v in model.names.items()},
             "model_yaml": model.model_yaml or "",
             "deform_semantics": model.deform_semantics,
-            "layout": "NHWC", "output": "(1, 4+nc, A) xywh+scores", "task": "detect"}
+            "layout": "NHWC", "output": "(1, 4+nc, A) xywh+scores", "task": model.task}
 
 
 class Exporter(CallbackMixin):

@@ -1,6 +1,7 @@
 """The `YOLO` facade: one object that trains, validates, predicts, serves,
 exports and benchmarks a detection model; the counterpart of the JAX
-package's `mgdt_yolo_tpu/engine/model.py`, detect task only.
+package's `mgdt_yolo_tpu/engine/model.py`, for the detect, segment and pose
+tasks (`TASK_MAP`, as JAX's: `DetectionPredictor` serves all three).
 
 `YOLO(model="yolov8n.yaml", task=None, device=None)` builds the model on
 `device` (CUDA by default; `device="cpu"` for the CPU) from:
@@ -16,9 +17,12 @@ package's `mgdt_yolo_tpu/engine/model.py`, detect task only.
   weights, pinned to exact deform semantics as the JAX facade pins them;
   the checkpoint is kept as `ckpt`.
 
-Refused: a JAX orbax checkpoint directory (the JAX package's
-`YOLO(...).export(format="npz")` carries one across), and the segment,
-pose and classify tasks (item 8). `track` (item 9) raises.
+The task is the `task` given, else the one the model's name implies
+(`guess_model_task`: "-seg" segment, "-pose" pose), as JAX's facade
+takes it; it picks the validator. Refused: a JAX orbax checkpoint
+directory (the JAX package's `YOLO(...).export(format="npz")` carries one
+across), and the classify task (ROADMAP queue 1, item 8). `track` (item 9)
+raises.
 
 Every method takes configuration keys as keyword arguments, over the
 facade's own (`model`, `task`), in JAX's cascade `{**self.overrides,
@@ -41,21 +45,25 @@ from ..cfg import get_cfg
 from ..cfg.default import CFG_DEFAULTS
 from ..device import parse_device
 from ..nn.autobackend import load_npz_model
-from ..nn.tasks import DetectionModel, guess_model_task
+from ..nn.tasks import DetectionModel, PoseModel, SegmentationModel, guess_model_task
 from .predictor import DetectionPredictor
 from .trainer import Trainer
 from .validator import DetectionValidator
+from .validator_seg_pose import PoseValidator, SegmentationValidator
 
 LOGGER = logging.getLogger(__name__)
+# the Trainer takes its task from the model's head
 TASK_MAP: Dict[str, list] = {
-    "detect": [DetectionModel, Trainer, DetectionValidator, DetectionPredictor]}
+    "detect": [DetectionModel, Trainer, DetectionValidator, DetectionPredictor],
+    "segment": [SegmentationModel, Trainer, SegmentationValidator, DetectionPredictor],
+    "pose": [PoseModel, Trainer, PoseValidator, DetectionPredictor]}
 # the keys the facade resolves itself: they select the model, not a setting
 FACADE_KEYS = ("model", "task", "mode")
 
 
 def _not_ported_task(task: str) -> NotImplementedError:
-    return NotImplementedError(f"the {task} task is not ported: the port runs detect only "
-                               f"(ROADMAP queue 1, item 8)")
+    return NotImplementedError(f"the {task} task is not ported: the port runs detect, segment "
+                               f"and pose (classify: ROADMAP queue 1, item 8)")
 
 
 class YOLO:

@@ -102,11 +102,15 @@ def det_to_original(det: np.ndarray, imgsz: int, meta) -> np.ndarray:
 def infer(model, x: torch.Tensor, conf: float, iou: float, max_det: int,
           agnostic: bool = False, augment: bool = False):
     """The device step of a uint8 NHWC batch: scale by 1/255, the eval
-    forward (or `predict_augment`), NMS. Returns (det, counts) on the device."""
+    forward (or `predict_augment`), NMS. Returns (det, counts) on the device.
+    As JAX's predictor and server, the NMS is given no class count, so it
+    takes every channel after the box as a class score: on a segment or
+    pose model the mask coefficients or decoded keypoints rank as classes
+    too (the reference's behaviour, kept)."""
     x = x.float() / 255.0
     decoded, _ = model.predict_augment(x) if augment else model(x)
     return non_max_suppression(decoded, conf_thres=conf, iou_thres=iou, max_det=max_det,
-                               agnostic=agnostic, nc=model.nc)
+                               agnostic=agnostic)
 
 
 def load_source(source) -> List[Dict]:

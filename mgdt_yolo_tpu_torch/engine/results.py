@@ -1,12 +1,15 @@
-"""Per-image results: `Boxes` and `Results`, the detect parts of the JAX
-package's `mgdt_yolo_tpu/engine/results.py`.
+"""Per-image results: `Boxes`, `Masks`, `Keypoints` and `Results`, the
+counterparts of the JAX package's `mgdt_yolo_tpu/engine/results.py`.
 
 numpy-backed, as there: the predictor and the server bring detections back
-to the host, rescaled to the original image, and wrap them here. `cpu`,
-`numpy`, `cuda` and `to` return the object itself. `plot` and `save_crop`
-draw and write with the port's rasteriser and writers (`utils/draw.py`,
-`utils/plotting.py`). Not ported: the masks, keypoints and probabilities
-of the segment, pose and classify tasks (ROADMAP queue 1, item 8).
+to the host, rescaled to the original image, and wrap them here (as in JAX,
+the predictor gives boxes only; masks and keypoints are a caller's).
+`cpu`, `numpy`, `cuda` and `to` return the object itself. `plot` and
+`save_crop` draw and write with the port's rasteriser and writers
+(`utils/draw.py`, `utils/plotting.py`); `plot` draws the boxes, as JAX's.
+`Masks.xy` takes each mask's largest outer contour by the port's border
+follower (`utils/contours.py`, cv2's `findContours` without cv2). Not
+ported: the classify task's `Probs` (ROADMAP queue 1, item 8).
 """
 from __future__ import annotations
 
@@ -113,19 +116,83 @@ class Boxes(SimpleClass, _HostOps):
         return self.xywh / np.array([w, h, w, h])
 
 
+class Masks(SimpleClass, _HostOps):
+    """(n, H, W) instance masks in the original image's pixels."""
+
+    def __init__(self, masks: np.ndarray, orig_shape):
+        self.data = np.atleast_3d(np.asarray(masks))
+        self.orig_shape = orig_shape
+
+    def __len__(self):
+        return len(self.data)
+
+    @property
+    def xy(self):
+        """Each mask's largest outer contour (by `contour_area`, the first of
+        equal ones in cv2's order), (k, 2) float32 pixels; (0, 2) for an
+        empty mask."""
+        from ..utils.contours import contour_area, find_external_contours
+        out = []
+        for m in self.data:
+            cnts = find_external_contours(m.astype(np.uint8))
+            out.append(max(cnts, key=contour_area).reshape(-1, 2).astype(np.float32)
+                       if cnts else np.zeros((0, 2), np.float32))
+        return out
+
+    @property
+    def xyn(self):
+        """`xy` divided by the image's (w, h)."""
+        h, w = np.asarray(self.orig_shape)[:2]
+        return [c / np.array([w, h], np.float32) for c in self.xy]
+
+
+class Keypoints(SimpleClass, _HostOps):
+    """(n, k, 2|3) keypoints in the original image's pixels, a visibility
+    or confidence last where there are 3 values."""
+
+    def __init__(self, kpts: np.ndarray, orig_shape):
+        self.data = np.asarray(kpts)
+        self.orig_shape = orig_shape
+
+    def __len__(self):
+        return len(self.data)
+
+    @property
+    def xy(self):
+        return self.data[..., :2]
+
+    @property
+    def conf(self):
+        return self.data[..., 2] if self.data.shape[-1] == 3 else None
+
+    @property
+    def xyn(self):
+        h, w = np.asarray(self.orig_shape)[:2]
+        return self.xy / np.array([w, h], np.float32)
+
+
 class Results(SimpleClass):
-    """One image's detections (`boxes`), its original BGR image, its source
-    name and the per-image `speed` (ms) of preprocess and inference."""
+    """One image's detections (`boxes`, with `masks` and `keypoints` where
+    given), its original BGR image, its source name and the per-image
+    `speed` (ms) of preprocess and inference."""
 
     def __init__(self, orig_img: np.ndarray, path: str, names: Dict[int, str],
-                 boxes: Optional[np.ndarray] = None, speed: Optional[Dict[str, float]] = None):
+                 boxes: Optional[np.ndarray] = None, masks: Optional[np.ndarray] = None,
+                 probs: Optional[np.ndarray] = None, keypoints: Optional[np.ndarray] = None,
+                 speed: Optional[Dict[str, float]] = None):
+        if probs is not None:
+            raise NotImplementedError("classification probabilities: the classify task is not "
+                                      "ported yet (ROADMAP queue 1, item 8)")
         self.orig_img = orig_img
         self.orig_shape = orig_img.shape[:2]
         self.path = path
         self.names = names
         self.boxes = Boxes(boxes if boxes is not None and len(boxes) else np.zeros((0, 6)),
                            self.orig_shape)
-        self.masks = self.probs = self.keypoints = None  # other tasks: item 8
+        self.masks = Masks(masks, self.orig_shape) if masks is not None else None
+        self.keypoints = Keypoints(keypoints, self.orig_shape) if keypoints is not None \
+            else None
+        self.probs = None
         self.speed = speed or {"preprocess": 0.0, "inference": 0.0, "postprocess": 0.0}
 
     def __len__(self):
@@ -135,10 +202,12 @@ class Results(SimpleClass):
         return Results(self.orig_img, self.path, self.names,
                        self.boxes.data[idx] if len(self.boxes) else None, speed=self.speed)
 
-    def update(self, boxes: Optional[np.ndarray] = None):
-        """Replace the detections in place."""
+    def update(self, boxes: Optional[np.ndarray] = None, masks: Optional[np.ndarray] = None):
+        """Replace the detections or the masks in place."""
         if boxes is not None:
             self.boxes = Boxes(boxes, self.orig_shape)
+        if masks is not None:
+            self.masks = Masks(masks, self.orig_shape)
         return self
 
     def new(self):
@@ -148,7 +217,8 @@ class Results(SimpleClass):
     @property
     def keys(self):
         """Names of the non-empty result attributes."""
-        return ["boxes"] if len(self.boxes) else []
+        return [k for k in ("boxes", "masks", "probs", "keypoints")
+                if getattr(self, k) is not None and len(getattr(self, k))]
 
     def cpu(self):
         return self
@@ -221,15 +291,26 @@ class Results(SimpleClass):
 
     def tojson(self, normalize: bool = False):
         """The detections as a JSON list of {name, class, confidence, box
-        (, track_id)}, boxes divided by the image size when `normalize`."""
+        (, track_id, segments {x, y}, keypoints {x, y, visible})},
+        coordinates divided by the image size when `normalize`, as JAX's
+        `tojson` writes them (the i-th mask's and keypoints' with the i-th
+        box)."""
         h, w = self.orig_shape if normalize else (1, 1)
         out = []
-        for row in self.boxes.data:
+        for i, row in enumerate(self.boxes.data):
             c = int(row[-1])
             rec = {"name": str(self.names.get(c, c)), "class": c, "confidence": float(row[-2]),
                    "box": {"x1": float(row[0]) / w, "y1": float(row[1]) / h,
                            "x2": float(row[2]) / w, "y2": float(row[3]) / h}}
             if self.boxes.is_track:
                 rec["track_id"] = int(row[-3])
+            if self.masks is not None and len(self.masks):
+                xy = self.masks.xy[i]
+                rec["segments"] = {"x": (xy[:, 0] / w).tolist(), "y": (xy[:, 1] / h).tolist()}
+            if self.keypoints is not None and len(self.keypoints):
+                kp = self.keypoints.data[i]
+                rec["keypoints"] = {"x": (kp[:, 0] / w).tolist(), "y": (kp[:, 1] / h).tolist(),
+                                    "visible": (kp[:, 2].tolist() if kp.shape[-1] == 3
+                                                else [1.0] * len(kp))}
             out.append(rec)
         return json.dumps(out, indent=2)

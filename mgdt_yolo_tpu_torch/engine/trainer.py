@@ -32,6 +32,16 @@ root), the rate, then a constant-momentum trace; no weight decay and no
 bias group (not `torch.optim.RMSprop`, whose alpha is 0.99 and eps outside
 the root).
 
+The task follows the model's head (`DetectionModel.task`), as JAX's
+`SegmentationTrainer` and `PoseTrainer` follow theirs: a segment or pose
+model trains with `SegmentationLoss` or `PoseLoss` (`pose` and `kobj`
+their gains), validates with `SegmentationValidator` or `PoseValidator`,
+takes its synthetic scenes at the full `imgsz` with their masks or
+keypoints, and always augments on the host (JAX's trainer runs its device
+pipeline for the detect task only, and takes `device_augment=True`
+silently there); `overlap_mask` and `mask_ratio`, which JAX's trainer
+does not read, stay refused at other values.
+
 `Trainer` runs micro-batches (the host pipeline's batches, or raw uint8
 batches augmented on the device first; mosaic closed for the last
 `close_mosaic` epochs: on the host from that epoch (none when
@@ -69,13 +79,15 @@ import torch
 from ..cfg import check_cfg_types, check_dict_alignment
 from ..cfg.default import CFG_DEFAULTS, NEUTRAL_KEYS, PORTED_OPTIMIZERS, TRAIN_DEFAULTS
 from ..data.build import DataLoader, to_device
-from ..data.synthetic import SyntheticDetectionDataset, val_dataset
+from ..data.synthetic import SyntheticDetectionDataset, synthetic_size, val_dataset
 from ..device import names_device
 from ..ops.device_augment import apply_augment, augment_draws
 from ..utils.callbacks import CallbackMixin
 from ..utils.loss import DetectionLoss
+from ..utils.loss_seg_pose import PoseLoss, SegmentationLoss
 from ..weights import flax_keys, save_npz
 from .validator import DetectionValidator
+from .validator_seg_pose import PoseValidator, SegmentationValidator
 
 LOGGER = logging.getLogger(__name__)
 DECAY_LEAVES = ("kernel", "weight", "reduction_weight")
@@ -270,16 +282,19 @@ class EarlyStopping:
         return stop
 
 
-def uses_device_augment(a: Mapping) -> bool:
-    """Whether the device pipeline runs: `device_augment` set and no key it
-    cannot honour."""
-    return bool(a["device_augment"]) and not device_augment_unsupported(a)
+def uses_device_augment(a: Mapping, task: str = "detect") -> bool:
+    """Whether the device pipeline runs: the detect task, `device_augment`
+    set and no key it cannot honour."""
+    return task == "detect" and bool(a["device_augment"]) and not device_augment_unsupported(a)
 
 
-def check_augment_args(a: Mapping) -> bool:
+def check_augment_args(a: Mapping, task: str = "detect") -> bool:
     """JAX's routing: True where the device pipeline runs. With
     `device_augment=True` and a key it cannot honour set, JAX's warning is
-    logged and the host pipeline runs (False)."""
+    logged and the host pipeline runs (False); the segment and pose tasks
+    take the host pipeline without a word, as JAX's trainers do."""
+    if task != "detect":
+        return False
     if a["device_augment"] and not uses_device_augment(a):
         LOGGER.warning(f"device_augment=True cannot honor {device_augment_unsupported(a)} — "
                        "falling back to the host augmentation pipeline")
@@ -346,17 +361,26 @@ def dataset_dict(data, model=None) -> Dict:
 
 def get_dataset(args: Mapping, train: bool = True, model=None):
     """The JAX trainer's `get_dataset`: the synthetic scenes for `data` None
-    or "synthetic" (64 train / 16 validation scenes at min(imgsz, 320) px
-    from `seed` / `seed + 1`), else the `train` or `val` split of a dataset
-    YAML or directory as a `YOLODataset` (`dataset_dict` sets its names on
-    `model`)."""
+    or "synthetic" (64 train / 16 validation scenes at min(imgsz, 320) px,
+    the full imgsz with their masks or keypoints for a segment or pose
+    model, from `seed` / `seed + 1`), else the `train` or `val` split of a
+    dataset YAML or directory as a `YOLODataset` (`dataset_dict` sets its
+    names on `model`). A YOLO dataset on disk has boxes only, as JAX's
+    `YOLODataset` reads them, so a segment or pose model refuses one (JAX's
+    loss would find no masks or keypoints in its batches)."""
     data = args.get("data")
+    task = getattr(model, "task", "detect")
     if data in (None, "synthetic", "synthetic.yaml"):
         nc = model.nc if model is not None else 2
         if not train:
-            return val_dataset(args["imgsz"], nc, args["seed"])
-        return SyntheticDetectionDataset(n=64, imgsz=min(args["imgsz"], 320), nc=nc,
-                                         seed=args["seed"])
+            return val_dataset(args["imgsz"], nc, args["seed"], task)
+        return SyntheticDetectionDataset(n=64, imgsz=synthetic_size(args["imgsz"], task),
+                                         nc=nc, seed=args["seed"], task=task)
+    if task != "detect":
+        raise ValueError(f"a {task} model trains and validates on the synthetic scenes only: "
+                         f"the YOLO dataset {data!r} has boxes and no "
+                         f"{'masks' if task == 'segment' else 'keypoints'}, as JAX's "
+                         "YOLODataset reads it")
     from ..data.dataset import YOLODataset
     d = dataset_dict(data, model)
     split = d.get("train" if train else "val") or d.get("val") or d.get("train")
@@ -374,10 +398,28 @@ def build_loader(args: Mapping, train: bool = True, model=None) -> DataLoader:
     model's largest stride, as the JAX validator builds it."""
     ds = get_dataset(args, train, model)
     stride = int(max(model.stride)) if model is not None else 32
+    task = getattr(model, "task", "detect")
     return DataLoader(ds, args["batch"], args["imgsz"], seed=args["seed"], train=train,
-                      device_augment=uses_device_augment(args) and train, hyp=args,
+                      device_augment=uses_device_augment(args, task) and train, hyp=args,
                       workers=args.get("workers", 8), rect=bool(args.get("rect")) and not train,
                       stride=stride)
+
+
+VALIDATORS = {"detect": DetectionValidator, "segment": SegmentationValidator,
+              "pose": PoseValidator}
+
+
+def build_criterion(model, a: Mapping):
+    """The loss of the model's task with the trainer's gains, as JAX's
+    trainers build theirs (`get_criterion`)."""
+    gains = {"box_gain": a["box"], "cls_gain": a["cls"], "dfl_gain": a["dfl"]}
+    task = getattr(model, "task", "detect")
+    if task == "segment":
+        return SegmentationLoss(model.nc, model.reg_max, model.stride, **gains)
+    if task == "pose":
+        return PoseLoss(model.nc, model.reg_max, model.stride, kpt_shape=model.kpt_shape,
+                        pose_gain=a["pose"], kobj_gain=a["kobj"], **gains)
+    return DetectionLoss(model.nc, model.reg_max, model.stride, **gains)
 
 
 def resume_state_path(npz) -> Path:
@@ -416,7 +458,8 @@ class Trainer(CallbackMixin):
         self.args = a = check_train_args(overrides,
                                          None if model is None else model.device)
         self.init_callbacks()
-        self.device_augment = check_augment_args(a)
+        self.task = getattr(model, "task", "detect")
+        self.device_augment = check_augment_args(a, self.task)
         if loader is not None and loader.device_augment != self.device_augment:
             raise ValueError(f"the loader's device_augment={loader.device_augment} does not "
                              f"match the trainer's, {self.device_augment} (device_augment="
@@ -445,9 +488,7 @@ class Trainer(CallbackMixin):
             total_steps=nb * a["epochs"], steps_per_epoch=nb, epochs=a["epochs"],
             cos_lr=a["cos_lr"], warmup_momentum=a["warmup_momentum"], nc=model.nc,
             warmup_bias_lr=a["warmup_bias_lr"], accumulate=self.accumulate)
-        self.criterion = DetectionLoss(model.nc, model.reg_max, model.stride,
-                                       box_gain=a["box"], cls_gain=a["cls"],
-                                       dfl_gain=a["dfl"])
+        self.criterion = build_criterion(model, a)
         self.ema = EMA(named)
         self.step = 0         # micro-batches taken: drives the assigner's anneal
         self.epoch = 0
@@ -573,8 +614,10 @@ class Trainer(CallbackMixin):
             p.grad = None
         mark("optimizer")
         self.step += 1
-        return {"loss": out.total.detach(), "box": out.parts[0], "cls": out.parts[1],
-                "dfl": out.parts[2], "grad_norm": grad_norm}
+        # parts: detect [box, cls, dfl], segment [box, seg, cls, dfl],
+        # pose [box, kpt, kobj, cls, dfl]
+        return {"loss": out.total.detach(), "box": out.parts[0], "cls": out.parts[-2],
+                "dfl": out.parts[-1], "grad_norm": grad_norm}
 
     def train(self) -> Dict[str, float]:
         """All epochs over the loader, as the JAX trainer's loop runs them,
@@ -683,8 +726,8 @@ class Trainer(CallbackMixin):
                 self.val_loader = build_loader(a, False, self.model)
             # predictions.json (save_json) and the plots land with the run,
             # as in JAX; bf16 exactly where the trainer's amp is
-            self.validator = DetectionValidator({**a, "save_dir": self.save_dir,
-                                                 "half": self.amp})
+            self.validator = VALIDATORS[self.task]({**a, "save_dir": self.save_dir,
+                                                    "half": self.amp})
             self._val_model = copy.deepcopy(self.model)
         vm, ema = self._val_model, self.ema.state()
         with torch.no_grad():

@@ -1,5 +1,7 @@
 """Model configurations of the PyTorch port, as Python literals, by the file
-name of the JAX package's YAML each one copies (`mgdt_yolo_tpu/models/v8/`)."""
+name of the JAX package's YAML each one copies (`mgdt_yolo_tpu/models/v8/`):
+the eight models of the paper's ablation matrix (`ABLATION`) and YOLOv8's
+segment and pose models."""
 from __future__ import annotations
 
 import copy
@@ -8,10 +10,12 @@ from pathlib import Path
 
 from .ablation import CONFIGS as _ABLATION
 from .mspa_c2f_gd_tood_yolov8 import CONFIG as _FLAGSHIP
+from .seg_pose import CONFIGS as _SEG_POSE
 
 FLAGSHIP = "mspa_c2f_gd_tood_yolov8.yaml"
 # the eight models of the paper's ablation matrix
-CONFIGS = {**_ABLATION, FLAGSHIP: _FLAGSHIP}
+ABLATION = {**_ABLATION, FLAGSHIP: _FLAGSHIP}
+CONFIGS = {**ABLATION, **_SEG_POSE}
 
 
 def load_config(name) -> dict:

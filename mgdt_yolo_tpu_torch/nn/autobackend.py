@@ -7,7 +7,10 @@ backend's device where it was traced on another; an `.npz` weight archive
 with its `<stem>_metadata.json`, rebuilt as the config it names and pinned
 to the deform semantics it records (`load_npz_model`). Anything else raises
 ValueError. `forward(img)` takes an NHWC float batch in [0, 1] (numpy or a
-tensor) and returns the decoded (B, 4+nc, A) tensor on the backend's device.
+tensor) and returns the decoded (B, 4+nc, A) tensor on the backend's device
+((B, 4+nc+nm, A) or (B, 4+nc+nk, A) for a segment or pose model, whose
+head the npz's config names, as JAX's `DetectionModel(model_yaml)` builds
+it).
 """
 from __future__ import annotations
 

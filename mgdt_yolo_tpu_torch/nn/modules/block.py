@@ -1,6 +1,7 @@
 """Blocks of the flagship graph (NCHW), the counterparts of
 `mgdt_yolo_tpu/nn/modules/block.py`: the CSP/SPPF backbone blocks, the
-MSPA-C2f attention block, the GD neck modules and the DyDCNv2 wrapper.
+MSPA-C2f attention block, the GD neck modules, the DyDCNv2 wrapper and the
+segmentation head's `Proto`.
 
 Submodules carry the flax names (`cv1`, `m_0`, `convs_3`, `attention.fc1`,
 ...) so the JAX variables load one to one. Where the JAX package computes in
@@ -80,6 +81,24 @@ class SPPF(nn.Module):
         y2 = max_pool2d_same(y1, self.k)
         y3 = max_pool2d_same(y2, self.k)
         return self.cv2(torch.cat([y, y1, y2, y3], dim=1))
+
+
+class Proto(nn.Module):
+    """The segmentation head's mask prototypes: Conv 3x3, a 2x2 stride-2
+    transposed conv with bias, Conv 3x3, Conv 1x1 to `c2` prototypes.
+    flax's `ConvTranspose` (no kernel transpose, 'SAME') correlates where
+    torch's convolves, so its (kh, kw, in, out) kernel is torch's (in, out,
+    kh, kw) with both spatial axes flipped (`weights.translate`)."""
+
+    def __init__(self, c1: int, c_: int = 256, c2: int = 32):
+        super().__init__()
+        self.cv1 = Conv(c1, c_, 3)
+        self.upsample = nn.ConvTranspose2d(c_, c_, 2, 2, 0, bias=True)
+        self.cv2 = Conv(c_, c_, 3)
+        self.cv3 = Conv(c_, c2, 1)
+
+    def forward(self, x):
+        return self.cv3(self.cv2(self.upsample(self.cv1(x))))
 
 
 class SPRModule(nn.Module):

@@ -1,5 +1,5 @@
-"""The detection heads (NCHW), YOLOv8's `Detect` and TOOD, and the eval-path
-decode, the counterparts of `mgdt_yolo_tpu/nn/modules/head.py`."""
+"""The heads (NCHW), YOLOv8's `Detect`, TOOD, `Segment` and `Pose`, and the
+eval-path decode, the counterparts of `mgdt_yolo_tpu/nn/modules/head.py`."""
 from __future__ import annotations
 
 import torch
@@ -7,7 +7,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops.boxes import dist2bbox, make_anchors
-from .block import DyDCNv2, dfl_decode
+from .block import DyDCNv2, Proto, dfl_decode
 from .conv import Conv
 
 
@@ -136,3 +136,77 @@ class TOODHead(nn.Module):
         if self.training:
             return None, feats
         return decode_detections(feats, self.strides, self.nc, self.reg_max), feats
+
+
+def _towers(module: nn.Module, ch, hidden: int, out: int) -> None:
+    """The `cv4_{i}_{0,1,2}` tower of each level: two Conv+BN+SiLU, then a
+    conv with bias to `out` channels."""
+    for i, c in enumerate(ch):
+        module.add_module(f"cv4_{i}_0", Conv(c, hidden, 3))
+        module.add_module(f"cv4_{i}_1", Conv(hidden, hidden, 3))
+        module.add_module(f"cv4_{i}_2", _head_conv(hidden, out, 1))
+
+
+def _tower_flat(module: nn.Module, xs) -> torch.Tensor:
+    """Every level's `cv4` tower output, (B, A, out) in the anchors' order."""
+    outs = []
+    for i, x in enumerate(xs):
+        for j in range(3):
+            x = getattr(module, f"cv4_{i}_{j}")(x)
+        outs.append(x.flatten(2))
+    return torch.cat(outs, dim=2).transpose(1, 2)
+
+
+class Segment(nn.Module):
+    """`Detect` (nested as `detect`, as the flax module nests it), the mask
+    prototypes `proto` (`Proto` on the first level) and a mask-coefficient
+    tower `cv4_{i}_{j}` per level. Returns (decoded (B, 4+nc+nm, A) or None
+    in training, (raw maps, coefficients (B, A, nm), prototypes (B, nm,
+    2h, 2w)))."""
+
+    def __init__(self, nc: int, nm: int, npr: int, ch, strides, reg_max: int = 4):
+        super().__init__()
+        self.nc, self.nm, self.npr, self.reg_max = nc, nm, npr, reg_max
+        self.strides = tuple(strides)
+        self.proto = Proto(ch[0], npr, nm)
+        _towers(self, ch, max(ch[0] // 4, nm), nm)
+        self.detect = Detect(nc, ch, strides, reg_max)
+
+    def forward(self, xs):
+        proto = self.proto(xs[0])
+        mc = _tower_flat(self, xs)
+        decoded, feats = self.detect(xs)
+        if decoded is None:
+            return None, (feats, mc, proto)
+        return torch.cat([decoded, mc.transpose(1, 2).to(decoded.dtype)], dim=1), \
+            (feats, mc, proto)
+
+
+class Pose(nn.Module):
+    """`Detect` (nested as `detect`) and a keypoint tower `cv4_{i}_{j}` per
+    level. In eval the keypoints are decoded against the anchor centres:
+    xy as (raw * 2 + anchor - 0.5) * stride, the visibility through a
+    sigmoid where `kpt_shape[1]` is 3. Returns (decoded (B, 4+nc+nk, A) or
+    None in training, (raw maps, raw keypoints (B, A, nk)))."""
+
+    def __init__(self, nc: int, kpt_shape, ch, strides, reg_max: int = 4):
+        super().__init__()
+        self.nc, self.reg_max, self.strides = nc, reg_max, tuple(strides)
+        self.kpt_shape = tuple(kpt_shape)
+        nk = self.kpt_shape[0] * self.kpt_shape[1]
+        _towers(self, ch, max(ch[0] // 4, nk), nk)
+        self.detect = Detect(nc, ch, strides, reg_max)
+
+    def forward(self, xs):
+        kpt = _tower_flat(self, xs)
+        decoded, feats = self.detect(xs)
+        if decoded is None:
+            return None, (feats, kpt)
+        b = kpt.shape[0]
+        anchors, stride_t = make_anchors([f.shape[2:] for f in feats], self.strides, 0.5,
+                                         device=kpt.device)
+        k = kpt.reshape(b, -1, *self.kpt_shape)
+        xy = (k[..., :2] * 2.0 + (anchors[None, :, None, :] - 0.5)) * stride_t[None, :, None, :1]
+        rest = torch.sigmoid(k[..., 2:]) if self.kpt_shape[1] == 3 else k[..., 2:]
+        pk = torch.cat([xy, rest], dim=-1).reshape(b, -1, k.shape[2] * k.shape[3])
+        return torch.cat([decoded, pk.transpose(1, 2).to(decoded.dtype)], dim=1), (feats, kpt)

@@ -1,9 +1,10 @@
 """The model graph: a layer list parsed from a config dict into one module.
 
 The counterpart of `mgdt_yolo_tpu/nn/tasks.py`, cut to the module types the
-eight models of the ablation matrix use (`models.CONFIGS`); any other type
-raises KeyError. `parse_model` keeps the JAX package's channel arithmetic,
-including the GOLD-YOLO cases, and also tracks each layer's stride so the
+eight models of the ablation matrix and YOLOv8's segment and pose models use
+(`models.CONFIGS`); any other type raises KeyError. `parse_model` keeps the
+JAX package's channel arithmetic, including the GOLD-YOLO cases and the
+segment head's prototype width, and also tracks each layer's stride so the
 head's strides need no probe run.
 """
 from __future__ import annotations
@@ -43,7 +44,7 @@ class LayerSpec:
 
 _CONV_LIKE = {"Conv", "SPPF", "C2f", "MSPA_C2f"}
 _REPEAT_BLOCKS = {"C2f", "MSPA_C2f"}
-_HEADS = {"Detect", "TOODHead"}
+_HEADS = {"Detect", "TOODHead", "Segment", "Pose"}
 _KNOWN = _CONV_LIKE | _HEADS | {"nn.Upsample", "Concat", "SimFusion_4in", "SimFusion_3in",
                                 "IFM", "InjectionMultiSum_Auto_pool"}
 
@@ -82,6 +83,8 @@ def parse_model(d: Dict, scale: Optional[str] = None):
             c2 = sum(chs[x] for x in f)
         elif m in _HEADS:
             args.append([chs[x] for x in f])
+            if m == "Segment":  # the prototypes' width scales as a layer's
+                args[2] = make_divisible(min(args[2], max_channels) * width, 8)
             c2 = None
         elif m == "SimFusion_4in":
             c2 = sum(chs[x] for x in f)
@@ -145,6 +148,10 @@ def build_module(spec: LayerSpec, head_strides) -> nn.Module:
         return H.Detect(a[0], a[-1], head_strides)
     if m == "TOODHead":
         return H.TOODHead(a[0], a[1], a[-1], head_strides)
+    if m == "Segment":
+        return H.Segment(a[0], a[1], a[2], a[-1], head_strides)
+    if m == "Pose":
+        return H.Pose(a[0], a[1], a[-1], head_strides)
     raise KeyError(f"module type {m!r} is not ported")
 
 
@@ -201,6 +208,11 @@ class DetectionModel(nn.Module):
     (B, h, w, no) per level]), as the JAX `DetectionModel.predict` does; in
     `train()` mode decoded is None and BatchNorm uses and updates batch
     statistics (`forward_feats`). A new model is in `eval()` mode.
+
+    A `Segment` head makes the second element (raw maps, mask coefficients
+    (B, A, nm), prototypes (B, mh, mw, nm)) and `decoded` (B, 4+nc+nm, A);
+    a `Pose` head (raw maps, raw keypoints (B, A, nk)) and (B, 4+nc+nk, A),
+    as the JAX heads return them. `task` follows the head.
     """
 
     def __init__(self, cfg: Union[None, str, Dict] = None, scale: Optional[str] = None,
@@ -218,7 +230,11 @@ class DetectionModel(nn.Module):
         self.stride = tuple(self.specs[j].stride for j in self.specs[-1].f)
         for spec in self.specs:
             self.add_module(f"model_{spec.i}", build_module(spec, self.stride))
-        self.reg_max = getattr(self, f"model_{self.specs[-1].i}").reg_max
+        head = getattr(self, f"model_{self.specs[-1].i}")
+        self.reg_max = head.reg_max
+        self.task = {H.Segment: "segment", H.Pose: "pose"}.get(type(head), "detect")
+        # JAX's trainer and validator read the config's `kpt_shape`
+        self.kpt_shape = tuple(cfg.get("kpt_shape", (17, 3)))
         self.deform_semantics = "windowed"
         self._init_weights()
         self.to(resolve_device(device))
@@ -291,8 +307,12 @@ class DetectionModel(nn.Module):
             out = getattr(self, f"model_{spec.i}")(inp)
             if spec.i in self.save:
                 saved[spec.i] = out
-        decoded, feats = out
-        return decoded, [f.permute(0, 2, 3, 1) for f in feats]
+        decoded, aux = out
+        if isinstance(aux, tuple):  # Segment / Pose: (maps, coefficients or keypoints[, protos])
+            maps, *rest = aux
+            return decoded, ([f.permute(0, 2, 3, 1) for f in maps],
+                             *(r.permute(0, 2, 3, 1) if r.dim() == 4 else r for r in rest))
+        return decoded, [f.permute(0, 2, 3, 1) for f in aux]
 
     def predict_augment(self, x: torch.Tensor):
         """Test-time augmentation, the JAX `predict_augment`: the eval
@@ -323,8 +343,9 @@ class DetectionModel(nn.Module):
         return y
 
     def forward_feats(self, x: torch.Tensor):
-        """Training forward: the raw NHWC maps, as the JAX `forward_feats`
-        returns them (call `train()` first for batch statistics)."""
+        """Training forward: the raw NHWC maps (a segment or pose model's
+        tuple with them), as the JAX `forward_feats` returns them (call
+        `train()` first for batch statistics)."""
         return self(x)[1]
 
     @torch.no_grad()
@@ -337,7 +358,12 @@ class DetectionModel(nn.Module):
             leaf = name.rsplit(".", 1)[-1]
             if leaf in ("weight", "reduction_weight") and p.dim() >= 2:
                 hwio = leaf == "reduction_weight" or name.endswith("DyDCNV2.weight")
-                fan_in = p.shape[0] * p.shape[1] * p.shape[2] if hwio else p[0].numel()
+                if hwio:
+                    fan_in = p.shape[0] * p.shape[1] * p.shape[2]
+                elif name.endswith("upsample.weight"):  # ConvTranspose2d (in, out, kh, kw)
+                    fan_in = p.shape[0] * p.shape[2] * p.shape[3]
+                else:
+                    fan_in = p[0].numel()
                 bound = math.sqrt(1.0 / fan_in)
                 p.copy_(torch.rand(p.shape, generator=gen) * 2 * bound - bound)
             elif leaf in ("weight", "running_var"):
@@ -350,9 +376,26 @@ class DetectionModel(nn.Module):
             head.cv2.bias.fill_(1.0)
             head.cv3.bias.fill_(math.log(5 / self.nc / (640 / 16) ** 2))
         else:
+            head = getattr(head, "detect", head)  # Segment / Pose nest their Detect
             for i, s in enumerate(self.stride):
                 getattr(head, f"cv2_{i}_2").bias.fill_(1.0)
                 getattr(head, f"cv3_{i}_2").bias.fill_(math.log(5 / self.nc / (640 / s) ** 2))
+
+
+class SegmentationModel(DetectionModel):
+    """A model of the segment task (`yolov8-seg.yaml` by default), as the
+    JAX `SegmentationModel`."""
+
+    def __init__(self, cfg="yolov8n-seg.yaml", scale=None, device=None, nc=None):
+        super().__init__(cfg, scale=scale, device=device, nc=nc)
+
+
+class PoseModel(DetectionModel):
+    """A model of the pose task (`yolov8-pose.yaml` by default), as the
+    JAX `PoseModel`."""
+
+    def __init__(self, cfg="yolov8n-pose.yaml", scale=None, device=None, nc=None):
+        super().__init__(cfg, scale=scale, device=device, nc=nc)
 
 
 def guess_model_task(cfg) -> str:

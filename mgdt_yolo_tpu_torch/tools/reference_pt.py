@@ -38,7 +38,7 @@ _INDEXED = ("m", "convs", "bottleneck", "share_conv", "tr")
 _LAYER_MODULES = {"Conv": "conv", "Concat": "conv", "C2f": "block", "MSPA_C2f": "block",
                   "SPPF": "block", "SimFusion_4in": "block", "SimFusion_3in": "block",
                   "IFM": "block", "InjectionMultiSum_Auto_pool": "block", "Detect": "head",
-                  "TOODHead": "head"}
+                  "TOODHead": "head", "Segment": "head", "Pose": "head"}
 
 
 def _oihw(a: np.ndarray) -> np.ndarray:
@@ -81,6 +81,9 @@ def reference_key(flax_key: str, value: np.ndarray) -> Tuple[str, np.ndarray]:
             p, value = p[:-1] + ["weight"], _t(value)
     elif len(p) >= 3 and p[-3:-1] == ["norm", "bn"]:
         p = p[:-3] + ["bn", _BN_LEAF[leaf]]
+    elif p[-2:] == ["upsample", "kernel"]:  # flax ConvTranspose -> torch (in, out, kh, kw)
+        p, value = p[:-1] + ["weight"], np.ascontiguousarray(
+            value[::-1, ::-1].transpose(2, 3, 0, 1))
     elif p[-2:] == ["conv", "kernel"]:
         p, value = p[:-1] + ["weight"], _oihw(value)
     elif p[-2] == "gn":
@@ -88,6 +91,8 @@ def reference_key(flax_key: str, value: np.ndarray) -> Tuple[str, np.ndarray]:
     elif leaf == "kernel":
         p, value = p[:-1] + ["weight"], _oihw(value) if value.ndim == 4 else _t(value)
     k = ".".join(p)
+    # the reference's Segment and Pose inherit Detect: its towers are not nested
+    k = re.sub(r"^(model_\d+)\.detect\.", r"\1.", k)
     k = re.sub(r"^model_(\d+)\.", r"model.\1.", k)
     k = re.sub(r"\b(cv2|cv3|cv4)_(\d+)_(\d+)\b", r"\1.\2.\3", k)
     k = re.sub(rf"\b({'|'.join(_INDEXED)})_(\d+)\.", r"\1.\2.", k)
@@ -109,7 +114,11 @@ def reference_state(model: torch.nn.Module, params: Optional[Mapping] = None
     for key, a in export_variables(model, params).items():
         name, value = reference_key(key, a)
         tr = translate_key(name)
-        if tr is None or ".".join((tr[2], *tr[0])) != key:
+        back_key = tr and ".".join((tr[2], *tr[0]))
+        if back_key != key and tr and tr[0][0].startswith("model_"):
+            # the import's retry one level down, under a Segment / Pose `detect`
+            back_key = ".".join((tr[2], tr[0][0], "detect", *tr[0][1:]))
+        if tr is None or back_key != key:
             raise KeyError(f"{key!r} was written as {name!r}, which reads back as {tr}")
         back = tr[1](value) if tr[1] else value
         if back.shape != a.shape or not np.array_equal(back, a):

@@ -91,8 +91,10 @@ class DetectionLoss:
         target_ltrb = bbox2dist(anchor_points, target_bboxes, rm - 1)
         dfl = _df_loss(pred_distri.reshape(b, -1, 4, rm), target_ltrb) * weight
         loss_dfl = dfl.sum() / tss
-        return {"b": b, "assign": assign, "loss_cls": loss_cls, "loss_box": loss_box,
-                "loss_dfl": loss_dfl}
+        return {"b": b, "shapes": [f.shape[1:3] for f in feats], "anchor_points": anchor_points,
+                "stride_tensor": stride_t, "assign": assign, "fg": assign.fg_mask,
+                "target_bboxes": target_bboxes, "weight": weight, "loss_cls": loss_cls,
+                "loss_box": loss_box, "loss_dfl": loss_dfl}
 
 
 def pad_targets(batch_idx, cls, bboxes_xywhn, batch_size: int, max_gt: int,

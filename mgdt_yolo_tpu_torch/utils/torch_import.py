@@ -25,7 +25,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from ..weights import flax_keys, translate
+from ..weights import TRANSPOSED, flax_keys, translate
 
 LOGGER = logging.getLogger(__name__)
 
@@ -211,7 +211,9 @@ def flax_shapes(model: torch.nn.Module) -> Dict[str, Tuple[str, Tuple[int, ...]]
     out = {}
     for name, key in flax_keys(model).items():
         shape = tuple(state[name].shape)
-        if key.endswith(".kernel"):
+        if key.endswith(tuple(f".{m}.kernel" for m in TRANSPOSED)):
+            shape = (shape[2], shape[3], shape[0], shape[1])  # (in, out, kh, kw)
+        elif key.endswith(".kernel"):
             shape = (shape[2], shape[3], shape[1], shape[0]) if len(shape) == 4 else shape[::-1]
         out[key] = (name, shape)
     return out

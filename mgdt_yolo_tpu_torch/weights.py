@@ -5,6 +5,9 @@ state-dict key one to one: the collection prefix (`params.`,
 `batch_stats.`) goes, the leaf is renamed, and the array is relaid:
 
 * conv `kernel` HWIO -> `weight` OIHW (depthwise (7,7,1,C) -> (C,1,7,7));
+* a transposed conv's (`Proto`'s `upsample`) `kernel` (kh, kw, in, out) ->
+  ConvTranspose2d `weight` (in, out, kh, kw) with both spatial axes flipped
+  (flax's `ConvTranspose` correlates where torch's convolves);
 * Dense `kernel` (in, out) -> Linear `weight` (out, in);
 * BatchNorm/GroupNorm/LayerNorm `scale` -> `weight`, `bias` -> `bias`,
   batch_stats `mean`/`var` -> `running_mean`/`running_var`;
@@ -29,6 +32,8 @@ import torch.nn as nn
 _LEAF = {"scale": "weight", "mean": "running_mean", "var": "running_var"}
 COLLECTIONS = ("params", "batch_stats")
 _NORMS = (nn.BatchNorm2d, nn.GroupNorm, nn.LayerNorm)
+# the flax names of the transposed convs (the mask prototypes' upsampling)
+TRANSPOSED = ("upsample",)
 
 
 def flatten_variables(tree: Mapping, prefix: str = "") -> dict:
@@ -51,7 +56,9 @@ def translate(key: str, value) -> tuple:
     *mods, leaf = path.split(".")
     a = np.asarray(value, dtype=np.float32)
     if leaf == "kernel":
-        if a.ndim == 4:
+        if a.ndim == 4 and mods and mods[-1] in TRANSPOSED:
+            a = a[::-1, ::-1].transpose(2, 3, 0, 1)
+        elif a.ndim == 4:
             a = a.transpose(3, 2, 0, 1)
         elif a.ndim == 2:
             a = a.T
@@ -127,7 +134,7 @@ def flax_keys(module: nn.Module) -> "OrderedDict[str, str]":
             if leaf == "num_batches_tracked":
                 continue
             coll, flax_leaf = "params", leaf
-            if leaf == "weight" and isinstance(mod, (nn.Conv2d, nn.Linear)):
+            if leaf == "weight" and isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
                 flax_leaf = "kernel"
             elif leaf == "weight" and isinstance(mod, _NORMS):
                 flax_leaf = "scale"
@@ -151,9 +158,12 @@ def export_variables(module: nn.Module, params: Mapping | None = None) -> dict:
 
 def to_flax_layout(key: str, t: torch.Tensor) -> np.ndarray:
     """A port tensor as the float32 array flax keeps under `key` (conv
-    kernels OIHW -> HWIO, Dense kernels (out, in) -> (in, out))."""
+    kernels OIHW -> HWIO, transposed ones (in, out, kh, kw) -> (kh, kw, in,
+    out) flipped, Dense kernels (out, in) -> (in, out))."""
     a = t.detach().float().cpu().numpy()
-    if key.endswith(".kernel"):
+    if a.ndim == 4 and key.endswith(tuple(f".{m}.kernel" for m in TRANSPOSED)):
+        a = a.transpose(2, 3, 0, 1)[::-1, ::-1]
+    elif key.endswith(".kernel"):
         a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
     return np.ascontiguousarray(a)
 

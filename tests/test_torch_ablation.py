@@ -42,6 +42,7 @@ from mgdt_yolo_tpu_torch.nn.tasks import DetectionModel
 from mgdt_yolo_tpu_torch.ops import boxes, common
 from mgdt_yolo_tpu_torch.weights import load_jax_variables, load_state
 from test_torch_model import _maps, _nchw, _nest, _nhwc, _pair, _randomize
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 YAMLS = ROOT / "mgdt_yolo_tpu" / "models" / "v8"
@@ -124,7 +125,7 @@ def test_decode_without_dfl_matches_jax():
 # configs
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", sorted(ABLATION))
+@pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_config_literal_matches_yaml(name):
     assert CONFIGS[name] == yaml_load(YAMLS / name)
 

@@ -56,6 +56,7 @@ from mgdt_yolo_tpu_torch.weights import (export_variables, flatten_variables, fl
 from test_torch_ablation import RTOL_RAW
 from test_torch_model import _randomize
 from test_torch_train import _nest, _npz
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # (model, image size): thead at 128 px, so its DCN map is 8x8
 MODELS = {"yolov8.yaml": 64, "thead_yolov8.yaml": 128}

@@ -43,6 +43,7 @@ from mgdt_yolo_tpu_torch.data.synthetic import SyntheticDetectionDataset
 from mgdt_yolo_tpu_torch.ops import cuda_image
 from mgdt_yolo_tpu_torch.ops.device_augment import apply_augment, augment_draws
 from mgdt_yolo_tpu_torch.ops.image import fused_augment_plain
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 S = 128
 

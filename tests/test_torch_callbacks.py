@@ -41,6 +41,7 @@ from mgdt_yolo_tpu_torch.engine.validator import DetectionValidator
 from mgdt_yolo_tpu_torch.nn.tasks import DetectionModel
 from mgdt_yolo_tpu_torch.utils import callbacks, callbacks_integrations
 from test_torch_train import NPZ, _nest, _npz
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 IMGSZ = 64
 RUN = {"optimizer": "SGD", "lr0": 0.01, "batch": 2, "imgsz": IMGSZ, "epochs": 2,

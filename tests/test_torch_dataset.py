@@ -35,6 +35,7 @@ from mgdt_yolo_tpu_torch.data.build import DataLoader
 from mgdt_yolo_tpu_torch.data.dataset import YOLODataset, img2label_path
 from mgdt_yolo_tpu_torch.engine.trainer import get_dataset
 from mgdt_yolo_tpu_torch.utils.dataset_yaml import loads, yaml_load
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 BOX_ATOL = 1e-4
 

@@ -37,6 +37,7 @@ from mgdt_yolo_tpu_torch.ops import cuda_deform
 from mgdt_yolo_tpu_torch.ops.deform import (_corners, _sample_fields,
                                             modulated_deform_conv2d_plain)
 from mgdt_yolo_tpu_torch.ops.deform_variants import compare
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL_WINDOWED = 2e-6
 ATOL_EXACT = 1e-5

@@ -35,6 +35,7 @@ from mgdt_yolo_tpu_torch.ops import cuda_deform_variants as cdv
 from mgdt_yolo_tpu_torch.ops.deform import _corners, _sample_fields
 from mgdt_yolo_tpu_torch.ops.deform_variants import (compare, deform_bf16_fma_plain,
                                                      windowed_plain)
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SMS = 132                   # an H100's SMs
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}

@@ -32,6 +32,7 @@ from mgdt_yolo_tpu.ops.pallas_deform import modulated_deform_conv2d_pallas_vjp
 from mgdt_yolo_tpu_torch.ops import cuda_deform
 from mgdt_yolo_tpu_torch.ops.deform import (modulated_deform_conv2d_plain,
                                             modulated_deform_conv2d_plain_bwd)
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL_AUTOGRAD = 1e-5
 TOL_JAX = 1e-4

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from mgdt_yolo_tpu_torch.ops import cuda_deform_variants as cdv
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 MAX_SMEM = 232448           # shared memory one block may use on an H100
 SMS = 132                   # an H100's SMs

@@ -30,6 +30,7 @@ import torch
 from mgdt_yolo_tpu_torch.ops import cuda_deform_variants as cdv
 from mgdt_yolo_tpu_torch.ops.deform import _corners, _sample_fields
 from mgdt_yolo_tpu_torch.ops.deform_variants import skip_shares
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 MAX_SMEM = 232448           # shared memory one block may use on an H100
 SMS = 132                   # an H100's SMs

@@ -45,6 +45,7 @@ from mgdt_yolo_tpu_torch.ops import cuda_deform_variants as cdv
 from mgdt_yolo_tpu_torch.ops.deform import modulated_deform_conv2d_plain
 from mgdt_yolo_tpu_torch.ops.deform_variants import (MISMATCH_LIMIT, deform_bf16_fma_plain,
                                                      windowed_plain)
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 ATOL_F32 = 2e-6

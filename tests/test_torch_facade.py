@@ -27,19 +27,11 @@ from mgdt_yolo_tpu_torch.nn.tasks import DetectionModel
 from mgdt_yolo_tpu_torch.weights import flax_keys, load_jax_variables
 from test_torch_dataset import write_dataset, write_yaml
 from test_torch_predict import CONF, EXACT_SIZES, IMGSZ, NPZ, _same_results
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TRAIN_SIZES = [(64, 64), (80, 48), (48, 80), (64, 32)]
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """PyTorch on one thread while this module runs: the test workers share
-    the machine's cores, and a pool per worker spends its time waiting for
-    the others' threads (both sides of every comparison here run alike)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 TRAIN_ARGS = {"epochs": 1, "imgsz": 64, "batch": 2, "workers": 2, "seed": 3}
 
 
@@ -188,10 +180,11 @@ def test_refused_sources_tasks_and_modes_raise(tmp_path):
         YOLO(tmp_path / "best.pt", device="cpu")
     with pytest.raises(FileNotFoundError):
         YOLO(tmp_path / "missing.npz", device="cpu")
-    for src, task in (("yolov8n-seg.yaml", None), ("yolov8n-pose.yaml", None),
-                      ("yolov8n-cls.yaml", None), ("yolov8n.yaml", "segment")):
+    # segment and pose are ported; classify is item 8
+    for src, task in (("yolov8n-cls.yaml", None), ("yolov8n.yaml", "classify")):
         with pytest.raises(NotImplementedError, match="item 8"):
             YOLO(src, task=task, device="cpu")
+    assert YOLO("yolov8n-seg.yaml", device="cpu").task == "segment"
     y = YOLO("yolov8n.yaml", device="cpu")
     with pytest.raises(NotImplementedError, match="item 9"):
         y.track("x.png")
@@ -204,7 +197,9 @@ def test_refused_sources_tasks_and_modes_raise(tmp_path):
                                              "copy_paste"))
     del y.train
     with pytest.raises(NotImplementedError, match="item 8"):
-        y.val(task="pose")
+        y.val(task="classify")
+    # as in JAX, a `task` keyword is taken, and the facade's own task picks the validator
+    assert y._overrides({"task": "pose"})["task"] == "pose"
     with pytest.raises(TypeError, match="conf"):
         y.val(conf="high")
 

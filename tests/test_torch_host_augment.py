@@ -106,9 +106,9 @@ def test_random_perspective_matches_jax(case):
         r1, r2 = random.Random(seed), random.Random(seed)
         a_img, a_box, a_cls, extras = J.random_perspective(img, it["boxes"], it["cls"],
                                                            border=border, rng=r1, **kw)
-        b_img, b_box, b_cls = P.random_perspective(img, it["boxes"], it["cls"], border=border,
-                                                   rng=r2, **kw)
-        assert extras == {} and r1.getstate() == r2.getstate()
+        b_img, b_box, b_cls, b_extras = P.random_perspective(img, it["boxes"], it["cls"],
+                                                             border=border, rng=r2, **kw)
+        assert extras == b_extras == {} and r1.getstate() == r2.getstate()
         _same_labels({"boxes": a_box, "cls": a_cls}, {"boxes": b_box, "cls": b_cls}, case)
         _pixels(b_img, a_img, f"{case} {seed}", exact=b_img.shape[1] % 64 == 0)
 
@@ -150,7 +150,7 @@ def test_mosaics_match_jax(seed):
     np.testing.assert_array_equal(got[0], want[0])
     want = J.mosaic9(items, S, r1)
     got = P.mosaic9(items, S)
-    assert want[3] == {} and r1.getstate() == r2.getstate()
+    assert want[3] == got[3] == {} and r1.getstate() == r2.getstate()
     _same_labels({"boxes": want[1], "cls": want[2]}, {"boxes": got[1], "cls": got[2]}, "mosaic9")
     np.testing.assert_array_equal(got[0], want[0])
 
@@ -260,13 +260,27 @@ def test_train_transform_matches_jax(keys, clahe_calls):
 
 
 def test_segment_and_pose_items_raise_naming_item_8():
+    """Items carrying `masks` or `keypoints` go through the pipeline as
+    JAX's do (the segment and pose tasks; only classify, item 8, is left):
+    letterboxed alone and in a mosaic with detect items, whose keypoint
+    slots are then all invisible. `tests/test_torch_seg_pose_data.py` holds
+    the planes over seeds."""
     it = _items(1)[0]
-    for key in ("masks", "keypoints"):
-        bad = {**it, key: np.zeros((len(it["boxes"]), 3))}
-        with pytest.raises(NotImplementedError, match="item 8"):
-            P.train_transform(bad, S, TRAIN_DEFAULTS, [], random.Random(0))
-        with pytest.raises(NotImplementedError, match="item 8"):
-            P.mosaic4([bad, it, it, it], S, random.Random(0))
+    n = len(it["boxes"])
+    planes = {"masks": np.ones((n, S, S), np.float32),
+              "keypoints": np.full((n, 17, 3), 2.0, np.float32)}
+    for key, value in planes.items():
+        item = {**it, key: value}
+        r1, r2 = random.Random(0), random.Random(0)
+        want = J.train_transform(item, S, SimpleNamespace(**TRAIN_DEFAULTS), [], r1)
+        got = P.train_transform(item, S, TRAIN_DEFAULTS, [], r2)
+        assert set(got) == {"img", "boxes", "cls", key} and r1.getstate() == r2.getstate()
+        np.testing.assert_array_equal(got[key], want[key])
+        r1, r2 = random.Random(0), random.Random(0)
+        want = J.mosaic4([item, it, it, it], S, r1)
+        got = P.mosaic4([item, it, it, it], S, r2)
+        np.testing.assert_array_equal(got[3][key], want[3][key])
+        assert len(got[3][key]) == 4 * n
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 
 from mgdt_yolo_tpu_torch.data import imgproc
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 BORDER = (114, 114, 114)
 

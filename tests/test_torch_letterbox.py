@@ -20,6 +20,7 @@ import pytest
 
 from mgdt_yolo_tpu.data.augment import letterbox as jax_letterbox
 from mgdt_yolo_tpu_torch.data.augment import letterbox, resize_linear
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SHARE_LIMIT = 0.005
 

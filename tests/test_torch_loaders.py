@@ -36,6 +36,7 @@ from mgdt_yolo_tpu_torch.data.loaders import LoadImagesAndVideos, load_inference
 from mgdt_yolo_tpu_torch.engine.predictor import DetectionPredictor
 from test_torch_dataset import scene
 from test_torch_predict import ATOL_BOX, CONF, IMGSZ, _same_results, flagship  # noqa: F401
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 FIXTURES = Path(native.__file__).parent / "fixtures"
 

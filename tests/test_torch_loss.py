@@ -21,6 +21,7 @@ from mgdt_yolo_tpu.utils.tal import heuristic_assign_v1 as jax_assign
 from mgdt_yolo_tpu_torch.ops.boxes import bbox2dist, bbox_iou
 from mgdt_yolo_tpu_torch.utils.loss import DetectionLoss, pad_targets
 from mgdt_yolo_tpu_torch.utils.tal import heuristic_assign_v1
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 STEPS = [0, 161 * 50]
 

@@ -32,6 +32,7 @@ from mgdt_yolo_tpu_torch.nn.modules import conv as C
 from mgdt_yolo_tpu_torch.nn.modules import head as H
 from mgdt_yolo_tpu_torch.nn.tasks import DetectionModel
 from mgdt_yolo_tpu_torch.weights import flatten_variables, load_jax_variables, load_state
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 NPZ = ROOT / "weights" / "mgdt_n_synth.npz"

@@ -21,6 +21,7 @@ from mgdt_yolo_tpu.nn.tasks import DetectionModel as JaxDetectionModel
 from mgdt_yolo_tpu.ops.nms import non_max_suppression as jax_nms
 from mgdt_yolo_tpu_torch.data.synthetic import synthetic_batch
 from mgdt_yolo_tpu_torch.ops.nms import non_max_suppression
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 NPZ = Path(__file__).resolve().parents[1] / "weights" / "mgdt_n_synth.npz"
 

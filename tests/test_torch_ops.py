@@ -17,6 +17,7 @@ from mgdt_yolo_tpu.ops import common as jcommon
 from mgdt_yolo_tpu_torch.data.synthetic import synthetic_batch, synthetic_scene
 from mgdt_yolo_tpu_torch.nn.modules.block import dfl_decode
 from mgdt_yolo_tpu_torch.ops import boxes, common
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = 1e-6
 

@@ -41,6 +41,7 @@ from mgdt_yolo_tpu_torch.engine.results import Results
 from mgdt_yolo_tpu_torch.utils import charts, draw, plotting
 from mgdt_yolo_tpu_torch.utils.metrics import ConfusionMatrix
 from torch_draw_probe import ATLAS, COLORMAPS, COMBOS, probe_all, probe_colormaps
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 NAMES = {0: "person", 1: "car", 2: "a_long_class_name"}
 PRINTABLE = "".join(chr(c) for c in range(32, 127))

@@ -37,6 +37,7 @@ from mgdt_yolo_tpu_torch.engine.results import Results
 from mgdt_yolo_tpu_torch.nn.tasks import DetectionModel
 from mgdt_yolo_tpu_torch.weights import load_jax_variables, load_state
 from test_torch_model import _nest, _randomize
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 NPZ = Path(__file__).resolve().parents[1] / "weights" / "mgdt_n_synth.npz"
 IMGSZ = 96

@@ -39,6 +39,7 @@ from mgdt_yolo_tpu_torch.nn.tasks import DetectionModel
 from mgdt_yolo_tpu_torch.weights import flatten_variables, flax_keys, to_flax_layout
 from test_torch_dataset import write_dataset, write_yaml
 from test_torch_train import NPZ, _close, _flat, _nest, _npz, _tree_arrays
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 IMGSZ = 64
 TRAIN_SIZES = [(48, 64), (80, 60), (100, 100), (37, 53), (64, 64), (120, 70)]

@@ -24,6 +24,7 @@ from mgdt_yolo_tpu_torch.engine.predictor import DetectionPredictor
 from mgdt_yolo_tpu_torch.engine.serve import InferenceServer, serve
 from mgdt_yolo_tpu_torch.nn.tasks import DetectionModel
 from test_torch_model import _nest
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 NPZ = Path(__file__).resolve().parents[1] / "weights" / "mgdt_n_synth.npz"
 SERVE = dict(imgsz=64, conf=1e-3, device="cpu")

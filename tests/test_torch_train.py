@@ -60,6 +60,7 @@ from mgdt_yolo_tpu_torch.ops.nms import non_max_suppression
 from mgdt_yolo_tpu_torch.weights import (export_variables, flatten_variables, flax_keys,
                                          load_jax_variables, load_state, to_flax_layout)
 from test_torch_augment import jax_draws
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 NPZ = ROOT / "weights" / "mgdt_n_synth.npz"

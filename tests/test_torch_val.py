@@ -41,6 +41,7 @@ from mgdt_yolo_tpu_torch.engine.validator import DetectionValidator
 from mgdt_yolo_tpu_torch.nn.tasks import DetectionModel
 from mgdt_yolo_tpu_torch.ops.boxes import clip_boxes, scale_boxes
 from mgdt_yolo_tpu_torch.utils import metrics as PM
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 NPZ = ROOT / "weights" / "mgdt_n_synth.npz"

@@ -14,6 +14,7 @@ from mgdt_yolo_tpu_torch.engine.predictor import predict
 from mgdt_yolo_tpu_torch.nn.tasks import DetectionModel
 from mgdt_yolo_tpu_torch.weights import (load_jax_variables, load_state,
                                          read_semantics, translate)
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 NPZ = ROOT / "weights" / "mgdt_n_synth.npz"
