@@ -262,12 +262,29 @@ Phases, each of which passes or ends the script with a non-zero exit:
    count must stay 0, and each kernel's row records it
    (`segment_and_pose_launches`). Its lines end with `phase 20 rows:
    {json}`.
+21. classify and zoo: the rest of the JAX package's model zoo at 640 px and
+   its published widths (YOLOv3, v3-SPP and v3-tiny at their only width,
+   YOLOv5n, v5n-P6, v6n, YOLOv8n-P2, -P6 and -pose-P6; default nc), from
+   the port's seeded init: each a float32 fused forward of two noise images
+   on the card against the CPU at phase 13's limits (raw maps 1e-3 of their
+   magnitude, boxes 0.5 px, the other decoded channels 1e-3, NMS equal on
+   the same decoded tensor), fused bf16 images/s at b32 (CUDA events, min
+   over 3 windows) and two b16 micro-steps through `Trainer.train()`
+   (unaugmented, bf16 autocast, finite losses); then `YOLO("yolov8n-cls.yaml")`
+   at its published nc 1000 and 224 px in float32 (TF32 off): `train` for
+   1 epoch of the synthetic split with validation, `val`, train images/s
+   over 16 steps of one resident b64 batch, the predictor over phase 15's
+   16 val JPEGs at b1 on the card and on the CPU (top-1 equal,
+   probabilities within 1e-4), and npz export with `AutoBackend(npz)` bit
+   for bit the live float32 forward. No hand kernel is on this path: every
+   count must stay 0 (`classify_and_zoo_launches`). Its lines end with
+   `phase 21 rows: {json}`.
    Phase 10 runs before phase 8, and phases 8, 9 and 11 run after it,
    because the CPU work leaves the host's threads busy, which slows the
    host-bound steps; phase 13 runs after phase 11, phase 14 after phase
    13, phase 15 after phase 14, phase 16 after phase 15, phase 17 after
    phase 16, phase 18 after phase 17, phase 19 after phase 18, phase 20
-   after phase 19, and phase 12, which times kernels
+   after phase 19, phase 21 after phase 20, and phase 12, which times kernels
    only, runs last.
 
 The last lines are the kernel table as JSON, the card's name and power
@@ -305,7 +322,7 @@ from mgdt_yolo_tpu_torch.engine.predictor import (DetectionPredictor, infer, let
 from mgdt_yolo_tpu_torch.engine.serve import InferenceServer
 from mgdt_yolo_tpu_torch.engine.trainer import Trainer
 from mgdt_yolo_tpu_torch.models import ABLATION as ABLATION_CONFIGS
-from mgdt_yolo_tpu_torch.models import FLAGSHIP
+from mgdt_yolo_tpu_torch.models import FLAGSHIP, load_config
 from mgdt_yolo_tpu_torch.nn.modules.block import DyDCNv2
 from mgdt_yolo_tpu_torch.nn.tasks import DetectionModel
 from mgdt_yolo_tpu_torch.ops import cuda_deform, cuda_deform_variants, cuda_image
@@ -3884,6 +3901,229 @@ def phase_seg_pose(root):
     return total, rows
 
 
+# phase 21: the rest of the zoo at its published widths (scale n where the
+# YAML has scales; the v3s at their only width) and default nc, and YOLOv8's
+# classifier at its published nc 1000 and 224 px, the size the reference
+# trains classify at
+ZOO_MODELS = ("yolov3.yaml", "yolov3-spp.yaml", "yolov3-tiny.yaml", "yolov5n.yaml",
+              "yolov5n-p6.yaml", "yolov6n.yaml", "yolov8n-p2.yaml", "yolov8n-p6.yaml",
+              "yolov8n-pose-p6.yaml")
+ZOO_RATE, ZOO_TRAIN, ZOO_STEPS = 32, 16, 2
+ZOO_OVERRIDES = {**TRAIN_OVERRIDES, "batch": ZOO_TRAIN, "nbs": 32}
+CLS_IMGSZ, CLS_TRAIN, CLS_RESIDENT, CLS_RATE_BATCH = 224, 16, 16, 64
+CLS_PROBS_TOL = 1e-4
+
+
+def _zoo_card_vs_cpu(name, nc):
+    """A float32 fused forward of two noise images on the card and on the
+    CPU from `_calibrated_state`, at phase 13's limits: every raw map (and
+    the pose head's raw keypoints) within ABLATION_RAW_TOL of its magnitude
+    (at least 1), decoded boxes within 0.5 px, the other decoded channels
+    (scores, the keypoints in pixels) within 1e-3 of their magnitude (at
+    least 1); NMS on the card and on the CPU given the same decoded tensor
+    (the CPU's) at a threshold that passes ~1000 anchors (all those tied at
+    the 1000th score where the scores saturate): the same counts, boxes and
+    scores within 1e-4. Returns (the card's fused model, the differences)."""
+    x = torch.rand((2, IMGSZ, IMGSZ, 3), generator=torch.Generator().manual_seed(22))
+    state, outs, models = _calibrated_state(name, nc), [], []
+    for dev in (DEVICE, "cpu"):
+        model = DetectionModel(name, nc=nc, device=dev)
+        model.load_state_dict(state)
+        model.fuse()
+        with torch.no_grad(), float32_exact():
+            decoded, aux = model(x.to(dev))
+        arrays = _aux_arrays(aux) if isinstance(aux, tuple) else aux
+        outs.append(([a.cpu() for a in arrays], decoded.cpu()))
+        models.append(model)
+    (ag, dg), (ac, dc) = outs
+    raw_err = max((a - b).abs().max().item() / max(1.0, b.abs().max().item())
+                  for a, b in zip(ag, ac))
+    box_err = (dg[:, :4] - dc[:, :4]).abs().max().item()
+    rest_err = (dg[:, 4:] - dc[:, 4:]).abs().max().item() / max(1.0, dc[:, 4:].abs().max().item())
+    ranked = dc[:, 4:].amax(1).flatten().sort(descending=True).values
+    thr = ranked[min(999, len(ranked) - 1)]
+    if not bool((ranked > thr).any()):  # saturated scores (v3's reach 1.0): pass the ties
+        thr = torch.nextafter(thr, torch.tensor(float("-inf")))
+    thr = float(thr)
+    kw = dict(conf_thres=thr, iou_thres=predictor.IOU, max_det=predictor.MAX_DET,
+              pre_topk=predictor.PRE_TOPK, block=predictor.BLOCK)
+    (det_g, cnt_g), (det_c, cnt_c) = ((t.cpu() for t in non_max_suppression(dc.to(dev), **kw))
+                                      for dev in (DEVICE, "cpu"))
+    same = torch.equal(cnt_g, cnt_c) and int(cnt_c.sum()) > 0
+    nms_err = (det_g - det_c).abs().max().item() if same else None
+    ok = raw_err <= ABLATION_RAW_TOL and box_err < 0.5 and rest_err <= 1e-3 and same and \
+        nms_err <= 1e-4
+    log(f"{name} float32 card vs CPU: raw maps max |diff| / max(1, max |raw|) {raw_err:.3e} "
+        f"(limit {ABLATION_RAW_TOL:.0e}), decoded boxes {box_err:.3e} px, other channels "
+        f"{rest_err:.3e} of their magnitude; NMS at conf {thr:.6f} on the same decoded "
+        f"tensor: kept card {cnt_g.tolist()} cpu {cnt_c.tolist()}, max |diff| {nms_err} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{name}: the card and the CPU disagree")
+    return models[0], {"raw_max_rel_diff": raw_err, "box_max_abs_diff": box_err,
+                       "channels_max_rel_diff": rest_err, "nms_kept": int(cnt_c.sum()),
+                       "nms_max_abs_diff": nms_err}
+
+
+def _zoo_model(name):
+    """One zoo model: card vs CPU, then that fused model in bf16: a counted
+    `predict` and images/s at ZOO_RATE (CUDA events, min over 3 windows);
+    then ZOO_STEPS unaugmented micro-steps at ZOO_TRAIN through
+    `Trainer.train()` (bf16 autocast). Returns (launches, row)."""
+    t0 = time.perf_counter()
+    cfg = load_config(name)
+    nc = cfg["nc"]
+    model, diffs = _zoo_card_vs_cpu(name, nc)
+    row = {"stride": list(model.stride), "nc": nc, "task": model.task, "card_vs_cpu": diffs}
+    model.to(torch.bfloat16)
+    x = torch.from_numpy(synthetic_batch(ZOO_RATE, IMGSZ)).to(DEVICE)
+    reset_counts()
+    det, counts = predict(model, x)
+    torch.cuda.synchronize()
+    served = read_counts()
+    if det.shape != (ZOO_RATE, 300, 6) or not bool(torch.isfinite(det).all()):
+        raise SystemExit(f"{name}: serving gave malformed or non-finite detections")
+    ms = cuda_time_ms(lambda: predict(model, x), iters=3, windows=3)
+    row.update(fused=model.n_fused, rate_ms=ms, images_per_s=ZOO_RATE / ms * 1e3,
+               detections=int(counts.sum()))
+    del model
+    model = DetectionModel(name, device=DEVICE)
+    row["parameters"] = sum(p.numel() for p in model.parameters())
+    ds = SyntheticDetectionDataset(n=ZOO_TRAIN * ZOO_STEPS, imgsz=IMGSZ, nc=nc, seed=0,
+                                   task=model.task)
+    trainer = Trainer(model, DataLoader(ds, ZOO_TRAIN, IMGSZ), overrides=ZOO_OVERRIDES)
+    reset_counts()
+    trainer.train()
+    torch.cuda.synchronize()
+    trained = read_counts()
+    _finite_history(trainer, f"{name} training")
+    if len(trainer.history) != ZOO_STEPS or not trainer.amp:
+        raise SystemExit(f"{name}: {len(trainer.history)} micro-steps, amp {trainer.amp}")
+    row["losses"] = [float(m["loss"]) for m in trainer.history]
+    row["seconds"] = time.perf_counter() - t0
+    log(f"{name}: strides {row['stride']}, {row['parameters']:,} parameters, nc {nc}; "
+        f"{row['fused']} Conv+BN pairs fused; bf16 b{ZOO_RATE} {ms:.3f} ms, "
+        f"{row['images_per_s']:.2f} images/s; train b{ZOO_TRAIN} losses "
+        f"{', '.join(f'{v:.4f}' for v in row['losses'])}; {row['seconds']:.1f} s")
+    del trainer, model
+    torch.cuda.empty_cache()
+    return [served, trained], row
+
+
+def _classify(root):
+    """`YOLO("yolov8n-cls.yaml")` (nc 1000) at CLS_IMGSZ: `train` for 1 epoch
+    of the synthetic split (64 images, b CLS_TRAIN, float32 with TF32 off,
+    validation on the held-out split), `val`; train images/s over
+    CLS_RESIDENT steps of one resident b CLS_RATE_BATCH batch (CUDA events);
+    the predictor over phase 15's val JPEGs at b1 on the card and on the
+    CPU (top-1 equal, probabilities within CLS_PROBS_TOL; the dataset is
+    written here where phase 15 did not run); npz export and
+    `AutoBackend(npz)` bit for bit the live float32 forward. Returns
+    (launches, row)."""
+    from mgdt_yolo_tpu_torch import YOLO
+    from mgdt_yolo_tpu_torch.engine.classify import (ClassificationDataset,
+                                                     ClassificationPredictor, no_tf32)
+    from mgdt_yolo_tpu_torch.nn.autobackend import AutoBackend
+    runs, row, t0 = [], {}, time.perf_counter()
+    y = YOLO("yolov8n-cls.yaml", device=DEVICE)
+    reset_counts()
+    t = time.perf_counter()
+    res = y.train(data="synthetic", epochs=1, imgsz=CLS_IMGSZ, batch=CLS_TRAIN,
+                  project=str(root / "classify"), name="train")
+    torch.cuda.synchronize()
+    row["train_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    val = y.val(data="synthetic", imgsz=CLS_IMGSZ, batch=CLS_TRAIN)
+    torch.cuda.synchronize()
+    row["val_s"] = time.perf_counter() - t
+    runs.append(read_counts())
+    tr = y.trainer
+    losses = [float(v) for v in tr.losses]
+    if set(res) != {"top1", "top5", "best_top1"} or set(val) != {"top1", "top5"} or \
+            len(losses) != 64 // CLS_TRAIN or not all(math.isfinite(v) for v in losses) or \
+            not (root / "classify" / "train" / "weights" / "best.npz").is_file():
+        raise SystemExit(f"classify: train gave {res}, val {val}, losses {losses}")
+    row.update(train=res, val=val, losses=losses)
+    batch = next(ClassificationDataset(None, imgsz=CLS_IMGSZ, nc=y.model.nc,
+                                       n_synth=CLS_RATE_BATCH).batches(CLS_RATE_BATCH))
+    img = torch.from_numpy(batch["img"]).to(DEVICE)
+    label = torch.from_numpy(batch["label"]).long().to(DEVICE)
+    with no_tf32():
+        ms = cuda_time_ms(lambda: tr.train_step(img, label), iters=CLS_RESIDENT, windows=1)
+    row["train_step_ms"] = ms
+    row["train_images_per_s"] = CLS_RATE_BATCH / ms * 1e3
+    val_dir = root / "pigs" / "images" / "val"
+    if not val_dir.is_dir():  # the phase run alone
+        _write_disk_dataset(root / "pigs")
+    reset_counts()
+    got = ClassificationPredictor({"imgsz": CLS_IMGSZ}).setup_model(
+        copy.deepcopy(y.model))(str(val_dir))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    got = ClassificationPredictor({"imgsz": CLS_IMGSZ}).setup_model(
+        copy.deepcopy(y.model))(str(val_dir))
+    torch.cuda.synchronize()
+    row["predict_b1_images_per_s"] = len(got) / (time.perf_counter() - t)
+    runs.append(read_counts())
+    want = ClassificationPredictor({"imgsz": CLS_IMGSZ, "device": "cpu"}).setup_model(
+        copy.deepcopy(y.model).cpu())(str(val_dir))
+    err = max(float(np.abs(g.probs.data - w.probs.data).max()) for g, w in zip(got, want))
+    same_top1 = [g.probs.top1 for g in got] == [w.probs.top1 for w in want]
+    row["predict_card_vs_cpu"] = {"images": len(got), "top1_equal": same_top1,
+                                  "probs_max_abs_diff": err}
+    if len(got) != len(want) or not got or not same_top1 or err > CLS_PROBS_TOL:
+        raise SystemExit(f"classify: the card's predictions and the CPU's disagree "
+                         f"(top-1 equal {same_top1}, probs {err:.3e})")
+    path = y.export(format="npz", imgsz=CLS_IMGSZ, project=str(root / "classify_export"))[0]
+    x = torch.rand((2, CLS_IMGSZ, CLS_IMGSZ, 3), generator=torch.Generator().manual_seed(23))
+    reset_counts()
+    with torch.no_grad(), float32_exact():
+        live = y.model.eval()(x.to(DEVICE))
+        back = AutoBackend(path, imgsz=CLS_IMGSZ, device=DEVICE).forward(x)
+    torch.cuda.synchronize()
+    runs.append(read_counts())
+    if back.shape != (2, 1000) or not torch.equal(back, live):
+        raise SystemExit("classify: AutoBackend(npz) is not the live forward bit for bit")
+    row["export_npz"] = {"probs": list(live.shape), "bit_for_bit": True}
+    row["seconds"] = time.perf_counter() - t0
+    log(f"yolov8n-cls (nc 1000, {CLS_IMGSZ} px, float32): train 1 epoch b{CLS_TRAIN} "
+        f"{row['train_s']:.2f} s, losses {', '.join(f'{v:.4f}' for v in losses)}, top1 "
+        f"{res['top1']:.3f} top5 {res['top5']:.3f}; val {row['val_s']:.2f} s; train "
+        f"b{CLS_RATE_BATCH} resident {ms:.3f} ms a step, {row['train_images_per_s']:.2f} "
+        f"images/s; predict b1 over {len(got)} JPEGs {row['predict_b1_images_per_s']:.2f} "
+        f"images/s, card vs CPU top-1 equal, probs max |diff| {err:.3e} (limit "
+        f"{CLS_PROBS_TOL:.0e}); npz + AutoBackend bit for bit; {row['seconds']:.1f} s")
+    return runs, row
+
+
+def phase_classify_and_zoo(root):
+    """The rest of the zoo (`ZOO_MODELS`) and the classify task: see the
+    module's text. No hand kernel is on this path: every count must stay 0.
+    Returns (launches, rows)."""
+    log(f"== phase 21: classify and zoo: {len(ZOO_MODELS)} zoo models at {IMGSZ} px (float32 "
+        f"card vs CPU, bf16 b{ZOO_RATE} images/s, {ZOO_STEPS} b{ZOO_TRAIN} micro-steps), "
+        f"yolov8n-cls at {CLS_IMGSZ} px (train, val, resident steps, predict card vs CPU, "
+        f"npz + AutoBackend)")
+    t_phase = time.perf_counter()
+    total, rows = no_launches(), {}
+    for name in ZOO_MODELS:
+        runs, rows[name] = _zoo_model(name)
+        for launches in runs:
+            for k in total:
+                total[k] += launches[k]
+        _expect(total, f"{name}'s zoo path")
+    runs, rows["yolov8n-cls.yaml"] = _classify(root)
+    for launches in runs:
+        for k in total:
+            total[k] += launches[k]
+    _expect(total, "the classify path")
+    rows["launches"] = total
+    rows["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 21: {rows['phase_s']:.1f} s; launches {total}")
+    log(f"phase 21 rows: {json.dumps(rows, default=float)}")
+    return total, rows
+
+
 # which paths run each kernel (its launches must be counted on each); the
 # first is the kernel's own main path
 KERNEL_PATHS = {"deform_fwd": ("serving", "training", "augmented training",
@@ -3938,12 +4178,15 @@ def main() -> int:
         plots, plot_rows = phase_plots(Path(tmp))
         torch.cuda.empty_cache()
         seg_pose, seg_pose_rows = phase_seg_pose(Path(tmp))
+        torch.cuda.empty_cache()
+        zoo, zoo_rows = phase_classify_and_zoo(Path(tmp))
     torch.cuda.empty_cache()
     ab_launches, ab_rows, hopper_rows, plan_rows = phase_variant_ab()
     paths = {"serving": serving, "training": training, "augmented training": augmented,
              "ablation family": ablation, "serving entry points": entry, "from disk": disk,
              "facade": facade, "reference weights": reference, "host augmentation": host,
              "callbacks and drawing": plots, "segment and pose": seg_pose,
+             "classify and zoo": zoo,
              "DCN A/B": dcn_ab,
              "K3 A/B": k3_ab, "K1 variant A/B": ab_launches}
     for k in kernels:
@@ -3957,6 +4200,8 @@ def main() -> int:
         k["launches"] = k["launches_by_path"][KERNEL_PATHS[k["name"]][0]]
         # no kernel is on the segment and pose path: its count, 0, recorded
         k["segment_and_pose_launches"] = seg_pose[k["name"]]
+        # nor on the classify and zoo path
+        k["classify_and_zoo_launches"] = zoo[k["name"]]
         if k["name"] == "fused_augment":
             k["apply_augment_ms"] = aug_ms
         if k["name"] in ("deform_fwd", "deform_bwd"):

@@ -92,7 +92,7 @@ def get_cfg(cfg: Union[str, Path, Dict, SimpleNamespace, None] = None,
 
 CLI_HELP_MSG = f"""usage: python -m mgdt_yolo_tpu_torch TASK MODE key=value ...
 
-    TASK (optional): one of {TASKS} (the port runs detect)
+    TASK (optional): one of {TASKS}
     MODE (required): one of {MODES}
     key=value: any config override, e.g. imgsz=320 model=yolov8n.yaml device=cpu
 
@@ -253,8 +253,11 @@ def entrypoint(argv=None):
     out = getattr(model, mode)(**overrides)
     if mode == "predict" and isinstance(out, list):
         for r in out:
-            LOGGER.info(f"{r.path}: {len(r)} detections {r.counts()} "
-                        f"({r.speed['inference']:.1f} ms inference)")
+            if r.probs is not None:
+                LOGGER.info(f"{r.path}: {r.verbose()}")
+            else:
+                LOGGER.info(f"{r.path}: {len(r)} detections {r.counts()} "
+                            f"({r.speed['inference']:.1f} ms inference)")
     elif isinstance(out, dict):
         LOGGER.info(str(out))
     return out

@@ -48,14 +48,16 @@ REFUSED_FORMATS = {
 
 
 class DecodedForward(nn.Module):
-    """The eval forward's decoded output alone, the exported function."""
+    """The eval forward's decoded output alone (a classify model's
+    probabilities), the exported function."""
 
     def __init__(self, model: nn.Module):
         super().__init__()
         self.model = model
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.model(x)[0]
+        out = self.model(x)
+        return out if isinstance(out, torch.Tensor) else out[0]
 
 
 def metadata(model, imgsz: int) -> dict:
@@ -64,7 +66,9 @@ def metadata(model, imgsz: int) -> dict:
             "names": {str(k): str(v) for k, v in model.names.items()},
             "model_yaml": model.model_yaml or "",
             "deform_semantics": model.deform_semantics,
-            "layout": "NHWC", "output": "(1, 4+nc, A) xywh+scores", "task": model.task}
+            "layout": "NHWC", "task": model.task,
+            "output": "(1, nc) probabilities" if model.task == "classify"
+            else "(1, 4+nc, A) xywh+scores"}
 
 
 class Exporter(CallbackMixin):

@@ -1,7 +1,8 @@
 """The `YOLO` facade: one object that trains, validates, predicts, serves,
-exports and benchmarks a detection model; the counterpart of the JAX
-package's `mgdt_yolo_tpu/engine/model.py`, for the detect, segment and pose
-tasks (`TASK_MAP`, as JAX's: `DetectionPredictor` serves all three).
+exports and benchmarks a model; the counterpart of the JAX package's
+`mgdt_yolo_tpu/engine/model.py`, for the detect, segment, pose and
+classify tasks (`TASK_MAP`, as JAX's: `DetectionPredictor` serves the first
+three, `engine/classify.py` the classify task).
 
 `YOLO(model="yolov8n.yaml", task=None, device=None)` builds the model on
 `device` (CUDA by default; `device="cpu"` for the CPU) from:
@@ -10,18 +11,18 @@ tasks (`TASK_MAP`, as JAX's: `DetectionPredictor` serves all three).
   init), or
 * an `.npz` weight archive with its `<stem>_metadata.json` (the committed
   `weights/mgdt_n_synth.npz`, the port's checkpoints, the JAX exporter's
-  archives), through `DetectionModel.from_npz`, pinned to the deform
+  archives), through `from_npz` of the class its config implies, pinned to the deform
   semantics the metadata records, or
 * a reference `.pt` checkpoint (the fork's pickled module graph), through
-  `DetectionModel.from_pt`: the config its `train_args` name, the EMA
-  weights, pinned to exact deform semantics as the JAX facade pins them;
-  the checkpoint is kept as `ckpt`.
+  `from_pt` of the model class its `train_args` config implies: that
+  config, the EMA weights, pinned to exact deform semantics as the JAX
+  facade pins them; the checkpoint is kept as `ckpt`.
 
 The task is the `task` given, else the one the model's name implies
-(`guess_model_task`: "-seg" segment, "-pose" pose), as JAX's facade
-takes it; it picks the validator. Refused: a JAX orbax checkpoint
-directory (the JAX package's `YOLO(...).export(format="npz")` carries one
-across), and the classify task (ROADMAP queue 1, item 8). `track` (item 9)
+(`guess_model_task`: "-seg" segment, "-pose" pose, "-cls" classify), as
+JAX's facade takes it; it picks the trainer, validator and predictor.
+Refused: a JAX orbax checkpoint directory (the JAX package's
+`YOLO(...).export(format="npz")` carries one across). `track` (item 9)
 raises.
 
 Every method takes configuration keys as keyword arguments, over the
@@ -30,7 +31,9 @@ facade's own (`model`, `task`), in JAX's cascade `{**self.overrides,
 facade's model keeps its BatchNorm and can be trained after a prediction,
 as in JAX; `train` runs `engine.trainer.Trainer` on the model in place,
 with checkpoints under `project/name` (runs/detect/train, incremented),
-and then puts the EMA parameters into it, as JAX's facade adopts them.
+and then puts the EMA parameters into it, as JAX's facade adopts them; the
+classify trainer leaves its best epoch's weights in the model itself, as
+JAX's does. A classify model predicts unfolded in float32, as JAX's.
 """
 from __future__ import annotations
 
@@ -45,7 +48,9 @@ from ..cfg import get_cfg
 from ..cfg.default import CFG_DEFAULTS
 from ..device import parse_device
 from ..nn.autobackend import load_npz_model
-from ..nn.tasks import DetectionModel, PoseModel, SegmentationModel, guess_model_task
+from ..nn.tasks import (BaseModel, ClassificationModel, DetectionModel, PoseModel,
+                        SegmentationModel, guess_model_task, model_class)
+from .classify import ClassificationPredictor, ClassificationTrainer, ClassificationValidator
 from .predictor import DetectionPredictor
 from .trainer import Trainer
 from .validator import DetectionValidator
@@ -56,14 +61,16 @@ LOGGER = logging.getLogger(__name__)
 TASK_MAP: Dict[str, list] = {
     "detect": [DetectionModel, Trainer, DetectionValidator, DetectionPredictor],
     "segment": [SegmentationModel, Trainer, SegmentationValidator, DetectionPredictor],
-    "pose": [PoseModel, Trainer, PoseValidator, DetectionPredictor]}
+    "pose": [PoseModel, Trainer, PoseValidator, DetectionPredictor],
+    "classify": [ClassificationModel, ClassificationTrainer, ClassificationValidator,
+                 ClassificationPredictor]}
 # the keys the facade resolves itself: they select the model, not a setting
 FACADE_KEYS = ("model", "task", "mode")
 
 
 def _not_ported_task(task: str) -> NotImplementedError:
-    return NotImplementedError(f"the {task} task is not ported: the port runs detect, segment "
-                               f"and pose (classify: ROADMAP queue 1, item 8)")
+    return NotImplementedError(f"the {task} task is not ported: the port runs "
+                               f"{', '.join(TASK_MAP)}")
 
 
 class YOLO:
@@ -83,10 +90,12 @@ class YOLO:
             self.model = TASK_MAP[self.task][0](model, device=self.device)
         else:
             self.model = self._load(model)
+            # a checkpoint's model knows its task where its file name does not
+            self.task = task or self.model.task
         self.overrides.setdefault("model", self.model.model_yaml or model)
         self.overrides["task"] = self.task
 
-    def _load(self, weights: str) -> DetectionModel:
+    def _load(self, weights: str) -> BaseModel:
         p = Path(weights)
         if p.is_dir():
             raise ValueError(
@@ -94,9 +103,12 @@ class YOLO:
                 f"port reads npz archives; carry it across with the JAX package's "
                 f"YOLO({weights!r}).export(format='npz')")
         if p.suffix == ".pt" and p.is_file():
-            model, pt = DetectionModel.from_pt(p, self.device)
+            from ..utils.torch_import import read_torch_pt
+            pt = read_torch_pt(p)
+            cfg = pt.train_args.get("model") or "yolov8n.yaml"
+            model, pt = model_class(cfg).from_pt(pt, self.device)
             self.ckpt = pt.ckpt
-            self.overrides["model"] = pt.train_args.get("model") or "yolov8n.yaml"
+            self.overrides["model"] = cfg
             return model
         if p.suffix == ".npz" and p.is_file():
             return load_npz_model(p, self.device)[0]
@@ -128,10 +140,11 @@ class YOLO:
         trainer = TASK_MAP[self.task][1](self.model, overrides=args, save_dir=save_dir)
         metrics = trainer.train()
         self.trainer, self.predictor = trainer, None
-        ema = trainer.ema.state()
-        with torch.no_grad():
-            for name, p in self.model.named_parameters():
-                p.copy_(ema[name])
+        if isinstance(trainer, Trainer):  # the classify trainer adopts its best weights
+            ema = trainer.ema.state()
+            with torch.no_grad():
+                for name, p in self.model.named_parameters():
+                    p.copy_(ema[name])
         self.model.eval()
         return metrics
 

@@ -1,5 +1,5 @@
-"""Per-image results: `Boxes`, `Masks`, `Keypoints` and `Results`, the
-counterparts of the JAX package's `mgdt_yolo_tpu/engine/results.py`.
+"""Per-image results: `Boxes`, `Masks`, `Keypoints`, `Probs` and `Results`,
+the counterparts of the JAX package's `mgdt_yolo_tpu/engine/results.py`.
 
 numpy-backed, as there: the predictor and the server bring detections back
 to the host, rescaled to the original image, and wrap them here (as in JAX,
@@ -8,17 +8,21 @@ the predictor gives boxes only; masks and keypoints are a caller's).
 `save_crop` draw and write with the port's rasteriser and writers
 (`utils/draw.py`, `utils/plotting.py`); `plot` draws the boxes, as JAX's.
 `Masks.xy` takes each mask's largest outer contour by the port's border
-follower (`utils/contours.py`, cv2's `findContours` without cv2). Not
-ported: the classify task's `Probs` (ROADMAP queue 1, item 8).
+follower (`utils/contours.py`, cv2's `findContours` without cv2). A
+classify result holds `probs` and no boxes: `verbose` gives its top five,
+`save_crop` and `tojson` warn and do nothing, and `plot`, which draws the
+boxes, gives the image unchanged, as JAX's.
 """
 from __future__ import annotations
 
 import json
+import logging
 from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
 
+LOGGER = logging.getLogger(__name__)
 PLOT_PALETTE = [(56, 56, 255), (31, 112, 255), (29, 178, 255), (49, 210, 207),
                 (10, 249, 72), (23, 204, 146), (134, 219, 61), (52, 147, 26)]
 
@@ -171,18 +175,42 @@ class Keypoints(SimpleClass, _HostOps):
         return self.xy / np.array([w, h], np.float32)
 
 
+class Probs(SimpleClass, _HostOps):
+    """(nc,) classification probabilities."""
+
+    def __init__(self, probs: np.ndarray):
+        self.data = np.asarray(probs)
+
+    def __len__(self):
+        return len(self.data)
+
+    @property
+    def top1(self):
+        return int(self.data.argmax())
+
+    @property
+    def top5(self):
+        return self.data.argsort()[::-1][:5].tolist()
+
+    @property
+    def top1conf(self):
+        return float(self.data.max())
+
+    @property
+    def top5conf(self):
+        return self.data[self.top5].tolist()
+
+
 class Results(SimpleClass):
     """One image's detections (`boxes`, with `masks` and `keypoints` where
-    given), its original BGR image, its source name and the per-image
-    `speed` (ms) of preprocess and inference."""
+    given) or class probabilities (`probs`), its original BGR image, its
+    source name and the per-image `speed` (ms) of preprocess and
+    inference."""
 
     def __init__(self, orig_img: np.ndarray, path: str, names: Dict[int, str],
                  boxes: Optional[np.ndarray] = None, masks: Optional[np.ndarray] = None,
                  probs: Optional[np.ndarray] = None, keypoints: Optional[np.ndarray] = None,
                  speed: Optional[Dict[str, float]] = None):
-        if probs is not None:
-            raise NotImplementedError("classification probabilities: the classify task is not "
-                                      "ported yet (ROADMAP queue 1, item 8)")
         self.orig_img = orig_img
         self.orig_shape = orig_img.shape[:2]
         self.path = path
@@ -192,7 +220,7 @@ class Results(SimpleClass):
         self.masks = Masks(masks, self.orig_shape) if masks is not None else None
         self.keypoints = Keypoints(keypoints, self.orig_shape) if keypoints is not None \
             else None
-        self.probs = None
+        self.probs = Probs(probs) if probs is not None else None
         self.speed = speed or {"preprocess": 0.0, "inference": 0.0, "postprocess": 0.0}
 
     def __len__(self):
@@ -202,12 +230,15 @@ class Results(SimpleClass):
         return Results(self.orig_img, self.path, self.names,
                        self.boxes.data[idx] if len(self.boxes) else None, speed=self.speed)
 
-    def update(self, boxes: Optional[np.ndarray] = None, masks: Optional[np.ndarray] = None):
-        """Replace the detections or the masks in place."""
+    def update(self, boxes: Optional[np.ndarray] = None, masks: Optional[np.ndarray] = None,
+               probs: Optional[np.ndarray] = None):
+        """Replace the detections, the masks or the probabilities in place."""
         if boxes is not None:
             self.boxes = Boxes(boxes, self.orig_shape)
         if masks is not None:
             self.masks = Masks(masks, self.orig_shape)
+        if probs is not None:
+            self.probs = Probs(probs)
         return self
 
     def new(self):
@@ -233,7 +264,11 @@ class Results(SimpleClass):
         return self
 
     def verbose(self) -> str:
-        """Per-class summary, "2 0s, 1 1, " (the reference's log line)."""
+        """Per-class summary, "2 0s, 1 1, " (the reference's log line); for
+        probabilities the top five, "<name> 0.31, ..., "."""
+        if self.probs is not None:
+            return ", ".join(f"{self.names.get(j, j)} {float(self.probs.data[j]):.2f}"
+                             for j in self.probs.top5) + ", "
         if len(self) == 0:
             return "(no detections), "
         out = ""
@@ -268,7 +303,11 @@ class Results(SimpleClass):
 
     def save_crop(self, save_dir, file_name="im.jpg"):
         """Each detection's crop (BGR, `utils.plotting.save_one_box`) to
-        `<save_dir>/<class name>/<stem>.jpg`, numbered where taken."""
+        `<save_dir>/<class name>/<stem>.jpg`, numbered where taken; a
+        classify result warns and writes nothing, as JAX's."""
+        if self.probs is not None:
+            LOGGER.warning("Classify task does not support save_crop")
+            return
         from ..utils.plotting import save_one_box
         save_dir = Path(save_dir)
         stem = Path(file_name).stem
@@ -294,7 +333,10 @@ class Results(SimpleClass):
         (, track_id, segments {x, y}, keypoints {x, y, visible})},
         coordinates divided by the image size when `normalize`, as JAX's
         `tojson` writes them (the i-th mask's and keypoints' with the i-th
-        box)."""
+        box); a classify result warns and gives None, as JAX's."""
+        if self.probs is not None:
+            LOGGER.warning("Classify task does not support tojson yet")
+            return None
         h, w = self.orig_shape if normalize else (1, 1)
         out = []
         for i, row in enumerate(self.boxes.data):

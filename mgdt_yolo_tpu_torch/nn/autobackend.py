@@ -1,7 +1,7 @@
 """AutoBackend: one `forward` over a live model and the port's exported
 artifacts, the counterpart of the JAX package's `mgdt_yolo_tpu/nn/autobackend.py`.
 
-Sources: a live `DetectionModel`; a `.pt2` program (`engine/exporter.py`),
+Sources: a live port model; a `.pt2` program (`engine/exporter.py`),
 whose `mgdt::deform_fwd` the model code registers on import, moved to the
 backend's device where it was traced on another; an `.npz` weight archive
 with its `<stem>_metadata.json`, rebuilt as the config it names and pinned
@@ -10,7 +10,9 @@ ValueError. `forward(img)` takes an NHWC float batch in [0, 1] (numpy or a
 tensor) and returns the decoded (B, 4+nc, A) tensor on the backend's device
 ((B, 4+nc+nm, A) or (B, 4+nc+nk, A) for a segment or pose model, whose
 head the npz's config names, as JAX's `DetectionModel(model_yaml)` builds
-it).
+it; the (B, nc) probabilities for a classify model, which the port
+rebuilds as a `ClassificationModel`, where JAX's npz leg builds every
+config as a detection model).
 """
 from __future__ import annotations
 
@@ -22,21 +24,22 @@ import torch
 
 from ..device import names_device, resolve_device
 from ..weights import read_metadata
-from .tasks import DetectionModel
+from .tasks import BaseModel, model_class
 
 LOGGER = logging.getLogger(__name__)
 
 
 def load_npz_model(path, device=None):
-    """(the `DetectionModel` an npz archive holds, its metadata), through
-    `DetectionModel.from_npz`: the config and `nc` that `<stem>_metadata.json`
-    names, pinned to its `deform_semantics` and named by its `names`. Raises
-    ValueError where there is no metadata naming the config, as JAX's does."""
+    """(the model an npz archive holds, its metadata), through `from_npz` of
+    the class its config implies (`nn.tasks.model_class`): the config and
+    `nc` that `<stem>_metadata.json` names, pinned to its
+    `deform_semantics` and named by its `names`. Raises ValueError where
+    there is no metadata naming the config, as JAX's does."""
     meta = read_metadata(path)
     if not meta.get("model_yaml"):
         raise ValueError(f"an npz model needs the exporter's *_metadata.json (with "
                          f"model_yaml) beside {path}")
-    return DetectionModel.from_npz(path, device=device), meta
+    return model_class(meta["model_yaml"]).from_npz(path, device=device), meta
 
 
 def _program_device(program) -> torch.device:
@@ -48,25 +51,25 @@ def _program_device(program) -> torch.device:
 
 
 class AutoBackend:
-    """`AutoBackend(source, imgsz=640, device=None)`: `source` a
-    `DetectionModel` (run on its own device), or the path of a `.pt2` or
+    """`AutoBackend(source, imgsz=640, device=None)`: `source` a port
+    model (run on its own device), or the path of a `.pt2` or
     `.npz` (run on `device`, by default CUDA)."""
 
     def __init__(self, model, imgsz: int = 640, device=None):
         self.imgsz = imgsz
         self.kind = "torch"
-        if not isinstance(model, DetectionModel):
+        if not isinstance(model, BaseModel):
             p = Path(str(model))
             if not p.is_file() or p.suffix not in (".npz", ".pt2"):
-                raise ValueError(f"unsupported backend source: {model!r} (a DetectionModel, "
+                raise ValueError(f"unsupported backend source: {model!r} (a model, "
                                  f"a .pt2 program or an .npz archive)")
             self.kind = p.suffix[1:]
             if self.kind == "npz":
                 model = load_npz_model(p, device)[0]
-        if isinstance(model, DetectionModel):
+        if isinstance(model, BaseModel):
             self.model = model.eval()
             self.device, self.stride, self.names = model.device, model.stride, model.names
-            self._fn = lambda x: model(x)[0]
+            self._fn = model if model.task == "classify" else (lambda x: model(x)[0])
         else:
             self.device = resolve_device(device)
             program = torch.export.load(str(p))

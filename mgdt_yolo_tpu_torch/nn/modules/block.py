@@ -32,18 +32,42 @@ def dfl_decode(box: torch.Tensor, reg_max: int) -> torch.Tensor:
 
 
 class Bottleneck(nn.Module):
-    """Residual bottleneck: two 3x3 convs at full width, plus x when
-    `shortcut` and the widths allow."""
+    """Residual bottleneck: a k[0] conv to c2 * e channels, a k[1] conv
+    (groups `g`) back to c2, plus x when `shortcut` and the widths allow.
+    The CSP blocks take e = 1; a graph row `Bottleneck [c2, shortcut, g, k,
+    e]` (YOLOv3) the reference's e = 0.5."""
 
-    def __init__(self, c1: int, c2: int, shortcut: bool):
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, g: int = 1, k=(3, 3),
+                 e: float = 0.5):
         super().__init__()
-        self.cv1 = Conv(c1, c2, 3)
-        self.cv2 = Conv(c2, c2, 3)
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, k[0], 1)
+        self.cv2 = Conv(c_, c2, k[1], 1, g=g)
         self.add = shortcut and c1 == c2
 
     def forward(self, x):
         y = self.cv2(self.cv1(x))
         return x + y if self.add else y
+
+
+class C2(nn.Module):
+    """CSP bottleneck with 2 convs: the first half of cv1's output through
+    n bottlenecks, concatenated with the second half, then cv2."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, e: float = 0.5):
+        super().__init__()
+        c = int(c2 * e)
+        self.n = n
+        self.cv1 = Conv(c1, 2 * c, 1)
+        for i in range(n):
+            self.add_module(f"m_{i}", Bottleneck(c, c, shortcut, e=1.0))
+        self.cv2 = Conv(2 * c, c2, 1)
+
+    def forward(self, x):
+        a, b = self.cv1(x).chunk(2, dim=1)
+        for i in range(self.n):
+            a = getattr(self, f"m_{i}")(a)
+        return self.cv2(torch.cat([a, b], dim=1))
 
 
 class C2f(nn.Module):
@@ -55,7 +79,7 @@ class C2f(nn.Module):
         self.n = n
         self.cv1 = Conv(c1, 2 * c, 1)
         for i in range(n):
-            self.add_module(f"m_{i}", Bottleneck(c, c, shortcut))
+            self.add_module(f"m_{i}", Bottleneck(c, c, shortcut, e=1.0))
         self.cv2 = Conv((2 + n) * c, c2, 1)
 
     def forward(self, x):
@@ -63,6 +87,43 @@ class C2f(nn.Module):
         for i in range(self.n):
             ys.append(getattr(self, f"m_{i}")(ys[-1]))
         return self.cv2(torch.cat(ys, dim=1))
+
+
+class C3(nn.Module):
+    """CSP bottleneck with 3 convs: cv1's branch through n bottlenecks,
+    concatenated with cv2's, then cv3."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, e: float = 0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.n = n
+        self.cv1 = Conv(c1, c_, 1)
+        self.cv2 = Conv(c1, c_, 1)
+        for i in range(n):
+            self.add_module(f"m_{i}", Bottleneck(c_, c_, shortcut, k=(1, 3), e=1.0))
+        self.cv3 = Conv(2 * c_, c2, 1)
+
+    def forward(self, x):
+        a = self.cv1(x)
+        for i in range(self.n):
+            a = getattr(self, f"m_{i}")(a)
+        return self.cv3(torch.cat([a, self.cv2(x)], dim=1))
+
+
+class SPP(nn.Module):
+    """Spatial pyramid pooling: cv1, its max pools at each of `k` (stride
+    1, same size), concatenated, then cv2."""
+
+    def __init__(self, c1: int, c2: int, k=(5, 9, 13)):
+        super().__init__()
+        c_ = c1 // 2
+        self.k = tuple(k)
+        self.cv1 = Conv(c1, c_, 1)
+        self.cv2 = Conv(c_ * (len(self.k) + 1), c2, 1)
+
+    def forward(self, x):
+        y = self.cv1(x)
+        return self.cv2(torch.cat([y] + [max_pool2d_same(y, k) for k in self.k], dim=1))
 
 
 class SPPF(nn.Module):
@@ -142,7 +203,7 @@ class MSPA_C2f(nn.Module):
         for i in range(scale - 1):
             self.add_module(f"convs_{i}", Conv(inw, inw, 1))
         for j in range(n):
-            self.add_module(f"bottleneck_{j}", Bottleneck(inw, inw, shortcut))
+            self.add_module(f"bottleneck_{j}", Bottleneck(inw, inw, shortcut, e=1.0))
         self.add_module(f"convs_{scale - 1}", Conv((scale - 1 + n) * inw, c2, 1))
         self.attention = SPRModule(self.outw)
 

@@ -26,8 +26,8 @@ def autopad(k: int, p: int | None = None, d: int = 1) -> int:
 
 
 def get_act(act) -> nn.Module:
-    """True -> SiLU, False/None -> identity, "silu"/"relu" -> that one (the
-    activations the flagship uses)."""
+    """True -> SiLU, False/None -> identity, "silu"/"relu" (also as a YAML
+    names it, "nn.ReLU()") -> that one."""
     if act is True:
         return nn.SiLU()
     if act is False or act is None:
@@ -68,17 +68,69 @@ class BN(nn.Module):
 
 
 class Conv(nn.Module):
-    """conv2d (no bias, 'same' padding) + BatchNorm + activation
-    (`nn/fuse.py` folds the BatchNorm into the conv for serving)."""
+    """conv2d (no bias; padding `p`, 'same' by default; groups `g`,
+    dilation `d`) + BatchNorm + activation (`nn/fuse.py` folds the
+    BatchNorm into the conv for serving). `act=True` is the model's default
+    activation, SiLU unless the model's config overrides it
+    (`set_default_act`)."""
 
-    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, act=True):
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p=None, g: int = 1,
+                 d: int = 1, act=True):
         super().__init__()
-        self.conv = nn.Conv2d(c1, c2, k, s, autopad(k), bias=False)
+        self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), dilation=d, groups=g, bias=False)
         self.norm = BN(c2)
+        self.default_act = act is True
         self.act = get_act(act)
 
     def forward(self, x):
         return self.act(self.norm(self.conv(x)))
+
+
+def set_default_act(module: nn.Module, act) -> nn.Module:
+    """Give every `Conv` of `module` built with `act=True` the activation
+    `act` (a config's `activation:`, "nn.ReLU()" in YOLOv6's), as the
+    reference's `Conv.default_act` swap and JAX's trace-time default do,
+    here for this module alone."""
+    for m in module.modules():
+        if isinstance(m, Conv) and m.default_act:
+            m.act = get_act(act)
+    return module
+
+
+class MaxPool2d(nn.Module):
+    """torch's `nn.MaxPool2d(k, s, p)` as a graph layer (YOLOv3-tiny)."""
+
+    def __init__(self, k: int, s=None, p: int = 0):
+        super().__init__()
+        self.k, self.s, self.p = int(k), int(s if s is not None else k), int(p)
+
+    def forward(self, x):
+        return F.max_pool2d(x, self.k, self.s, self.p)
+
+
+class ZeroPad2d(nn.Module):
+    """torch's `nn.ZeroPad2d`, the pad (left, right, top, bottom)."""
+
+    def __init__(self, pad):
+        super().__init__()
+        self.pad = tuple(int(v) for v in pad)
+
+    def forward(self, x):
+        return F.pad(x, self.pad)
+
+
+class ConvTranspose(nn.Module):
+    """The bare transposed conv of a graph row `nn.ConvTranspose2d [c2, k, s,
+    p]` (YOLOv6's upsampling): with bias, no BatchNorm and no activation,
+    under the flax name `conv_transpose` as JAX's `ConvTranspose(bn=False,
+    act=False)` nests it (its flipped kernel: `weights.translate`)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 2, s: int = 2, p: int = 0):
+        super().__init__()
+        self.conv_transpose = nn.ConvTranspose2d(c1, c2, k, s, p, bias=True)
+
+    def forward(self, x):
+        return self.conv_transpose(x)
 
 
 class Concat(nn.Module):

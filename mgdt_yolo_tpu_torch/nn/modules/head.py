@@ -210,3 +210,21 @@ class Pose(nn.Module):
         rest = torch.sigmoid(k[..., 2:]) if self.kpt_shape[1] == 3 else k[..., 2:]
         pk = torch.cat([xy, rest], dim=-1).reshape(b, -1, k.shape[2] * k.shape[3])
         return torch.cat([decoded, pk.transpose(1, 2).to(decoded.dtype)], dim=1), (feats, kpt)
+
+
+class Classify(nn.Module):
+    """The classification head: Conv (1280, k, s) + BN + SiLU, a global
+    mean over the map, then a Linear `linear` to `c2` classes. Returns the
+    logits in training and their softmax, taken in float32, in eval. As in
+    JAX's, there is no dropout (the reference's `Dropout(p=0.0)`)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1):
+        super().__init__()
+        self.conv = Conv(c1, 1280, k, s)
+        self.linear = nn.Linear(1280, c2)
+
+    def forward(self, x):
+        if isinstance(x, (list, tuple)):
+            x = torch.cat(list(x), dim=1)
+        y = self.linear(self.conv(x).mean(dim=(2, 3)))
+        return y if self.training else torch.softmax(y.float(), dim=-1)

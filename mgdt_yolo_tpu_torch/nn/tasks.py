@@ -1,11 +1,16 @@
 """The model graph: a layer list parsed from a config dict into one module.
 
 The counterpart of `mgdt_yolo_tpu/nn/tasks.py`, cut to the module types the
-eight models of the ablation matrix and YOLOv8's segment and pose models use
-(`models.CONFIGS`); any other type raises KeyError. `parse_model` keeps the
-JAX package's channel arithmetic, including the GOLD-YOLO cases and the
-segment head's prototype width, and also tracks each layer's stride so the
-head's strides need no probe run.
+configs of `models.CONFIGS` use (the ablation matrix, YOLOv8's segment,
+pose and classify models, and the v3/v5/v6/P2/P6 zoo); any other type
+raises KeyError naming the ROADMAP item that ports it. `parse_model` keeps
+the JAX package's channel arithmetic, including the GOLD-YOLO cases, the
+segment head's prototype width and `depth_multiple`/`width_multiple` where
+a config has no `scales`, and also tracks each layer's stride (convs,
+max pools and transposed convs) so the head's strides need no probe run.
+A row repeated on a non-CSP module (`n > 1`) is an `nn.Sequential` of `n`
+copies, which JAX names `model_i`, `model_i_rep1`, ...; a config's
+`activation:` reaches every `Conv` of its model built with `act=True`.
 """
 from __future__ import annotations
 
@@ -24,7 +29,8 @@ from ..models import FLAGSHIP, load_config
 from ..ops.deform import check_semantics
 from .modules import block as B
 from .modules import head as H
-from .modules.conv import Concat, Conv, Upsample
+from .modules.conv import (Concat, Conv, ConvTranspose, MaxPool2d, Upsample, ZeroPad2d,
+                           set_default_act)
 
 
 def make_divisible(x: float, divisor: int = 8) -> int:
@@ -40,19 +46,37 @@ class LayerSpec:
     name: str                         # module type
     args: Tuple[Any, ...]             # normalised args (c1 first where used)
     stride: int                       # output stride relative to the input
+    n: int = 1                        # sequential repeats of a non-CSP module
+    c2: int = 0                       # output channels (0 for a head)
 
 
-_CONV_LIKE = {"Conv", "SPPF", "C2f", "MSPA_C2f"}
-_REPEAT_BLOCKS = {"C2f", "MSPA_C2f"}
+_CONV_LIKE = {"Conv", "SPP", "SPPF", "Bottleneck", "C2", "C2f", "MSPA_C2f", "C3", "Classify",
+              "nn.ConvTranspose2d"}
+_REPEAT_BLOCKS = {"C2", "C2f", "MSPA_C2f", "C3"}
 _HEADS = {"Detect", "TOODHead", "Segment", "Pose"}
-_KNOWN = _CONV_LIKE | _HEADS | {"nn.Upsample", "Concat", "SimFusion_4in", "SimFusion_3in",
-                                "IFM", "InjectionMultiSum_Auto_pool"}
+_KNOWN = _CONV_LIKE | _HEADS | {"nn.Upsample", "Concat", "nn.MaxPool2d", "nn.ZeroPad2d",
+                                "SimFusion_4in", "SimFusion_3in", "IFM",
+                                "InjectionMultiSum_Auto_pool"}
+# the rest of JAX's vocabulary, which no config of the repo uses
+_ITEM_17 = {"C1", "C3x", "C3TR", "C3Ghost", "GhostConv", "GhostBottleneck", "Focus", "DWConv",
+            "Conv2", "ConvTranspose", "DWConvTranspose2d", "BottleneckCSP", "RepVGGBlock"}
+_RTDETR = {"HGStem", "HGBlock", "RepC3", "AIFI", "RTDETRDecoder"}
+
+
+def _not_ported(m: str) -> KeyError:
+    if m in _ITEM_17:
+        return KeyError(f"module type {m!r} is not ported yet (ROADMAP queue 1, item 17)")
+    if m in _RTDETR:
+        return KeyError(f"module type {m!r} is not ported yet: RT-DETR (ROADMAP queue 1, "
+                        f"item 10)")
+    return KeyError(f"module type {m!r} is not ported")
 
 
 def parse_model(d: Dict, scale: Optional[str] = None):
     """Config dict -> (LayerSpecs, sorted save list, nc) for RGB input."""
     nc = d["nc"]
-    depth, width, max_channels = 1.0, 1.0, float("inf")
+    depth, width = d.get("depth_multiple", 1.0), d.get("width_multiple", 1.0)
+    max_channels = float("inf")
     if d.get("scales"):
         scale = scale or d.get("scale") or next(iter(d["scales"]))
         depth, width, max_channels = d["scales"][scale]
@@ -61,7 +85,7 @@ def parse_model(d: Dict, scale: Optional[str] = None):
     specs, save = [], []
     for i, (f, n, m, args) in enumerate(list(d["backbone"]) + list(d["head"])):
         if m not in _KNOWN:
-            raise KeyError(f"module type {m!r} is not ported")
+            raise _not_ported(m)
         args = [nc if a == "nc" else a for a in args]
         n = max(round(n * depth), 1) if n > 1 else n
         fl = [f] if isinstance(f, int) else list(f)
@@ -76,6 +100,11 @@ def parse_model(d: Dict, scale: Optional[str] = None):
                 n = 1
             if m == "Conv":
                 stride *= args[3] if len(args) > 3 else 1
+            elif m == "nn.ConvTranspose2d":
+                stride //= args[3] if len(args) > 3 else 2
+        elif m == "nn.MaxPool2d":
+            c2 = chs[f]
+            stride *= args[1] if len(args) > 1 else args[0]
         elif m == "nn.Upsample":
             c2 = chs[f]
             stride //= int(args[1])
@@ -98,17 +127,17 @@ def parse_model(d: Dict, scale: Optional[str] = None):
         elif m == "IFM":
             c2 = sum(args[0])
             args = [chs[f], *args]
-        else:  # InjectionMultiSum_Auto_pool
+        elif m == "InjectionMultiSum_Auto_pool":
             c2 = args[0]
             args = [chs[f[0]], *args]
-        if n != 1:
-            raise KeyError(f"sequential repeats of {m!r} are not ported")
+        else:  # nn.ZeroPad2d keeps its input's width
+            c2 = chs[f]
 
         def _abs(j):
             return j if j == -1 else (j % i if j < 0 else j)
 
         f_norm = tuple(_abs(j) for j in f) if isinstance(f, list) else _abs(f)
-        spec = LayerSpec(i, f_norm, m, tuple(args), stride)
+        spec = LayerSpec(i, f_norm, m, tuple(args), stride, n, c2 or 0)
         specs.append(spec)
         save.extend(x % i for x in fl if x != -1)
         if i == 0:
@@ -118,20 +147,45 @@ def parse_model(d: Dict, scale: Optional[str] = None):
     return tuple(specs), tuple(sorted(set(save))), nc
 
 
-def build_module(spec: LayerSpec, head_strides) -> nn.Module:
-    """Instantiate the module of one LayerSpec."""
-    a, m = spec.args, spec.name
+def build_module(spec: LayerSpec, head_strides, act=None) -> nn.Module:
+    """Instantiate the module of one LayerSpec: `n` copies in an
+    `nn.Sequential` where the row repeats (the first takes the row's input
+    width, the others its output's), every `Conv` built with `act=True`
+    given the config's activation `act` where there is one."""
+    if spec.n > 1:
+        a = spec.args
+        mods = [_build_one(spec.name, a if r == 0 else (a[1], *a[1:]), head_strides)
+                for r in range(spec.n)]
+        module = nn.Sequential(*mods)
+    else:
+        module = _build_one(spec.name, spec.args, head_strides)
+    return set_default_act(module, act) if act else module
+
+
+def _build_one(m: str, a, head_strides) -> nn.Module:
     if m == "Conv":
-        if len(a) > 4:
-            raise KeyError("Conv padding, groups, dilation and activation "
-                           "arguments are not ported")
-        return Conv(a[0], a[1], a[2] if len(a) > 2 else 1, a[3] if len(a) > 3 else 1)
+        # (c1, c2, k, s, p, g, d, act): the v5 stem is Conv [64, 6, 2, 2]
+        return Conv(a[0], a[1], *a[2:8])
     if m == "C2f":
         return B.C2f(a[0], a[1], n=a[2], shortcut=a[3] if len(a) > 3 else False)
     if m == "MSPA_C2f":
         return B.MSPA_C2f(a[0], a[1], n=a[2], shortcut=a[3] if len(a) > 3 else False)
+    if m in ("C2", "C3"):
+        return {"C2": B.C2, "C3": B.C3}[m](a[0], a[1], n=a[2],
+                                           shortcut=a[3] if len(a) > 3 else True)
+    if m == "Bottleneck":
+        return B.Bottleneck(a[0], a[1], *a[2:])
     if m == "SPPF":
         return B.SPPF(a[0], a[1], a[2] if len(a) > 2 else 5)
+    if m == "SPP":
+        return B.SPP(a[0], a[1], a[2] if len(a) > 2 else (5, 9, 13))
+    if m == "nn.ConvTranspose2d":  # the bare deconv: bias, no BatchNorm, no activation
+        return ConvTranspose(a[0], a[1], a[2] if len(a) > 2 else 2, a[3] if len(a) > 3 else 2,
+                             a[4] if len(a) > 4 else 0)
+    if m == "nn.MaxPool2d":  # (k, s, p), torch's order
+        return MaxPool2d(a[0], a[1] if len(a) > 1 else a[0], a[2] if len(a) > 2 else 0)
+    if m == "nn.ZeroPad2d":
+        return ZeroPad2d(a[0])
     if m == "SimFusion_4in":
         return B.SimFusion_4in()
     if m == "SimFusion_3in":
@@ -152,7 +206,9 @@ def build_module(spec: LayerSpec, head_strides) -> nn.Module:
         return H.Segment(a[0], a[1], a[2], a[-1], head_strides)
     if m == "Pose":
         return H.Pose(a[0], a[1], a[-1], head_strides)
-    raise KeyError(f"module type {m!r} is not ported")
+    if m == "Classify":  # JAX's builds it from c2 alone: k = s = 1
+        return H.Classify(a[0], a[1])
+    raise _not_ported(m)
 
 
 def scaled_yaml_name(name: Optional[str], scale: Optional[str]) -> Optional[str]:
@@ -194,31 +250,21 @@ def _descale_pred(p: torch.Tensor, flip: Optional[int], scale: float, img_size) 
     return torch.cat((x, y, wh, p[:, 4:]), dim=1)
 
 
-class DetectionModel(nn.Module):
-    """A detection model built from a config: a dict, or the YAML file name
-    of one of `models.CONFIGS` ("thead_yolov8.yaml"; a scale letter as in
-    "yolov8s.yaml" picks that scale), by default the flagship. `nc`
-    overrides the config's class count, as the JAX `DetectionModel(cfg,
-    nc=...)` does.
+class BaseModel(nn.Module):
+    """What the port's models share: the graph built from a config (a dict,
+    or the YAML file name of one of `models.CONFIGS`; a scale letter as in
+    "yolov8s.yaml" picks that scale), `nc` overriding the config's class
+    count as JAX's `nc=` does, its layers as the attributes `model_0` ...
+    `model_N`, named as the flax graph names them, every layer run (also
+    those whose output reaches no head, the thead models' 19-21, as in the
+    JAX graph), the port's seeded init, loading and folding. A new model is
+    in `eval()` mode on `device` (CUDA by default)."""
 
-    Layers are the attributes `model_0` ... `model_N`, named as the flax
-    graph names them; every layer runs, also those whose output reaches no
-    head (the thead models' 19-21), as in the JAX graph. `forward` takes an
-    NHWC float image batch and returns (decoded (B, 4+nc, A), [raw map
-    (B, h, w, no) per level]), as the JAX `DetectionModel.predict` does; in
-    `train()` mode decoded is None and BatchNorm uses and updates batch
-    statistics (`forward_feats`). A new model is in `eval()` mode.
+    default_cfg = FLAGSHIP
 
-    A `Segment` head makes the second element (raw maps, mask coefficients
-    (B, A, nm), prototypes (B, mh, mw, nm)) and `decoded` (B, 4+nc+nm, A);
-    a `Pose` head (raw maps, raw keypoints (B, A, nk)) and (B, 4+nc+nk, A),
-    as the JAX heads return them. `task` follows the head.
-    """
-
-    def __init__(self, cfg: Union[None, str, Dict] = None, scale: Optional[str] = None,
-                 device=None, nc: Optional[int] = None):
-        super().__init__()
-        cfg = copy.deepcopy(cfg) if isinstance(cfg, dict) else load_config(cfg or FLAGSHIP)
+    def _build(self, cfg, scale, nc, head_strides=None) -> Dict:
+        cfg = copy.deepcopy(cfg) if isinstance(cfg, dict) else load_config(
+            cfg or self.default_cfg)
         if nc:
             cfg["nc"] = nc
         # the config a checkpoint's metadata names, as the JAX exporter does,
@@ -227,26 +273,26 @@ class DetectionModel(nn.Module):
         self.model_yaml = scaled_yaml_name(cfg.get("yaml_file"), scale)
         self.specs, self.save, self.nc = parse_model(cfg, scale=scale)
         self.names = {i: f"{i}" for i in range(self.nc)}
-        self.stride = tuple(self.specs[j].stride for j in self.specs[-1].f)
-        for spec in self.specs:
-            self.add_module(f"model_{spec.i}", build_module(spec, self.stride))
-        head = getattr(self, f"model_{self.specs[-1].i}")
-        self.reg_max = head.reg_max
-        self.task = {H.Segment: "segment", H.Pose: "pose"}.get(type(head), "detect")
-        # JAX's trainer and validator read the config's `kpt_shape`
-        self.kpt_shape = tuple(cfg.get("kpt_shape", (17, 3)))
+        self.act = cfg.get("activation")  # YOLOv6's "nn.ReLU()"
         self.deform_semantics = "windowed"
-        self._init_weights()
-        self.to(resolve_device(device))
-        self.eval()
+        if head_strides is None:
+            if self.specs[-1].name not in _HEADS:
+                raise ValueError(f"{self.model_yaml or 'the config'} ends in "
+                                 f"{self.specs[-1].name}, not a detection head: build it as a "
+                                 f"ClassificationModel")
+            head_strides = tuple(self.specs[j].stride for j in self.specs[-1].f)
+        self.stride = head_strides
+        for spec in self.specs:
+            self.add_module(f"model_{spec.i}", build_module(spec, self.stride, self.act))
+        return cfg
 
     @classmethod
     def from_npz(cls, path, device=None):
         """The model a flat flax npz holds: the config and `nc` that
         `<stem>_metadata.json` beside it names (`model_yaml`, `nc`; the
-        flagship where it names no config), filled from the npz, pinned to
-        the deform semantics the metadata records and named by its class
-        `names`."""
+        class's default config where it names none), filled from the npz,
+        pinned to the deform semantics the metadata records and named by
+        its class `names`."""
         from ..weights import load_npz, read_metadata
         dev = resolve_device(device)
         meta = read_metadata(path)
@@ -259,16 +305,16 @@ class DetectionModel(nn.Module):
 
     @classmethod
     def from_pt(cls, path, device=None):
-        """(model, checkpoint) of a reference `.pt` (`utils.torch_import.
-        read_torch_pt`): the config `train_args["model"]` names (JAX's
+        """(model, checkpoint) of a reference `.pt` (its path, or the file
+        `utils.torch_import.read_torch_pt` read): the config `train_args["model"]` names (JAX's
         `yolov8n.yaml` where it names none) with the pickled model's class
         count and names where it has them, filled non-strict from the EMA
         weights (float32), the import's report in `model.import_report`, and
         pinned to exact deform semantics: reference weights were trained
         with mmcv's unbounded DCNv2."""
-        from ..utils.torch_import import load_torch_state_dict, read_torch_pt
+        from ..utils.torch_import import PtCheckpoint, load_torch_state_dict, read_torch_pt
         dev = resolve_device(device)
-        pt = read_torch_pt(path)
+        pt = path if isinstance(path, PtCheckpoint) else read_torch_pt(path)
         model = cls(pt.train_args.get("model") or "yolov8n.yaml", nc=pt.nc, device="cpu")
         model.set_deform_semantics("exact")
         model.import_report = load_torch_state_dict(model, pt.state_dict)
@@ -294,7 +340,8 @@ class DetectionModel(nn.Module):
         self.n_fused = fuse_conv_bn(self)
         return self
 
-    def forward(self, x: torch.Tensor):
+    def _run(self, x: torch.Tensor):
+        """The graph over an NHWC batch: the last layer's output."""
         x = x.to(next(self.parameters()).dtype)
         saved, out = {}, x.permute(0, 3, 1, 2)
         for spec in self.specs:
@@ -307,7 +354,62 @@ class DetectionModel(nn.Module):
             out = getattr(self, f"model_{spec.i}")(inp)
             if spec.i in self.save:
                 saved[spec.i] = out
-        decoded, aux = out
+        return out
+
+    @torch.no_grad()
+    def _init_params(self):
+        """Deterministic init with the JAX package's distributions: kernels
+        uniform(+-sqrt(1/fan_in)) from a seeded generator, norm scales and
+        variances 1, the rest 0."""
+        gen = torch.Generator().manual_seed(0)
+        for name, p in list(self.named_parameters()) + list(self.named_buffers()):
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in ("weight", "reduction_weight") and p.dim() >= 2:
+                hwio = leaf == "reduction_weight" or name.endswith("DyDCNV2.weight")
+                if hwio:
+                    fan_in = p.shape[0] * p.shape[1] * p.shape[2]
+                elif name.endswith(("upsample.weight", "conv_transpose.weight")):
+                    fan_in = p.shape[0] * p.shape[2] * p.shape[3]  # (in, out, kh, kw)
+                else:
+                    fan_in = p[0].numel()
+                bound = math.sqrt(1.0 / fan_in)
+                p.copy_(torch.rand(p.shape, generator=gen) * 2 * bound - bound)
+            elif leaf in ("weight", "running_var"):
+                p.fill_(1.0)
+            elif p.is_floating_point():
+                p.zero_()
+
+
+class DetectionModel(BaseModel):
+    """A detection model built from a config (see `BaseModel`), by default
+    the flagship.
+
+    `forward` takes an NHWC float image batch and returns (decoded (B,
+    4+nc, A), [raw map (B, h, w, no) per level]), as the JAX
+    `DetectionModel.predict` does; in `train()` mode decoded is None and
+    BatchNorm uses and updates batch statistics (`forward_feats`).
+
+    A `Segment` head makes the second element (raw maps, mask coefficients
+    (B, A, nm), prototypes (B, mh, mw, nm)) and `decoded` (B, 4+nc+nm, A);
+    a `Pose` head (raw maps, raw keypoints (B, A, nk)) and (B, 4+nc+nk, A),
+    as the JAX heads return them. `task` follows the head.
+    """
+
+    def __init__(self, cfg: Union[None, str, Dict] = None, scale: Optional[str] = None,
+                 device=None, nc: Optional[int] = None):
+        super().__init__()
+        cfg = self._build(cfg, scale, nc)
+        head = getattr(self, f"model_{self.specs[-1].i}")
+        self.reg_max = head.reg_max
+        self.task = {H.Segment: "segment", H.Pose: "pose"}.get(type(head), "detect")
+        # JAX's trainer and validator read the config's `kpt_shape`
+        self.kpt_shape = tuple(cfg.get("kpt_shape", (17, 3)))
+        self._init_weights()
+        self.to(resolve_device(device))
+        self.eval()
+
+    def forward(self, x: torch.Tensor):
+        decoded, aux = self._run(x)
         if isinstance(aux, tuple):  # Segment / Pose: (maps, coefficients or keypoints[, protos])
             maps, *rest = aux
             return decoded, ([f.permute(0, 2, 3, 1) for f in maps],
@@ -350,26 +452,8 @@ class DetectionModel(nn.Module):
 
     @torch.no_grad()
     def _init_weights(self):
-        """Deterministic init with the JAX package's distributions: kernels
-        uniform(+-sqrt(1/fan_in)) from a seeded generator, norm scales and
-        variances 1, the rest 0, then the head's prior biases."""
-        gen = torch.Generator().manual_seed(0)
-        for name, p in list(self.named_parameters()) + list(self.named_buffers()):
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf in ("weight", "reduction_weight") and p.dim() >= 2:
-                hwio = leaf == "reduction_weight" or name.endswith("DyDCNV2.weight")
-                if hwio:
-                    fan_in = p.shape[0] * p.shape[1] * p.shape[2]
-                elif name.endswith("upsample.weight"):  # ConvTranspose2d (in, out, kh, kw)
-                    fan_in = p.shape[0] * p.shape[2] * p.shape[3]
-                else:
-                    fan_in = p[0].numel()
-                bound = math.sqrt(1.0 / fan_in)
-                p.copy_(torch.rand(p.shape, generator=gen) * 2 * bound - bound)
-            elif leaf in ("weight", "running_var"):
-                p.fill_(1.0)
-            elif p.is_floating_point():
-                p.zero_()
+        """`_init_params`, then the head's prior biases."""
+        self._init_params()
         head = getattr(self, f"model_{self.specs[-1].i}")
         if isinstance(head, H.TOODHead):
             # the reference's quirk: stride 16 whatever the head's stride
@@ -396,6 +480,37 @@ class PoseModel(DetectionModel):
 
     def __init__(self, cfg="yolov8n-pose.yaml", scale=None, device=None, nc=None):
         super().__init__(cfg, scale=scale, device=device, nc=nc)
+
+
+class ClassificationModel(BaseModel):
+    """A model of the classify task (`yolov8-cls.yaml` by default, nc 1000),
+    as the JAX `ClassificationModel`: the graph ending in `Classify`,
+    `stride` (1,). `forward` takes an NHWC float batch and returns the
+    logits (B, nc) in `train()` mode and their float32 softmax in eval."""
+
+    default_cfg = "yolov8n-cls.yaml"
+    task = "classify"
+
+    def __init__(self, cfg: Union[None, str, Dict] = "yolov8n-cls.yaml",
+                 scale: Optional[str] = None, device=None, nc: Optional[int] = None):
+        super().__init__()
+        self._build(cfg, scale, nc, head_strides=(1,))
+        if self.specs[-1].name != "Classify":
+            raise ValueError(f"{self.model_yaml or 'the config'} ends in "
+                             f"{self.specs[-1].name}, not Classify")
+        self._init_params()
+        self.to(resolve_device(device))
+        self.eval()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._run(x)
+
+
+def model_class(cfg) -> type:
+    """The model class of a config (a dict or a YAML file name) by the task
+    `guess_model_task` reads from it: `ClassificationModel` for classify,
+    else `DetectionModel` (whose head gives the segment and pose tasks)."""
+    return ClassificationModel if guess_model_task(cfg or "") == "classify" else DetectionModel
 
 
 def guess_model_task(cfg) -> str:

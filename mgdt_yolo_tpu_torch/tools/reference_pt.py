@@ -36,9 +36,14 @@ _BN_LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "r
 _INDEXED = ("m", "convs", "bottleneck", "share_conv", "tr")
 # where the reference keeps each layer type's class
 _LAYER_MODULES = {"Conv": "conv", "Concat": "conv", "C2f": "block", "MSPA_C2f": "block",
+                  "C2": "block", "C3": "block", "SPP": "block", "Bottleneck": "block",
                   "SPPF": "block", "SimFusion_4in": "block", "SimFusion_3in": "block",
                   "IFM": "block", "InjectionMultiSum_Auto_pool": "block", "Detect": "head",
-                  "TOODHead": "head", "Segment": "head", "Pose": "head"}
+                  "TOODHead": "head", "Segment": "head", "Pose": "head", "Classify": "head"}
+# graph rows that are torch's own modules in the reference
+_TORCH_LAYERS = {"nn.Upsample": torch.nn.Upsample, "nn.MaxPool2d": torch.nn.MaxPool2d,
+                 "nn.ZeroPad2d": torch.nn.ZeroPad2d,
+                 "nn.ConvTranspose2d": torch.nn.ConvTranspose2d}
 
 
 def _oihw(a: np.ndarray) -> np.ndarray:
@@ -81,7 +86,8 @@ def reference_key(flax_key: str, value: np.ndarray) -> Tuple[str, np.ndarray]:
             p, value = p[:-1] + ["weight"], _t(value)
     elif len(p) >= 3 and p[-3:-1] == ["norm", "bn"]:
         p = p[:-3] + ["bn", _BN_LEAF[leaf]]
-    elif p[-2:] == ["upsample", "kernel"]:  # flax ConvTranspose -> torch (in, out, kh, kw)
+    elif p[-2] in ("upsample", "conv_transpose") and leaf == "kernel":
+        # flax ConvTranspose -> torch (in, out, kh, kw), the taps flipped
         p, value = p[:-1] + ["weight"], np.ascontiguousarray(
             value[::-1, ::-1].transpose(2, 3, 0, 1))
     elif p[-2:] == ["conv", "kernel"]:
@@ -90,7 +96,11 @@ def reference_key(flax_key: str, value: np.ndarray) -> Tuple[str, np.ndarray]:
         p = p[:-1] + ["weight" if leaf == "scale" else "bias"]
     elif leaf == "kernel":
         p, value = p[:-1] + ["weight"], _oihw(value) if value.ndim == 4 else _t(value)
+    if len(p) == 3 and p[1] == "conv_transpose":  # a bare nn.ConvTranspose2d layer
+        p = [p[0], p[2]]
     k = ".".join(p)
+    # a repeated row's copies: the reference's Sequential children
+    k = re.sub(r"^model_(\d+)_rep(\d+)\.", r"model_\1.\2.", k)
     # the reference's Segment and Pose inherit Detect: its towers are not nested
     k = re.sub(r"^(model_\d+)\.detect\.", r"\1.", k)
     k = re.sub(r"^model_(\d+)\.", r"model.\1.", k)
@@ -111,11 +121,22 @@ def reference_state(model: torch.nn.Module, params: Optional[Mapping] = None
     name is checked to translate back (`translate_key`) to its flax path and
     its value."""
     out = OrderedDict()
+    repeated = {s.i for s in model.specs if s.n > 1}
     for key, a in export_variables(model, params).items():
         name, value = reference_key(key, a)
+        m_rep = re.match(r"^model\.(\d+)\.(\d+)\.(.*)$", name)
+        if int(name.split(".")[1]) in repeated and not m_rep:
+            name = re.sub(r"^model\.(\d+)\.", r"model.\1.0.", name)  # the first copy
+            m_rep = re.match(r"^model\.(\d+)\.(\d+)\.(.*)$", name)
         tr = translate_key(name)
         back_key = tr and ".".join((tr[2], *tr[0]))
-        if back_key != key and tr and tr[0][0].startswith("model_"):
+        if m_rep:
+            # the import's retry for a repeated row's copy R: model_N (R = 0) or model_N_repR
+            n_, r_, rest = m_rep.groups()
+            tr = translate_key(f"model.{n_}.{rest}")
+            layer = f"model_{n_}" if r_ == "0" else f"model_{n_}_rep{r_}"
+            back_key = tr and ".".join((tr[2], layer, *tr[0][1:]))
+        elif back_key != key and tr and tr[0][0].startswith("model_"):
             # the import's retry one level down, under a Segment / Pose `detect`
             back_key = ".".join((tr[2], tr[0][0], "detect", *tr[0][1:]))
         if tr is None or back_key != key:
@@ -127,7 +148,7 @@ def reference_state(model: torch.nn.Module, params: Optional[Mapping] = None
         if name.endswith(".bn.running_var"):
             out[name[:-len("running_var")] + "num_batches_tracked"] = np.array(0, np.int64)
     head_i = model.specs[-1].i
-    if model.reg_max > 1:
+    if getattr(model, "reg_max", 0) > 1:
         out[f"model.{head_i}.dfl.conv.weight"] = \
             np.arange(model.reg_max, dtype=np.float32).reshape(1, model.reg_max, 1, 1)
     if model.specs[-1].name == "TOODHead":
@@ -172,14 +193,18 @@ class _Classes:
             sys.modules.update(held)
 
 
-def _node_class(classes: _Classes, path, name: str, layer_types: Dict[str, str]) -> type:
+def _node_class(classes: _Classes, path, name: str, layer_types: Dict[str, str],
+                repeated=frozenset()) -> type:
     """The class of the graph node at `path` (its attribute `name`)."""
-    if len(path) == 2 and path[0] == "model":
+    if len(path) in (2, 3) and path[0] == "model":
         kind = layer_types[path[1]]
-        if kind == "nn.Upsample":
-            return torch.nn.Upsample
-        return classes.get(f"ultralytics.nn.modules.{_LAYER_MODULES.get(kind, 'block')}",
-                           kind)
+        if len(path) == 2 and path[1] in repeated:
+            return torch.nn.Sequential
+        if kind in _TORCH_LAYERS:
+            return _TORCH_LAYERS[kind]
+        if len(path) == 2 or path[1] in repeated:
+            return classes.get(f"ultralytics.nn.modules.{_LAYER_MODULES.get(kind, 'block')}",
+                               kind)
     if name == "DyDCNV2":
         return classes.get("ultralytics.nn.modules.block", "DyDCNv2")
     if len(path) >= 2 and path[-2] == "DyDCNV2" and name == "conv":
@@ -188,21 +213,36 @@ def _node_class(classes: _Classes, path, name: str, layer_types: Dict[str, str])
                        "".join(w.capitalize() for w in re.split(r"[_\d]+", name) if w) or "Seq")
 
 
+def _new(cls: type) -> torch.nn.Module:
+    """An empty instance of a module class: torch's own layers take
+    constructor arguments, which the state set afterwards makes moot."""
+    if cls.__module__.startswith("torch.nn") and cls not in (torch.nn.Upsample,
+                                                             torch.nn.Sequential):
+        obj = cls.__new__(cls)
+        torch.nn.Module.__init__(obj)
+        return obj
+    return cls()
+
+
 def _graph(classes: _Classes, state: Mapping[str, torch.Tensor], layer_types,
-           attrs: Mapping) -> torch.nn.Module:
+           attrs: Mapping, root_name: str = "DetectionModel",
+           repeated=frozenset()) -> torch.nn.Module:
     """The reference's module graph holding `state` under its names: a
-    `DetectionModel` with `attrs`, its layers in a Sequential `model`."""
-    root = classes.get("ultralytics.nn.tasks", "DetectionModel")()
+    `root_name` (`DetectionModel`, `ClassificationModel`) with `attrs`, its
+    layers in a Sequential `model`, a repeated row's copies in a Sequential
+    of their own."""
+    root = classes.get("ultralytics.nn.tasks", root_name)()
     root.model = torch.nn.Sequential()
     for i in sorted(layer_types, key=int):
-        root.model.add_module(i, _node_class(classes, ("model", i), i, layer_types)())
+        root.model.add_module(i, _new(_node_class(classes, ("model", i), i, layer_types,
+                                                  repeated)))
     for name, t in state.items():
         *path, leaf = name.split(".")
         node = root
         for j, part in enumerate(path):
             child = node._modules.get(part)
             if child is None:
-                child = _node_class(classes, path[:j + 1], part, layer_types)()
+                child = _new(_node_class(classes, path[:j + 1], part, layer_types, repeated))
                 node.add_module(part, child)
             node = child
         if leaf in ("running_mean", "running_var", "num_batches_tracked"):
@@ -239,10 +279,12 @@ def write_reference_pt(model, path, model_params: Optional[Mapping] = None,
              "stride": torch.tensor([float(s) for s in model.stride]),
              "save": list(model.save), "args": {"model": model.model_yaml}}
     layer_types = {str(s.i): s.name for s in model.specs}
+    repeated = frozenset(str(s.i) for s in model.specs if s.n > 1)
+    root = "ClassificationModel" if model.task == "classify" else "DetectionModel"
     classes = _Classes()
     raw = _graph(classes, tensors(model_params) if model_params is not None else ema_state,
-                 layer_types, attrs)
-    ema_graph = _graph(classes, ema_state, layer_types, attrs) if ema else None
+                 layer_types, attrs, root, repeated)
+    ema_graph = _graph(classes, ema_state, layer_types, attrs, root, repeated) if ema else None
     ckpt = {"epoch": -1, "best_fitness": None, "model": raw, "ema": ema_graph, "updates": 0,
             "optimizer": None,
             "train_args": {"model": model.model_yaml, "imgsz": 640},

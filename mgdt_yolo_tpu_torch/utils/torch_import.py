@@ -25,7 +25,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from ..weights import TRANSPOSED, flax_keys, translate
+from ..weights import TRANSPOSED, flax_keys, repeated_layers, translate
 
 LOGGER = logging.getLogger(__name__)
 
@@ -300,9 +300,10 @@ def load_torch_state_dict(model: torch.nn.Module, state_dict: Mapping[str, np.nd
         matched.append(tkey)
     params = dict(model.named_parameters())
     buffers = dict(model.named_buffers())
+    repeated = repeated_layers(dst)
     with torch.no_grad():
         for key, val in values.items():
-            name, t = translate(key, val)
+            name, t = translate(key, val, repeated)
             if name != dst[key][0]:
                 raise KeyError(f"{key!r} translates to {name!r}, not {dst[key][0]!r}")
             (params.get(name) if name in params else buffers[name]).copy_(t)

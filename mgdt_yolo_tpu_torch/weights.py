@@ -5,14 +5,20 @@ state-dict key one to one: the collection prefix (`params.`,
 `batch_stats.`) goes, the leaf is renamed, and the array is relaid:
 
 * conv `kernel` HWIO -> `weight` OIHW (depthwise (7,7,1,C) -> (C,1,7,7));
-* a transposed conv's (`Proto`'s `upsample`) `kernel` (kh, kw, in, out) ->
-  ConvTranspose2d `weight` (in, out, kh, kw) with both spatial axes flipped
-  (flax's `ConvTranspose` correlates where torch's convolves);
+* a transposed conv's (`Proto`'s `upsample`, a bare deconv layer's
+  `conv_transpose`) `kernel` (kh, kw, in, out) -> ConvTranspose2d `weight`
+  (in, out, kh, kw) with both spatial axes flipped (flax's `ConvTranspose`
+  correlates where torch's convolves);
 * Dense `kernel` (in, out) -> Linear `weight` (out, in);
 * BatchNorm/GroupNorm/LayerNorm `scale` -> `weight`, `bias` -> `bias`,
   batch_stats `mean`/`var` -> `running_mean`/`running_var`;
 * everything else (the DCN's HWIO `weight`, TaskDecomposition's
   `reduction_weight`/`reduction_bias`, GRN's `gamma`/`beta`) as it is.
+
+A row repeated on a non-CSP module is an `nn.Sequential` in the port and
+`n` flax modules `model_i`, `model_i_rep1`, ... in JAX: `model_i_repR` is
+the Sequential's child `model_i.R`, and `model_i` its child `model_i.0`
+where layer i is such a row (`repeated`).
 
 `flax_keys` and `save_npz` go the other way: a model's state (optionally
 with other parameter values, such as an EMA) back to the flat flax-keyed
@@ -21,6 +27,7 @@ npz the JAX package reads, with `<stem>_metadata.json` beside it.
 from __future__ import annotations
 
 import json
+import re
 from collections import OrderedDict
 from pathlib import Path
 from typing import Mapping
@@ -32,8 +39,10 @@ import torch.nn as nn
 _LEAF = {"scale": "weight", "mean": "running_mean", "var": "running_var"}
 COLLECTIONS = ("params", "batch_stats")
 _NORMS = (nn.BatchNorm2d, nn.GroupNorm, nn.LayerNorm)
-# the flax names of the transposed convs (the mask prototypes' upsampling)
-TRANSPOSED = ("upsample",)
+# the flax names of the transposed convs (the mask prototypes' upsampling,
+# a bare `nn.ConvTranspose2d` graph layer)
+TRANSPOSED = ("upsample", "conv_transpose")
+_REP = re.compile(r"^model_(\d+)_rep(\d+)$")
 
 
 def flatten_variables(tree: Mapping, prefix: str = "") -> dict:
@@ -48,12 +57,29 @@ def flatten_variables(tree: Mapping, prefix: str = "") -> dict:
     return flat
 
 
-def translate(key: str, value) -> tuple:
-    """One flat flax key and array -> (state-dict key, float32 tensor)."""
+def repeated_layers(flax_keys_) -> frozenset:
+    """The layer names (`model_i`) whose row repeats, as flax keys show them
+    (a `model_i_repR` copy)."""
+    out = set()
+    for key in flax_keys_:
+        m = _REP.match(key.split(".")[1] if "." in key else "")
+        if m:
+            out.add(f"model_{m.group(1)}")
+    return frozenset(out)
+
+
+def translate(key: str, value, repeated=frozenset()) -> tuple:
+    """One flat flax key and array -> (state-dict key, float32 tensor);
+    `repeated` names the layers whose rows repeat (`repeated_layers`)."""
     coll, _, path = key.partition(".")
     if coll not in COLLECTIONS or not path:
         raise KeyError(f"not a flax variable path: {key!r}")
     *mods, leaf = path.split(".")
+    rep = _REP.match(mods[0]) if mods else None
+    if rep:
+        mods = [f"model_{rep.group(1)}", rep.group(2), *mods[1:]]
+    elif mods and mods[0] in repeated:
+        mods = [mods[0], "0", *mods[1:]]
     a = np.asarray(value, dtype=np.float32)
     if leaf == "kernel":
         if a.ndim == 4 and mods and mods[-1] in TRANSPOSED:
@@ -79,8 +105,9 @@ def load_jax_variables(flat_or_tree: Mapping) -> "OrderedDict[str, torch.Tensor]
     else:
         flat = {k: flat_or_tree[k] for k in keys}
     state = OrderedDict()
+    repeated = repeated_layers(flat)
     for key, value in flat.items():
-        name, t = translate(key, value)
+        name, t = translate(key, value, repeated)
         if name in state:
             raise KeyError(f"two flax paths map to {name!r}")
         state[name] = t
@@ -127,6 +154,7 @@ def flax_keys(module: nn.Module) -> "OrderedDict[str, str]":
     a module (BatchNorm's step counters have none): the inverse of
     `translate`'s naming."""
     keys = OrderedDict()
+    seq = {n for n, m in module.named_children() if isinstance(m, nn.Sequential)}
     for prefix, mod in module.named_modules():
         tensors = list(mod.named_parameters(recurse=False)) + \
             list(mod.named_buffers(recurse=False))
@@ -141,8 +169,10 @@ def flax_keys(module: nn.Module) -> "OrderedDict[str, str]":
             elif leaf in ("running_mean", "running_var"):
                 coll, flax_leaf = "batch_stats", leaf[len("running_"):]
             name = f"{prefix}.{leaf}" if prefix else leaf
-            keys[name] = ".".join([coll, *prefix.split("."), flax_leaf] if prefix
-                                  else [coll, flax_leaf])
+            mods = prefix.split(".") if prefix else []
+            if mods and mods[0] in seq:  # a repeated row: model_i.R -> model_i_repR
+                mods = [mods[0] if mods[1] == "0" else f"{mods[0]}_rep{mods[1]}", *mods[2:]]
+            keys[name] = ".".join([coll, *mods, flax_leaf])
     return keys
 
 

@@ -180,10 +180,10 @@ def test_refused_sources_tasks_and_modes_raise(tmp_path):
         YOLO(tmp_path / "best.pt", device="cpu")
     with pytest.raises(FileNotFoundError):
         YOLO(tmp_path / "missing.npz", device="cpu")
-    # segment and pose are ported; classify is item 8
-    for src, task in (("yolov8n-cls.yaml", None), ("yolov8n.yaml", "classify")):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            YOLO(src, task=task, device="cpu")
+    # every task of JAX's TASK_MAP is ported; a classify task needs a Classify head
+    assert YOLO("yolov8n-cls.yaml", device="cpu").task == "classify"
+    with pytest.raises(ValueError, match="not Classify"):
+        YOLO("yolov8n.yaml", task="classify", device="cpu")
     assert YOLO("yolov8n-seg.yaml", device="cpu").task == "segment"
     y = YOLO("yolov8n.yaml", device="cpu")
     with pytest.raises(NotImplementedError, match="item 9"):
@@ -196,8 +196,8 @@ def test_refused_sources_tasks_and_modes_raise(tmp_path):
                                    for k in ("degrees", "shear", "perspective", "mixup",
                                              "copy_paste"))
     del y.train
-    with pytest.raises(NotImplementedError, match="item 8"):
-        y.val(task="classify")
+    with pytest.raises(NotImplementedError, match="detect, segment, pose, classify"):
+        y.val(task="obb")
     # as in JAX, a `task` keyword is taken, and the facade's own task picks the validator
     assert y._overrides({"task": "pose"})["task"] == "pose"
     with pytest.raises(TypeError, match="conf"):

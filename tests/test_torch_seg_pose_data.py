@@ -262,8 +262,8 @@ def test_masks_keypoints_and_tojson_match_jax():
             assert (ours.keypoints.conf is None) == (theirs.keypoints.conf is None)
     r = Results(img, "a.png", names, boxes).update(masks=masks)
     assert r.keys == ["boxes", "masks"] and len(r.masks) == 3
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Results(img, "a.png", names, boxes, probs=np.ones(2))
+    # classification probabilities are ported (tests/test_torch_classify.py)
+    assert Results(img, "a.png", names, boxes, probs=np.array([0.2, 0.8])).probs.top1 == 1
 
 
 def test_instance_containers_match_jax():
