@@ -5,7 +5,8 @@
 
 Phases, each of which passes or ends the script with a non-zero exit:
 
-1. environment: torch, CUDA, the card's name and power limit, nvcc, triton;
+1. environment: torch, CUDA, the card's name and power limit, numpy and
+   scipy, nvcc, triton;
 2. build: nvcc builds every `mgdt_yolo_tpu_torch/csrc/*.cu` (one process per
    source, all started together: K1, K2 and their SIMT baselines, the K1
    variants on the CUDA cores, the Hopper V2 and V3 `deform_fwd_slab.cu`, the
@@ -279,13 +280,29 @@ Phases, each of which passes or ends the script with a non-zero exit:
    for bit the live float32 forward. No hand kernel is on this path: every
    count must stay 0 (`classify_and_zoo_launches`). Its lines end with
    `phase 21 rows: {json}`.
+22. tracking: `YOLO("weights/mgdt_n_synth.npz").track` over a seeded pan
+   of 64 frames at 1080 x 1920 (`data.synthetic.panning_sequence`: a grid
+   of synthetic scenes cut by `warp_affine` at known integer and sub-pixel
+   offsets), letterboxed to 640 px, with ByteTrack, BoT-SORT (sparse
+   optical flow) and BoT-SORT with ECC: in float32 (TF32 off) the card's
+   tracks against the CPU's over the first 8 frames and the card's b8
+   against its b1 over 24 (IDs and classes equal frame by frame, boxes
+   within 0.5 px); in bf16 (Conv+BN fused) frames/s of `track` at b1 and
+   b8 between two runs of `predict` over the same frames (host clock,
+   ended by a synchronise), with each run's tracker updates (ms a frame)
+   and GMC calls timed inside it and every H held to the known pan
+   (translation within 0.1 px at full resolution, the 2 x 2 part within
+   1e-3 of the identity); the device's idle share while BoT-SORT runs at
+   b1 (torch.profiler, over that timed run). K1 launches once per forward on
+   this path and no other kernel (`tracking_launches`). Its lines end with
+   `phase 22 rows: {json}`.
    Phase 10 runs before phase 8, and phases 8, 9 and 11 run after it,
    because the CPU work leaves the host's threads busy, which slows the
    host-bound steps; phase 13 runs after phase 11, phase 14 after phase
    13, phase 15 after phase 14, phase 16 after phase 15, phase 17 after
    phase 16, phase 18 after phase 17, phase 19 after phase 18, phase 20
-   after phase 19, phase 21 after phase 20, and phase 12, which times kernels
-   only, runs last.
+   after phase 19, phase 21 after phase 20, phase 22 after phase 21, and
+   phase 12, which times kernels only, runs last.
 
 The last lines are the kernel table as JSON, the card's name and power
 limit, and `{"ok": true, "device": {...}}`. Without a CUDA device the script
@@ -363,6 +380,12 @@ TRAIN_OVERRIDES = {"optimizer": "SGD", "batch": TRAIN_BATCH, "epochs": 1, "val":
 AUG_EPOCHS, AUG_STEPS = 2, 2
 AUG_OVERRIDES = {"optimizer": "SGD", "batch": TRAIN_BATCH, "epochs": AUG_EPOCHS,
                  "close_mosaic": 1, "device_augment": True, **NO_PLOTS}
+# phase 22: the pan, the trackers, the frames held, the limits
+TRACK_FRAMES, TRACK_SHAPE, TRACK_BATCHES = 64, (1080, 1920), (1, 8)
+TRACK_TRACKERS = ("bytetrack", "botsort", "botsort_ecc")
+TRACK_HOLD_FRAMES, TRACK_B8_FRAMES = 8, 24    # card vs CPU; b8 vs b1 (float32, card)
+TRACK_BOX_PX = 0.5                            # track boxes, card vs CPU and b8 vs b1
+TRACK_GMC_PX, TRACK_GMC_LINEAR = 0.1, 1e-3    # the GMC's H against the known pan
 # every variant kernel: the five variants (by their Hopper designs) and
 # their first designs, each (wrapper, plain version)
 ALL_VARIANTS = {**VARIANTS, **{simt: (fn, plain) for simt, fn, plain in FIRST_DESIGNS.values()}}
@@ -428,6 +451,8 @@ def phase_environment():
     log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
         f"cuda {torch.version.cuda}  devices {torch.cuda.device_count()}")
     log(f"gpu: {gpu_name_and_power()}")
+    import scipy
+    log(f"numpy {np.__version__}  scipy {scipy.__version__}")
     nvcc = subprocess.run([nvcc_path(), "--version"], capture_output=True, text=True,
                           check=True, timeout=60)
     log("nvcc: " + nvcc.stdout.strip().splitlines()[-1])
@@ -4124,12 +4149,189 @@ def phase_classify_and_zoo(root):
     return total, rows
 
 
+@contextlib.contextmanager
+def _instrumented_tracking():
+    """While open, every tracker update the predictor runs (its tracking
+    callback, all of a batch's frames) and every GMC `apply` is timed on
+    the host's clock, and each H kept: {"update": [(ms, frames)], "gmc_ms":
+    [...], "H": [...]}. The callback is wrapped where `register_tracker`
+    looks it up, the GMC at its class, so `YOLO.track` runs as a user's."""
+    from mgdt_yolo_tpu_torch.tracker import gmc, track as track_mod
+    rec = {"update": [], "gmc_ms": [], "H": []}
+    callback, apply = track_mod.on_predict_postprocess_end, gmc.GMC.apply
+
+    def timed_callback(pred):
+        t0 = time.perf_counter()
+        callback(pred)
+        rec["update"].append(((time.perf_counter() - t0) * 1e3, len(pred.results)))
+
+    def timed_apply(self, img):
+        t0 = time.perf_counter()
+        H = apply(self, img)
+        rec["gmc_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["H"].append(H)
+        return H
+
+    track_mod.on_predict_postprocess_end, gmc.GMC.apply = timed_callback, timed_apply
+    try:
+        yield rec
+    finally:
+        track_mod.on_predict_postprocess_end, gmc.GMC.apply = callback, apply
+
+
+def _tracker_yamls(root):
+    """The three trackers of the phase: the bundled ByteTrack and BoT-SORT
+    YAMLs, and BoT-SORT's with `gmc_method: ecc` written under `root`."""
+    from mgdt_yolo_tpu_torch.tracker.track import check_tracker_yaml
+    ecc = root / "botsort_ecc.yaml"
+    ecc.write_text(check_tracker_yaml("botsort.yaml").read_text().replace(
+        "gmc_method: sparseOptFlow", "gmc_method: ecc"))
+    return {"bytetrack": "bytetrack.yaml", "botsort": "botsort.yaml", "botsort_ecc": str(ecc)}
+
+
+def _hold_tracks(got, want, name, box_px):
+    """Frame by frame: the same track IDs and classes, the boxes within
+    `box_px`. Returns (largest box difference, track rows, distinct IDs);
+    ends the script on a disagreement or where nothing was tracked."""
+    box, rows, ids = 0.0, 0, set()
+    for t, (g, w) in enumerate(zip(got, want)):
+        a, b = g.boxes.data, w.boxes.data
+        same = a.shape == b.shape and (a.shape[1] != 7 or (
+            np.array_equal(a[:, 4], b[:, 4]) and np.array_equal(a[:, 6], b[:, 6])))
+        if not same or len(got) != len(want):
+            raise SystemExit(f"{name}: frame {t} has other tracks: {a[:, 4:].tolist()} against "
+                             f"{b[:, 4:].tolist()}")
+        if len(a) and a.shape[1] == 7:
+            box = max(box, float(np.abs(a[:, :4] - b[:, :4]).max()))
+            rows += len(a)
+            ids |= set(a[:, 4].astype(int).tolist())
+    log(f"{name}: {len(got)} frames, {rows} track rows, {len(ids)} IDs, equal frame by frame; "
+        f"box max |diff| {box:.3e} px (limit {box_px})")
+    if box > box_px or rows == 0:
+        raise SystemExit(f"{name}: the tracks disagree beyond {box_px} px, or none was tracked")
+    return box, rows, len(ids)
+
+
+def phase_tracking(root):
+    """Multi-object tracking through `YOLO.track` (see the module's text):
+    ByteTrack, BoT-SORT (sparse optical flow) and BoT-SORT with ECC over a
+    seeded 1080 x 1920 pan. K1 launches once per forward, no other kernel.
+    Returns (launches, rows)."""
+    from mgdt_yolo_tpu_torch import YOLO
+    from mgdt_yolo_tpu_torch.data.synthetic import panning_sequence
+    log(f"== phase 22: tracking: the flagship over a {TRACK_FRAMES}-frame "
+        f"{TRACK_SHAPE[0]}x{TRACK_SHAPE[1]} pan at {IMGSZ} px; {', '.join(TRACK_TRACKERS)}; "
+        f"float32 card vs CPU over {TRACK_HOLD_FRAMES} frames, b8 vs b1 over "
+        f"{TRACK_B8_FRAMES}; bf16 track vs predict at b1 and b8; GMC against the known pan")
+    t_phase = time.perf_counter()
+    frames, offsets, scene = panning_sequence(TRACK_FRAMES, TRACK_SHAPE, seed=7)
+    log(f"sequence: {len(frames)} frames, {len(scene['boxes'])} objects in the scene, made in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    from mgdt_yolo_tpu_torch.tracker import gmc
+    from mgdt_yolo_tpu_torch.utils.build import HOST_GMC_FLAGS
+    threads = gmc._lib().mgdt_gmc_set_threads(gmc.cpu_threads())
+    log(f"GMC: {threads} threads (the process's CPUs {gmc.cpu_threads()}); g++ "
+        f"{' '.join(HOST_GMC_FLAGS)}")
+    yamls = _tracker_yamls(root)
+    total, rows = no_launches(), {"trackers": {}}
+    card = YOLO(WEIGHTS, device=DEVICE)
+
+    def track(name, batch, n, **kw):
+        """One counted, timed `YOLO.track` on the card over the first `n` frames."""
+        out, wall, launches = _timed(lambda: card.track(
+            frames[:n], imgsz=IMGSZ, tracker=yamls[name], batch=batch, **kw))
+        _expect(launches, f"{name} b{batch}", deform_fwd=-(-n // batch))
+        for k in total:
+            total[k] += launches[k]
+        return out, wall
+
+    # float32 holds: the card against the CPU, b8 against b1
+    cpu = YOLO(WEIGHTS, device="cpu")
+    for name in TRACK_TRACKERS:
+        r = rows["trackers"][name] = {}
+        with float32_exact():
+            b1, _ = track(name, 1, TRACK_B8_FRAMES)
+            b8, _ = track(name, 8, TRACK_B8_FRAMES)
+        t0 = time.perf_counter()
+        on_cpu = cpu.track(frames[:TRACK_HOLD_FRAMES], imgsz=IMGSZ, tracker=yamls[name])
+        r["cpu_s"] = time.perf_counter() - t0
+        r["card_vs_cpu_box_px"], r["held_rows"], r["held_ids"] = _hold_tracks(
+            b1[:TRACK_HOLD_FRAMES], on_cpu, f"{name}: card float32 vs CPU", TRACK_BOX_PX)
+        r["b8_vs_b1_box_px"], _, _ = _hold_tracks(b8, b1, f"{name}: card float32 b8 vs b1",
+                                                  TRACK_BOX_PX)
+    del cpu
+    # bf16: predict, each tracker, predict again, at b1 and b8; each tracker's
+    # updates and GMC timed inside its run, its H held to the known pan; the
+    # device's idle share under the profiler while BoT-SORT runs at b1
+    steps = -np.diff(offsets, axis=0)
+    for batch in TRACK_BATCHES:
+        fps = {"predict": []}
+        for turn in range(2):
+            _, wall, launches = _timed(lambda: card.predict(frames, imgsz=IMGSZ, half=True,
+                                                            conf=0.1, batch=batch))
+            _expect(launches, f"predict b{batch}", deform_fwd=-(-len(frames) // batch))
+            fps["predict"].append(len(frames) / wall)
+            if turn:
+                break
+            for name in TRACK_TRACKERS:
+                profiled = name == "botsort" and batch == 1
+                prof = torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) if profiled \
+                    else contextlib.nullcontext()
+                with _instrumented_tracking() as rec, prof:
+                    res, wall = track(name, batch, len(frames), half=True)
+                ids = set()
+                for r_ in res:
+                    if r_.boxes.is_track:
+                        ids |= set(r_.boxes.id.astype(int).tolist())
+                fps[name] = len(frames) / wall
+                row = rows["trackers"][name][f"b{batch}"] = {
+                    "frames_per_s": fps[name], "track_rows": sum(len(r_) for r_ in res),
+                    "ids": len(ids), "update_ms_per_frame": sum(
+                        ms for ms, _ in rec["update"]) / sum(n for _, n in rec["update"])}
+                msg = (f"{name} b{batch}: {fps[name]:.2f} frames/s, {len(ids)} IDs; update "
+                       f"{row['update_ms_per_frame']:.2f} ms a frame")
+                if rec["H"]:
+                    H = np.stack(rec["H"][1:])
+                    row["gmc_ms"] = float(np.mean(rec["gmc_ms"][1:]))
+                    row["gmc_first_ms"] = rec["gmc_ms"][0]
+                    row["gmc_translation_err_px"] = float(np.abs(H[:, :, 2] - steps).max())
+                    row["gmc_linear_err"] = float(np.abs(H[:, :, :2] - np.eye(2)).max())
+                    msg += (f", of which GMC {row['gmc_ms']:.2f} (first frame "
+                            f"{row['gmc_first_ms']:.2f}); H against the pan: translation max "
+                            f"|err| {row['gmc_translation_err_px']:.4f} px (limit "
+                            f"{TRACK_GMC_PX}), 2x2 max |err| {row['gmc_linear_err']:.2e} "
+                            f"(limit {TRACK_GMC_LINEAR})")
+                    if len(rec["H"]) != len(frames) or \
+                            row["gmc_translation_err_px"] > TRACK_GMC_PX or \
+                            row["gmc_linear_err"] > TRACK_GMC_LINEAR:
+                        raise SystemExit(f"{name} b{batch}: the GMC's H misses the known pan")
+                if profiled:
+                    busy_us = sum(device_us(e) for e in prof.key_averages()
+                                  if e.device_type == torch.autograd.DeviceType.CUDA)
+                    row["device_idle_share"] = 1.0 - busy_us / (wall * 1e6)
+                    row["device_busy_ms_per_frame"] = busy_us / 1e3 / len(frames)
+                    msg += (f"; under the profiler: device busy {busy_us / 1e3:.1f} ms of "
+                            f"{wall:.2f} s, idle share {row['device_idle_share']:.1%}")
+                log(msg)
+        for name in TRACK_TRACKERS:
+            rows["trackers"][name][f"b{batch}"]["predict_frames_per_s"] = fps["predict"]
+        log(f"b{batch} frames/s (bf16, {len(frames)} frames): predict "
+            f"{' / '.join(f'{v:.2f}' for v in fps['predict'])} (before / after); " +
+            "; ".join(f"{n} {fps[n]:.2f}" for n in TRACK_TRACKERS))
+    rows["launches"] = total
+    rows["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 22: {rows['phase_s']:.1f} s; launches {total}")
+    log(f"phase 22 rows: {json.dumps(rows, default=float)}")
+    return total, rows
+
+
 # which paths run each kernel (its launches must be counted on each); the
 # first is the kernel's own main path
 KERNEL_PATHS = {"deform_fwd": ("serving", "training", "augmented training",
                                "ablation family", "serving entry points", "from disk",
                                "facade", "reference weights", "host augmentation",
-                               "callbacks and drawing", "K1 variant A/B"),
+                               "callbacks and drawing", "tracking", "K1 variant A/B"),
                 "deform_bwd": ("training", "augmented training", "ablation family",
                                "from disk", "facade", "reference weights",
                                "host augmentation", "callbacks and drawing"),
@@ -4180,13 +4382,15 @@ def main() -> int:
         seg_pose, seg_pose_rows = phase_seg_pose(Path(tmp))
         torch.cuda.empty_cache()
         zoo, zoo_rows = phase_classify_and_zoo(Path(tmp))
+        torch.cuda.empty_cache()
+        tracking, tracking_rows = phase_tracking(Path(tmp))
     torch.cuda.empty_cache()
     ab_launches, ab_rows, hopper_rows, plan_rows = phase_variant_ab()
     paths = {"serving": serving, "training": training, "augmented training": augmented,
              "ablation family": ablation, "serving entry points": entry, "from disk": disk,
              "facade": facade, "reference weights": reference, "host augmentation": host,
              "callbacks and drawing": plots, "segment and pose": seg_pose,
-             "classify and zoo": zoo,
+             "classify and zoo": zoo, "tracking": tracking,
              "DCN A/B": dcn_ab,
              "K3 A/B": k3_ab, "K1 variant A/B": ab_launches}
     for k in kernels:
@@ -4202,6 +4406,8 @@ def main() -> int:
         k["segment_and_pose_launches"] = seg_pose[k["name"]]
         # nor on the classify and zoo path
         k["classify_and_zoo_launches"] = zoo[k["name"]]
+        # the tracking path runs K1 once per forward and no other kernel
+        k["tracking_launches"] = tracking[k["name"]]
         if k["name"] == "fused_augment":
             k["apply_augment_ms"] = aug_ms
         if k["name"] in ("deform_fwd", "deform_bwd"):
@@ -4222,6 +4428,8 @@ def main() -> int:
         if k["name"] in ("deform_fwd", "deform_bwd"):
             k["host_augmentation"] = host_rows
             k["callbacks_and_drawing"] = plot_rows
+        if k["name"] == "deform_fwd":
+            k["tracking"] = tracking_rows
         if k["name"] in ALL_VARIANTS:
             k["ab"] = [r for r in ab_rows if r["variant"] == k["name"]]
         if k["name"] in FIRST_DESIGNS:

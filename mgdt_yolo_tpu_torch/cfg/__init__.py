@@ -258,6 +258,10 @@ def entrypoint(argv=None):
             else:
                 LOGGER.info(f"{r.path}: {len(r)} detections {r.counts()} "
                             f"({r.speed['inference']:.1f} ms inference)")
+    elif mode == "track" and isinstance(out, list):
+        for r in out:
+            ids = [] if r.boxes is None or r.boxes.id is None else r.boxes.id.astype(int).tolist()
+            LOGGER.info(f"{r.path}: {len(r)} tracks {ids}")
     elif isinstance(out, dict):
         LOGGER.info(str(out))
     return out

@@ -8,6 +8,7 @@ labelled data. Same seed, same pixels, same boxes.
 """
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List
 
 import numpy as np
@@ -120,3 +121,43 @@ def val_dataset(imgsz: int, nc: int = 2, seed: int = 0,
     them to imgsz."""
     return SyntheticDetectionDataset(n=16, imgsz=synthetic_size(imgsz, task), nc=nc,
                                      seed=seed + 1, task=task)
+
+
+# the camera's step each frame (x, y) in px, taken in turn: integer and
+# sub-pixel pans, and a frame that stands still
+PAN_STEPS = ((3.0, -2.0), (2.5, 1.25), (4.0, 0.0), (1.75, -0.5), (0.0, 0.0), (-2.0, 3.0),
+             (3.5, 2.5), (1.0, -1.0))
+
+
+def panning_sequence(n: int, shape=(1080, 1920), seed: int = 0, tile: int = 640):
+    """`n` frames (h, w, 3) uint8 BGR of one synthetic scene under a camera
+    that pans by `PAN_STEPS` in turn. The scene is a grid of synthetic scenes
+    (`synthetic_item` i of `tile` px, row by row), so its objects keep the
+    sizes the committed weights were trained on when a frame is letterboxed
+    to `tile`'s scale; frame t is the window of the scene at offset o_t, cut
+    by `imgproc.warp_affine` (cv2's bilinear warp), so the scene's content
+    moves by -(o_t - o_{t-1}) from one frame to the next. Returns (frames,
+    offsets (n, 2) float64, scene) with `scene` the whole scene's {"img",
+    "boxes" (xyxy, its pixels), "cls"}."""
+    from .imgproc import warp_affine
+    h, w = shape
+    steps = np.asarray([PAN_STEPS[t % len(PAN_STEPS)] for t in range(1, n)]).reshape(-1, 2)
+    offsets = np.concatenate([np.zeros((1, 2)), np.cumsum(steps, 0)])
+    offsets -= offsets.min(0)
+    cols, rows = (-(-(int(d + e) + 8) // tile) for d, e in zip((w, h), offsets.max(0)))
+    img = np.empty((rows * tile, cols * tile, 3), np.uint8)
+    boxes, cls = [], []
+    for r in range(rows):
+        for c in range(cols):
+            item = synthetic_item(r * cols + c, tile, seed=seed)
+            img[r * tile:(r + 1) * tile, c * tile:(c + 1) * tile] = item["img"]
+            boxes.append(item["boxes"] + np.array([c, r, c, r], np.float32) * tile)
+            cls.append(item["cls"])
+    scene = {"img": img, "boxes": np.concatenate(boxes), "cls": np.concatenate(cls)}
+    def cut(offset):
+        return warp_affine(img, np.array([[1.0, 0.0, -offset[0]], [0.0, 1.0, -offset[1]]]),
+                           (w, h))
+
+    with ThreadPoolExecutor(4) as pool:  # the warp's C++ runs without the GIL
+        frames = list(pool.map(cut, offsets))
+    return frames, offsets, scene

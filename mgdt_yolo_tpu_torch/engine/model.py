@@ -22,12 +22,11 @@ The task is the `task` given, else the one the model's name implies
 (`guess_model_task`: "-seg" segment, "-pose" pose, "-cls" classify), as
 JAX's facade takes it; it picks the trainer, validator and predictor.
 Refused: a JAX orbax checkpoint directory (the JAX package's
-`YOLO(...).export(format="npz")` carries one across). `track` (item 9)
-raises.
+`YOLO(...).export(format="npz")` carries one across).
 
 Every method takes configuration keys as keyword arguments, over the
 facade's own (`model`, `task`), in JAX's cascade `{**self.overrides,
-**kwargs}`. `predict` serves a Conv+BN-folded copy of the model, so the
+**kwargs}`. `predict` and `track` serve a Conv+BN-folded copy of the model, so the
 facade's model keeps its BatchNorm and can be trained after a prediction,
 as in JAX; `train` runs `engine.trainer.Trainer` on the model in place,
 with checkpoints under `project/name` (runs/detect/train, incremented),
@@ -190,8 +189,18 @@ class YOLO:
         from ..utils.benchmarks import benchmark
         return benchmark(self, **kwargs)
 
-    def track(self, source=None, **kwargs):
-        raise NotImplementedError("tracking is not ported yet (ROADMAP queue 1, item 9)")
+    def track(self, source=None, stream: bool = False, **kwargs):
+        """`Results` of every frame of `source` with each box's track ID
+        (`tracker/`): a fresh predictor of a folded copy of the model, `conf`
+        0.1 unless given, the tracker of the `tracker` key (`botsort.yaml`
+        by default) on its callbacks; `batch` consecutive frames a forward."""
+        from ..tracker.track import register_tracker
+        kwargs.setdefault("conf", 0.1)
+        args = self._args(kwargs, "track")
+        args.setdefault("device", str(self.device))
+        self.predictor = TASK_MAP[self.task][3](args).setup_model(copy.deepcopy(self.model))
+        register_tracker(self.predictor, persist=False)
+        return self.predictor(source, stream=stream, batch=int(kwargs.get("batch", 1)))
 
     def tune(self, data: str = "synthetic", space: Optional[Dict] = None,
              grace_period: int = 10, max_samples: int = 10,

@@ -13,7 +13,9 @@ headers and libraries) where a CUDA device is present, else with its PNG
 decoder alone; so are the host augmentation's C++ (`native/src/
 host_augment.cpp`, name `HOST_AUGMENT`, floating point contraction off) and
 the drawing and image writers' (`native/src/host_draw.cpp`, name
-`HOST_DRAW`, with zlib). `build_all` takes all three among the names.
+`HOST_DRAW`, with zlib), and the trackers' camera-motion compensation
+(`native/src/host_gmc.cpp`, name `HOST_GMC`, contraction off, `-mfma` where
+the CPU has the instruction). `build_all` takes all four among the names.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 PKG_ROOT = Path(__file__).resolve().parents[1]
@@ -39,9 +42,26 @@ HOST_AUGMENT_FLAGS = (*HOST_FLAGS, "-ffp-contract=off")
 HOST_DRAW = "host_draw"
 HOST_DRAW_SRC = PKG_ROOT / "native" / "src" / f"{HOST_DRAW}.cpp"
 HOST_DRAW_FLAGS = (*HOST_FLAGS, "-ffp-contract=off")
+HOST_GMC = "host_gmc"
+HOST_GMC_SRC = PKG_ROOT / "native" / "src" / f"{HOST_GMC}.cpp"
+
+
+def cpu_has_fma() -> bool:
+    """Whether this machine's CPU has the fused multiply-add instruction (its
+    /proc/cpuinfo flags): g++ then emits it for `fmaf` (`-mfma`), a call
+    into libm otherwise; the two give the same bits."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            return any(line.startswith("flags") and "fma" in line.split() for line in f)
+    except OSError:
+        return False
+
+
+HOST_GMC_FLAGS = (*HOST_FLAGS, "-ffp-contract=off", *(("-mfma",) if cpu_has_fma() else ()))
 # the g++-built sources besides the decoder: name -> (source, arguments after it)
 HOST_SOURCES = {HOST_AUGMENT: (HOST_AUGMENT_SRC, HOST_AUGMENT_FLAGS, ()),
-                HOST_DRAW: (HOST_DRAW_SRC, HOST_DRAW_FLAGS, ("-lz",))}
+                HOST_DRAW: (HOST_DRAW_SRC, HOST_DRAW_FLAGS, ("-lz",)),
+                HOST_GMC: (HOST_GMC_SRC, HOST_GMC_FLAGS, ("-lpthread",))}
 
 
 def nvcc_path() -> str:
@@ -138,12 +158,23 @@ def build_all(names=None) -> dict:
     return logs
 
 
+_BUILD_LOCK = threading.Lock()
+
+
 @functools.cache
 def load_library(name: str, signatures: tuple) -> ctypes.CDLL:
-    """Build `csrc/<name>.cu` (or `HOST_LOADER`, `HOST_AUGMENT`, `HOST_DRAW`) if needed and load it (once per process), with
-    the C signatures of its functions set: `signatures` is a tuple of
-    (function name, restype, argtypes tuple). Pointers and the stream are
-    `ctypes.c_void_p`, so ctypes passes them whole."""
+    """Build `csrc/<name>.cu` (or a host source: `HOST_LOADER` or one of
+    `HOST_SOURCES`) if needed and load it (once per process), with the C
+    signatures of its functions set: `signatures` is a tuple of (function
+    name, restype, argtypes tuple). Pointers and the stream are
+    `ctypes.c_void_p`, so ctypes passes them whole. Threads that ask for a
+    library at once build it one after the other (the cache does not hold
+    back a second caller while the first builds)."""
+    with _BUILD_LOCK:
+        return _load(name, signatures)
+
+
+def _load(name: str, signatures: tuple) -> ctypes.CDLL:
     build_all([name])
     lib = ctypes.CDLL(str(library_path(name)))
     for fn, restype, argtypes in signatures:

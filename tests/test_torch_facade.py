@@ -16,6 +16,7 @@ against JAX.
 """
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -186,8 +187,13 @@ def test_refused_sources_tasks_and_modes_raise(tmp_path):
         YOLO("yolov8n.yaml", task="classify", device="cpu")
     assert YOLO("yolov8n-seg.yaml", device="cpu").task == "segment"
     y = YOLO("yolov8n.yaml", device="cpu")
+    # tracking runs; of its options, the ORB and SIFT camera-motion methods are refused
+    orb = tmp_path / "orb.yaml"
+    orb.write_text("tracker_type: botsort\ntrack_high_thresh: 0.5\ntrack_low_thresh: 0.1\n"
+                   "new_track_thresh: 0.6\ntrack_buffer: 30\nmatch_thresh: 0.8\n"
+                   "gmc_method: orb\nproximity_thresh: 0.5\nappearance_thresh: 0.25\n")
     with pytest.raises(NotImplementedError, match="item 9"):
-        y.track("x.png")
+        y.track(np.zeros((64, 64, 3), np.uint8), imgsz=64, tracker=str(orb))
     # JAX's default space is no longer refused: each trial trains with it
     calls = []
     y.train = lambda **kw: calls.append(kw) or {"fitness": 0.0}
