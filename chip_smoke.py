@@ -296,13 +296,30 @@ Phases, each of which passes or ends the script with a non-zero exit:
    b1 (torch.profiler, over that timed run). K1 launches once per forward on
    this path and no other kernel (`tracking_launches`). Its lines end with
    `phase 22 rows: {json}`.
+23. RT-DETR: `rtdetr-l` at 640 px and its published widths (hd 256, nq
+   300, 6 decoder layers, three levels, 8400 tokens, AIFI on the 20x20
+   map), nc 80, from the port's seeded init with BatchNorm statistics of
+   one batch of scenes: `vit.RTDETR.predict` in bf16 (Conv+BN and the
+   input projections' norms folded) over mixed-size BGR scenes at b1, b8
+   and b32 (images/s, host clock), the b32 forward alone (CUDA events) and
+   the device's idle share under b8 (torch.profiler); its float32 forward
+   (TF32 off) of one scene against the CPU's float64 (each of the card's
+   top 100 queries within 1e-3, or 4x the CPU's own float32 distance where
+   that is larger, of a CPU query on box and scores: near-tied queries may
+   swap); `RTDETRTrainer` for 6 b8 steps of fresh scenes (bf16 autocast,
+   mosaic 0, an update each step; finite losses; each step and its 7
+   matcher calls timed, the device's idle share), then one validation on
+   the EMA weights (`RTDETRValidator`); `rtdetr-x`, `yolov8n-rtdetr` and
+   `models.vocab.VOCABULARY` (every item-17 type) card against CPU. No
+   hand kernel is on this path: every count must stay 0
+   (`rtdetr_launches`). Its lines end with `phase 23 rows: {json}`.
    Phase 10 runs before phase 8, and phases 8, 9 and 11 run after it,
    because the CPU work leaves the host's threads busy, which slows the
    host-bound steps; phase 13 runs after phase 11, phase 14 after phase
    13, phase 15 after phase 14, phase 16 after phase 15, phase 17 after
    phase 16, phase 18 after phase 17, phase 19 after phase 18, phase 20
-   after phase 19, phase 21 after phase 20, phase 22 after phase 21, and
-   phase 12, which times kernels only, runs last.
+   after phase 19, phase 21 after phase 20, phase 22 after phase 21, phase
+   23 after phase 22, and phase 12, which times kernels only, runs last.
 
 The last lines are the kernel table as JSON, the card's name and power
 limit, and `{"ok": true, "device": {...}}`. Without a CUDA device the script
@@ -4326,6 +4343,318 @@ def phase_tracking(root):
     return total, rows
 
 
+# phase 23: RT-DETR at 640 px and its published widths, seeded init
+RTDETR_RATES = {1: 16, 8: 32, 32: 64}         # batch: scenes served a timed window
+RTDETR_TRAIN, RTDETR_STEPS = 8, 6             # b8, accumulate 1 (nbs 8): an update a step
+RTDETR_TOP = 100                              # the card's top queries held to the CPU's
+RTDETR_HOLD = 1e-3                            # their boxes (normalised) and scores
+RTDETR_FEAT_HOLD = 1e-3                       # the decoder's input maps, of their magnitude
+RTDETR_OTHERS = ("rtdetr-x.yaml", "yolov8n-rtdetr.yaml")
+
+
+def _bn_calibrated(model):
+    """`model`'s state with every BatchNorm's statistics those of one
+    train-mode forward of 8 synthetic scenes (momentum 1), as
+    `_calibrated_state` sets them: at the plain seeded init the features
+    fade through the deep backbone and every token would score the same."""
+    model.train()
+    for m in model.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.momentum = 1.0
+    with torch.no_grad(), float32_exact():
+        model(torch.from_numpy(synthetic_batch(8, IMGSZ)).to(model.device).float() / 255.0)
+    return {k: v.cpu() for k, v in model.state_dict().items()}
+
+
+def _query_distance(got, want):
+    """The largest, over `got`'s RTDETR_TOP queries by best score, of the
+    distance to the nearest query of `want` (rows: box, then class scores;
+    the distance is the largest difference in a row)."""
+    top = got[:, 4:].amax(-1).argsort(descending=True)[:RTDETR_TOP]
+    return float((got[top, None] - want[None]).abs().amax(-1).amin(-1).max())
+
+
+def _rtdetr_card_vs_cpu(name, state):
+    """The float32 forward (TF32 off) of one synthetic scene at IMGSZ on
+    the card against the CPU's float64 forward of the same weights, in two
+    parts. The decoder's input maps: within RTDETR_FEAT_HOLD of their
+    magnitude, or 4x the CPU's own float32 distance from its float64 where
+    that is larger (a deep random backbone amplifies rounding). The decoder
+    alone: the CPU's float64 decoder run on the card's maps; each of the
+    card's RTDETR_TOP queries (by best score) has a query of it whose box
+    (normalised xywh) and class scores lie within RTDETR_HOLD (the nearest
+    by its largest difference: near-tied queries may swap places). The
+    whole model's query distance is logged beside (a map difference of
+    1e-3 moves tokens across the encoder's top-300 cut). Returns the row."""
+    from mgdt_yolo_tpu_torch.nn.tasks import RTDETRDetectionModel
+    x = torch.from_numpy(synthetic_batch(1, IMGSZ, seed=23)).float() / 255.0
+    runs, cpu_s = {}, {}
+    for key, dev, dtype in (("card", DEVICE, torch.float32), ("cpu32", "cpu", torch.float32),
+                            ("cpu64", "cpu", torch.float64)):
+        model = RTDETRDetectionModel(name, device="cpu")
+        model.load_state_dict(state)
+        model = model.to(device=dev, dtype=dtype).eval()
+        dec = getattr(model, f"model_{model.specs[-1].i}")
+        seen = {}
+        hook = dec.register_forward_pre_hook(
+            lambda m, args: seen.setdefault("maps", [t.detach() for t in args[0]]))
+        t0 = time.perf_counter()
+        with torch.no_grad(), float32_exact():
+            boxes, scores = model(x.to(dev, dtype))[:2]
+        cpu_s[key] = time.perf_counter() - t0
+        hook.remove()
+        runs[key] = {"rows": torch.cat([boxes[-1, 0], scores[-1, 0]], -1).double().cpu(),
+                     "maps": [t.double().cpu() for t in seen["maps"]], "dec": dec}
+    card, cpu32, cpu64 = runs["card"], runs["cpu32"], runs["cpu64"]
+
+    def map_err(got, want):
+        return max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+                   for a, b in zip(got, want))
+    feat, own = map_err(card["maps"], cpu64["maps"]), map_err(cpu32["maps"], cpu64["maps"])
+    feat_limit = max(RTDETR_FEAT_HOLD, 4 * own)
+    with torch.no_grad():
+        ref = cpu64["dec"](card["maps"])
+    ref_rows = torch.cat([ref[0][-1, 0], ref[1][-1, 0]], -1)
+    dec_err = _query_distance(card["rows"], ref_rows)
+    whole = _query_distance(card["rows"], cpu64["rows"])
+    ok = feat <= feat_limit and dec_err <= RTDETR_HOLD and bool(torch.isfinite(card["rows"]).all())
+    log(f"{name} at {IMGSZ} px float32 card vs CPU float64: the decoder's maps within {feat:.3e} "
+        f"of their magnitude (limit {feat_limit:.3e}; the CPU's own float32 {own:.3e}); the "
+        f"decoder alone on the card's maps: the card's top {RTDETR_TOP} of "
+        f"{card['rows'].shape[0]} queries each within {dec_err:.3e} of a CPU query (limit "
+        f"{RTDETR_HOLD:.0e}); the whole model's {whole:.3e}; best score "
+        f"{float(card['rows'][:, 4:].max()):.4f}; CPU forwards {cpu_s['cpu32']:.1f} / "
+        f"{cpu_s['cpu64']:.1f} s (float32 / float64) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{name}: the card and the CPU disagree")
+    return {"queries": int(card["rows"].shape[0]), "maps_max_rel_diff": feat,
+            "cpu_float32_maps_max_rel_diff": own, "maps_limit": feat_limit,
+            "decoder_top_max_abs_diff": dec_err, "whole_model_top_max_abs_diff": whole,
+            "cpu_forward_s": cpu_s["cpu64"]}
+
+
+def _vocab_card_vs_cpu():
+    """`models.vocab.VOCABULARY` (every item-17 type, a `Detect` head, nc 3):
+    its float32 fused forward of one scene on the card against the CPU's
+    float64 one, at phase 13's limits (raw maps 1e-3 of their magnitude,
+    boxes 0.5 px, scores 1e-3); then its bf16 fused forward at b8 timed."""
+    from mgdt_yolo_tpu_torch.models.vocab import VOCABULARY
+    state = _bn_calibrated(DetectionModel(VOCABULARY, device=DEVICE))
+    x = torch.from_numpy(synthetic_batch(1, IMGSZ, seed=23)).float() / 255.0
+    outs = []
+    for dev, dtype in ((DEVICE, torch.float32), ("cpu", torch.float64)):
+        model = DetectionModel(VOCABULARY, device="cpu")
+        model.load_state_dict(state)
+        model = model.to(device=dev, dtype=dtype).eval().fuse()
+        with torch.no_grad(), float32_exact():
+            decoded, maps = model(x.to(dev, dtype))
+        outs.append(([m.double().cpu() for m in maps], decoded.double().cpu()))
+    (mg, dg), (mc, dc) = outs
+    raw = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max())) for a, b in zip(mg, mc))
+    box = float((dg[:, :4] - dc[:, :4]).abs().max())
+    score = float((dg[:, 4:] - dc[:, 4:]).abs().max())
+    ok = raw <= ABLATION_RAW_TOL and box < 0.5 and score <= 1e-3
+    model = DetectionModel(VOCABULARY, device=DEVICE)
+    model.load_state_dict(state)
+    model.eval().fuse().to(torch.bfloat16)
+    xb = torch.from_numpy(synthetic_batch(8, IMGSZ)).to(DEVICE).to(torch.bfloat16) / 255.0
+    with torch.no_grad():
+        ms = cuda_time_ms(lambda: model(xb), iters=5, windows=3)
+    log(f"vocabulary config (every item-17 type; strides {list(model.stride)}, "
+        f"{sum(p.numel() for p in model.parameters()):,} parameters): float32 card vs CPU "
+        f"float64 raw maps {raw:.3e} of their magnitude (limit {ABLATION_RAW_TOL:.0e}), boxes "
+        f"{box:.3e} px, scores {score:.3e}; bf16 fused b8 {ms:.3f} ms "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the vocabulary config: the card and the CPU disagree")
+    return {"raw_max_rel_diff": raw, "box_max_abs_diff": box, "score_max_abs_diff": score,
+            "bf16_b8_ms": ms}
+
+
+def _matcher_timed():
+    """While open, every `HungarianMatcher` call is timed from a synchronise
+    at its entry (the forward's device work is not charged to it) to its
+    indices on the card: {"ms": [...]}."""
+    from mgdt_yolo_tpu_torch.vit.utils import ops as vops
+    rec, call = {"ms": []}, vops.HungarianMatcher.__call__
+
+    def timed(self, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = call(self, *a, **kw)
+        torch.cuda.synchronize()
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    @contextlib.contextmanager
+    def ctx():
+        vops.HungarianMatcher.__call__ = timed
+        try:
+            yield rec
+        finally:
+            vops.HungarianMatcher.__call__ = call
+    return ctx()
+
+
+def _rtdetr_training(state):
+    """`RTDETRTrainer` on rtdetr-l from `state`: RTDETR_STEPS b8 steps of
+    fresh synthetic scenes at 640 px (bf16 autocast, the host pipeline with
+    every augmentation at 0, mosaic forced 0, nbs 8: an update each step;
+    the batches taken from the loader first, so the steps alone are timed),
+    each step timed (host clock, synchronised) with its matcher calls and
+    its stages (`train_step`'s marks, a synchronise at each), the device's
+    idle share over the steps after the first (torch.profiler);
+    finite losses; then one validation on the EMA weights
+    (`RTDETRValidator`). Returns the row."""
+    from mgdt_yolo_tpu_torch.nn.tasks import RTDETRDetectionModel
+    from mgdt_yolo_tpu_torch.vit.rtdetr import RTDETRTrainer, RTDETRValidator
+    model = RTDETRDetectionModel("rtdetr-l.yaml", device=DEVICE)
+    model.load_state_dict(state)
+    ds = SyntheticDetectionDataset(n=RTDETR_TRAIN * RTDETR_STEPS, imgsz=IMGSZ, nc=model.nc,
+                                   seed=0)
+    trainer = RTDETRTrainer(model, DataLoader(ds, RTDETR_TRAIN, IMGSZ),
+                            overrides={"batch": RTDETR_TRAIN, "nbs": RTDETR_TRAIN, "epochs": 1,
+                                       "val": False, **UNAUGMENTED, **NO_PLOTS})
+    if not trainer.amp or trainer.args["mosaic"] != 0.0 or trainer.accumulate != 1:
+        raise SystemExit(f"RT-DETR trainer: amp {trainer.amp}, mosaic "
+                         f"{trainer.args['mosaic']}, accumulate {trainer.accumulate}")
+    steps, losses, matcher, split = [], [], [], []
+    batches = [to_device(b, DEVICE) for b in trainer.loader]
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+    with _matcher_timed() as rec:
+        for i, b in enumerate(batches):
+            with prof if i == 1 else contextlib.nullcontext():  # profiled: steps 2 on
+                if i == 1:
+                    torch.cuda.synchronize()
+                    t_loop = time.perf_counter()
+                for b in batches[i:] if i == 1 else [b]:
+                    torch.cuda.synchronize()
+                    t0, n0 = time.perf_counter(), len(rec["ms"])
+                    stamps = [("start", t0)]
+                    m = trainer.train_step(b, mark=lambda name: (
+                        torch.cuda.synchronize(), stamps.append((name, time.perf_counter()))))
+                    torch.cuda.synchronize()
+                    steps.append((time.perf_counter() - t0) * 1e3)
+                    split.append({n: (t - t_prev) * 1e3 for (_, t_prev), (n, t)
+                                  in zip(stamps, stamps[1:])})
+                    matcher.append(sum(rec["ms"][n0:]))
+                    losses.append(float(m["loss"]))
+                if i == 1:
+                    wall = time.perf_counter() - t_loop
+                    break
+    busy_us = sum(device_us(e) for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    calls = len(rec["ms"]) // max(1, len(steps))
+    if len(steps) != RTDETR_STEPS or not np.isfinite(losses).all() or calls != 7:
+        raise SystemExit(f"RT-DETR training: {len(steps)} steps, losses {losses}, "
+                         f"{calls} matcher calls a step")
+    later = steps[1:]
+    stages = {k: float(np.mean([sp[k] for sp in split[1:]])) for k in split[0]}
+    row = {"step_ms": steps, "matcher_ms": matcher, "losses": losses, "stage_ms_after_first": stages,
+           "images_per_s_after_first": RTDETR_TRAIN * len(later) / (sum(later) / 1e3),
+           "matcher_share_after_first": sum(matcher[1:]) / sum(later),
+           "matcher_calls_per_step": calls, "device_idle_share": 1.0 - busy_us / (wall * 1e6)}
+    t0 = time.perf_counter()
+    metrics = trainer.validate()
+    row["val_s"] = time.perf_counter() - t0
+    row["val"] = {k: metrics[k] for k in ("precision", "recall", "map50", "map")}
+    if not isinstance(trainer.validator, RTDETRValidator):
+        raise SystemExit("RT-DETR training validated with another validator")
+    log(f"rtdetr-l training b{RTDETR_TRAIN} bf16: steps {', '.join(f'{v:.1f}' for v in steps)} "
+        f"ms, losses {', '.join(f'{v:.3f}' for v in losses)}; after the first "
+        f"{row['images_per_s_after_first']:.2f} images/s, the matcher "
+        f"{', '.join(f'{v:.1f}' for v in matcher)} ms a step ({calls} calls: encoder + 6 "
+        f"layers), {row['matcher_share_after_first']:.1%} of the step; after the first, by "
+        f"stage (synchronised at each): "
+        f"{', '.join(f'{k} {v:.1f}' for k, v in stages.items())} ms; device idle "
+        f"{row['device_idle_share']:.1%} over steps 2-{len(steps)} ({wall:.2f} s, profiled, "
+        f"batches resident); EMA "
+        f"validation {row['val_s']:.1f} s, mAP50-95 {row['val']['map']:.4f}")
+    del trainer, model
+    return row
+
+
+def phase_rtdetr():
+    """RT-DETR (see the module's text): rtdetr-l served through `RTDETR`
+    in bf16 at b1, b8 and b32, held in float32 against the CPU's float64,
+    trained through `RTDETRTrainer` and validated on its EMA weights;
+    rtdetr-x, yolov8n-rtdetr and the vocabulary config card against CPU. No
+    hand kernel is on this path: every count must stay 0. Returns
+    (launches, rows)."""
+    from mgdt_yolo_tpu_torch.nn.tasks import RTDETRDetectionModel
+    from mgdt_yolo_tpu_torch.vit import RTDETR
+    log(f"== phase 23: RT-DETR: rtdetr-l at {IMGSZ} px (hd 256, nq 300, 6 decoder layers, "
+        f"3 levels, AIFI on 20x20) served bf16 at b1/b8/b32, float32 card vs CPU float64, "
+        f"{RTDETR_STEPS} b{RTDETR_TRAIN} training steps + EMA validation; "
+        f"{', '.join(RTDETR_OTHERS)} and the vocabulary config card vs CPU")
+    t_phase = time.perf_counter()
+    reset_counts()
+    rows = {}
+    state = _bn_calibrated(RTDETRDetectionModel("rtdetr-l.yaml", device=DEVICE))
+    rows["card_vs_cpu"] = {"rtdetr-l.yaml": _rtdetr_card_vs_cpu("rtdetr-l.yaml", state)}
+    y = RTDETR("rtdetr-l.yaml", device=DEVICE)
+    y.model.load_state_dict(state)
+    dec = getattr(y.model, f"model_{y.model.specs[-1].i}")
+    scenes = _scenes(max(RTDETR_RATES.values()))
+    first = y.predict(scenes[:1], half=True, imgsz=IMGSZ)  # builds the bf16 predictor
+    served = getattr(y.predictor.model, f"model_{y.model.specs[-1].i}")
+    if len(first[0].boxes) > dec.nq or not isinstance(served.input_proj_bn_0, torch.nn.Identity) \
+            or next(served.parameters()).dtype != torch.bfloat16:
+        raise SystemExit("rtdetr-l serving: not a folded bf16 model, or too many detections")
+    rows["serving"] = {}
+    for b, n in RTDETR_RATES.items():
+        y.predict(scenes[:b], batch=b)  # warm this batch shape
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = y.predict(scenes[:n], batch=b)
+        wall = time.perf_counter() - t0
+        det = sum(len(r.boxes) for r in res)
+        rows["serving"][f"b{b}"] = {
+            "images": n, "wall_s": wall, "images_per_s": n / wall, "detections": det,
+            **{f"{k}_ms_per_image": float(np.mean([r.speed[k] for r in res]))
+               for k in ("preprocess", "inference")}}
+        if len(res) != n:
+            raise SystemExit(f"rtdetr-l b{b}: {len(res)} results for {n} images")
+    xb = torch.from_numpy(synthetic_batch(32, IMGSZ)).to(DEVICE).to(torch.bfloat16) / 255.0
+    with torch.no_grad():
+        fwd_ms = cuda_time_ms(lambda: y.predictor.model(xb), iters=3, windows=3)
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y.predict(scenes[:RTDETR_RATES[8]], batch=8)
+        wall = time.perf_counter() - t0
+    busy_us = sum(device_us(e) for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    rows["serving"].update(forward_b32_ms=fwd_ms, b8_device_idle_share=1.0 - busy_us / (wall * 1e6))
+    log("rtdetr-l RTDETR.predict bf16 (fused, stretched to 640, conf 0.25, no NMS): " +
+        "; ".join(f"b{b} {r['images_per_s']:.2f} images/s ({r['images']} images, "
+                  f"{r['detections']} detections; per image preprocess "
+                  f"{r['preprocess_ms_per_image']:.2f} ms, inference "
+                  f"{r['inference_ms_per_image']:.2f} ms)"
+                  for b, r in ((k[1:], v) for k, v in rows["serving"].items()
+                               if k.startswith("b") and isinstance(v, dict))) +
+        f"; the b32 forward alone {fwd_ms:.3f} ms ({32e3 / fwd_ms:.2f} images/s); device idle "
+        f"{rows['serving']['b8_device_idle_share']:.1%} under b8 (profiled)")
+    del y
+    torch.cuda.empty_cache()
+    rows["training"] = _rtdetr_training(state)
+    torch.cuda.empty_cache()
+    for name in RTDETR_OTHERS:
+        other = _bn_calibrated(RTDETRDetectionModel(name, device=DEVICE))
+        rows["card_vs_cpu"][name] = _rtdetr_card_vs_cpu(name, other)
+        torch.cuda.empty_cache()
+    rows["card_vs_cpu"]["vocabulary"] = _vocab_card_vs_cpu()
+    torch.cuda.synchronize()
+    total = read_counts()
+    _expect(total, "the RT-DETR path")
+    rows["launches"] = total
+    rows["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 23: {rows['phase_s']:.1f} s; launches {total}")
+    log(f"phase 23 rows: {json.dumps(rows, default=float)}")
+    return total, rows
+
+
 # which paths run each kernel (its launches must be counted on each); the
 # first is the kernel's own main path
 KERNEL_PATHS = {"deform_fwd": ("serving", "training", "augmented training",
@@ -4384,13 +4713,15 @@ def main() -> int:
         zoo, zoo_rows = phase_classify_and_zoo(Path(tmp))
         torch.cuda.empty_cache()
         tracking, tracking_rows = phase_tracking(Path(tmp))
+        torch.cuda.empty_cache()
+        rtdetr, rtdetr_rows = phase_rtdetr()
     torch.cuda.empty_cache()
     ab_launches, ab_rows, hopper_rows, plan_rows = phase_variant_ab()
     paths = {"serving": serving, "training": training, "augmented training": augmented,
              "ablation family": ablation, "serving entry points": entry, "from disk": disk,
              "facade": facade, "reference weights": reference, "host augmentation": host,
              "callbacks and drawing": plots, "segment and pose": seg_pose,
-             "classify and zoo": zoo, "tracking": tracking,
+             "classify and zoo": zoo, "tracking": tracking, "RT-DETR": rtdetr,
              "DCN A/B": dcn_ab,
              "K3 A/B": k3_ab, "K1 variant A/B": ab_launches}
     for k in kernels:
@@ -4408,6 +4739,8 @@ def main() -> int:
         k["classify_and_zoo_launches"] = zoo[k["name"]]
         # the tracking path runs K1 once per forward and no other kernel
         k["tracking_launches"] = tracking[k["name"]]
+        # no kernel is on the RT-DETR path: its count, 0, recorded
+        k["rtdetr_launches"] = rtdetr[k["name"]]
         if k["name"] == "fused_augment":
             k["apply_augment_ms"] = aug_ms
         if k["name"] in ("deform_fwd", "deform_bwd"):

@@ -22,7 +22,9 @@ The task is the `task` given, else the one the model's name implies
 (`guess_model_task`: "-seg" segment, "-pose" pose, "-cls" classify), as
 JAX's facade takes it; it picks the trainer, validator and predictor.
 Refused: a JAX orbax checkpoint directory (the JAX package's
-`YOLO(...).export(format="npz")` carries one across).
+`YOLO(...).export(format="npz")` carries one across), and an RT-DETR
+config or checkpoint, which `vit.RTDETR` serves (JAX's facade builds one
+and then fails in NMS on its output).
 
 Every method takes configuration keys as keyword arguments, over the
 facade's own (`model`, `task`), in JAX's cascade `{**self.overrides,
@@ -48,7 +50,7 @@ from ..cfg.default import CFG_DEFAULTS
 from ..device import parse_device
 from ..nn.autobackend import load_npz_model
 from ..nn.tasks import (BaseModel, ClassificationModel, DetectionModel, PoseModel,
-                        SegmentationModel, guess_model_task, model_class)
+                        RTDETRDetectionModel, SegmentationModel, guess_model_task, model_class)
 from .classify import ClassificationPredictor, ClassificationTrainer, ClassificationValidator
 from .predictor import DetectionPredictor
 from .trainer import Trainer
@@ -91,6 +93,9 @@ class YOLO:
             self.model = self._load(model)
             # a checkpoint's model knows its task where its file name does not
             self.task = task or self.model.task
+        if isinstance(self.model, RTDETRDetectionModel):
+            raise ValueError(f"{model!r} is an RT-DETR model: use mgdt_yolo_tpu_torch.vit.RTDETR, "
+                             f"which serves it without NMS")
         self.overrides.setdefault("model", self.model.model_yaml or model)
         self.overrides["task"] = self.task
 

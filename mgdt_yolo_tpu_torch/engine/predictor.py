@@ -212,18 +212,12 @@ class BasePredictor(CallbackMixin):
                 if not chunk:  # every file of the batch was unreadable
                     continue
                 t0 = time.perf_counter()
-                det, counts = infer(self.model, x.to(self.device, non_blocking=True),
-                                    a.conf or CONF, a.iou, a.max_det, a.agnostic_nms,
-                                    a.augment)
-                det, counts = det.float().cpu().numpy(), counts.cpu().numpy()
+                dets = self.detect(x.to(self.device, non_blocking=True), chunk, meta)
                 inf_ms = (time.perf_counter() - t0) * 1e3
                 speed = {"preprocess": pre_ms / len(chunk), "inference": inf_ms / len(chunk),
                          "postprocess": 0.0}
-                self.results = [
-                    Results(c["img"], c["path"], self.model.names,
-                            det_to_original(det[j][:int(counts[j])].copy(), a.imgsz, meta[j]),
-                            speed=dict(speed))
-                    for j, c in enumerate(chunk)]
+                self.results = [Results(c["img"], c["path"], self.model.names, det,
+                                        speed=dict(speed)) for c, det in zip(chunk, dets)]
                 self.batch_items = chunk
                 self.run_callbacks("on_predict_postprocess_end")
                 for r in self.results:
@@ -231,6 +225,17 @@ class BasePredictor(CallbackMixin):
                         self._save(r)
                     yield r
         self.run_callbacks("on_predict_end")
+
+    def detect(self, x: torch.Tensor, chunk: List[Dict], meta) -> List[np.ndarray]:
+        """Each image's detections [x1, y1, x2, y2, conf, cls] in its own
+        pixels, from the letterboxed uint8 batch `x` on the device: the
+        forward (or TTA), NMS and the way back through the letterbox."""
+        a = self.args
+        det, counts = infer(self.model, x, a.conf or CONF, a.iou, a.max_det, a.agnostic_nms,
+                            a.augment)
+        det, counts = det.float().cpu().numpy(), counts.cpu().numpy()
+        return [det_to_original(det[j][:int(counts[j])].copy(), a.imgsz, meta[j])
+                for j in range(len(chunk))]
 
     def _save(self, r: Results):
         """What `save`, `save_txt` and `save_crop` write of one result."""

@@ -488,7 +488,7 @@ class Trainer(CallbackMixin):
             total_steps=nb * a["epochs"], steps_per_epoch=nb, epochs=a["epochs"],
             cos_lr=a["cos_lr"], warmup_momentum=a["warmup_momentum"], nc=model.nc,
             warmup_bias_lr=a["warmup_bias_lr"], accumulate=self.accumulate)
-        self.criterion = build_criterion(model, a)
+        self.criterion = self.get_criterion(model, a)
         self.ema = EMA(named)
         self.step = 0         # micro-batches taken: drives the assigner's anneal
         self.epoch = 0
@@ -510,6 +510,18 @@ class Trainer(CallbackMixin):
             found = self.find_resume_checkpoint()
             if found is not None:
                 self.load_resume(found)
+
+    def get_criterion(self, model, a: Mapping):
+        """The loss (`build_criterion`; RT-DETR's trainer has its own)."""
+        return build_criterion(model, a)
+
+    def get_validator(self, args: Mapping):
+        """The validator of the model's task, built with `args`."""
+        return VALIDATORS[self.task](args)
+
+    def forward_train(self, img: torch.Tensor, batch: Dict[str, torch.Tensor]):
+        """The training forward the loss takes (`forward_feats`)."""
+        return self.model.forward_feats(img)
 
     def find_resume_checkpoint(self) -> Optional[Path]:
         """The newest `*/weights/last.npz` with a resume state under
@@ -599,7 +611,7 @@ class Trainer(CallbackMixin):
         if not img.is_floating_point():
             img = img.float() / 255.0
         with torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=self.amp):
-            feats = self.model.forward_feats(img)
+            feats = self.forward_train(img, batch)
         mark("forward")
         out = self.criterion(feats, batch, self.step)
         mark("loss")
@@ -726,8 +738,8 @@ class Trainer(CallbackMixin):
                 self.val_loader = build_loader(a, False, self.model)
             # predictions.json (save_json) and the plots land with the run,
             # as in JAX; bf16 exactly where the trainer's amp is
-            self.validator = VALIDATORS[self.task]({**a, "save_dir": self.save_dir,
-                                                    "half": self.amp})
+            self.validator = self.get_validator({**a, "save_dir": self.save_dir,
+                                                 "half": self.amp})
             self._val_model = copy.deepcopy(self.model)
         vm, ema = self._val_model, self.ema.state()
         with torch.no_grad():

@@ -1,8 +1,9 @@
 """Model configurations of the PyTorch port, as Python literals, by the file
 name of the JAX package's YAML each one copies (`mgdt_yolo_tpu/models/`):
 the eight models of the paper's ablation matrix (`ABLATION`), YOLOv8's
-segment and pose models, and the rest of the zoo (`ZOO`: YOLOv3, v5, v6,
-YOLOv8 P2/P6, pose P6 and the classifier)."""
+segment and pose models, the rest of the zoo (`ZOO`: YOLOv3, v5, v6,
+YOLOv8 P2/P6, pose P6 and the classifier) and RT-DETR's (`RTDETR`:
+rtdetr-l, rtdetr-x, yolov8-rtdetr)."""
 from __future__ import annotations
 
 import copy
@@ -11,13 +12,14 @@ from pathlib import Path
 
 from .ablation import CONFIGS as _ABLATION
 from .mspa_c2f_gd_tood_yolov8 import CONFIG as _FLAGSHIP
+from .rtdetr import CONFIGS as RTDETR
 from .seg_pose import CONFIGS as _SEG_POSE
 from .zoo import CONFIGS as ZOO
 
 FLAGSHIP = "mspa_c2f_gd_tood_yolov8.yaml"
 # the eight models of the paper's ablation matrix
 ABLATION = {**_ABLATION, FLAGSHIP: _FLAGSHIP}
-CONFIGS = {**ABLATION, **_SEG_POSE, **ZOO}
+CONFIGS = {**ABLATION, **_SEG_POSE, **ZOO, **RTDETR}
 
 
 def load_config(name) -> dict:

@@ -1,7 +1,8 @@
-"""Blocks of the flagship graph (NCHW), the counterparts of
-`mgdt_yolo_tpu/nn/modules/block.py`: the CSP/SPPF backbone blocks, the
-MSPA-C2f attention block, the GD neck modules, the DyDCNv2 wrapper and the
-segmentation head's `Proto`.
+"""Blocks of the model graphs (NCHW), the counterparts of
+`mgdt_yolo_tpu/nn/modules/block.py`: the CSP/SPP backbone blocks (C1, C2,
+C2f, C3, C3x, C3TR, C3Ghost, BottleneckCSP, RepC3), the ghost bottleneck,
+RT-DETR's HGNetV2 stem and block, the MSPA-C2f attention block, the GD
+neck modules, the DyDCNv2 wrapper and the segmentation head's `Proto`.
 
 Submodules carry the flax names (`cv1`, `m_0`, `convs_3`, `attention.fc1`,
 ...) so the JAX variables load one to one. Where the JAX package computes in
@@ -17,7 +18,8 @@ from ...ops.common import (adaptive_avg_pool2d, h_sigmoid, interpolate_bilinear,
                            max_pool2d_same)
 from ...ops.cuda_deform import deform_conv
 from ...ops.deform import check_semantics
-from .conv import Conv
+from .conv import BN, Conv, DWConv, GhostConv, LightConv, RepConv, get_act
+from .transformer import TransformerBlock
 
 
 def dfl_decode(box: torch.Tensor, reg_max: int) -> torch.Tensor:
@@ -108,6 +110,183 @@ class C3(nn.Module):
         for i in range(self.n):
             a = getattr(self, f"m_{i}")(a)
         return self.cv3(torch.cat([a, self.cv2(x)], dim=1))
+
+
+class C1(nn.Module):
+    """CSP bottleneck with 1 conv: cv1, then n 3x3 Convs, plus cv1's output."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1):
+        super().__init__()
+        self.n = n
+        self.cv1 = Conv(c1, c2, 1, 1)
+        for i in range(n):
+            self.add_module(f"m_{i}", Conv(c2, c2, 3))
+
+    def forward(self, x):
+        y = z = self.cv1(x)
+        for i in range(self.n):
+            z = getattr(self, f"m_{i}")(z)
+        return z + y
+
+
+class C3x(C3):
+    """C3 whose bottlenecks take the cross 1x3 / 3x1 convolutions."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, e: float = 0.5):
+        super().__init__(c1, c2, n, shortcut, e)
+        c_ = int(c2 * e)
+        for i in range(n):
+            self.add_module(f"m_{i}", Bottleneck(c_, c_, shortcut, k=((1, 3), (3, 1)), e=1.0))
+
+
+class C3TR(nn.Module):
+    """C3 whose inner branch is a `TransformerBlock` (4 heads, n layers)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, e: float = 0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.cv2 = Conv(c1, c_, 1, 1)
+        self.m = TransformerBlock(c_, c_, 4, n)
+        self.cv3 = Conv(2 * c_, c2, 1)
+
+    def forward(self, x):
+        return self.cv3(torch.cat([self.m(self.cv1(x)), self.cv2(x)], dim=1))
+
+
+class GhostBottleneck(nn.Module):
+    """Ghost bottleneck: GhostConv to c2 / 2, a linear depthwise k x k where
+    the stride is 2, a linear GhostConv to c2; plus the shortcut (x where
+    the widths match at stride 1, nothing where they do not, a linear
+    depthwise then 1x1 Conv at stride 2)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1):
+        super().__init__()
+        c_ = c2 // 2
+        self.s, self.add = s, c1 == c2
+        self.ghost1 = GhostConv(c1, c_, 1, 1)
+        if s == 2:
+            self.dw = DWConv(c_, c_, k, s, act=False)
+        self.ghost2 = GhostConv(c_, c2, 1, 1, act=False)
+        if s == 2:
+            self.sc_dw = DWConv(c1, c1, k, s, act=False)
+            self.sc_pw = Conv(c1, c2, 1, 1, act=False)
+
+    def forward(self, x):
+        y = self.ghost1(x)
+        if self.s == 2:
+            y = self.dw(y)
+        y = self.ghost2(y)
+        if self.s == 2:
+            return y + self.sc_pw(self.sc_dw(x))
+        return y + x if self.add else y
+
+
+class C3Ghost(C3):
+    """C3 whose bottlenecks are `GhostBottleneck`s."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, e: float = 0.5):
+        super().__init__(c1, c2, n, shortcut, e)
+        c_ = int(c2 * e)
+        for i in range(n):
+            self.add_module(f"m_{i}", GhostBottleneck(c_, c_))
+
+
+class RepC3(nn.Module):
+    """RT-DETR's neck block: cv1 through n `RepConv`s plus cv2 (then cv3
+    where the hidden width is not c2; the graph builds e = 1, so never)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 3, e: float = 1.0):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.n = n
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.cv2 = Conv(c1, c_, 1, 1)
+        for i in range(n):
+            self.add_module(f"m_{i}", RepConv(c_, c_))
+        self.cv3 = Conv(c_, c2, 1, 1) if c_ != c2 else None
+
+    def forward(self, x):
+        a = self.cv1(x)
+        for i in range(self.n):
+            a = getattr(self, f"m_{i}")(a)
+        y = a + self.cv2(x)
+        return self.cv3(y) if self.cv3 is not None else y
+
+
+class BottleneckCSP(nn.Module):
+    """The original CSP bottleneck: cv1 through n bottlenecks then the bare
+    1x1 `cv3`, beside the bare 1x1 `cv2` of x, one BatchNorm over both and
+    the default activation, then cv4."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, e: float = 0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.n = n
+        self.cv1 = Conv(c1, c_, 1, 1)
+        for i in range(n):
+            self.add_module(f"m_{i}", Bottleneck(c_, c_, shortcut, e=1.0))
+        self.cv3 = nn.Conv2d(c_, c_, 1, bias=False)
+        self.cv2 = nn.Conv2d(c1, c_, 1, bias=False)
+        self.norm = BN(2 * c_)
+        self.default_act = True
+        self.act = get_act(True)
+        self.cv4 = Conv(2 * c_, c2, 1, 1)
+
+    def forward(self, x):
+        y1 = self.cv1(x)
+        for i in range(self.n):
+            y1 = getattr(self, f"m_{i}")(y1)
+        y = self.norm(torch.cat([self.cv3(y1), self.cv2(x)], dim=1))
+        return self.cv4(self.act(y))
+
+
+class HGStem(nn.Module):
+    """HGNetV2's stem (stride 4, ReLU): stem1 3x3/2, padded by one row and
+    column at the bottom and right; a 2x2 max pool of that beside the
+    stem2a/stem2b 2x2 convs (each after such a pad), cropped to stem2b's
+    size; concatenated, stem3 3x3/2, stem4 1x1. JAX pools with a one-sided
+    -inf pad and crops; the crop keeps only windows inside the map, so the
+    pool here is the plain 2x2 window at stride 1."""
+
+    def __init__(self, c1: int, cm: int, c2: int):
+        super().__init__()
+        self.stem1 = Conv(c1, cm, 3, 2, act="relu")
+        self.stem2a = Conv(cm, cm // 2, 2, 1, 0, act="relu")
+        self.stem2b = Conv(cm // 2, cm, 2, 1, 0, act="relu")
+        self.stem3 = Conv(cm * 2, cm, 3, 2, act="relu")
+        self.stem4 = Conv(cm, c2, 1, 1, act="relu")
+
+    def forward(self, x):
+        y = F.pad(self.stem1(x), (0, 1, 0, 1))
+        y2 = self.stem2b(F.pad(self.stem2a(y), (0, 1, 0, 1)))
+        y1 = F.max_pool2d(y, 2, 1)[..., :y2.shape[2], :y2.shape[3]]
+        return self.stem4(self.stem3(torch.cat([y1, y2], dim=1)))
+
+
+class HGBlock(nn.Module):
+    """HGNetV2's block: n chained k x k Convs (`LightConv`s with
+    `lightconv`) of width cm, every output and x concatenated, squeezed to
+    c2 / 2 (`sc`) and excited to c2 (`ec`), plus x with `shortcut` where
+    c1 == c2; ReLU throughout."""
+
+    def __init__(self, c1: int, cm: int, c2: int, k: int = 3, n: int = 6,
+                 lightconv: bool = False, shortcut: bool = False, act="relu"):
+        super().__init__()
+        block = LightConv if lightconv else Conv
+        self.n = n
+        for i in range(n):
+            self.add_module(f"m_{i}", block(c1 if i == 0 else cm, cm, k=k, act=act))
+        self.sc = Conv(c1 + n * cm, c2 // 2, 1, 1, act=act)
+        self.ec = Conv(c2 // 2, c2, 1, 1, act=act)
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x):
+        ys = [x]
+        for i in range(self.n):
+            ys.append(getattr(self, f"m_{i}")(ys[-1]))
+        y = self.ec(self.sc(torch.cat(ys, dim=1)))
+        return y + x if self.add else y
 
 
 class SPP(nn.Module):

@@ -2,9 +2,13 @@
 `mgdt_yolo_tpu/nn/modules/conv.py`.
 
 Submodule names follow the JAX package's flax names (`conv`, `norm.bn`), so
-a flax path maps to a state-dict key one to one (see `weights.py`).
+a flax path maps to a state-dict key one to one (see `weights.py`). A
+module built with `act=True` takes the model's default activation
+(`default_act`, `set_default_act`).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn as nn
@@ -16,8 +20,11 @@ BN_EPS = 1e-3        # the reference's BatchNorm eps
 BN_MOMENTUM = 0.03   # torch convention (flax momentum 0.97)
 
 
-def autopad(k: int, p: int | None = None, d: int = 1) -> int:
-    """'same'-shape padding for odd kernels."""
+def autopad(k, p: int | None = None, d: int = 1):
+    """'same'-shape padding for odd kernels; a (kh, kw) kernel gets a pad
+    per axis (C3x's cross convs)."""
+    if isinstance(k, (tuple, list)):
+        return tuple(autopad(x, p, d) for x in k)
     if d > 1:
         k = d * (k - 1) + 1
     if p is None:
@@ -74,9 +81,10 @@ class Conv(nn.Module):
     activation, SiLU unless the model's config overrides it
     (`set_default_act`)."""
 
-    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p=None, g: int = 1,
+    def __init__(self, c1: int, c2: int, k=1, s: int = 1, p=None, g: int = 1,
                  d: int = 1, act=True):
         super().__init__()
+        k = tuple(k) if isinstance(k, (tuple, list)) else k
         self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), dilation=d, groups=g, bias=False)
         self.norm = BN(c2)
         self.default_act = act is True
@@ -87,12 +95,13 @@ class Conv(nn.Module):
 
 
 def set_default_act(module: nn.Module, act) -> nn.Module:
-    """Give every `Conv` of `module` built with `act=True` the activation
-    `act` (a config's `activation:`, "nn.ReLU()" in YOLOv6's), as the
-    reference's `Conv.default_act` swap and JAX's trace-time default do,
-    here for this module alone."""
+    """Give every module of `module` built with `act=True` (a `Conv`,
+    `Conv2`, `RepConv`, a BatchNorm'd `ConvTranspose`, `BottleneckCSP`'s
+    own) the activation `act` (a config's `activation:`, "nn.ReLU()" in
+    YOLOv6's), as the reference's `Conv.default_act` swap and JAX's
+    trace-time default do, here for this module alone."""
     for m in module.modules():
-        if isinstance(m, Conv) and m.default_act:
+        if getattr(m, "default_act", False):
             m.act = get_act(act)
     return module
 
@@ -120,17 +129,198 @@ class ZeroPad2d(nn.Module):
 
 
 class ConvTranspose(nn.Module):
-    """The bare transposed conv of a graph row `nn.ConvTranspose2d [c2, k, s,
-    p]` (YOLOv6's upsampling): with bias, no BatchNorm and no activation,
-    under the flax name `conv_transpose` as JAX's `ConvTranspose(bn=False,
-    act=False)` nests it (its flipped kernel: `weights.translate`)."""
+    """Transposed conv (kernel `k`, stride `s`, padding `p`), under the flax
+    name `conv_transpose` (its flipped kernel: `weights.translate`), with a
+    bias and nothing after it by default: the bare deconv of a graph row
+    `nn.ConvTranspose2d [c2, k, s, p]` (YOLOv6's upsampling), JAX's
+    `ConvTranspose(bn=False, act=False)`. With `bn` a BatchNorm (`norm`)
+    replaces the bias and `act` follows, as a graph row `ConvTranspose`
+    builds it (JAX's defaults `bn=True, act=True`); `nn/fuse.py` folds the
+    norm."""
 
-    def __init__(self, c1: int, c2: int, k: int = 2, s: int = 2, p: int = 0):
+    def __init__(self, c1: int, c2: int, k: int = 2, s: int = 2, p: int = 0, bn: bool = False,
+                 act=False):
         super().__init__()
-        self.conv_transpose = nn.ConvTranspose2d(c1, c2, k, s, p, bias=True)
+        self.conv_transpose = nn.ConvTranspose2d(c1, c2, k, s, p, bias=not bn)
+        self.norm = BN(c2) if bn else nn.Identity()
+        self.default_act = act is True
+        self.act = get_act(act)
 
     def forward(self, x):
-        return self.conv_transpose(x)
+        return self.act(self.norm(self.conv_transpose(x)))
+
+
+class DWConvTranspose2d(nn.ConvTranspose2d):
+    """Depthwise transposed conv with a bias, groups gcd(c1, c2): torch's
+    grouped `conv_transpose2d`. JAX keeps one (k, k, c1, c2 / g) kernel
+    directly on the layer (`params.model_i.kernel`), the flipped image of
+    this (c1, c2 / g, k, k) weight (`weights.translate`)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p1: int = 0):
+        super().__init__(c1, c2, k, s, p1, groups=math.gcd(c1, c2), bias=True)
+
+
+class Conv2(nn.Module):
+    """A k x k conv and a parallel 1x1 conv (both without bias, groups `g`)
+    summed under one BatchNorm and activation; `nn/fuse.py` folds the 1x1
+    into the centre tap, then the norm."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1, p=None, g: int = 1,
+                 d: int = 1, act=True):
+        super().__init__()
+        self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), dilation=d, groups=g, bias=False)
+        self.cv2 = nn.Conv2d(c1, c2, 1, s, autopad(1, p, d), dilation=d, groups=g, bias=False)
+        self.norm = BN(c2)
+        self.default_act = act is True
+        self.act = get_act(act)
+
+    def forward(self, x):
+        y = self.conv(x)
+        if self.cv2 is not None:
+            y = y + self.cv2(x)
+        return self.act(self.norm(y))
+
+
+class DWConv(nn.Module):
+    """Depthwise conv: a `Conv` (flax name `conv`) with groups gcd(c1, c2);
+    RT-DETR's downsamplers take `act=False`."""
+
+    def __init__(self, c1: int, c2: int, k=1, s: int = 1, d: int = 1, act=True):
+        super().__init__()
+        self.conv = Conv(c1, c2, k, s, g=math.gcd(c1, c2), d=d, act=act)
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+class LightConv(nn.Module):
+    """A linear 1x1 `Conv` then a depthwise k x k `DWConv` (HGBlock's)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, act="relu"):
+        super().__init__()
+        self.conv1 = Conv(c1, c2, 1, act=False)
+        self.conv2 = DWConv(c2, c2, k, act=act)
+
+    def forward(self, x):
+        return self.conv2(self.conv1(x))
+
+
+def _center_tap(w1: torch.Tensor, k) -> torch.Tensor:
+    """A 1x1 kernel (O, I, 1, 1) padded to the centre of a k x k one."""
+    kh, kw = (k, k) if isinstance(k, int) else k
+    return F.pad(w1, (kw // 2, kw // 2, kh // 2, kh // 2))
+
+
+class RepConv(nn.Module):
+    """A k x k `Conv` and a 1x1 `Conv` (both linear, groups `g`) summed, with
+    an identity BatchNorm branch where `bn_identity` and the widths allow,
+    then the activation. `fuse()` (after `nn/fuse.py` folds the two Convs'
+    norms) merges the branches into `conv1` alone."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1, g: int = 1, act=True,
+                 bn_identity: bool = False):
+        super().__init__()
+        self.conv1 = Conv(c1, c2, k, s, g=g, act=False)
+        self.conv2 = Conv(c1, c2, 1, s, p=0, g=g, act=False)
+        self.norm_id = BN(c1) if bn_identity and c1 == c2 and s == 1 else None
+        self.default_act = act is True
+        self.act = get_act(act)
+
+    def forward(self, x):
+        y = self.conv1(x)
+        if self.conv2 is not None:
+            y = y + self.conv2(x)
+        if self.norm_id is not None:
+            y = y + self.norm_id(x)
+        return self.act(y)
+
+    @torch.no_grad()
+    def fuse(self) -> bool:
+        """Merge the folded branches into `conv1` (a 3x3 conv with bias):
+        the 1x1 on its centre tap, the identity norm as a scaled centre
+        tap; False if already merged or a branch is not folded yet."""
+        return _merge_branches(self, "conv1", "conv2", "norm_id")
+
+
+class RepVGGBlock(nn.Module):
+    """Three branches summed then ReLU: a dense 3x3 `Conv` and a 1x1 `Conv`
+    (both linear) and, where c1 == c2 at stride 1, an identity BatchNorm.
+    `fuse()` merges them as `RepConv.fuse` does."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1, g: int = 1):
+        super().__init__()
+        if k != 3:
+            raise ValueError(f"RepVGGBlock takes k=3, not {k}")
+        self.rbr_dense = Conv(c1, c2, 3, s, g=g, act=False)
+        self.rbr_1x1 = Conv(c1, c2, 1, s, p=0, g=g, act=False)
+        self.rbr_identity = BN(c1) if c1 == c2 and s == 1 else None
+        self.act = nn.ReLU()
+
+    def forward(self, x):
+        y = self.rbr_dense(x)
+        if self.rbr_1x1 is not None:
+            y = y + self.rbr_1x1(x)
+        if self.rbr_identity is not None:
+            y = y + self.rbr_identity(x)
+        return self.act(y)
+
+    @torch.no_grad()
+    def fuse(self) -> bool:
+        return _merge_branches(self, "rbr_dense", "rbr_1x1", "rbr_identity")
+
+
+def _merge_branches(m: nn.Module, dense: str, one: str, ident: str) -> bool:
+    """`RepConv.fuse` for the branch names `dense`, `one` (1x1), `ident`
+    (BatchNorm or None) of `m`: each Conv's norm must be folded already."""
+    d, o, i = getattr(m, dense), getattr(m, one), getattr(m, ident)
+    if o is None or isinstance(d.norm, BN) or isinstance(o.norm, BN):
+        return False
+    conv = d.conv
+    w = conv.weight.float() + _center_tap(o.conv.weight.float(), conv.kernel_size)
+    b = conv.bias.float() + o.conv.bias.float()
+    if i is not None:
+        bn = i.bn
+        g = bn.weight.float() / (bn.running_var.float() + bn.eps).sqrt()
+        per_group = conv.in_channels // conv.groups
+        eye = torch.zeros_like(w)
+        kh, kw = conv.kernel_size
+        idx = torch.arange(conv.out_channels, device=w.device)
+        eye[idx, idx % per_group, kh // 2, kw // 2] = g
+        w = w + eye
+        b = b + bn.bias.float() - bn.running_mean.float() * g
+    conv.weight.copy_(w.to(conv.weight.dtype))
+    conv.bias.copy_(b.to(conv.bias.dtype))
+    setattr(m, one, None)
+    setattr(m, ident, None)
+    return True
+
+
+class Focus(nn.Module):
+    """Space to channels (the 2x2 pixels of each cell, in JAX's order: even
+    rows and columns, odd rows, odd columns, both odd) then a `Conv`."""
+
+    def __init__(self, c1: int, c2: int, k=1, s: int = 1, p=None, g: int = 1, act=True):
+        super().__init__()
+        self.conv = Conv(4 * c1, c2, k, s, p, g, act=act)
+
+    def forward(self, x):
+        return self.conv(torch.cat([x[..., ::2, ::2], x[..., 1::2, ::2],
+                                    x[..., ::2, 1::2], x[..., 1::2, 1::2]], dim=1))
+
+
+class GhostConv(nn.Module):
+    """Ghost conv: `cv1` to half the width, a cheap 5x5 depthwise `cv2` of
+    it, the two concatenated."""
+
+    def __init__(self, c1: int, c2: int, k=1, s: int = 1, g: int = 1, act=True):
+        super().__init__()
+        c_ = c2 // 2
+        self.cv1 = Conv(c1, c_, k, s, None, g, act=act)
+        self.cv2 = Conv(c_, c_, 5, 1, None, c_, act=act)
+
+    def forward(self, x):
+        y = self.cv1(x)
+        return torch.cat([y, self.cv2(y)], dim=1)
 
 
 class Concat(nn.Module):

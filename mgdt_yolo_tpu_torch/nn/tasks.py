@@ -1,16 +1,19 @@
 """The model graph: a layer list parsed from a config dict into one module.
 
-The counterpart of `mgdt_yolo_tpu/nn/tasks.py`, cut to the module types the
-configs of `models.CONFIGS` use (the ablation matrix, YOLOv8's segment,
-pose and classify models, and the v3/v5/v6/P2/P6 zoo); any other type
-raises KeyError naming the ROADMAP item that ports it. `parse_model` keeps
-the JAX package's channel arithmetic, including the GOLD-YOLO cases, the
-segment head's prototype width and `depth_multiple`/`width_multiple` where
-a config has no `scales`, and also tracks each layer's stride (convs,
-max pools and transposed convs) so the head's strides need no probe run.
-A row repeated on a non-CSP module (`n > 1`) is an `nn.Sequential` of `n`
-copies, which JAX names `model_i`, `model_i_rep1`, ...; a config's
-`activation:` reaches every `Conv` of its model built with `act=True`.
+The counterpart of `mgdt_yolo_tpu/nn/tasks.py`, with JAX's whole
+vocabulary: any other type raises KeyError. `parse_model` keeps the JAX
+package's channel arithmetic, including the GOLD-YOLO cases, RT-DETR's
+(`HGStem`/`HGBlock` take their widths as given, `HGBlock`'s repeat count
+goes in as its argument 4, `AIFI` keeps its input's width,
+`RTDETRDecoder` gets its inputs' widths), the segment head's prototype
+width and `depth_multiple`/`width_multiple` where a config has no
+`scales`, and also tracks each layer's stride (strided convs and blocks,
+max pools, transposed convs, `Focus`, `HGStem`) so the head's strides need
+no probe run. A row repeated on a non-CSP module (`n > 1`) is an
+`nn.Sequential` of `n` copies, which JAX names `model_i`, `model_i_rep1`,
+...; a config's `activation:` reaches every module of its model built with
+`act=True`. A config ending in `RTDETRDecoder` builds an
+`RTDETRDetectionModel` (stride 32, as JAX's).
 """
 from __future__ import annotations
 
@@ -29,7 +32,9 @@ from ..models import FLAGSHIP, load_config
 from ..ops.deform import check_semantics
 from .modules import block as B
 from .modules import head as H
-from .modules.conv import (Concat, Conv, ConvTranspose, MaxPool2d, Upsample, ZeroPad2d,
+from .modules import transformer as T
+from .modules.conv import (Concat, Conv, Conv2, ConvTranspose, DWConv, DWConvTranspose2d, Focus,
+                           GhostConv, MaxPool2d, RepVGGBlock, Upsample, ZeroPad2d,
                            set_default_act)
 
 
@@ -50,26 +55,21 @@ class LayerSpec:
     c2: int = 0                       # output channels (0 for a head)
 
 
-_CONV_LIKE = {"Conv", "SPP", "SPPF", "Bottleneck", "C2", "C2f", "MSPA_C2f", "C3", "Classify",
-              "nn.ConvTranspose2d"}
-_REPEAT_BLOCKS = {"C2", "C2f", "MSPA_C2f", "C3"}
+_CONV_LIKE = {"Classify", "Conv", "Conv2", "ConvTranspose", "DWConvTranspose2d",
+              "nn.ConvTranspose2d", "GhostConv", "Bottleneck", "GhostBottleneck", "SPP",
+              "SPPF", "DWConv", "Focus", "BottleneckCSP", "RepVGGBlock", "C1", "C2", "C2f",
+              "MSPA_C2f", "C3", "C3x", "C3Ghost", "C3TR", "RepC3"}
+_REPEAT_BLOCKS = {"BottleneckCSP", "C1", "C2", "C2f", "MSPA_C2f", "C3", "C3x", "C3Ghost",
+                  "C3TR", "RepC3"}
 _HEADS = {"Detect", "TOODHead", "Segment", "Pose"}
 _KNOWN = _CONV_LIKE | _HEADS | {"nn.Upsample", "Concat", "nn.MaxPool2d", "nn.ZeroPad2d",
                                 "SimFusion_4in", "SimFusion_3in", "IFM",
-                                "InjectionMultiSum_Auto_pool"}
-# the rest of JAX's vocabulary, which no config of the repo uses
-_ITEM_17 = {"C1", "C3x", "C3TR", "C3Ghost", "GhostConv", "GhostBottleneck", "Focus", "DWConv",
-            "Conv2", "ConvTranspose", "DWConvTranspose2d", "BottleneckCSP", "RepVGGBlock"}
-_RTDETR = {"HGStem", "HGBlock", "RepC3", "AIFI", "RTDETRDecoder"}
-
-
-def _not_ported(m: str) -> KeyError:
-    if m in _ITEM_17:
-        return KeyError(f"module type {m!r} is not ported yet (ROADMAP queue 1, item 17)")
-    if m in _RTDETR:
-        return KeyError(f"module type {m!r} is not ported yet: RT-DETR (ROADMAP queue 1, "
-                        f"item 10)")
-    return KeyError(f"module type {m!r} is not ported")
+                                "InjectionMultiSum_Auto_pool", "HGStem", "HGBlock", "AIFI",
+                                "RTDETRDecoder"}
+# the conv-like types whose argument 3 (c1 and c2 first) is a stride, and
+# the transposed ones whose argument 3 divides it (their default stride)
+_STRIDED = {"Conv", "Conv2", "DWConv", "GhostConv", "RepVGGBlock", "GhostBottleneck"}
+_UPSTRIDED = {"nn.ConvTranspose2d": 2, "ConvTranspose": 2, "DWConvTranspose2d": 1}
 
 
 def parse_model(d: Dict, scale: Optional[str] = None):
@@ -85,7 +85,7 @@ def parse_model(d: Dict, scale: Optional[str] = None):
     specs, save = [], []
     for i, (f, n, m, args) in enumerate(list(d["backbone"]) + list(d["head"])):
         if m not in _KNOWN:
-            raise _not_ported(m)
+            raise KeyError(f"unknown module type {m!r}")
         args = [nc if a == "nc" else a for a in args]
         n = max(round(n * depth), 1) if n > 1 else n
         fl = [f] if isinstance(f, int) else list(f)
@@ -98,10 +98,26 @@ def parse_model(d: Dict, scale: Optional[str] = None):
             if m in _REPEAT_BLOCKS:
                 args.insert(2, n)
                 n = 1
-            if m == "Conv":
+            if m in _STRIDED:
                 stride *= args[3] if len(args) > 3 else 1
-            elif m == "nn.ConvTranspose2d":
-                stride //= args[3] if len(args) > 3 else 2
+            elif m in _UPSTRIDED:
+                stride //= args[3] if len(args) > 3 else _UPSTRIDED[m]
+            elif m == "Focus":
+                stride *= 2
+        elif m in ("HGStem", "HGBlock"):
+            c2 = args[1]
+            args = [chs[f], *args]
+            if m == "HGBlock":
+                args.insert(4, n)
+                n = 1
+            else:
+                stride *= 4
+        elif m == "AIFI":
+            c2 = chs[f]
+            args = [c2, *args]
+        elif m == "RTDETRDecoder":
+            args.insert(1, [chs[x] for x in f])
+            c2 = None
         elif m == "nn.MaxPool2d":
             c2 = chs[f]
             stride *= args[1] if len(args) > 1 else args[0]
@@ -182,6 +198,36 @@ def _build_one(m: str, a, head_strides) -> nn.Module:
     if m == "nn.ConvTranspose2d":  # the bare deconv: bias, no BatchNorm, no activation
         return ConvTranspose(a[0], a[1], a[2] if len(a) > 2 else 2, a[3] if len(a) > 3 else 2,
                              a[4] if len(a) > 4 else 0)
+    if m == "ConvTranspose":  # (c2, k, s, p, bn, act), JAX's defaults (2, 2, 0, True, True)
+        k, s, p, bn, act = [*a[2:7], *(2, 2, 0, True, True)[len(a[2:7]):]]
+        return ConvTranspose(a[0], a[1], k, s, p, bn, act)
+    if m == "DWConvTranspose2d":  # (c2, k, s, p1)
+        return DWConvTranspose2d(a[0], a[1], *a[2:5])
+    if m == "Conv2":  # JAX's builds (c2, k, s) only
+        return Conv2(a[0], a[1], a[2] if len(a) > 2 else 3, a[3] if len(a) > 3 else 1)
+    if m == "DWConv":  # (c2, k, s, d, act): RT-DETR's downsamplers pass act False
+        return DWConv(a[0], a[1], *a[2:6])
+    if m == "GhostConv":  # JAX's builds (c2, k, s)
+        return GhostConv(a[0], a[1], *a[2:4])
+    if m == "Focus":  # JAX's builds (c2, k)
+        return Focus(a[0], a[1], a[2] if len(a) > 2 else 1)
+    if m == "RepVGGBlock":  # (c2, k, s)
+        return RepVGGBlock(a[0], a[1], a[2] if len(a) > 2 else 3, a[3] if len(a) > 3 else 1)
+    if m == "GhostBottleneck":  # (c2, k, s)
+        return B.GhostBottleneck(a[0], a[1], *a[2:4])
+    if m in ("C3x", "C3Ghost", "BottleneckCSP"):  # JAX's builds (c2, n, shortcut)
+        cls = {"C3x": B.C3x, "C3Ghost": B.C3Ghost, "BottleneckCSP": B.BottleneckCSP}[m]
+        return cls(a[0], a[1], n=a[2], shortcut=a[3] if len(a) > 3 else True)
+    if m in ("C1", "RepC3", "C3TR"):  # JAX's builds (c2, n)
+        return {"C1": B.C1, "RepC3": B.RepC3, "C3TR": B.C3TR}[m](a[0], a[1], n=a[2])
+    if m == "HGStem":  # (c1, cm, c2)
+        return B.HGStem(a[0], a[1], a[2])
+    if m == "HGBlock":  # (c1, cm, c2, k, n, lightconv, shortcut)
+        return B.HGBlock(a[0], a[1], a[2], *a[3:7])
+    if m == "AIFI":  # (c1, cm, num_heads)
+        return T.AIFI(*a[:3])
+    if m == "RTDETRDecoder":  # (nc, ch, hd)
+        return T.RTDETRDecoder(nc=a[0], ch=tuple(a[1]), **({"hd": a[2]} if len(a) > 2 else {}))
     if m == "nn.MaxPool2d":  # (k, s, p), torch's order
         return MaxPool2d(a[0], a[1] if len(a) > 1 else a[0], a[2] if len(a) > 2 else 0)
     if m == "nn.ZeroPad2d":
@@ -208,7 +254,7 @@ def _build_one(m: str, a, head_strides) -> nn.Module:
         return H.Pose(a[0], a[1], a[-1], head_strides)
     if m == "Classify":  # JAX's builds it from c2 alone: k = s = 1
         return H.Classify(a[0], a[1])
-    raise _not_ported(m)
+    raise KeyError(f"unknown module type {m!r}")
 
 
 def scaled_yaml_name(name: Optional[str], scale: Optional[str]) -> Optional[str]:
@@ -276,6 +322,10 @@ class BaseModel(nn.Module):
         self.act = cfg.get("activation")  # YOLOv6's "nn.ReLU()"
         self.deform_semantics = "windowed"
         if head_strides is None:
+            if self.specs[-1].name == "RTDETRDecoder":
+                raise ValueError(f"{self.model_yaml or 'the config'} is an RT-DETR model: build "
+                                 f"it as an RTDETRDetectionModel (or mgdt_yolo_tpu_torch.vit."
+                                 f"RTDETR)")
             if self.specs[-1].name not in _HEADS:
                 raise ValueError(f"{self.model_yaml or 'the config'} ends in "
                                  f"{self.specs[-1].name}, not a detection head: build it as a "
@@ -340,10 +390,12 @@ class BaseModel(nn.Module):
         self.n_fused = fuse_conv_bn(self)
         return self
 
-    def _run(self, x: torch.Tensor):
-        """The graph over an NHWC batch: the last layer's output."""
+    def _run(self, x: torch.Tensor, head_kwargs=None):
+        """The graph over an NHWC batch: the last layer's output (the last
+        layer called with `head_kwargs`, where given)."""
         x = x.to(next(self.parameters()).dtype)
         saved, out = {}, x.permute(0, 3, 1, 2)
+        last = self.specs[-1].i
         for spec in self.specs:
             if spec.f == -1:
                 inp = out
@@ -351,7 +403,10 @@ class BaseModel(nn.Module):
                 inp = saved[spec.f]
             else:
                 inp = [out if j == -1 else saved[j] for j in spec.f]
-            out = getattr(self, f"model_{spec.i}")(inp)
+            if head_kwargs and spec.i == last:
+                out = getattr(self, f"model_{spec.i}")(inp, **head_kwargs)
+            else:
+                out = getattr(self, f"model_{spec.i}")(inp)
             if spec.i in self.save:
                 saved[spec.i] = out
         return out
@@ -362,13 +417,15 @@ class BaseModel(nn.Module):
         uniform(+-sqrt(1/fan_in)) from a seeded generator, norm scales and
         variances 1, the rest 0."""
         gen = torch.Generator().manual_seed(0)
+        transposed = {f"{n}.weight" for n, m in self.named_modules()
+                      if isinstance(m, nn.ConvTranspose2d)}
         for name, p in list(self.named_parameters()) + list(self.named_buffers()):
             leaf = name.rsplit(".", 1)[-1]
             if leaf in ("weight", "reduction_weight") and p.dim() >= 2:
                 hwio = leaf == "reduction_weight" or name.endswith("DyDCNV2.weight")
                 if hwio:
                     fan_in = p.shape[0] * p.shape[1] * p.shape[2]
-                elif name.endswith(("upsample.weight", "conv_transpose.weight")):
+                elif name in transposed:
                     fan_in = p.shape[0] * p.shape[2] * p.shape[3]  # (in, out, kh, kw)
                 else:
                     fan_in = p[0].numel()
@@ -506,10 +563,54 @@ class ClassificationModel(BaseModel):
         return self._run(x)
 
 
+class RTDETRDetectionModel(BaseModel):
+    """An RT-DETR model (`rtdetr-l.yaml` by default; `rtdetr-x.yaml`,
+    `yolov8-rtdetr.yaml` at its scales): the graph ending in
+    `RTDETRDecoder`, stride (32,) as JAX's, the port's seeded init (JAX's
+    distributions: the decoder's biases and class embedding at 0).
+
+    `forward(x, dn=None)` takes an NHWC float batch and returns the head's
+    (dec_bboxes, dec_scores, enc_bboxes, enc_scores, dn_meta), as the JAX
+    model's first output (`nn.modules.transformer.RTDETRDecoder`): in
+    `eval()` mode the last layer's normalised xywh boxes (1, b, nq, 4) and
+    sigmoid scores (1, b, nq, nc); in `train()` mode every decoder layer's,
+    with the denoising group of `dn` where given."""
+
+    default_cfg = "rtdetr-l.yaml"
+    task = "detect"
+
+    def __init__(self, cfg: Union[None, str, Dict] = "rtdetr-l.yaml",
+                 scale: Optional[str] = None, device=None, nc: Optional[int] = None):
+        super().__init__()
+        self._build(cfg, scale, nc, head_strides=(32,))
+        if self.specs[-1].name != "RTDETRDecoder":
+            raise ValueError(f"{self.model_yaml or 'the config'} ends in "
+                             f"{self.specs[-1].name}, not RTDETRDecoder")
+        self._init_params()
+        self.to(resolve_device(device))
+        self.eval()
+
+    def forward(self, x: torch.Tensor, dn=None):
+        return self._run(x, {"dn": dn} if dn is not None else None)
+
+
+def is_rtdetr(cfg) -> bool:
+    """Whether a config (a dict or a YAML file name) ends in RTDETRDecoder."""
+    if not isinstance(cfg, dict):
+        try:
+            cfg = load_config(cfg)
+        except KeyError:
+            return False
+    return str(cfg.get("head", [[""]])[-1][-2]) == "RTDETRDecoder"
+
+
 def model_class(cfg) -> type:
-    """The model class of a config (a dict or a YAML file name) by the task
+    """The model class of a config (a dict or a YAML file name):
+    `RTDETRDetectionModel` where it ends in RTDETRDecoder, else by the task
     `guess_model_task` reads from it: `ClassificationModel` for classify,
     else `DetectionModel` (whose head gives the segment and pose tasks)."""
+    if cfg and is_rtdetr(cfg):
+        return RTDETRDetectionModel
     return ClassificationModel if guess_model_task(cfg or "") == "classify" else DetectionModel
 
 

@@ -14,6 +14,12 @@ def xywh2xyxy(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], dim=-1)
 
 
+def xyxy2xywh(x: torch.Tensor) -> torch.Tensor:
+    """(x1, y1, x2, y2) -> (cx, cy, w, h), last-dim layout."""
+    x1, y1, x2, y2 = x.unbind(-1)
+    return torch.stack([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1], dim=-1)
+
+
 def make_anchors(feat_shapes, strides, grid_cell_offset: float = 0.5,
                  dtype=torch.float32, device=None):
     """Grid anchor centres and per-anchor stride from (h, w) map shapes.
@@ -80,8 +86,8 @@ def scale_boxes(img1_shape, boxes: np.ndarray, img0_shape, ratio_pad=None) -> np
 
 
 def bbox_iou(box1: torch.Tensor, box2: torch.Tensor, xywh: bool = True,
-             CIoU: bool = False, eps: float = 1e-7) -> torch.Tensor:
-    """Elementwise IoU, or CIoU, of broadcast box arrays -> (..., 1).
+             CIoU: bool = False, eps: float = 1e-7, GIoU: bool = False) -> torch.Tensor:
+    """Elementwise IoU, CIoU or GIoU of broadcast box arrays -> (..., 1).
 
     As the JAX package computes it: xyxy heights carry `+ eps`, and CIoU's
     aspect weight `alpha` is taken without gradient.
@@ -100,10 +106,13 @@ def bbox_iou(box1: torch.Tensor, box2: torch.Tensor, xywh: bool = True,
              (torch.minimum(b1y2, b2y2) - torch.maximum(b1y1, b2y1)).clamp(min=0))
     union = w1 * h1 + w2 * h2 - inter + eps
     iou = inter / union
-    if not CIoU:
+    if not (CIoU or GIoU):
         return iou
     cw = torch.maximum(b1x2, b2x2) - torch.minimum(b1x1, b2x1)
     ch = torch.maximum(b1y2, b2y2) - torch.minimum(b1y1, b2y1)
+    if GIoU:
+        c_area = cw * ch + eps
+        return iou - (c_area - union) / c_area
     c2 = cw ** 2 + ch ** 2 + eps
     rho2 = ((b2x1 + b2x2 - b1x1 - b1x2) ** 2 + (b2y1 + b2y2 - b1y1 - b1y2) ** 2) / 4
     v = (4 / math.pi ** 2) * (torch.atan(w2 / h2) - torch.atan(w1 / h1)) ** 2

@@ -25,7 +25,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from ..weights import TRANSPOSED, flax_keys, repeated_layers, translate
+from ..weights import flax_keys, is_transposed_kernel, repeated_layers, translate
 
 LOGGER = logging.getLogger(__name__)
 
@@ -211,7 +211,7 @@ def flax_shapes(model: torch.nn.Module) -> Dict[str, Tuple[str, Tuple[int, ...]]
     out = {}
     for name, key in flax_keys(model).items():
         shape = tuple(state[name].shape)
-        if key.endswith(tuple(f".{m}.kernel" for m in TRANSPOSED)):
+        if len(shape) == 4 and is_transposed_kernel(key):
             shape = (shape[2], shape[3], shape[0], shape[1])  # (in, out, kh, kw)
         elif key.endswith(".kernel"):
             shape = (shape[2], shape[3], shape[1], shape[0]) if len(shape) == 4 else shape[::-1]

@@ -5,15 +5,19 @@ state-dict key one to one: the collection prefix (`params.`,
 `batch_stats.`) goes, the leaf is renamed, and the array is relaid:
 
 * conv `kernel` HWIO -> `weight` OIHW (depthwise (7,7,1,C) -> (C,1,7,7));
-* a transposed conv's (`Proto`'s `upsample`, a bare deconv layer's
-  `conv_transpose`) `kernel` (kh, kw, in, out) -> ConvTranspose2d `weight`
-  (in, out, kh, kw) with both spatial axes flipped (flax's `ConvTranspose`
-  correlates where torch's convolves);
-* Dense `kernel` (in, out) -> Linear `weight` (out, in);
+* a transposed conv's (`Proto`'s `upsample`, a `ConvTranspose` layer's
+  `conv_transpose`, a `DWConvTranspose2d` layer's own kernel, which sits
+  directly on the graph layer) `kernel` (kh, kw, in, out or out / groups)
+  -> ConvTranspose2d `weight` (in, out [/ groups], kh, kw) with both
+  spatial axes flipped (flax's `ConvTranspose` and JAX's grouped
+  `lax.conv_transpose` correlate where torch's convolves);
+* Dense `kernel` (in, out) -> Linear `weight` (out, in) (the transformer
+  layers' and RT-DETR's projections, MLPs and heads);
 * BatchNorm/GroupNorm/LayerNorm `scale` -> `weight`, `bias` -> `bias`,
   batch_stats `mean`/`var` -> `running_mean`/`running_var`;
 * everything else (the DCN's HWIO `weight`, TaskDecomposition's
-  `reduction_weight`/`reduction_bias`, GRN's `gamma`/`beta`) as it is.
+  `reduction_weight`/`reduction_bias`, GRN's `gamma`/`beta`, RT-DETR's
+  `denoising_class_embed`) as it is.
 
 A row repeated on a non-CSP module is an `nn.Sequential` in the port and
 `n` flax modules `model_i`, `model_i_rep1`, ... in JAX: `model_i_repR` is
@@ -43,6 +47,16 @@ _NORMS = (nn.BatchNorm2d, nn.GroupNorm, nn.LayerNorm)
 # a bare `nn.ConvTranspose2d` graph layer)
 TRANSPOSED = ("upsample", "conv_transpose")
 _REP = re.compile(r"^model_(\d+)_rep(\d+)$")
+_LAYER = re.compile(r"^model_\d+(_rep\d+)?$")
+
+
+def is_transposed_kernel(flax_key: str) -> bool:
+    """Whether a flat flax key names a transposed conv's kernel: under a
+    `TRANSPOSED` module, or directly on a graph layer (`DWConvTranspose2d`,
+    the only layer whose kernel is its own)."""
+    mods = flax_key.split(".")[1:-1]
+    return bool(mods) and flax_key.endswith(".kernel") and (
+        mods[-1] in TRANSPOSED or (len(mods) == 1 and bool(_LAYER.match(mods[0]))))
 
 
 def flatten_variables(tree: Mapping, prefix: str = "") -> dict:
@@ -82,7 +96,7 @@ def translate(key: str, value, repeated=frozenset()) -> tuple:
         mods = [mods[0], "0", *mods[1:]]
     a = np.asarray(value, dtype=np.float32)
     if leaf == "kernel":
-        if a.ndim == 4 and mods and mods[-1] in TRANSPOSED:
+        if a.ndim == 4 and is_transposed_kernel(key):
             a = a[::-1, ::-1].transpose(2, 3, 0, 1)
         elif a.ndim == 4:
             a = a.transpose(3, 2, 0, 1)
@@ -191,7 +205,7 @@ def to_flax_layout(key: str, t: torch.Tensor) -> np.ndarray:
     kernels OIHW -> HWIO, transposed ones (in, out, kh, kw) -> (kh, kw, in,
     out) flipped, Dense kernels (out, in) -> (in, out))."""
     a = t.detach().float().cpu().numpy()
-    if a.ndim == 4 and key.endswith(tuple(f".{m}.kernel" for m in TRANSPOSED)):
+    if a.ndim == 4 and is_transposed_kernel(key):
         a = a.transpose(2, 3, 0, 1)[::-1, ::-1]
     elif key.endswith(".kernel"):
         a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T

@@ -137,8 +137,12 @@ def test_load_config_reads_names_as_jax():
     d["nc"] = 3
     assert CONFIGS["yolov8.yaml"]["nc"] == 80
     assert load_config(YAMLS / "thead_yolov8.yaml")["yaml_file"] == "thead_yolov8.yaml"
+    # RT-DETR's configs, once refused, now load (no scale letter after a version)
+    d = load_config("rtdetr-l.yaml")
+    assert d["scale"] == "" and d["yaml_file"] == "rtdetr-l.yaml" and d["scales"] == {
+        "l": [1.0, 1.0, 1024]}
     with pytest.raises(KeyError):
-        load_config("rtdetr-l.yaml")
+        load_config("rtdetr-m.yaml")
 
 
 @pytest.mark.parametrize("variant", sorted(VARIANTS))

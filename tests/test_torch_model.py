@@ -271,6 +271,13 @@ def test_scales_build():
 
 
 def test_unported_module_raises():
-    cfg = {"nc": 2, "backbone": [[-1, 1, "Focus", [64, 3]]], "head": []}
+    """`Focus`, once refused, now builds (with the rest of JAX's
+    vocabulary, `tests/test_torch_vocab.py`); a type outside JAX's
+    vocabulary still raises KeyError."""
+    cfg = {"nc": 2, "backbone": [[-1, 1, "Focus", [64, 3]]],
+           "head": [[[0], 1, "Detect", ["nc"]]]}
+    m = DetectionModel(cfg, device="cpu")
+    assert isinstance(m.model_0, C.Focus) and m.stride == (2,)
+    bogus = {"nc": 2, "backbone": [[-1, 1, "Bogus", [64, 3]]], "head": []}
     with pytest.raises(KeyError):
-        DetectionModel(cfg, device="cpu")
+        DetectionModel(bogus, device="cpu")
