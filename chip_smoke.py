@@ -188,7 +188,8 @@ Phases, each of which passes or ends the script with a non-zero exit:
    float32 forward at b1 and b8 (bit for bit expected, else within 1e-5 of
    its magnitude; K1 launched once inside each forward of the program), the
    program against the eager float32 module in turns at b1 and b32 (CUDA
-   events); `benchmark(formats=["torch", "pt2"])` at b1 and b32; and
+   events); `benchmark(formats=["torch", "pt2"])` at b32 (each batch
+   exports the pt2 program anew, ~15 s); and
    `YOLO(<flagship YAML>).train(data=..., epochs=1, device_augment=True)`,
    `.val()` and `.predict()` (K3, K2 and K1 once per micro-step, K1 once
    per forward).
@@ -234,8 +235,8 @@ Phases, each of which passes or ends the script with a non-zero exit:
    bf16; whether `torch.utils.tensorboard` imports; `.val()` in float32 and
    with `half=True`, each mAP50-95 logged and their detections told apart;
    `.predict(save=True, save_crop=True)` at b1 and b32 against the same
-   without `save`, in turns, over the 16 val JPEGs listed 8 times (128
-   images: 4 full batches at b32; images/s, the share of the wall time in
+   without `save`, in turns, over the 16 val JPEGs listed 4 times (64
+   images: 2 full batches at b32; images/s, the share of the wall time in
    drawing and encoding); every JPEG it wrote read back through the card's
    decoder and held as the CPU tests hold cv2's reading
    (`draw.jpeg_reading`: within a mean of 1 grey level of
@@ -313,13 +314,40 @@ Phases, each of which passes or ends the script with a non-zero exit:
    `models.vocab.VOCABULARY` (every item-17 type) card against CPU. No
    hand kernel is on this path: every count must stay 0
    (`rtdetr_launches`). Its lines end with `phase 23 rows: {json}`.
+24. SAM: `vit.sam.SAM("sam_b")` at 1024 px and its published widths (768
+   wide, 12 blocks, 12 heads, global attention in blocks 2, 5, 8 and 11,
+   14-windows elsewhere, 64x64 tokens) from the port's seeded init (no
+   SAM checkpoint is in the repository): the float32 encoder (TF32 off) of
+   one 1080x1920 scene against the CPU's float64 (within 1e-3 of its
+   magnitude, or 4x the CPU's own float32 distance where that is larger;
+   the CPU forwards' seconds printed), a 2-point decode on the card's
+   embedding against the CPU's float64 decoder on it (low-res logits 1e-3
+   of their magnitude, IoUs 1e-4); the encoder alone at b1 in float32 and
+   bf16 (CUDA events, min of 3 windows; the bf16 forward's largest kernels
+   by torch.profiler); `SAM.predict` on a 1080x1920 and
+   a 480x640 scene split into prep, encode, decode and postprocess (host
+   clock, min of 3 runs); `SAM.generate` at points_per_side 8 on the
+   480x640 scene at JAX's IoU threshold 0.7 and at the median of the
+   seeded model's predicted IoUs (its IoU head predicts near 0: 0.7 keeps
+   none), each its wall time, masks kept and the device's idle share by
+   torch.profiler; then `data.utils.auto_annotate` with the flagship and
+   `sam_b` at 256 px in float32 over phase 15's 16 val JPEGs on the card
+   (seconds per image, split into SAM, the contour tracing and the rest),
+   and on the CPU over their PNG twins (the card
+   decoder's pixels): the same label files, line counts and classes, each
+   SAM mask before contouring at least 99.9% the CPU's. No hand kernel is
+   on SAM's path: every count must stay 0 (`sam_launches`); auto_annotate's
+   detector, the flagship, launches K1 once a forward on the card and no
+   other kernel (`auto_annotate_launches`). Its lines end with `phase 24
+   rows: {json}`.
    Phase 10 runs before phase 8, and phases 8, 9 and 11 run after it,
    because the CPU work leaves the host's threads busy, which slows the
    host-bound steps; phase 13 runs after phase 11, phase 14 after phase
    13, phase 15 after phase 14, phase 16 after phase 15, phase 17 after
    phase 16, phase 18 after phase 17, phase 19 after phase 18, phase 20
    after phase 19, phase 21 after phase 20, phase 22 after phase 21, phase
-   23 after phase 22, and phase 12, which times kernels only, runs last.
+   23 after phase 22, phase 24 after phase 23, and phase 12, which times
+   kernels only, runs last.
 
 The last lines are the kernel table as JSON, the card's name and power
 limit, and `{"ok": true, "device": {...}}`. Without a CUDA device the script
@@ -2663,6 +2691,8 @@ def phase_from_disk(resident_step_ms, root):
 FACADE_BATCHES = (1, 8)
 FACADE_EXPORT_TOL = 1e-5
 FACADE_TRAIN = {"epochs": 1, "device_augment": True, **NO_PLOTS}
+# `benchmark`'s batches (each exports the pt2 program anew)
+FACADE_BENCH_BATCHES = (32,)
 
 
 def _same_bits(got, want, name):
@@ -2876,7 +2906,7 @@ def phase_facade(root):
     add(launches)
     yb = YOLO(WEIGHTS, device=DEVICE)
     yb.overrides["project"] = str(root / "bench")  # where its exports go
-    for b in ENTRY_BATCHES:
+    for b in FACADE_BENCH_BATCHES:
         reset_counts()
         rows[f"benchmark_b{b}"] = benchmark(yb, imgsz=IMGSZ, formats=["torch", "pt2"], batch=b)
         add(read_counts())
@@ -3413,7 +3443,7 @@ TRAIN_HOOK_ORDER = ["on_pretrain_routine_start", "on_pretrain_routine_end", "on_
                     "on_model_save", "on_fit_epoch_end", "on_train_end"]
 # the predictor is timed over the val JPEGs listed this many times (links
 # under other names): 128 images, so b32 runs 4 full batches a window
-PREDICT_REPEATS = 8
+PREDICT_REPEATS = 4
 PREDICT_BATCHES = (1, 32)
 
 
@@ -3569,8 +3599,9 @@ def phase_plots(root):
             for saving in (False, True, False, True):
                 kw = {"save": True, "save_crop": True} if saving else {}
                 out = root / "plots" / f"predict_b{b}"
-                # a warm-up call builds the facade's predictor, then it is timed
-                y.predict(str(val_dir), batch=b, project=str(root / "plots"),
+                # a warm-up call over one file builds the facade's predictor,
+                # then it is timed
+                y.predict(str(files[0]), batch=b, project=str(root / "plots"),
                           name=f"predict_b{b}", **kw)
                 reset_counts()
                 spent[0] = 0.0
@@ -4655,12 +4686,310 @@ def phase_rtdetr():
     return total, rows
 
 
+# phase 24: SAM at the published ViT-B widths (`sam_b`: 768 wide, 12 blocks,
+# 12 heads, global attention in blocks 2/5/8/11, 14-windows elsewhere; 64x64
+# tokens at 1024 px) from the port's seeded init (no SAM checkpoint is in the
+# repository), and auto_annotate over phase 15's val JPEGs
+SAM_IMGSZ = 1024
+SAM_HOLD = 1e-3                 # the embedding and the low-res logits, of their magnitude
+SAM_IOU_HOLD = 1e-4             # the predicted IoUs
+SAM_PREDICT_SIZES = ((1080, 1920), (480, 640))
+SAM_PREDICT_RUNS = 3            # timed prompted predictions a scene, after a warm-up one
+SAM_GRID = 8                    # generate's points_per_side (JAX's default)
+ANNOTATE_SAM_IMGSZ = 256        # auto_annotate's default
+ANNOTATE_MASK_AGREE = 0.999     # each SAM mask's share of pixels equal to the CPU's
+SAM_TOP_KERNELS = 6             # the bf16 encoder's largest kernels logged
+
+
+def _sam_card_vs_cpu(sam, img):
+    """The float32 encoder (TF32 off) of one scene at SAM_IMGSZ on the card
+    against the CPU's float64 (within SAM_HOLD of its magnitude, or 4x the
+    CPU's own float32 distance from it where that is larger: the CPU's
+    float32 forward runs only where the card misses SAM_HOLD); then a
+    prompted decode on the card's embedding against the CPU's float64
+    decoder on the same embedding: the low-res logits within SAM_HOLD of
+    their magnitude, the predicted IoUs within SAM_IOU_HOLD. Returns the
+    row."""
+    x, scale, (h0, w0) = sam._prep(img)
+    pts = np.array([[[w0 * 0.5, h0 * 0.5], [w0 * 0.3, h0 * 0.7]]], np.float32) * scale
+    lab = np.array([[1, 0]])
+    with torch.no_grad(), float32_exact():
+        emb = sam.module.encode_image(x)
+        masks, iou = sam.decode(emb, pts, lab)
+    cpu_s = {}
+
+    def cpu_encode(dtype):
+        m = copy.deepcopy(sam.module).to("cpu", dtype)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = m.encode_image(x.cpu()).double()
+        cpu_s[str(dtype)] = time.perf_counter() - t0
+        return m, out
+    m, ref = cpu_encode(torch.float64)
+    with torch.no_grad():
+        ref_m, ref_i = m.decode(emb.cpu().double(), torch.from_numpy(pts).double(),
+                                torch.from_numpy(lab))
+    del m
+    mag = float(ref.abs().max())
+    err = float((emb.double().cpu() - ref).abs().max()) / mag
+    own = None  # the CPU's own float32 distance, computed only where it could matter
+    if err > SAM_HOLD:
+        own = float((cpu_encode(torch.float32)[1] - ref).abs().max()) / mag
+    limit = max(SAM_HOLD, 4 * (own or 0.0))
+    mask_mag = float(ref_m.abs().max())
+    mask_err = float((masks.double().cpu() - ref_m).abs().max()) / mask_mag
+    iou_err = float((iou.double().cpu() - ref_i).abs().max())
+    ok = err <= limit and mask_err <= SAM_HOLD and iou_err <= SAM_IOU_HOLD and \
+        bool(torch.isfinite(emb).all() and torch.isfinite(masks).all())
+    own_text = "not run: within 1e-3" if own is None else f"{own:.3e}"
+    log(f"sam_b at {SAM_IMGSZ} px, float32 card (TF32 off) vs CPU float64: the image embedding "
+        f"{tuple(emb.shape)} within {err:.3e} of its magnitude {mag:.3f} (limit {limit:.3e}; "
+        f"the CPU's own float32 {own_text}); a 2-point decode on the card's embedding: low-res "
+        f"logits {tuple(masks.shape)} within {mask_err:.3e} of their magnitude {mask_mag:.3f} "
+        f"(limit {SAM_HOLD:.0e}), IoUs within {iou_err:.3e} (limit {SAM_IOU_HOLD:.0e}); CPU "
+        f"encoder forwards (s) {cpu_s} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("sam_b: the card and the CPU disagree")
+    return {"embedding_max_rel_diff": err, "cpu_float32_max_rel_diff": own,
+            "embedding_limit": limit, "mask_logits_max_rel_diff": mask_err,
+            "iou_max_abs_diff": iou_err, "cpu_encoder_s": cpu_s}
+
+
+def _sam_predict_split(sam, img):
+    """`SAM.predict`'s wall time on one BGR scene, split into its steps
+    (host clock, each ended by a synchronise): prep (the host's resize and
+    the canvas's upload), encode, decode, postprocess (the masks' resizes
+    on the card and their copy back). Min of each over SAM_PREDICT_RUNS
+    after a warm-up prediction."""
+    sam.predict(img)
+    parts = {k: [] for k in ("prep", "encode", "decode", "postprocess", "total")}
+    for _ in range(SAM_PREDICT_RUNS):
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        x, scale, (h0, w0) = sam._prep(img)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        emb = sam.encode(x)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        masks, iou = sam.decode(emb, np.array([[[w0 / 2, h0 / 2]]], np.float32) * scale,
+                                np.ones((1, 1)))
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        out = sam._postprocess_masks(masks, scale, (h0, w0)).cpu().numpy()
+        t.append(time.perf_counter())
+        for k, a, b in zip(("prep", "encode", "decode", "postprocess"), t, t[1:]):
+            parts[k].append((b - a) * 1e3)
+        parts["total"].append((t[-1] - t[0]) * 1e3)
+        if out.shape != (1, 3, h0, w0) or not np.isfinite(out).all():
+            raise SystemExit(f"SAM.predict on {img.shape}: masks {out.shape}")
+    return {k: min(v) for k, v in parts.items()}
+
+
+def _annotate_both(sam_card, sam_cpu, det_card, det_cpu, val_dir, png_dir, root):
+    """`auto_annotate` with the flagship and `sam_b` at ANNOTATE_SAM_IMGSZ in
+    float32 on the card over the val JPEGs and on the CPU over their PNG
+    twins (the CPU decodes no JPEG: the twins hold the card decoder's
+    pixels); each SAM mask recorded before contouring, the time in SAM's
+    predictions and in the contour tracing summed. Returns {dev: (label
+    dir, masks, wall s, {"sam_s", "contours_s"})}."""
+    from mgdt_yolo_tpu_torch.data.utils import auto_annotate
+    from mgdt_yolo_tpu_torch.utils import contours
+    out = {}
+    trace = contours.find_external_contours
+    for dev, sam, det, src in (("card", sam_card, det_card, val_dir),
+                               ("cpu", sam_cpu, det_cpu, png_dir)):
+        masks, predict, spent = [], sam.predict, {"sam_s": 0.0, "contours_s": 0.0}
+
+        def recorded(image, points=None, labels=None, multimask=True, predict=predict,
+                     masks=masks, spent=spent):
+            t = time.perf_counter()
+            m, i = predict(image, points=points, labels=labels, multimask=multimask)
+            spent["sam_s"] += time.perf_counter() - t
+            masks.append(m[0, 0] > 0)
+            return m, i
+
+        def timed_trace(mask, spent=spent):
+            t = time.perf_counter()
+            found = trace(mask)
+            spent["contours_s"] += time.perf_counter() - t
+            return found
+        sam.predict, contours.find_external_contours = recorded, timed_trace
+        try:
+            with float32_exact():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                labels = auto_annotate(str(src), det_model=det, sam_model=sam,
+                                       out_dir=str(root / f"annotate_{dev}"), imgsz=IMGSZ,
+                                       sam_imgsz=ANNOTATE_SAM_IMGSZ)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            del sam.predict
+            contours.find_external_contours = trace
+        out[dev] = (labels, masks, wall, spent)
+    return out
+
+
+def phase_sam(root):
+    """SAM and auto_annotate (see the module's text). No hand kernel is on
+    SAM's path: every count must stay 0; auto_annotate's detector, the
+    flagship, launches K1 once a forward on the card, and nothing else.
+    Returns (SAM's launches, auto_annotate's launches, rows)."""
+    from mgdt_yolo_tpu_torch import YOLO
+    from mgdt_yolo_tpu_torch.utils.draw import imwrite
+    from mgdt_yolo_tpu_torch.vit.sam import SAM
+    from mgdt_yolo_tpu_torch.vit.sam.amg import build_point_grid
+    log(f"== phase 24: SAM: sam_b at {SAM_IMGSZ} px (768 wide, 12 blocks, 12 heads, global "
+        f"blocks 2/5/8/11, 14-windows; seeded init) float32 card vs CPU float64, the encoder "
+        f"timed in float32 and bf16, predict on "
+        f"{' and '.join(f'{h}x{w}' for h, w in SAM_PREDICT_SIZES)} "
+        f"split by step, generate at points_per_side {SAM_GRID}; auto_annotate with the "
+        f"flagship and sam_b at {ANNOTATE_SAM_IMGSZ} px over phase 15's val JPEGs, card vs CPU")
+    t_phase = time.perf_counter()
+    reset_counts()
+    rows = {}
+    sam = SAM("sam_b", img_size=SAM_IMGSZ, device=DEVICE)
+    scenes = {s: next(im for im in _scenes(len(SCENE_SIZES)) if im.shape[:2] == s)
+              for s in SAM_PREDICT_SIZES}
+    rows["card_vs_cpu"] = _sam_card_vs_cpu(sam, scenes[SAM_PREDICT_SIZES[0]])
+    torch.cuda.empty_cache()
+
+    x = sam._prep(scenes[SAM_PREDICT_SIZES[0]])[0]
+    bf16 = copy.deepcopy(sam.module).to(torch.bfloat16)
+    with torch.no_grad():
+        with float32_exact():
+            f32_ms = cuda_time_ms(lambda: sam.module.encode_image(x), iters=3, windows=3)
+        bf16_ms = cuda_time_ms(lambda: bf16.encode_image(x), iters=3, windows=3)
+        # where the bf16 forward's device time goes, by kernel
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+        with prof:
+            bf16.encode_image(x)
+            torch.cuda.synchronize()
+    kernels = sorted(((e.key, device_us(e) / 1e3) for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda kv: -kv[1])
+    busy = sum(ms for _, ms in kernels)
+    del bf16
+    torch.cuda.empty_cache()
+    rows["encoder_b1_ms"] = {"float32": f32_ms, "bf16": bf16_ms, "bf16_device_ms": busy,
+                             "bf16_top_kernels_ms": dict(kernels[:SAM_TOP_KERNELS])}
+    log(f"sam_b encoder at b1, {SAM_IMGSZ} px (CUDA events, min of 3 windows of 3): float32 "
+        f"(TF32 off) {f32_ms:.3f} ms, bf16 {bf16_ms:.3f} ms ({f32_ms / bf16_ms:.2f}x); the bf16 "
+        f"forward's device time {busy:.3f} ms (profiled), its largest kernels: " +
+        "; ".join(f"{k[:70]} {ms:.3f} ms ({ms / busy:.1%})"
+                  for k, ms in kernels[:SAM_TOP_KERNELS]))
+
+    rows["predict_ms"] = {}
+    for s, img in scenes.items():
+        r = rows["predict_ms"][f"{s[0]}x{s[1]}"] = _sam_predict_split(sam, img)
+        log(f"SAM.predict on {s[0]}x{s[1]} (centre point, float32; min of {SAM_PREDICT_RUNS} "
+            f"runs, ms): total {r['total']:.2f} = prep {r['prep']:.2f} + encode "
+            f"{r['encode']:.2f} + decode {r['decode']:.2f} + postprocess {r['postprocess']:.2f}")
+
+    # generate at JAX's default threshold, and at the median of this seeded
+    # model's predicted IoUs (its IoU head predicts near 0, so 0.7 keeps
+    # none), so that the stability filter, the masks' resizes, the 16-pixel
+    # floor and the de-duplication run on half the candidates
+    img = scenes[SAM_PREDICT_SIZES[1]]
+    x, scale, (h0, w0) = sam._prep(img)
+    grid = (build_point_grid(SAM_GRID) * np.array([w0, h0], np.float32))[:, None, :] * scale
+    _, ious = sam.decode(sam.encode(x), grid.astype(np.float32), np.ones((SAM_GRID ** 2, 1)))
+    rows["generate"] = {}
+    for thresh in (0.7, float(ious.float().median())):
+        sam.generate(img, points_per_side=SAM_GRID, pred_iou_thresh=thresh)  # warm-up
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+        with prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            kept = sam.generate(img, points_per_side=SAM_GRID, pred_iou_thresh=thresh)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy_us = sum(device_us(e) for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        if not all(k["segmentation"].shape == img.shape[:2] and k["area"] >= 16 for k in kept):
+            raise SystemExit("SAM.generate: a mask of the wrong shape or under 16 pixels")
+        passed = int((ious.reshape(-1) > thresh).sum())
+        r = rows["generate"][f"iou_thresh_{thresh:.6g}"] = {
+            "points": SAM_GRID ** 2, "candidates": 3 * SAM_GRID ** 2,
+            "passed_iou": passed, "kept": len(kept), "wall_s": wall,
+            "device_idle_share": 1.0 - busy_us / (wall * 1e6)}
+        log(f"SAM.generate on {img.shape[0]}x{img.shape[1]}, points_per_side {SAM_GRID}, "
+            f"pred_iou_thresh {thresh:.6g}: {passed} of {3 * SAM_GRID ** 2} candidates pass "
+            f"the IoU filter, {len(kept)} masks kept, {wall:.3f} s; device idle "
+            f"{r['device_idle_share']:.1%} (profiled)")
+    del sam
+    torch.cuda.synchronize()
+    sam_total = read_counts()
+    _expect(sam_total, "the SAM path")
+    torch.cuda.empty_cache()
+
+    val_dir = root / "pigs" / "images" / "val"
+    if not val_dir.is_dir():  # the phase run alone
+        _write_disk_dataset(root / "pigs")
+    png_dir = root / "sam_png"
+    png_dir.mkdir()
+    files = sorted(val_dir.iterdir())
+    for f in files:
+        imwrite(png_dir / f"{f.stem}.png", native.decode(f))
+    reset_counts()
+    runs = _annotate_both(SAM("sam_b", img_size=ANNOTATE_SAM_IMGSZ, device=DEVICE),
+                          SAM("sam_b", img_size=ANNOTATE_SAM_IMGSZ, device="cpu"),
+                          YOLO(WEIGHTS, device=DEVICE), YOLO(WEIGHTS, device="cpu"),
+                          val_dir, png_dir, root)
+    (card_dir, card_masks, wall, split), (cpu_dir, cpu_masks, cpu_wall, _) = \
+        runs["card"], runs["cpu"]
+    names = sorted(p.name for p in card_dir.iterdir())
+    if names != sorted(p.name for p in cpu_dir.iterdir()) or len(names) != len(files):
+        raise SystemExit(f"auto_annotate wrote {names} on the card and "
+                         f"{sorted(p.name for p in cpu_dir.iterdir())} on the CPU")
+    lines = {}
+    for n in names:
+        got = [ln.split()[0] for ln in (card_dir / n).read_text().splitlines() if ln]
+        want = [ln.split()[0] for ln in (cpu_dir / n).read_text().splitlines() if ln]
+        if got != want:
+            raise SystemExit(f"auto_annotate {n}: classes {got} on the card, {want} on the CPU")
+        lines[n] = len(got)
+    if len(card_masks) != len(cpu_masks) or not card_masks:
+        raise SystemExit(f"auto_annotate: {len(card_masks)} SAM masks on the card, "
+                         f"{len(cpu_masks)} on the CPU")
+    agree = [float((a == b).mean()) for a, b in zip(card_masks, cpu_masks)]
+    same_text = sum((card_dir / n).read_text() == (cpu_dir / n).read_text() for n in names)
+    rows["auto_annotate"] = {"images": len(files), "prompts": len(card_masks),
+                             "lines": sum(lines.values()), "s_per_image": wall / len(files),
+                             "cpu_s_per_image": cpu_wall / len(files),
+                             "card_split_s": {**split, "detector_and_rest_s":
+                                              wall - split["sam_s"] - split["contours_s"]},
+                             "min_mask_agreement": min(agree), "files_identical": same_text}
+    log(f"auto_annotate (flagship at {IMGSZ} px, sam_b at {ANNOTATE_SAM_IMGSZ} px, float32) over "
+        f"{len(files)} val JPEGs: {len(card_masks)} prompts, {sum(lines.values())} label lines; "
+        f"{wall / len(files):.3f} s per image on the card (of the run's {wall:.2f} s: SAM "
+        f"{split['sam_s']:.2f}, contour tracing {split['contours_s']:.2f}, the detector and the "
+        f"rest {wall - split['sam_s'] - split['contours_s']:.2f}; {cpu_wall / len(files):.3f} s "
+        f"per image on the CPU over the PNG twins); label files: the same names, line counts "
+        f"and classes, "
+        f"{same_text} of {len(names)} identical to the byte; each SAM mask at least "
+        f"{min(agree):.5%} of its pixels the CPU's (limit {ANNOTATE_MASK_AGREE:.1%})")
+    if min(agree) < ANNOTATE_MASK_AGREE:
+        raise SystemExit("auto_annotate: a SAM mask on the card differs from the CPU's")
+    torch.cuda.synchronize()
+    annotate_total = read_counts()
+    _expect(annotate_total, "auto_annotate", deform_fwd=len(files))
+    rows["launches"] = {"sam": sam_total, "auto_annotate": annotate_total}
+    rows["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 24: {rows['phase_s']:.1f} s; launches: SAM {sam_total}, auto_annotate "
+        f"{annotate_total}")
+    log(f"phase 24 rows: {json.dumps(rows, default=float)}")
+    return sam_total, annotate_total, rows
+
+
 # which paths run each kernel (its launches must be counted on each); the
 # first is the kernel's own main path
 KERNEL_PATHS = {"deform_fwd": ("serving", "training", "augmented training",
                                "ablation family", "serving entry points", "from disk",
                                "facade", "reference weights", "host augmentation",
-                               "callbacks and drawing", "tracking", "K1 variant A/B"),
+                               "callbacks and drawing", "tracking", "auto_annotate",
+                               "K1 variant A/B"),
                 "deform_bwd": ("training", "augmented training", "ablation family",
                                "from disk", "facade", "reference weights",
                                "host augmentation", "callbacks and drawing"),
@@ -4715,6 +5044,8 @@ def main() -> int:
         tracking, tracking_rows = phase_tracking(Path(tmp))
         torch.cuda.empty_cache()
         rtdetr, rtdetr_rows = phase_rtdetr()
+        torch.cuda.empty_cache()
+        sam, annotate, sam_rows = phase_sam(Path(tmp))
     torch.cuda.empty_cache()
     ab_launches, ab_rows, hopper_rows, plan_rows = phase_variant_ab()
     paths = {"serving": serving, "training": training, "augmented training": augmented,
@@ -4722,7 +5053,7 @@ def main() -> int:
              "facade": facade, "reference weights": reference, "host augmentation": host,
              "callbacks and drawing": plots, "segment and pose": seg_pose,
              "classify and zoo": zoo, "tracking": tracking, "RT-DETR": rtdetr,
-             "DCN A/B": dcn_ab,
+             "SAM": sam, "auto_annotate": annotate, "DCN A/B": dcn_ab,
              "K3 A/B": k3_ab, "K1 variant A/B": ab_launches}
     for k in kernels:
         k["launches_by_path"] = {p: paths[p][k["name"]] for p in KERNEL_PATHS[k["name"]]}
@@ -4741,6 +5072,9 @@ def main() -> int:
         k["tracking_launches"] = tracking[k["name"]]
         # no kernel is on the RT-DETR path: its count, 0, recorded
         k["rtdetr_launches"] = rtdetr[k["name"]]
+        # nor on the SAM path; auto_annotate's detector runs K1 once a forward
+        k["sam_launches"] = sam[k["name"]]
+        k["auto_annotate_launches"] = annotate[k["name"]]
         if k["name"] == "fused_augment":
             k["apply_augment_ms"] = aug_ms
         if k["name"] in ("deform_fwd", "deform_bwd"):

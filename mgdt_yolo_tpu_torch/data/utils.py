@@ -305,3 +305,41 @@ def check_det_dataset(data) -> Dict:
     d["names"] = names or {i: str(i) for i in range(int(d.get("nc", 1)))}
     d["nc"] = len(d["names"])
     return d
+
+
+def auto_annotate(source, det_model="yolov8.yaml", sam_model: str = "sam_b",
+                  out_dir: str = "auto_annotate_labels", conf: float = 0.25,
+                  imgsz: int = 640, sam_imgsz: int = 256, device=None) -> Path:
+    """YOLO-seg txt labels for `source` from a detector and SAM, as JAX's
+    `auto_annotate` writes them: each detection's box centre prompts SAM
+    (one foreground point, label 1); the first multimask output, above 0,
+    is traced (`utils/contours.py`, cv2's external border following) and
+    its largest contour by area written as `cls x1 y1 x2 y2 ...` in the
+    image's normalised coordinates, `:.4g`; one file per image, named by
+    its stem, holding "\\n" when nothing was found. `det_model` and
+    `sam_model` are a `YOLO` and a `SAM` or names to build them from, on
+    `device` (CUDA by default). Returns the output directory."""
+    from ..engine.model import YOLO
+    from ..utils.contours import contour_area, find_external_contours
+    from ..vit.sam import SAM
+    det = YOLO(det_model, device=device) if isinstance(det_model, str) else det_model
+    sam = SAM(sam_model, img_size=sam_imgsz, device=device) \
+        if isinstance(sam_model, str) else sam_model
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    for r in det.predict(source, conf=conf, imgsz=imgsz):
+        h, w = r.orig_shape
+        lines = []
+        for row in np.asarray(r.boxes.data):
+            cx = (row[0] + row[2]) / 2
+            cy = (row[1] + row[3]) / 2
+            masks, _ = sam.predict(r.orig_img, points=[[[cx, cy]]], labels=[[1]])
+            cnts = find_external_contours(masks[0, 0] > 0)
+            if not cnts:
+                continue
+            seg = max(cnts, key=contour_area).reshape(-1, 2).astype(np.float32)
+            seg[:, 0] /= w
+            seg[:, 1] /= h
+            lines.append(f"{int(row[5])} " + " ".join(f"{v:.4g}" for v in seg.reshape(-1)))
+        (out / f"{Path(r.path).stem}.txt").write_text("\n".join(lines) + "\n")
+    return out

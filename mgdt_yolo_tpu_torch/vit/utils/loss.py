@@ -37,16 +37,20 @@ def varifocal_loss(logits, gt_score, label, alpha: float = 0.75, gamma: float = 
 
 
 class DETRLoss:
-    """Every layer's loss at JAX's defaults (the only ones RT-DETR uses:
-    varifocal classification, gains class 1, bbox 5, giou 2), the last
-    one's keys unsuffixed, the others `_aux{i}`, the denoising layers'
-    `_dn{i}`."""
+    """Every layer's loss, with JAX's arguments and defaults: varifocal
+    classification (`use_vfl`; a batch without targets takes the focal
+    loss), focal alone (`use_vfl=False`), or softmax cross-entropy
+    (`use_fl=False` too); the parts scaled by `loss_gain` (class 1, bbox 5,
+    giou 2). The last layer's keys are unsuffixed, the others `_aux{i}`,
+    the denoising layers' `_dn{i}`."""
 
-    loss_gain = {"class": 1, "bbox": 5, "giou": 2}
-
-    def __init__(self, nc: int = 80):
+    def __init__(self, nc: int = 80, loss_gain: Optional[Dict] = None, use_vfl: bool = True,
+                 use_fl: bool = True):
         self.nc = nc
-        self.matcher = HungarianMatcher()
+        self.loss_gain = loss_gain or {"class": 1, "bbox": 5, "giou": 2}
+        self.use_vfl = use_vfl
+        self.use_fl = use_fl
+        self.matcher = HungarianMatcher(use_fl=use_fl)
 
     def layer_loss(self, pred_bboxes, pred_scores, gt_bboxes, gt_cls, mask_gt,
                    match_idx: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
@@ -63,13 +67,18 @@ class DETRLoss:
         n_gt = n_valid.clamp(min=1).float()
         onehot = F.one_hot(tgt_cls, self.nc).to(pred_bboxes.dtype) * tgt_valid[..., None]
         logits = pred_scores.float()
-        iou = bbox_iou(xywh2xyxy(pred_bboxes), xywh2xyxy(tgt_box), xywh=False).squeeze(-1)
-        iou = iou.clamp(0, 1).detach() * tgt_valid
-        vfl = varifocal_loss(logits, onehot * iou[..., None], onehot).sum() / n_gt
-        # a batch without targets takes the focal loss (gamma 1.5), as the
-        # reference's `if num_gts and self.vfl` does
-        fl = sigmoid_focal_loss(logits, onehot, gamma=1.5).sum() / n_gt
-        loss_cls = torch.where(n_valid > 0, vfl, fl)
+        if self.use_vfl:
+            iou = bbox_iou(xywh2xyxy(pred_bboxes), xywh2xyxy(tgt_box), xywh=False).squeeze(-1)
+            iou = iou.clamp(0, 1).detach() * tgt_valid
+            vfl = varifocal_loss(logits, onehot * iou[..., None], onehot).sum() / n_gt
+            # a batch without targets takes the focal loss (gamma 1.5), as the
+            # reference's `if num_gts and self.vfl` does
+            fl = sigmoid_focal_loss(logits, onehot, gamma=1.5).sum() / n_gt
+            loss_cls = torch.where(n_valid > 0, vfl, fl)
+        elif self.use_fl:
+            loss_cls = sigmoid_focal_loss(logits, onehot, gamma=1.5).sum() / n_gt
+        else:
+            loss_cls = -(onehot * F.log_softmax(logits, -1)).sum() / n_gt
         l1 = (pred_bboxes - tgt_box).abs().sum(-1) * tgt_valid
         giou = bbox_iou(xywh2xyxy(pred_bboxes), xywh2xyxy(tgt_box), xywh=False,
                         GIoU=True).squeeze(-1)

@@ -38,12 +38,17 @@ def _as_loss_type(t: torch.Tensor) -> torch.Tensor:
 
 
 class HungarianMatcher:
-    """Optimal bipartite matching of queries to targets with DETR's cost, at
-    JAX's defaults (the only ones its loss uses): class 2 (focal-modulated,
-    alpha 0.25, gamma 2), L1 box 5, GIoU 2."""
+    """Optimal bipartite matching of queries to targets with DETR's cost,
+    JAX's arguments and defaults: gains class 2, L1 box 5, GIoU 2; the class
+    cost focal-modulated (alpha 0.25, gamma 2) with `use_fl`, else the plain
+    `-score`."""
 
-    alpha, gamma = 0.25, 2.0
-    cost_gain = {"class": 2, "bbox": 5, "giou": 2}
+    def __init__(self, cost_gain: Optional[Dict[str, float]] = None, use_fl: bool = True,
+                 alpha: float = 0.25, gamma: float = 2.0):
+        self.cost_gain = cost_gain or {"class": 2, "bbox": 5, "giou": 2}
+        self.use_fl = use_fl
+        self.alpha = alpha
+        self.gamma = gamma
 
     @torch.no_grad()
     def cost(self, pred_bboxes, pred_scores, gt_bboxes, gt_cls, mask_gt) -> torch.Tensor:
@@ -54,9 +59,12 @@ class HungarianMatcher:
         pred_bboxes = _as_loss_type(pred_bboxes)
         scores = torch.sigmoid(pred_scores.float())
         sc = torch.gather(scores, 2, gt_cls.long()[:, None, :].expand(b, nq, G))
-        neg = (1 - self.alpha) * sc ** self.gamma * (-torch.log1p(-sc + 1e-8))
-        pos = self.alpha * (1 - sc) ** self.gamma * (-torch.log(sc + 1e-8))
-        cost_class = pos - neg
+        if self.use_fl:
+            neg = (1 - self.alpha) * sc ** self.gamma * (-torch.log1p(-sc + 1e-8))
+            pos = self.alpha * (1 - sc) ** self.gamma * (-torch.log(sc + 1e-8))
+            cost_class = pos - neg
+        else:
+            cost_class = -sc
         cost_bbox = (pred_bboxes[:, :, None, :] - gt_bboxes[:, None, :, :]).abs().sum(-1)
         cost_giou = -bbox_iou(xywh2xyxy(pred_bboxes)[:, :, None, :],
                               xywh2xyxy(gt_bboxes)[:, None, :, :], xywh=False,

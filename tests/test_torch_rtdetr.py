@@ -52,6 +52,7 @@ from mgdt_yolo_tpu.vit.rtdetr.predict import RTDETRPredictor as JaxRTDETRPredict
 from mgdt_yolo_tpu.vit.rtdetr.train import RTDETRTrainer as JaxRTDETRTrainer
 from mgdt_yolo_tpu.vit.rtdetr.train import _DETRCriterion as JaxDETRCriterion
 from mgdt_yolo_tpu.vit.rtdetr.val import RTDETRValidator as JaxRTDETRValidator
+from mgdt_yolo_tpu.vit.utils import loss as jax_loss
 from mgdt_yolo_tpu.vit.utils import ops as jax_ops
 from mgdt_yolo_tpu_torch.cfg.default import TRAIN_DEFAULTS, UNAUGMENTED
 from mgdt_yolo_tpu_torch.data.build import DataLoader, collate, to_device
@@ -60,6 +61,7 @@ from mgdt_yolo_tpu_torch.nn.modules import transformer as T
 from mgdt_yolo_tpu_torch.nn.tasks import DetectionModel, RTDETRDetectionModel, model_class
 from mgdt_yolo_tpu_torch.vit import RTDETR
 from mgdt_yolo_tpu_torch.vit.rtdetr import RTDETRPredictor, RTDETRTrainer, RTDETRValidator
+from mgdt_yolo_tpu_torch.vit.utils.loss import DETRLoss
 from mgdt_yolo_tpu_torch.vit.utils.ops import HungarianMatcher, cdn_noise, get_cdn_group
 from mgdt_yolo_tpu_torch.weights import flatten_variables, flax_keys, load_jax_variables, load_state
 from test_torch_ablation_train import _flax
@@ -355,6 +357,70 @@ def test_matcher_indices_match_jax():
                                  torch.from_numpy(mask))
         np.testing.assert_array_equal(got.numpy(), want)
         assert (got >= 0).sum(1).tolist() == [6, 5]
+
+
+@pytest.mark.parametrize("kw", [{"use_fl": True}, {"use_fl": False},
+                                {"cost_gain": {"class": 1, "bbox": 3, "giou": 4}, "use_fl": True,
+                                 "alpha": 0.4, "gamma": 1.5},
+                                {"cost_gain": {"class": 3, "bbox": 1, "giou": 1}, "use_fl": False}],
+                         ids=["focal", "plain", "focal_gains", "plain_gains"])
+def test_matcher_options_match_jax(kw):
+    """JAX's matcher arguments (`cost_gain`, `use_fl`, `alpha`, `gamma`)
+    give the port JAX's indices on the same float32 predictions; the plain
+    `-score` class cost and the focal one pick different matches here."""
+    rng = np.random.default_rng(13)
+    b, nq, nc = 2, 24, 5
+    boxes, cls, mask = _gt(b, 6, nc)
+    pb = np.concatenate([rng.uniform(0.1, 0.9, (b, nq, 2)), rng.uniform(0.05, 0.5, (b, nq, 2))],
+                        -1).astype(np.float32)
+    ps = (rng.standard_normal((b, nq, nc)) * 2).astype(np.float32)
+    want = np.asarray(jax_ops.HungarianMatcher(**kw)(
+        jnp.asarray(pb), jnp.asarray(ps), jnp.asarray(boxes), jnp.asarray(cls), jnp.asarray(mask)))
+    got = HungarianMatcher(**kw)(torch.from_numpy(pb), torch.from_numpy(ps),
+                                 torch.from_numpy(boxes), torch.from_numpy(cls),
+                                 torch.from_numpy(mask))
+    np.testing.assert_array_equal(got.numpy(), want)
+    other = HungarianMatcher(**{**kw, "use_fl": not kw["use_fl"]})(
+        torch.from_numpy(pb), torch.from_numpy(ps), torch.from_numpy(boxes),
+        torch.from_numpy(cls), torch.from_numpy(mask))
+    assert not torch.equal(other, got)
+
+
+@pytest.mark.parametrize("case", ["vfl", "vfl_no_targets", "focal", "ce", "gains"])
+def test_detr_loss_options_match_jax(case):
+    """Each of JAX's class-loss branches (varifocal; varifocal on a batch
+    without targets, which takes the focal loss with gamma 1.5; focal alone
+    with `use_vfl=False`; softmax cross-entropy with `use_fl=False`) and a
+    non-default `loss_gain`, on two stacked float32 layers: every part
+    within 1e-5 of JAX's, relative."""
+    kw = {"vfl": {}, "vfl_no_targets": {}, "focal": {"use_vfl": False},
+          "ce": {"use_vfl": False, "use_fl": False},
+          "gains": {"loss_gain": {"class": 2.5, "bbox": 1.5, "giou": 0.5}}}[case]
+    rng = np.random.default_rng(14)
+    L, b, nq, nc = 2, 2, 20, 5
+    boxes, cls, mask = _gt(b, 6, nc)
+    if case == "vfl_no_targets":
+        mask[:] = False
+    pb = np.concatenate([rng.uniform(0.1, 0.9, (L, b, nq, 2)),
+                         rng.uniform(0.05, 0.5, (L, b, nq, 2))], -1).astype(np.float32)
+    ps = (rng.standard_normal((L, b, nq, nc)) * 2).astype(np.float32)
+    batch = {"gt_bboxes_norm": boxes, "gt_labels": cls, "mask_gt": mask}
+    w_total, want = jax_loss.DETRLoss(nc, **kw)(jnp.asarray(pb), jnp.asarray(ps),
+                                                {k: jnp.asarray(v) for k, v in batch.items()})
+    g_total, got = DETRLoss(nc, **kw)(torch.from_numpy(pb), torch.from_numpy(ps),
+                                      {k: torch.from_numpy(v) for k, v in batch.items()})
+    assert sorted(got) == sorted(want)
+    for k in want:
+        _close(got[k].item(), float(want[k]), 1e-5, k)
+    _close(g_total.item(), float(w_total), 1e-5, "total")
+    port_batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    if case == "vfl_no_targets":  # the focal loss, as `use_vfl=False` computes it
+        _, focal = DETRLoss(nc, use_vfl=False)(torch.from_numpy(pb), torch.from_numpy(ps),
+                                               port_batch)
+        assert got["loss_class"].item() == focal["loss_class"].item()
+    elif case != "vfl":  # the branch or the gains change the loss
+        _, base = DETRLoss(nc)(torch.from_numpy(pb), torch.from_numpy(ps), port_batch)
+        assert abs(base["loss_class"].item() - got["loss_class"].item()) > 1e-3
 
 
 def test_decoder_eval_matches_jax():
