@@ -340,14 +340,33 @@ Phases, each of which passes or ends the script with a non-zero exit:
    detector, the flagship, launches K1 once a forward on the card and no
    other kernel (`auto_annotate_launches`). Its lines end with `phase 24
    rows: {json}`.
+25. the public helpers (the "helpers" path): `nn.tasks.attempt_load_weights`
+   over the committed flagship and a seeded `gd_thead_yolov8` npz written
+   to the temporary directory gives an NMS `Ensemble`, which the predictor
+   serves over the 64 seeded scenes at b8 in float32 (TF32 off) and bf16,
+   timed: K1 exactly twice a forward, the detections of a batch bit for
+   bit NMS over the two members' own decoded outputs, concatenated, and
+   the float32 ensemble on 8 scenes held to the CPU's at phase 8's limits;
+   `utils.torch_utils.model_info` of the flagship at 640 px on the card (K1
+   inside `mgdt::deform_fwd`) and on the CPU (its plain version) must give
+   the same layers, parameters and GFLOPs; `Profile` around a b32 bf16
+   forward beside CUDA events on the same window; `start_trace` /
+   `stop_trace` around a b8 forward, whose Chrome trace must name K1's
+   kernel; `utils.checks.check_bf16` on the card; float32 card vs CPU for
+   `CBAM`, `heuristic_assign_v2` (b4, the 80x80 anchors), `nms_single` and
+   `nms_single_fixpoint` (seeded boxes whose scores tie) and `DyDCNv2` at
+   stride 2 (no K1 launch: the plain exact DCN by shape on both devices)
+   and at stride 1 without its norm (K1 with its bias). K1 is the only
+   kernel on this path (`helpers_launches`). Its lines end with `phase 25
+   rows: {json}`.
    Phase 10 runs before phase 8, and phases 8, 9 and 11 run after it,
    because the CPU work leaves the host's threads busy, which slows the
    host-bound steps; phase 13 runs after phase 11, phase 14 after phase
    13, phase 15 after phase 14, phase 16 after phase 15, phase 17 after
    phase 16, phase 18 after phase 17, phase 19 after phase 18, phase 20
    after phase 19, phase 21 after phase 20, phase 22 after phase 21, phase
-   23 after phase 22, phase 24 after phase 23, and phase 12, which times
-   kernels only, runs last.
+   23 after phase 22, phase 24 after phase 23, phase 25 after phase
+   24, and phase 12, which times kernels only, runs last.
 
 The last lines are the kernel table as JSON, the card's name and power
 limit, and `{"ok": true, "device": {...}}`. Without a CUDA device the script
@@ -4983,13 +5002,269 @@ def phase_sam(root):
     return sam_total, annotate_total, rows
 
 
+ENSEMBLE_BATCH = 8
+ENSEMBLE_HOLD_SCENES = 8          # the float32 card-vs-CPU hold: one batch
+HELPER_HOLD = 1e-5                # CBAM, the assigner's scores, NMS rows: of their magnitude
+DCN_S2_HOLD = 1e-4                # DyDCNv2 card vs CPU (K1's float32 limit, phase 3)
+PROFILE_BATCH, TRACE_BATCH, PROFILE_RUNS = 32, 8, 5
+
+
+def _ensemble_card_vs_cpu(paths, scenes):
+    """The float32 ensemble (TF32 off) through the predictor on the card and
+    on the CPU over the first scenes: phase 8's serving holds (the same
+    counts and classes, boxes within 0.5 px)."""
+    from mgdt_yolo_tpu_torch.nn.tasks import attempt_load_weights
+    runs = []
+    for dev in (DEVICE, "cpu"):
+        p = _entry_predictor(attempt_load_weights(paths, device=dev), dev)
+        with float32_exact():
+            runs.append(p(scenes, batch=ENSEMBLE_BATCH))
+    return _hold_results(*runs, "ensemble float32 card vs CPU")
+
+
+def _nms_over_members(ens, scenes):
+    """The predictor's step on one letterboxed batch against NMS over the
+    members' own decoded outputs, concatenated: the same detections, bit
+    for bit."""
+    x, _ = letterbox_batch(scenes[:ENSEMBLE_BATCH], IMGSZ)
+    x = torch.from_numpy(x).to(DEVICE)
+    with torch.no_grad():
+        det, counts = infer(ens, x, predictor.CONF, predictor.IOU, predictor.MAX_DET)
+        xf = x.float() / 255.0
+        decoded = torch.cat([m(xf)[0] for m in ens.members], dim=-1)
+        det2, counts2 = non_max_suppression(decoded, conf_thres=predictor.CONF,
+                                            iou_thres=predictor.IOU, max_det=predictor.MAX_DET)
+    if not (torch.equal(det, det2) and torch.equal(counts, counts2)):
+        raise SystemExit("ensemble: the detections are not NMS over the members' outputs")
+    return int(counts.sum())
+
+
+def _helpers_card_vs_cpu():
+    """CBAM, heuristic_assign_v2 (b4 over the 80x80 stride-8 anchors) and
+    the per-image NMS (seeded boxes whose scores tie), float32 on the card
+    (TF32 off) against the CPU; DyDCNv2 at stride 2 (the plain exact DCN on
+    both devices, K1 not launched) and at stride 1 without its norm (K1
+    with its bias). Returns (rows, K1 launches made)."""
+    from mgdt_yolo_tpu_torch.nn.modules.conv import CBAM
+    from mgdt_yolo_tpu_torch.ops.nms import nms_single, nms_single_fixpoint
+    from mgdt_yolo_tpu_torch.utils.tal import heuristic_assign_v2
+    rows = {}
+    g = torch.Generator().manual_seed(25)
+
+    def seeded(module):
+        with torch.no_grad():
+            for prm in module.parameters():
+                prm.copy_(torch.rand(prm.shape, generator=g) * 0.4 - 0.2)
+        return module
+
+    def run_both(fn):
+        outs = []
+        for dev in (DEVICE, "cpu"):
+            with torch.no_grad(), float32_exact():
+                outs.append(fn(dev))
+            torch.cuda.synchronize()
+        return outs
+
+    def rel(a, b):
+        a, b = a.float().cpu(), b.float().cpu()
+        return (a - b).abs().max().item() / max(1.0, b.abs().max().item())
+
+    cbam = seeded(CBAM(32, 7))
+    x = torch.randn(4, 32, 80, 80, generator=g)
+    a, b = run_both(lambda dev: copy.deepcopy(cbam).to(dev)(x.to(dev)))
+    rows["cbam_rel_err"] = rel(a, b)
+
+    B_, G_, nc = 4, 8, 2
+    ys, xs = torch.meshgrid(torch.arange(80) + 0.5, torch.arange(80) + 0.5, indexing="ij")
+    anc = torch.stack([xs.reshape(-1), ys.reshape(-1)], 1) * 8
+    A = anc.shape[0]
+    ps = torch.rand(B_, A, nc, generator=g)
+    ctr = anc[None] + torch.randn(B_, A, 2, generator=g) * 6
+    wh = torch.rand(B_, A, 2, generator=g) * 120 + 10
+    pb = torch.cat([ctr - wh / 2, ctr + wh / 2], -1)
+    gxy = torch.rand(B_, G_, 2, generator=g) * 500
+    gb = torch.cat([gxy, gxy + torch.rand(B_, G_, 2, generator=g) * 120 + 20], -1)
+    gl = torch.randint(0, nc, (B_, G_), generator=g)
+    mg = torch.ones(B_, G_, dtype=torch.bool)
+    mg[1, 5:] = False
+    gb[~mg] = 0
+    a, b = run_both(lambda dev: heuristic_assign_v2(
+        *(t.to(dev) for t in (ps, pb, anc, gl, gb, mg)), num_classes=nc))
+    for name in ("target_labels", "target_gt_idx", "fg_mask", "target_bboxes"):
+        if not torch.equal(getattr(a, name).cpu(), getattr(b, name)):
+            raise SystemExit(f"heuristic_assign_v2: {name} differs between the card and the CPU")
+    rows["assign_v2"] = {"fg": int(b.fg_mask.sum()), "score_rel_err": rel(a.target_scores,
+                                                                           b.target_scores),
+                         "max_target_score": b.target_scores.max().item()}
+
+    centres = torch.rand(12, 2, generator=g) * 560 + 40
+    c = centres[torch.randint(0, 12, (4000,), generator=g)] + torch.randn(4000, 2, generator=g) * 8
+    bwh = torch.rand(4000, 2, generator=g) * 60 + 20
+    boxes = torch.cat([c - bwh / 2, c + bwh / 2], 1)
+    scores = torch.randint(0, 16, (4000, nc), generator=g).float() / 16
+    rows["nms"] = {}
+    for name, fn in (("nms_single", lambda dev: nms_single(boxes.to(dev), scores.to(dev))),
+                     ("nms_single_fixpoint", lambda dev: nms_single_fixpoint(
+                         boxes.to(dev), scores.to(dev), pre_topk=1024)),
+                     ("nms_single_fixpoint_block", lambda dev: nms_single_fixpoint(
+                         boxes.to(dev), scores.to(dev), pre_topk=1024, block=256))):
+        a, b = run_both(fn)
+        if int(a[1]) != int(b[1]) or not int(b[1]) or rel(a[0], b[0]) > HELPER_HOLD:
+            raise SystemExit(f"{name}: the card kept {int(a[1])} rows, the CPU {int(b[1])}, or "
+                             f"their rows differ")
+        rows["nms"][name] = {"kept": int(b[1]), "row_rel_err": rel(a[0], b[0])}
+
+    rows["dydcnv2"] = {}
+    k1 = 0
+    for stride, with_norm in ((2, True), (2, False), (1, False)):
+        m = seeded(DyDCNv2(32, 32, stride=stride, with_norm=with_norm))
+        ho = (80 - 1) // stride + 1
+        xi = torch.randn(8, 32, 80, 80, generator=g)
+        off = torch.rand(8, 18, ho, ho, generator=g) * 5 - 2.5
+        msk = torch.rand(8, 9, ho, ho, generator=g)
+        reset_counts()
+        a, b = run_both(lambda dev: copy.deepcopy(m).to(dev)(*(t.to(dev) for t in (xi, off, msk))))
+        launched = read_counts()
+        want = 1 if stride == 1 else 0
+        _expect(launched, f"DyDCNv2 stride {stride} with_norm {with_norm}", deform_fwd=want)
+        k1 += want
+        err = rel(a, b)
+        rows["dydcnv2"][f"stride{stride}_norm{int(with_norm)}"] = {"rel_err": err,
+                                                                    "k1_launches": want}
+        if err > DCN_S2_HOLD:
+            raise SystemExit(f"DyDCNv2 stride {stride}: the card and the CPU differ by {err:.3e}")
+    worst = max(rows["cbam_rel_err"], rows["assign_v2"]["score_rel_err"])
+    log(f"card vs CPU, float32: CBAM {rows['cbam_rel_err']:.3e}, heuristic_assign_v2 "
+        f"{rows['assign_v2']['fg']} positives (labels, gts, boxes, masks equal; scores "
+        f"{rows['assign_v2']['score_rel_err']:.3e}, the largest "
+        f"{rows['assign_v2']['max_target_score']:.4f} > 1 as the reference's), "
+        + ", ".join(f"{k} {v['kept']} rows equal" for k, v in rows["nms"].items())
+        + "; DyDCNv2 " + ", ".join(f"{k} {v['rel_err']:.3e} (K1 {v['k1_launches']})"
+                                   for k, v in rows["dydcnv2"].items())
+        + f" (limits {HELPER_HOLD}, {DCN_S2_HOLD} of the magnitude)")
+    if worst > HELPER_HOLD:
+        raise SystemExit("CBAM or heuristic_assign_v2: the card and the CPU disagree")
+    return rows, k1
+
+
+def phase_helpers(root):
+    """The JAX package's public helpers on the card (see the module's text).
+    Returns (the helpers path's launches, rows)."""
+    from mgdt_yolo_tpu_torch.nn.tasks import attempt_load_weights
+    from mgdt_yolo_tpu_torch.utils.checks import check_bf16
+    from mgdt_yolo_tpu_torch.utils.torch_utils import (Profile, model_info, start_trace,
+                                                       stop_trace)
+    from mgdt_yolo_tpu_torch.weights import save_npz
+    log(f"== phase 25: the public helpers: an NMS ensemble (the committed flagship and a seeded "
+        f"gd_thead_yolov8) through the predictor at b{ENSEMBLE_BATCH} in float32 and bf16, "
+        f"model_info at {IMGSZ} px card vs CPU, Profile and a Chrome trace, check_bf16, CBAM, "
+        f"heuristic_assign_v2, the per-image NMS and DyDCNv2 at stride 2 card vs CPU")
+    t_phase = time.perf_counter()
+    rows, total = {}, no_launches()
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    second = DetectionModel("gd_thead_yolov8.yaml", nc=2, device="cpu")
+    second_npz = save_npz(second, root / "helpers" / "gd_thead_seeded.npz",
+                          {"model_yaml": second.model_yaml, "nc": 2,
+                           "deform_semantics": "windowed"})
+    paths = [WEIGHTS, second_npz]
+    scenes = _scenes(N_SCENES)
+    rows["ensemble"] = {}
+    for dtype, half in (("float32", False), ("bf16", True)):
+        ens = attempt_load_weights(paths, device=DEVICE)
+        p = _entry_predictor(ens, DEVICE, half=half)
+        with float32_exact() if not half else contextlib.nullcontext():
+            _, launches, row = _timed_predict(p, scenes, ENSEMBLE_BATCH,
+                                              f"ensemble of 2 ({dtype}) b{ENSEMBLE_BATCH}",
+                                              forwards_per_batch=2)
+        add(launches)
+        reset_counts()
+        with float32_exact() if not half else contextlib.nullcontext():
+            row["detections_checked"] = _nms_over_members(ens, scenes)
+        torch.cuda.synchronize()
+        check = read_counts()
+        _expect(check, "the ensemble's NMS check", deform_fwd=4)  # 2 members, twice
+        add(check)
+        rows["ensemble"][dtype] = row
+        del ens, p
+    reset_counts()
+    rows["ensemble"]["box_max_abs_diff_f32"] = _ensemble_card_vs_cpu(
+        paths, scenes[:ENSEMBLE_HOLD_SCENES])
+    torch.cuda.synchronize()
+    hold = read_counts()
+    _expect(hold, "the ensemble's card-vs-CPU hold", deform_fwd=2)
+    add(hold)
+
+    reset_counts()
+    card = model_info(DetectionModel.from_npz(WEIGHTS, device=DEVICE), IMGSZ, verbose=False)
+    torch.cuda.synchronize()
+    flops = read_counts()
+    _expect(flops, "get_flops on the card", deform_fwd=1)  # K1 inside mgdt::deform_fwd
+    add(flops)
+    cpu = model_info(DetectionModel.from_npz(WEIGHTS, device="cpu"), IMGSZ, verbose=False)
+    rows["model_info"] = {"card": card, "cpu": cpu}
+    log(f"model_info of the flagship at {IMGSZ} px: card (K1 inside mgdt::deform_fwd) {card}; "
+        f"CPU (the plain version inside it) {cpu}")
+    if card != cpu:
+        raise SystemExit("get_flops / model_info: the card and the CPU count differently")
+
+    model = DetectionModel.from_npz(WEIGHTS, device=DEVICE).fuse().to(torch.bfloat16)
+    xb = torch.from_numpy(synthetic_batch(PROFILE_BATCH, IMGSZ)).to(DEVICE).float() / 255.0
+    reset_counts()
+    prof_ms, event_ms = [], []
+    with torch.no_grad():
+        model(xb)
+        for _ in range(PROFILE_RUNS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            with Profile(DEVICE) as pr:
+                start.record()
+                model(xb)
+                end.record()
+            prof_ms.append(pr.dt * 1e3)
+            event_ms.append(start.elapsed_time(end))
+        trace_dir = start_trace(root / "helpers" / "trace")
+        model(xb[:TRACE_BATCH])
+        trace = Path(stop_trace())
+    torch.cuda.synchronize()
+    runs = read_counts()
+    _expect(runs, "Profile and the trace", deform_fwd=PROFILE_RUNS + 2)
+    add(runs)
+    text = trace.read_text()
+    k1_name = KERNEL_SYMBOLS["deform_fwd"][0]
+    rows["profile"] = {"batch": PROFILE_BATCH, "profile_ms": prof_ms, "events_ms": event_ms,
+                       "trace_mb": trace.stat().st_size / 2 ** 20,
+                       "trace_k1_events": text.count(k1_name)}
+    log(f"Profile around a b{PROFILE_BATCH} bf16 forward, {PROFILE_RUNS} runs: "
+        f"{min(prof_ms):.3f} ms (min; host clock with a synchronise at each end) against CUDA "
+        f"events on the same window {min(event_ms):.3f} ms; trace {trace} "
+        f"({rows['profile']['trace_mb']:.2f} MB) names {k1_name} "
+        f"{rows['profile']['trace_k1_events']} times")
+    if trace.parent != Path(trace_dir) or not rows["profile"]["trace_k1_events"]:
+        raise SystemExit("the Chrome trace does not name K1's kernel")
+    del model, xb
+    if not check_bf16(DEVICE):
+        raise SystemExit("check_bf16 fails on the card")
+    log("check_bf16 on the card: True")
+
+    rows["card_vs_cpu"], k1 = _helpers_card_vs_cpu()
+    total["deform_fwd"] += k1
+    rows["launches"] = total
+    rows["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 25: {rows['phase_s']:.1f} s; launches {total}")
+    log(f"phase 25 rows: {json.dumps(rows, default=float)}")
+    return total, rows
+
+
 # which paths run each kernel (its launches must be counted on each); the
 # first is the kernel's own main path
 KERNEL_PATHS = {"deform_fwd": ("serving", "training", "augmented training",
                                "ablation family", "serving entry points", "from disk",
                                "facade", "reference weights", "host augmentation",
                                "callbacks and drawing", "tracking", "auto_annotate",
-                               "K1 variant A/B"),
+                               "helpers", "K1 variant A/B"),
                 "deform_bwd": ("training", "augmented training", "ablation family",
                                "from disk", "facade", "reference weights",
                                "host augmentation", "callbacks and drawing"),
@@ -5046,6 +5321,8 @@ def main() -> int:
         rtdetr, rtdetr_rows = phase_rtdetr()
         torch.cuda.empty_cache()
         sam, annotate, sam_rows = phase_sam(Path(tmp))
+        torch.cuda.empty_cache()
+        helpers, helper_rows = phase_helpers(Path(tmp))
     torch.cuda.empty_cache()
     ab_launches, ab_rows, hopper_rows, plan_rows = phase_variant_ab()
     paths = {"serving": serving, "training": training, "augmented training": augmented,
@@ -5053,7 +5330,7 @@ def main() -> int:
              "facade": facade, "reference weights": reference, "host augmentation": host,
              "callbacks and drawing": plots, "segment and pose": seg_pose,
              "classify and zoo": zoo, "tracking": tracking, "RT-DETR": rtdetr,
-             "SAM": sam, "auto_annotate": annotate, "DCN A/B": dcn_ab,
+             "SAM": sam, "auto_annotate": annotate, "helpers": helpers, "DCN A/B": dcn_ab,
              "K3 A/B": k3_ab, "K1 variant A/B": ab_launches}
     for k in kernels:
         k["launches_by_path"] = {p: paths[p][k["name"]] for p in KERNEL_PATHS[k["name"]]}
@@ -5075,6 +5352,8 @@ def main() -> int:
         # nor on the SAM path; auto_annotate's detector runs K1 once a forward
         k["sam_launches"] = sam[k["name"]]
         k["auto_annotate_launches"] = annotate[k["name"]]
+        # the helpers' ensemble, counts, profile and trace run K1 only
+        k["helpers_launches"] = helpers[k["name"]]
         if k["name"] == "fused_augment":
             k["apply_augment_ms"] = aug_ms
         if k["name"] in ("deform_fwd", "deform_bwd"):
@@ -5097,6 +5376,7 @@ def main() -> int:
             k["callbacks_and_drawing"] = plot_rows
         if k["name"] == "deform_fwd":
             k["tracking"] = tracking_rows
+            k["helpers"] = helper_rows
         if k["name"] in ALL_VARIANTS:
             k["ab"] = [r for r in ab_rows if r["variant"] == k["name"]]
         if k["name"] in FIRST_DESIGNS:

@@ -418,3 +418,13 @@ class DataLoader:
         finally:
             stop.set()
             pool.shutdown(wait=False, cancel_futures=True)
+
+
+def build_dataloader(dataset, batch_size: int, imgsz: int, train: bool = True, hyp=None,
+                     seed: int = 0, workers: int = 4, rect: bool = False, stride: int = 32,
+                     device_augment: bool = False) -> DataLoader:
+    """A `DataLoader` with JAX's `build_dataloader` arguments
+    (`data/build.py:387`); the trainer's own is `engine.trainer.build_loader`."""
+    return DataLoader(dataset, batch_size, imgsz, seed=seed, train=train,
+                      device_augment=device_augment, hyp=hyp, workers=workers, rect=rect,
+                      stride=stride)

@@ -1,8 +1,9 @@
 """Dataset utilities: the image header reader, label verification with its
 hash-validated cache, and dataset YAML resolution; the counterparts of
 `mgdt_yolo_tpu/data/utils.py`'s `get_hash`, `exif_size`,
-`segments2boxes`, `verify_image_label`, `scan_labels` and
-`check_det_dataset`, without PIL, cv2 or PyYAML.
+`segments2boxes`, `verify_image_label`, `scan_labels`,
+`check_det_dataset`, `polygon2mask`, `polygons2masks` and `convert_coco`,
+without PIL, cv2 or PyYAML.
 
 Where the JAX package opens an image with PIL to verify it and read its
 EXIF-corrected size, the port reads the header itself (`image_header`):
@@ -20,6 +21,7 @@ file as it is, and its decoder takes what is there (ROADMAP queue 3).
 from __future__ import annotations
 
 import hashlib
+import json
 import logging
 import os
 import struct
@@ -305,6 +307,68 @@ def check_det_dataset(data) -> Dict:
     d["names"] = names or {i: str(i) for i in range(int(d.get("nc", 1)))}
     d["nc"] = len(d["names"])
     return d
+
+
+def polygon2mask(imgsz: Tuple[int, int], polygons: List[np.ndarray], color: int = 1,
+                 downsample_ratio: int = 1) -> np.ndarray:
+    """A uint8 (h, w) mask of `polygons` filled as cv2.fillPoly fills them
+    (`utils/draw.fill_poly`: any polygon, the coordinates truncated to
+    integers), then resized to (h, w) // `downsample_ratio` by cv2's
+    nearest rule (`data/imgproc.resize_nearest`), as JAX's
+    (`data/utils.py:178-187`)."""
+    from ..utils.draw import fill_poly
+    from .imgproc import resize_nearest
+    mask = np.zeros(imgsz, dtype=np.uint8)
+    fill_poly(mask, [np.asarray(p, dtype=np.int32).reshape(-1, 2) for p in polygons], color)
+    if downsample_ratio > 1:
+        nh, nw = imgsz[0] // downsample_ratio, imgsz[1] // downsample_ratio
+        mask = resize_nearest(mask, (nw, nh))
+    return mask
+
+
+def polygons2masks(imgsz, segments: List[np.ndarray], color: int = 1,
+                   downsample_ratio: int = 1) -> np.ndarray:
+    """One `polygon2mask` plane per segment, (n, h, w) // ratio uint8 (JAX
+    `data/utils.py:190-196`)."""
+    if not segments:
+        return np.zeros((0, imgsz[0] // downsample_ratio, imgsz[1] // downsample_ratio),
+                        np.uint8)
+    return np.stack([polygon2mask(imgsz, [s], color, downsample_ratio) for s in segments])
+
+
+def convert_coco(json_file: str, out_dir: str, use_segments: bool = False) -> Path:
+    """YOLO txt labels from a COCO annotation json, with JSON and numpy only
+    (JAX `data/utils.py:228-262`): classes renumbered 0.. in the order of
+    the category ids, crowd annotations skipped, each box written as `cls
+    cx cy w h` normalised by its image's size (`:.6g`), or with
+    `use_segments` the first polygon of its segmentation; one file per
+    image with annotations, named by its stem. Returns `out_dir`."""
+    data = json.loads(Path(json_file).read_text())
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    images = {im["id"]: im for im in data["images"]}
+    cat_map = {c["id"]: i for i, c in enumerate(sorted(data["categories"],
+                                                       key=lambda c: c["id"]))}
+    per_image: Dict[int, List[str]] = {}
+    for ann in data["annotations"]:
+        if ann.get("iscrowd"):
+            continue
+        im = images[ann["image_id"]]
+        w, h = im["width"], im["height"]
+        x, y, bw, bh = ann["bbox"]
+        cls = cat_map[ann["category_id"]]
+        line = " ".join(f"{v:.6g}" for v in (cls, (x + bw / 2) / w, (y + bh / 2) / h,
+                                             bw / w, bh / h))
+        if use_segments and ann.get("segmentation"):
+            seg = np.asarray(ann["segmentation"][0], np.float32).reshape(-1, 2)
+            seg[:, 0] /= w
+            seg[:, 1] /= h
+            line = f"{cls} " + " ".join(f"{v:.6g}" for v in seg.reshape(-1))
+        per_image.setdefault(ann["image_id"], []).append(line)
+    for img_id, lines in per_image.items():
+        (out / f"{Path(images[img_id]['file_name']).stem}.txt").write_text("\n".join(lines) + "\n")
+    LOGGER.info(f"converted {len(per_image)} label files -> {out}")
+    return out
 
 
 def auto_annotate(source, det_model="yolov8.yaml", sam_model: str = "sam_b",

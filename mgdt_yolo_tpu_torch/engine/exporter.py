@@ -23,6 +23,7 @@ item 14).
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import logging
 import time
@@ -33,6 +34,7 @@ import torch
 import torch.nn as nn
 
 from ..cfg import get_cfg
+from ..utils import colorstr
 from ..utils.callbacks import CallbackMixin
 from ..weights import save_npz
 
@@ -71,6 +73,24 @@ def metadata(model, imgsz: int) -> dict:
             else "(1, 4+nc, A) xywh+scores"}
 
 
+def try_export(fn):
+    """Log an export function's format, seconds and artifact, or its failure
+    before re-raising it (JAX `engine/exporter.py:38-52`)."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        name = fn.__name__.replace("export_", "")
+        t0 = time.perf_counter()
+        try:
+            out = fn(*args, **kwargs)
+        except Exception as e:
+            LOGGER.error(f"export {name} FAILED: {e}")
+            raise
+        LOGGER.info(f"{colorstr('export:')} {name} OK ({time.perf_counter() - t0:.1f} s) "
+                    f"-> {out}")
+        return out
+    return wrapper
+
+
 class Exporter(CallbackMixin):
     """`Exporter(args)(model, fmt=None)` -> [path of the artifact]; `args`
     (a configuration from `cfg.get_cfg`, or a dict of overrides it checks)
@@ -93,18 +113,23 @@ class Exporter(CallbackMixin):
         out_dir = Path(self.args.project or "runs/export")
         out_dir.mkdir(parents=True, exist_ok=True)
         path = out_dir / f"{Path(model.model_yaml or 'model').stem}{EXPORT_FORMATS[fmt]}"
-        t0 = time.perf_counter()
         meta = metadata(model, imgsz)
         if fmt == "npz":
-            save_npz(model, path, meta)
+            self.export_npz(model, path, meta)
         else:
             self.export_pt2(model, imgsz, path)
             (path.parent / f"{path.stem}_metadata.json").write_text(json.dumps(meta, indent=1))
-        LOGGER.info(f"export: {fmt} ({time.perf_counter() - t0:.1f} s) -> {path}")
         self.run_callbacks("on_export_end")
         return [str(path)]
 
     @staticmethod
+    @try_export
+    def export_npz(model, path: Path, meta: dict) -> Path:
+        """The flat flax npz and its metadata (`weights.save_npz`)."""
+        return save_npz(model, path, meta)
+
+    @staticmethod
+    @try_export
     def export_pt2(model, imgsz: int, path: Path) -> Path:
         """`torch.export` of a float32 copy of `model`'s eval forward, the
         batch dimension dynamic, traced on the model's device."""

@@ -784,3 +784,32 @@ class Trainer(CallbackMixin):
         np.savez(str(resume_state_path(path)),
                  **{k: v.detach().cpu().numpy() for k, v in self.train_state().items()})
         return path
+
+
+class BaseTrainer(Trainer):
+    """A `Trainer` under the JAX package's trainer names
+    (`engine/trainer.py:266,673,677,699`): each fixes its task and refuses
+    a model of another one (the port's `Trainer` routes by the model's
+    head). `BaseTrainer` and `DetectionTrainer` take detection models."""
+    TASK = "detect"
+
+    def __init__(self, model, *args, **kwargs):
+        task = getattr(model, "task", "detect")
+        if task != self.TASK:
+            raise ValueError(f"{type(self).__name__} trains {self.TASK} models; the model's task "
+                             f"is {task!r}: use the trainer of that task, or Trainer")
+        super().__init__(model, *args, **kwargs)
+
+
+class DetectionTrainer(BaseTrainer):
+    """The detect task's trainer name."""
+
+
+class SegmentationTrainer(DetectionTrainer):
+    """The segment task's trainer name."""
+    TASK = "segment"
+
+
+class PoseTrainer(DetectionTrainer):
+    """The pose task's trainer name."""
+    TASK = "pose"

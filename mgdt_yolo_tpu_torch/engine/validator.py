@@ -64,15 +64,26 @@ def coco80_to_coco91_class():
             76, 77, 78, 79, 80, 81, 82, 84, 85, 86, 87, 88, 89, 90]
 
 
-class DetectionValidator(CallbackMixin):
+class BaseValidator(CallbackMixin):
+    """What a validator holds, as JAX's `BaseValidator`
+    (`engine/validator.py:29`): `args` over `cfg.default.TRAIN_DEFAULTS`
+    (with `half` False), a default `dataloader`, and the callbacks."""
+
+    def __init__(self, args: Optional[Dict] = None, dataloader=None):
+        self.args = {**TRAIN_DEFAULTS, "half": False, **(args or {})}
+        self.dataloader = dataloader
+        self.init_callbacks()
+
+
+class DetectionValidator(BaseValidator):
     """`validator(model, loader)` -> {precision, recall, map50, map, fitness,
     speed_ms_per_image}. `args` replace keys of `cfg.default.TRAIN_DEFAULTS`
     (`conf`, `iou`, `max_det`, `agnostic_nms`, `rect`, `save_json`), and
-    may set `half` (bf16), `plots` and `save_dir`."""
+    may set `half` (bf16), `plots` and `save_dir`. `model` may be an
+    `nn.tasks.Ensemble`."""
 
-    def __init__(self, args: Optional[Dict] = None):
-        self.args = {**TRAIN_DEFAULTS, "half": False, **(args or {})}
-        self.init_callbacks()
+    def __init__(self, args: Optional[Dict] = None, dataloader=None):
+        super().__init__(args, dataloader)
         self.iouv = np.linspace(0.5, 0.95, 10)
         self.is_coco = False
         self.class_map = list(range(1000))
@@ -154,7 +165,9 @@ class DetectionValidator(CallbackMixin):
     def __call__(self, model, loader=None) -> Dict[str, float]:
         """Validate `model` (put in `eval()` mode) over `loader`, a
         validation `DataLoader` (`train=False`); by default the `val` split
-        of `args["data"]` (`engine.trainer.build_loader`)."""
+        of `args["data"]` (`engine.trainer.build_loader`), unless the
+        validator was built with a `dataloader`."""
+        loader = loader if loader is not None else self.dataloader
         if loader is None:
             from .trainer import build_loader
             loader = build_loader(self.args, False, model)

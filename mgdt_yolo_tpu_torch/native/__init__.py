@@ -88,6 +88,16 @@ def get_lib() -> ctypes.CDLL:
     ))
 
 
+def available() -> bool:
+    """Whether the decoder library loads (JAX `native/__init__.py:96`; the
+    port's builds at first use and raises where it cannot)."""
+    try:
+        get_lib()
+    except (OSError, RuntimeError):
+        return False
+    return True
+
+
 def has_jpeg() -> bool:
     """Whether this machine's build decodes JPEG (nvJPEG, a CUDA device)."""
     return bool(get_lib().mgdt_has_jpeg())

@@ -369,6 +369,158 @@ void fill_convex_poly(const Img& im, const P* v, int npts, const uint8_t* col, i
     } while (++y <= (int)ymax);
 }
 
+// cv2's general polygon fill (drawing.cpp's CollectPolyEdges and
+// FillEdgeCollection, with 8-connected edges): each contour's
+// edges are drawn as lines and collected with their fixed-point slopes,
+// then a scanline walks them sorted by (y0, x, dx), filling between the
+// pairs of an active list kept in x order by a bubble sort, so a polygon
+// that is not convex, or crosses itself, fills by the even-odd rule. An
+// edge that leaves the image takes its clipped line's ends for x (its rows
+// stay the unclipped ones where the clipped line is flat), and a span's
+// left end rounds up: cv2 5.0's arithmetic, found by probing it
+struct PolyEdge {
+    int y0, y1;
+    i64 x, dx;
+    PolyEdge* next;
+};
+
+void collect_poly_edges(const Img& im, const P* v, int count, std::vector<PolyEdge>& edges,
+                        const uint8_t* col, int shift) {
+    int delta = (1 << shift) >> 1;
+    P pt0 = v[count - 1], pt1;
+    pt0.x = pt0.x << (XY_SHIFT - shift);
+    pt0.y = (pt0.y + delta) >> shift;
+    for (int i = 0; i < count; i++, pt0 = pt1) {
+        pt1 = v[i];
+        pt1.x = pt1.x << (XY_SHIFT - shift);
+        pt1.y = (pt1.y + delta) >> shift;
+        P pt0c = pt0, pt1c = pt1;
+        P t0 = {(pt0.x + (XY_ONE >> 1)) >> XY_SHIFT, pt0.y};
+        P t1 = {(pt1.x + (XY_ONE >> 1)) >> XY_SHIFT, pt1.y};
+        line8(im, t0, t1, col);
+        // the clipped ends give the edge where the line leaves the image
+        if ((uint64_t)t0.x >= (uint64_t)im.w || (uint64_t)t1.x >= (uint64_t)im.w ||
+            (uint64_t)t0.y >= (uint64_t)im.h || (uint64_t)t1.y >= (uint64_t)im.h) {
+            clip_line(im.w, im.h, t0, t1);
+            if (t0.y != t1.y) {
+                pt0c.y = t0.y;
+                pt1c.y = t1.y;
+            }
+            pt0c.x = t0.x << XY_SHIFT;
+            pt1c.x = t1.x << XY_SHIFT;
+        }
+        if (pt0.y == pt1.y) continue;
+        PolyEdge e;
+        e.dx = (pt1c.x - pt0c.x) / (pt1c.y - pt0c.y);
+        if (pt0.y < pt1.y) {
+            e.y0 = (int)pt0.y;
+            e.y1 = (int)pt1.y;
+            e.x = pt0c.x + (pt0.y - pt0c.y) * e.dx;
+        } else {
+            e.y0 = (int)pt1.y;
+            e.y1 = (int)pt0.y;
+            e.x = pt1c.x + (pt1.y - pt1c.y) * e.dx;
+        }
+        e.next = nullptr;
+        edges.push_back(e);
+    }
+}
+
+void fill_edge_collection(const Img& im, std::vector<PolyEdge>& edges, const uint8_t* col) {
+    int total = (int)edges.size();
+    if (total < 2) return;
+    int y_max = INT32_MIN, y_min = INT32_MAX;
+    i64 x_max = -1, x_min = INT64_MAX;
+    for (const PolyEdge& e1 : edges) {
+        i64 x1 = e1.x + (e1.y1 - e1.y0) * e1.dx;
+        y_min = std::min(y_min, e1.y0);
+        y_max = std::max(y_max, e1.y1);
+        x_min = std::min(x_min, std::min(e1.x, x1));
+        x_max = std::max(x_max, std::max(e1.x, x1));
+    }
+    if (y_max < 0 || y_min >= im.h || x_max < 0 || x_min >= ((i64)im.w << XY_SHIFT)) return;
+    std::sort(edges.begin(), edges.end(), [](const PolyEdge& a, const PolyEdge& b) {
+        return a.y0 - b.y0 ? a.y0 < b.y0 : a.x - b.x ? a.x < b.x : a.dx < b.dx;
+    });
+    PolyEdge tmp;
+    tmp.y0 = INT32_MAX;
+    edges.push_back(tmp);  // no element is added after this: pointers stay valid
+    int i = 0;
+    tmp.next = nullptr;
+    PolyEdge* e = &edges[i];
+    y_max = std::min(y_max, im.h);
+    for (int y = e->y0; y < y_max; y++) {
+        PolyEdge *last, *prelast, *keep_prelast;
+        int draw = 0;
+        bool clipline = y < 0;
+        prelast = &tmp;
+        last = tmp.next;
+        while (last || e->y0 == y) {
+            if (last && last->y1 == y) {  // the edge ends at this row
+                prelast->next = last->next;
+                last = last->next;
+                continue;
+            }
+            keep_prelast = prelast;
+            if (last && (e->y0 > y || last->x < e->x)) {
+                prelast = last;
+                last = last->next;
+            } else if (i < total) {  // the next edge starts at this row
+                prelast->next = e;
+                e->next = last;
+                prelast = e;
+                e = &edges[++i];
+            } else {
+                break;
+            }
+            if (draw) {
+                if (!clipline) {
+                    int x1, x2;
+                    // the left end rounds up, the right end down
+                    if (keep_prelast->x > prelast->x) {
+                        x1 = (int)((prelast->x + XY_ONE - 1) >> XY_SHIFT);
+                        x2 = (int)(keep_prelast->x >> XY_SHIFT);
+                    } else {
+                        x1 = (int)((keep_prelast->x + XY_ONE - 1) >> XY_SHIFT);
+                        x2 = (int)(prelast->x >> XY_SHIFT);
+                    }
+                    if (x1 < im.w && x2 >= 0) {
+                        if (x1 < 0) x1 = 0;
+                        if (x2 >= im.w) x2 = im.w - 1;
+                        if (x1 <= x2) im.hline(y, x1, x2, col);
+                    }
+                }
+                keep_prelast->x += keep_prelast->dx;
+                prelast->x += prelast->dx;
+            }
+            draw ^= 1;
+        }
+        // keep the active edges in x order (bubble sort)
+        keep_prelast = nullptr;
+        do {
+            prelast = &tmp;
+            last = tmp.next;
+            PolyEdge* last_exchange = nullptr;
+            while (last != keep_prelast && last->next != nullptr) {
+                PolyEdge* te = last->next;
+                if (last->x > te->x) {
+                    prelast->next = te;
+                    last->next = te->next;
+                    te->next = last;
+                    prelast = te;
+                    last_exchange = prelast;
+                } else {
+                    prelast = last;
+                    last = te;
+                }
+            }
+            if (last_exchange == nullptr) break;
+            keep_prelast = last_exchange;
+        } while (keep_prelast != tmp.next && keep_prelast != &tmp);
+    }
+}
+
+
 // the integer circle (outline, or filled with `fill`)
 void circle_int(const Img& im, P center, int radius, const uint8_t* col, bool fill) {
     int err = 0, dx = radius, dy = 0, plus = 1, minus = (radius << 1) - 1;
@@ -987,6 +1139,17 @@ void mgdt_fill_convex_poly(uint8_t* data, int h, int w, int c, const int64_t* pt
     std::vector<P> v(n);
     for (int i = 0; i < n; i++) v[i] = {pts[2 * i], pts[2 * i + 1]};
     fill_convex_poly(im, v.data(), n, col, line_type, shift);
+}
+
+// cv2.fillPoly over contours: counts[k] points each, (x, y) in order
+void mgdt_fill_poly(uint8_t* data, int h, int w, int c, const int64_t* pts, const int32_t* counts,
+                    int ncontours, const uint8_t* col, int shift) {
+    Img im{data, h, w, c};
+    std::vector<PolyEdge> edges;
+    const P* v = reinterpret_cast<const P*>(pts);
+    for (int k = 0; k < ncontours; v += counts[k], k++)
+        if (counts[k] > 0) collect_poly_edges(im, v, counts[k], edges, col, shift);
+    fill_edge_collection(im, edges, col);
 }
 
 // cv2.polylines over n (x, y) points

@@ -16,8 +16,8 @@ import torch.nn.functional as F
 
 from ...ops.common import (adaptive_avg_pool2d, h_sigmoid, interpolate_bilinear,
                            max_pool2d_same)
-from ...ops.cuda_deform import deform_conv
-from ...ops.deform import check_semantics
+from ...ops import cuda_deform  # noqa: F401  (registers the mgdt::deform_fwd operator)
+from ...ops.deform import check_semantics, modulated_deform_conv2d
 from .conv import BN, Conv, DWConv, GhostConv, LightConv, RepConv, get_act
 from .transformer import TransformerBlock
 
@@ -56,13 +56,14 @@ class C2(nn.Module):
     """CSP bottleneck with 2 convs: the first half of cv1's output through
     n bottlenecks, concatenated with the second half, then cv2."""
 
-    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, e: float = 0.5):
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1,
+                 e: float = 0.5):
         super().__init__()
         c = int(c2 * e)
         self.n = n
         self.cv1 = Conv(c1, 2 * c, 1)
         for i in range(n):
-            self.add_module(f"m_{i}", Bottleneck(c, c, shortcut, e=1.0))
+            self.add_module(f"m_{i}", Bottleneck(c, c, shortcut, g, e=1.0))
         self.cv2 = Conv(2 * c, c2, 1)
 
     def forward(self, x):
@@ -73,15 +74,17 @@ class C2(nn.Module):
 
 
 class C2f(nn.Module):
-    """CSP bottleneck with progressive splits."""
+    """CSP bottleneck with progressive splits (hidden width int(c2 * e),
+    bottleneck groups `g`)."""
 
-    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False):
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False, g: int = 1,
+                 e: float = 0.5):
         super().__init__()
-        c = c2 // 2
+        c = int(c2 * e)
         self.n = n
         self.cv1 = Conv(c1, 2 * c, 1)
         for i in range(n):
-            self.add_module(f"m_{i}", Bottleneck(c, c, shortcut, e=1.0))
+            self.add_module(f"m_{i}", Bottleneck(c, c, shortcut, g, e=1.0))
         self.cv2 = Conv((2 + n) * c, c2, 1)
 
     def forward(self, x):
@@ -92,17 +95,18 @@ class C2f(nn.Module):
 
 
 class C3(nn.Module):
-    """CSP bottleneck with 3 convs: cv1's branch through n bottlenecks,
-    concatenated with cv2's, then cv3."""
+    """CSP bottleneck with 3 convs: cv1's branch through n bottlenecks
+    (groups `g`, kernels `k`), concatenated with cv2's, then cv3."""
 
-    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, e: float = 0.5):
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1,
+                 e: float = 0.5, k=((1, 1), (3, 3))):
         super().__init__()
         c_ = int(c2 * e)
         self.n = n
         self.cv1 = Conv(c1, c_, 1)
         self.cv2 = Conv(c1, c_, 1)
         for i in range(n):
-            self.add_module(f"m_{i}", Bottleneck(c_, c_, shortcut, k=(1, 3), e=1.0))
+            self.add_module(f"m_{i}", Bottleneck(c_, c_, shortcut, g, k=k, e=1.0))
         self.cv3 = Conv(2 * c_, c2, 1)
 
     def forward(self, x):
@@ -132,17 +136,17 @@ class C1(nn.Module):
 class C3x(C3):
     """C3 whose bottlenecks take the cross 1x3 / 3x1 convolutions."""
 
-    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, e: float = 0.5):
-        super().__init__(c1, c2, n, shortcut, e)
-        c_ = int(c2 * e)
-        for i in range(n):
-            self.add_module(f"m_{i}", Bottleneck(c_, c_, shortcut, k=((1, 3), (3, 1)), e=1.0))
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1,
+                 e: float = 0.5):
+        super().__init__(c1, c2, n, shortcut, g, e, k=((1, 3), (3, 1)))
 
 
 class C3TR(nn.Module):
-    """C3 whose inner branch is a `TransformerBlock` (4 heads, n layers)."""
+    """C3 whose inner branch is a `TransformerBlock` (4 heads, n layers);
+    `shortcut` and `g` are taken and unused, as in JAX."""
 
-    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, e: float = 0.5):
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1,
+                 e: float = 0.5):
         super().__init__()
         c_ = int(c2 * e)
         self.cv1 = Conv(c1, c_, 1, 1)
@@ -183,10 +187,12 @@ class GhostBottleneck(nn.Module):
 
 
 class C3Ghost(C3):
-    """C3 whose bottlenecks are `GhostBottleneck`s."""
+    """C3 whose bottlenecks are `GhostBottleneck`s (`g` taken and unused,
+    as in JAX)."""
 
-    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, e: float = 0.5):
-        super().__init__(c1, c2, n, shortcut, e)
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1,
+                 e: float = 0.5):
+        super().__init__(c1, c2, n, shortcut, g, e)
         c_ = int(c2 * e)
         for i in range(n):
             self.add_module(f"m_{i}", GhostBottleneck(c_, c_))
@@ -219,13 +225,14 @@ class BottleneckCSP(nn.Module):
     1x1 `cv3`, beside the bare 1x1 `cv2` of x, one BatchNorm over both and
     the default activation, then cv4."""
 
-    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, e: float = 0.5):
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1,
+                 e: float = 0.5):
         super().__init__()
         c_ = int(c2 * e)
         self.n = n
         self.cv1 = Conv(c1, c_, 1, 1)
         for i in range(n):
-            self.add_module(f"m_{i}", Bottleneck(c_, c_, shortcut, e=1.0))
+            self.add_module(f"m_{i}", Bottleneck(c_, c_, shortcut, g, e=1.0))
         self.cv3 = nn.Conv2d(c_, c_, 1, bias=False)
         self.cv2 = nn.Conv2d(c1, c_, 1, bias=False)
         self.norm = BN(2 * c_)
@@ -373,16 +380,16 @@ class MSPA_C2f(nn.Module):
     softmaxed across groups (in float32) to reweight the fused features.
     """
 
-    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False,
-                 scale: int = 4):
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False, g: int = 1,
+                 e: float = 0.5, scale: int = 4):
         super().__init__()
         self.nums, self.n = scale, n
-        inw = c1 // scale
+        inw = c1 // scale   # `e` is taken and unused, as in JAX
         self.outw = c2 // scale
         for i in range(scale - 1):
             self.add_module(f"convs_{i}", Conv(inw, inw, 1))
         for j in range(n):
-            self.add_module(f"bottleneck_{j}", Bottleneck(inw, inw, shortcut, e=1.0))
+            self.add_module(f"bottleneck_{j}", Bottleneck(inw, inw, shortcut, g, e=1.0))
         self.add_module(f"convs_{scale - 1}", Conv((scale - 1 + n) * inw, c2, 1))
         self.attention = SPRModule(self.outw)
 
@@ -538,20 +545,32 @@ class InjectionMultiSum_Auto_pool(nn.Module):
 
 
 class DyDCNv2(nn.Module):
-    """Modulated deformable conv (no bias) + GroupNorm(16); offsets and mask
-    come from the caller. `semantics` is the model's deform pin. The DCN is
-    `ops.cuda_deform.deform_conv`: K1 forward, K2 backward on the card, the
-    weight cast to x's type as the JAX module casts it."""
+    """Modulated deformable conv + GroupNorm(16), or + a bias where
+    `with_norm` is False; offsets and mask come from the caller, and
+    `semantics` is the model's deform pin (JAX `nn/modules/block.py:597-611`).
+    The DCN is `ops.deform.modulated_deform_conv2d`, routed by shape as
+    JAX's `auto` dispatch (`mgdt_yolo_tpu/ops/deform.py:151-153`): at stride
+    1 K1 forward and K2 backward on the card (the bias added inside K1),
+    the weight cast to x's type as the JAX module casts it; at stride 2
+    (which no Pallas kernel takes, `ops/pallas_deform.py:155-166`) the plain
+    exact DCN on either device."""
 
-    def __init__(self, c1: int, c2: int, semantics: str = "windowed"):
+    def __init__(self, c1: int, c2: int, stride: int = 1, with_norm: bool = True,
+                 semantics: str = "windowed"):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(3, 3, c1, c2))  # HWIO
-        self.gn = nn.GroupNorm(16, c2, eps=1e-5)
+        self.stride, self.with_norm = stride, with_norm
+        if with_norm:
+            self.gn = nn.GroupNorm(16, c2, eps=1e-5)
+        else:
+            self.bias = nn.Parameter(torch.zeros(c2))
         self.semantics = check_semantics(semantics)
 
     def forward(self, x, offset, mask):
-        """x (b, c1, h, w), offset (b, 18, h, w), mask (b, 9, h, w) -> NCHW."""
+        """x (b, c1, h, w), offset (b, 18, ho, wo), mask (b, 9, ho, wo) -> NCHW."""
         def nhwc(t):
             return t.permute(0, 2, 3, 1).contiguous()
-        y = deform_conv(nhwc(x), nhwc(offset), nhwc(mask), self.weight, self.semantics)
-        return self.gn(y.permute(0, 3, 1, 2))
+        y = modulated_deform_conv2d(nhwc(x), nhwc(offset), nhwc(mask), self.weight,
+                                    None if self.with_norm else self.bias, stride=self.stride,
+                                    padding=1, semantics=self.semantics).permute(0, 3, 1, 2)
+        return self.gn(y) if self.with_norm else y

@@ -20,6 +20,20 @@ BN_EPS = 1e-3        # the reference's BatchNorm eps
 BN_MOMENTUM = 0.03   # torch convention (flax momentum 0.97)
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """x times its sigmoid (JAX `nn/modules/conv.py:32`)."""
+    return x * torch.sigmoid(x)
+
+
+def torch_conv_init(shape, generator: torch.Generator | None = None) -> torch.Tensor:
+    """A float32 HWIO kernel drawn as torch's `nn.Conv2d` default draws one,
+    uniform(+-sqrt(1 / fan_in)), fan_in = kh kw Cin (JAX
+    `nn/modules/conv.py:67-78`, there from a PRNG key, here from
+    `generator`)."""
+    bound = math.sqrt(1.0 / (shape[0] * shape[1] * shape[2]))
+    return torch.rand(tuple(shape), generator=generator) * (2 * bound) - bound
+
+
 def autopad(k, p: int | None = None, d: int = 1):
     """'same'-shape padding for odd kernels; a (kh, kw) kernel gets a pad
     per axis (C3x's cross convs)."""
@@ -321,6 +335,44 @@ class GhostConv(nn.Module):
     def forward(self, x):
         y = self.cv1(x)
         return torch.cat([y, self.cv2(y)], dim=1)
+
+
+class ChannelAttention(nn.Module):
+    """SE-style channel gate: x times the sigmoid of a biased 1x1 conv `fc`
+    of its spatial mean (JAX `nn/modules/conv.py:365-375`)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.fc = nn.Conv2d(channels, channels, 1, bias=True)
+
+    def forward(self, x):
+        return x * torch.sigmoid(self.fc(x.mean(dim=(2, 3), keepdim=True)))
+
+
+class SpatialAttention(nn.Module):
+    """Spatial gate: x times the sigmoid of a k x k conv `cv1` (no bias) over
+    its channel mean and max (JAX `nn/modules/conv.py:378-390`)."""
+
+    def __init__(self, k: int = 7):
+        super().__init__()
+        self.cv1 = nn.Conv2d(2, 1, k, padding=k // 2, bias=False)
+
+    def forward(self, x):
+        stat = torch.cat([x.mean(dim=1, keepdim=True), x.amax(dim=1, keepdim=True)], dim=1)
+        return x * torch.sigmoid(self.cv1(stat))
+
+
+class CBAM(nn.Module):
+    """Channel then spatial attention (JAX `nn/modules/conv.py:393-401`);
+    no YAML uses it."""
+
+    def __init__(self, c1: int, k: int = 7):
+        super().__init__()
+        self.channel_attention = ChannelAttention(c1)
+        self.spatial_attention = SpatialAttention(k)
+
+    def forward(self, x):
+        return self.spatial_attention(self.channel_attention(x))
 
 
 class Concat(nn.Module):

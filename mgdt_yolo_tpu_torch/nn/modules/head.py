@@ -8,7 +8,7 @@ import torch.nn.functional as F
 
 from ...ops.boxes import dist2bbox, make_anchors
 from .block import DyDCNv2, Proto, dfl_decode
-from .conv import Conv
+from .conv import Conv, get_act
 
 
 def _head_conv(c1: int, c2: int, k: int) -> nn.Conv2d:
@@ -17,15 +17,17 @@ def _head_conv(c1: int, c2: int, k: int) -> nn.Conv2d:
 
 
 class Conv_GN(nn.Module):
-    """conv (no bias) + GroupNorm(16, eps 1e-5) + SiLU."""
+    """conv (no bias; stride `s`) + GroupNorm(16, eps 1e-5) + the activation
+    `act` (SiLU by default), as JAX's `nn/modules/head.py:32-49`."""
 
-    def __init__(self, c1: int, c2: int, k: int):
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, act=True):
         super().__init__()
-        self.conv = nn.Conv2d(c1, c2, k, padding=k // 2, bias=False)
+        self.conv = nn.Conv2d(c1, c2, k, s, padding=k // 2, bias=False)
         self.gn = nn.GroupNorm(16, c2, eps=1e-5)
+        self.act = get_act(act)
 
     def forward(self, x):
-        return F.silu(self.gn(self.conv(x)))
+        return self.act(self.gn(self.conv(x)))
 
 
 class TaskDecomposition(nn.Module):

@@ -19,8 +19,10 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import logging
 import math
 import re
+from pathlib import Path
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
@@ -36,6 +38,8 @@ from .modules import transformer as T
 from .modules.conv import (Concat, Conv, Conv2, ConvTranspose, DWConv, DWConvTranspose2d, Focus,
                            GhostConv, MaxPool2d, RepVGGBlock, Upsample, ZeroPad2d,
                            set_default_act)
+
+LOGGER = logging.getLogger(__name__)
 
 
 def make_divisible(x: float, divisor: int = 8) -> int:
@@ -390,13 +394,14 @@ class BaseModel(nn.Module):
         self.n_fused = fuse_conv_bn(self)
         return self
 
-    def _run(self, x: torch.Tensor, head_kwargs=None):
+    def _run(self, x: torch.Tensor, head_kwargs=None, upto: Optional[int] = None):
         """The graph over an NHWC batch: the last layer's output (the last
-        layer called with `head_kwargs`, where given)."""
+        layer called with `head_kwargs`, where given); with `upto`, the
+        output of its first `upto` layers."""
         x = x.to(next(self.parameters()).dtype)
         saved, out = {}, x.permute(0, 3, 1, 2)
         last = self.specs[-1].i
-        for spec in self.specs:
+        for spec in self.specs[:upto]:
             if spec.f == -1:
                 inp = out
             elif isinstance(spec.f, int):
@@ -592,6 +597,96 @@ class RTDETRDetectionModel(BaseModel):
 
     def forward(self, x: torch.Tensor, dn=None):
         return self._run(x, {"dn": dn} if dn is not None else None)
+
+
+def guess_model_scale(path) -> str:
+    """The n/s/m/l/x scale letter of a name like yolov8s.yaml, "" where it
+    has none (JAX `nn/tasks.py:402-405`)."""
+    m = re.search(r"yolov\d+([nslmx])", Path(str(path)).stem)
+    return m.group(1) if m else ""
+
+
+def yaml_model_load(path) -> Dict:
+    """The config a model YAML's file name names, resolved over the port's
+    own configs (`models.CONFIGS`; a scale letter picks that scale, kept as
+    `scale`), with `yaml_file` the name given, as JAX's `yaml_model_load`
+    (`nn/tasks.py:408-423`) resolves it over its YAML files. Raises
+    FileNotFoundError for a name the port has no config for."""
+    try:
+        d = load_config(path)
+    except KeyError as e:
+        raise FileNotFoundError(f"model yaml '{path}' not found: {e.args[0]}") from None
+    d["scale"] = guess_model_scale(path)
+    d["yaml_file"] = str(path)
+    return d
+
+
+class Ensemble(nn.Module):
+    """An NMS ensemble of detection models (JAX `nn/tasks.py:608-654`):
+    `forward(x)` returns (the members' decoded outputs concatenated on the
+    anchor axis, None), so NMS runs over every member's candidates at once.
+    Its stride is that of the member with the largest stride; `nc`, `names`,
+    `task` and `reg_max` are the first member's; `fuse` and
+    `set_deform_semantics` go to every member. Members of different class
+    counts raise. The predictor and the validators take it as a model."""
+
+    def __init__(self, members):
+        super().__init__()
+        members = list(members)
+        if not members or any(m.nc != members[0].nc for m in members):
+            raise ValueError(f"models differ in class counts {[m.nc for m in members]}")
+        self.members = nn.ModuleList(members)
+        first = members[0]
+        self.nc, self.names = first.nc, first.names
+        self.task = getattr(first, "task", "detect")
+        self.reg_max = first.reg_max
+        self.stride = max((m.stride for m in members), key=max)
+
+    def __len__(self) -> int:
+        return len(self.members)
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
+    @property
+    def deform_semantics(self) -> str:
+        return self.members[0].deform_semantics
+
+    def forward(self, x: torch.Tensor):
+        return torch.cat([m(x)[0] for m in self.members], dim=-1), None
+
+    def fuse(self):
+        for m in self.members:
+            m.fuse()
+        return self
+
+    def set_deform_semantics(self, sem: str):
+        """Pin every member (a member loaded from a checkpoint keeps its own
+        pin until this is called)."""
+        for m in self.members:
+            m.set_deform_semantics(sem)
+        return self
+
+
+def attempt_load_one_weight(weight, device=None, fuse: bool = False):
+    """The model of one checkpoint (npz, `.pt`) or config YAML, loaded
+    through the port's `YOLO` onto `device` (the card by default), folded
+    where `fuse` (JAX `nn/tasks.py:657-664`)."""
+    from ..engine.model import YOLO
+    model = YOLO(str(weight), device=device).model
+    return model.fuse() if fuse else model
+
+
+def attempt_load_weights(weights, device=None, fuse: bool = False):
+    """One model, or an `Ensemble` of the models of a list of checkpoints
+    (JAX `nn/tasks.py:667-676`)."""
+    ws = weights if isinstance(weights, (list, tuple)) else [weights]
+    members = [attempt_load_one_weight(w, device, fuse) for w in ws]
+    if len(members) == 1:
+        return members[0]
+    LOGGER.info(f"Ensemble created with {[str(w) for w in ws]}")
+    return Ensemble(members)
 
 
 def is_rtdetr(cfg) -> bool:

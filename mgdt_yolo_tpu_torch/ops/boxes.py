@@ -20,6 +20,27 @@ def xyxy2xywh(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1], dim=-1)
 
 
+def xywhn2xyxy(x: torch.Tensor, w: float, h: float, padw: float = 0.0,
+               padh: float = 0.0) -> torch.Tensor:
+    """Normalised (cx, cy, w, h) -> pixel (x1, y1, x2, y2), last-dim layout
+    (JAX `ops/boxes.py:29-34`)."""
+    cx, cy, bw, bh = x.unbind(-1)
+    return torch.stack([w * (cx - bw / 2) + padw, h * (cy - bh / 2) + padh,
+                        w * (cx + bw / 2) + padw, h * (cy + bh / 2) + padh], dim=-1)
+
+
+def box_iou(box1: torch.Tensor, box2: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Pairwise IoU of two xyxy box sets: (N, 4) x (M, 4) -> (N, M) (JAX
+    `ops/boxes.py:37-45`)."""
+    lt = torch.maximum(box1[:, None, :2], box2[None, :, :2])
+    rb = torch.minimum(box1[:, None, 2:], box2[None, :, 2:])
+    wh = (rb - lt).clamp(min=0)
+    inter = wh[..., 0] * wh[..., 1]
+    a1 = (box1[:, 2] - box1[:, 0]) * (box1[:, 3] - box1[:, 1])
+    a2 = (box2[:, 2] - box2[:, 0]) * (box2[:, 3] - box2[:, 1])
+    return inter / (a1[:, None] + a2[None, :] - inter + eps)
+
+
 def make_anchors(feat_shapes, strides, grid_cell_offset: float = 0.5,
                  dtype=torch.float32, device=None):
     """Grid anchor centres and per-anchor stride from (h, w) map shapes.
@@ -86,11 +107,13 @@ def scale_boxes(img1_shape, boxes: np.ndarray, img0_shape, ratio_pad=None) -> np
 
 
 def bbox_iou(box1: torch.Tensor, box2: torch.Tensor, xywh: bool = True,
-             CIoU: bool = False, eps: float = 1e-7, GIoU: bool = False) -> torch.Tensor:
-    """Elementwise IoU, CIoU or GIoU of broadcast box arrays -> (..., 1).
+             CIoU: bool = False, eps: float = 1e-7, GIoU: bool = False,
+             DIoU: bool = False) -> torch.Tensor:
+    """Elementwise IoU, CIoU, DIoU or GIoU of broadcast box arrays -> (..., 1).
 
-    As the JAX package computes it: xyxy heights carry `+ eps`, and CIoU's
-    aspect weight `alpha` is taken without gradient.
+    As the JAX package computes it (`ops/boxes.py:48-86`): xyxy heights
+    carry `+ eps`, CIoU's aspect weight `alpha` is taken without gradient,
+    and CIoU or DIoU wins over GIoU where several are asked for.
     """
     if xywh:
         x1, y1, w1, h1 = box1.chunk(4, dim=-1)
@@ -106,15 +129,17 @@ def bbox_iou(box1: torch.Tensor, box2: torch.Tensor, xywh: bool = True,
              (torch.minimum(b1y2, b2y2) - torch.maximum(b1y1, b2y1)).clamp(min=0))
     union = w1 * h1 + w2 * h2 - inter + eps
     iou = inter / union
-    if not (CIoU or GIoU):
+    if not (CIoU or DIoU or GIoU):
         return iou
     cw = torch.maximum(b1x2, b2x2) - torch.minimum(b1x1, b2x1)
     ch = torch.maximum(b1y2, b2y2) - torch.minimum(b1y1, b2y1)
-    if GIoU:
+    if not (CIoU or DIoU):
         c_area = cw * ch + eps
         return iou - (c_area - union) / c_area
     c2 = cw ** 2 + ch ** 2 + eps
     rho2 = ((b2x1 + b2x2 - b1x1 - b1x2) ** 2 + (b2y1 + b2y2 - b1y1 - b1y2) ** 2) / 4
+    if not CIoU:
+        return iou - rho2 / c2
     v = (4 / math.pi ** 2) * (torch.atan(w2 / h2) - torch.atan(w1 / h1)) ** 2
     alpha = (v / (v - iou + (1 + eps))).detach()
     return iou - (rho2 / c2 + v * alpha)

@@ -41,6 +41,7 @@ wrappers do.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -260,13 +261,14 @@ def deform_bwd_simt(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
 # launches; the wrappers are looked up when the operator runs).
 @torch.library.custom_op("mgdt::deform_fwd", mutates_args=())
 def deform_fwd_op(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
-                  weight: torch.Tensor, semantics: str) -> torch.Tensor:
-    """`deform_fwd` without a bias, as the registered operator."""
-    return deform_fwd(x, offset, mask, weight, None, semantics)
+                  weight: torch.Tensor, semantics: str,
+                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`deform_fwd` as the registered operator (`bias` float32 or None)."""
+    return deform_fwd(x, offset, mask, weight, bias, semantics)
 
 
 @deform_fwd_op.register_fake
-def _(x, offset, mask, weight, semantics):
+def _(x, offset, mask, weight, semantics, bias=None):
     return x.new_empty((*x.shape[:3], weight.shape[3]))
 
 
@@ -285,28 +287,34 @@ def _(x, offset, mask, weight, grad_out, semantics):
 
 
 def _setup_context(ctx, inputs, output):
-    x, offset, mask, weight, semantics = inputs
+    x, offset, mask, weight, semantics, bias = inputs
     ctx.semantics = semantics
+    ctx.has_bias = bias is not None
     ctx.save_for_backward(x, offset, mask, weight)
 
 
 def _backward(ctx, grad_out):
-    """K2 on the saved x, offset, mask and weight, as the JAX custom VJP."""
+    """K2 on the saved x, offset, mask and weight, as the JAX custom VJP;
+    the bias's gradient is grad_out summed over (B, H, W) in float32."""
     x, offset, mask, weight = ctx.saved_tensors
     grads = deform_bwd_op(x, offset, mask, weight, grad_out.contiguous(), ctx.semantics)
-    return (*grads, None)
+    d_bias = grad_out.float().sum(dim=(0, 1, 2)) if ctx.has_bias else None
+    return (*grads, None, d_bias)
 
 
 deform_fwd_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def deform_conv(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
-                weight: torch.Tensor, semantics: str = "windowed") -> torch.Tensor:
+                weight: torch.Tensor, semantics: str = "windowed",
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Differentiable DCNv2, NHWC: offset, mask and weight are cast to x's
     type first (the JAX module casts its weight to the compute type), so the
     kernels see one type and the casts' own backward restores the
-    parameters' type."""
+    parameters' type; a bias is added in float32 inside the kernel, before
+    the output's rounding, as JAX adds it to its float32 contraction."""
     dt = x.dtype
     return deform_fwd_op(x.contiguous(), offset.to(dt).contiguous(),
                          mask.to(dt).contiguous(), weight.to(dt).contiguous(),
-                         check_semantics(semantics))
+                         check_semantics(semantics),
+                         None if bias is None else bias.float().contiguous())

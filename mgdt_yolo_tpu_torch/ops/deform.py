@@ -1,7 +1,11 @@
 """Modulated deformable convolution v2 (DCNv2) in plain PyTorch, NHWC, 3x3,
 stride 1, padding 1: the forward and the explicit backward, the references
 for the CUDA kernels (`csrc/deform_fwd.cu` and `csrc/deform_bwd.cu`,
-wrapped by `ops/cuda_deform.py`, which routes CPU tensors here).
+wrapped by `ops/cuda_deform.py`, which routes CPU tensors here). Beside
+them, `modulated_deform_conv2d_exact` takes any kernel size, stride,
+padding and dilation (exact semantics, autograd), and
+`modulated_deform_conv2d` routes by shape between the two, as the JAX
+package's `auto` dispatch does.
 
 Two semantics, pinned per model by the checkpoint's metadata
 (`deform_semantics`), because weights trained under one do not transfer to
@@ -159,3 +163,70 @@ def modulated_deform_conv2d_plain_bwd(x: torch.Tensor, offset: torch.Tensor,
     doffset = torch.stack([dfy * pass_y, dfx * pass_x], dim=-1)
     return (dxf.reshape(x.shape).to(x.dtype), doffset.reshape(offset.shape).to(offset.dtype),
             (dwv * valid).reshape(mask.shape).to(mask.dtype), dweight)
+
+
+def modulated_deform_conv2d_exact(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+                                  weight: torch.Tensor, bias: torch.Tensor | None = None,
+                                  stride: int = 1, padding: int = 1,
+                                  dilation: int = 1) -> torch.Tensor:
+    """DCNv2 forward of any kernel size, stride, padding and dilation, exact
+    semantics: the JAX package's XLA `exact` path
+    (`mgdt_yolo_tpu/ops/deform.py:190-236`) in plain PyTorch,
+    differentiable by autograd.
+
+    x (B, H, W, Cin); offset (B, Ho, Wo, 2 kh kw) y/x per tap; mask (B, Ho,
+    Wo, kh kw); weight (kh, kw, Cin, Cout); bias (Cout,) or None. Tap (ty,
+    tx) of output (i, j) samples at (i stride - padding + ty dilation +
+    off_y, likewise x), bilinear with zero padding, scaled by the mask and
+    by `valid` as in `modulated_deform_conv2d_plain`. Sampling and the
+    contraction accumulate in float32; returns (B, Ho, Wo, Cout) in x's
+    type.
+    """
+    B, H, W, Cin = x.shape
+    kh, kw, _, Cout = weight.shape
+    K = kh * kw
+    Ho = (H + 2 * padding - dilation * (kh - 1) - 1) // stride + 1
+    Wo = (W + 2 * padding - dilation * (kw - 1) - 1) // stride + 1
+    P = Ho * Wo
+    f32, dev = torch.float32, x.device
+    gy, gx = torch.meshgrid(torch.arange(Ho, dtype=f32, device=dev) * stride - padding,
+                            torch.arange(Wo, dtype=f32, device=dev) * stride - padding,
+                            indexing="ij")
+    tap = torch.arange(K, device=dev)
+    off = offset.reshape(B, P, K, 2).to(f32)
+    py = gy.reshape(1, P, 1) + (tap // kw).to(f32) * dilation + off[..., 0]
+    px = gx.reshape(1, P, 1) + (tap % kw).to(f32) * dilation + off[..., 1]
+    valid = ((py > -1.0) & (py < H) & (px > -1.0) & (px < W)).to(f32)
+    y0, x0 = torch.floor(py), torch.floor(px)
+    wv = mask.reshape(B, P, K).to(f32) * valid
+    xf = x.reshape(B, H * W, Cin).to(f32)
+    sampled = torch.zeros(B, P * K, Cin, dtype=f32, device=dev)
+    for _, _, idx, inb, ay, ax in _corners(y0, py - y0, x0, px - x0, H, W):
+        g = torch.gather(xf, 1, idx.reshape(B, P * K, 1).expand(-1, -1, Cin))
+        sampled = sampled + g * (ay * ax * wv * inb).reshape(B, P * K, 1)
+    out = sampled.reshape(B, P, K * Cin) @ weight.reshape(K * Cin, Cout).to(f32)
+    if bias is not None:
+        out = out + bias.to(f32)
+    return out.reshape(B, Ho, Wo, Cout).to(x.dtype)
+
+
+def modulated_deform_conv2d(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+                            weight: torch.Tensor, bias: torch.Tensor | None = None,
+                            stride: int = 1, padding: int = 1, dilation: int = 1,
+                            semantics: str = "windowed") -> torch.Tensor:
+    """Differentiable DCNv2, NHWC, routed by shape as the JAX package's
+    `method="auto"` routes it (`mgdt_yolo_tpu/ops/deform.py:151-153`): a
+    3x3 kernel at stride 1, padding 1 and dilation 1 goes to
+    `ops.cuda_deform.deform_conv` (K1 forward and K2 backward on the card,
+    the plain versions on the CPU) under the model's `semantics`; every
+    other shape has no kernel on either side and runs
+    `modulated_deform_conv2d_exact`, exact whatever the pin, as JAX's XLA
+    gather does. The route depends on the shape alone, never on a kernel's
+    failure."""
+    check_semantics(semantics)
+    if stride == padding == dilation == 1 and tuple(weight.shape[:2]) == (3, 3):
+        from .cuda_deform import deform_conv
+        return deform_conv(x, offset, mask, weight, semantics, bias)
+    dt = x.dtype
+    return modulated_deform_conv2d_exact(x, offset.to(dt), mask.to(dt), weight.to(dt), bias,
+                                         stride, padding, dilation)

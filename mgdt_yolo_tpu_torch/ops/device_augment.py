@@ -208,3 +208,16 @@ def apply_augment(batch: Dict[str, torch.Tensor], draws: Dict[str, torch.Tensor]
     out_labels = torch.where(out_mask, out_labels, 0)
     return {"img": img, "gt_bboxes": out_boxes, "gt_labels": out_labels,
             "mask_gt": out_mask}
+
+
+def device_augment(batch: Dict[str, torch.Tensor], generator: torch.Generator, imgsz: int,
+                   mosaic_p: float = 1.0, scale: float = 0.5, translate: float = 0.1,
+                   fliplr: float = 0.5, flipud: float = 0.0, hsv_h: float = 0.015,
+                   hsv_s: float = 0.7, hsv_v: float = 0.4,
+                   max_out: int = 0) -> Dict[str, torch.Tensor]:
+    """JAX's one-call `device_augment` (`ops/device_augment.py:58`):
+    `augment_draws` from `generator` (in place of JAX's key), then
+    `apply_augment` (K3 on the card)."""
+    draws = augment_draws(batch["img"].shape[0], imgsz, generator, mosaic_p, scale, translate,
+                          fliplr, flipud, hsv_h, hsv_s, hsv_v)
+    return apply_augment(batch, draws, imgsz, max_out)

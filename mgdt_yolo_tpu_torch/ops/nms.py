@@ -1,5 +1,7 @@
 """Batched class-offset (or class-agnostic) NMS with fixed-size output, the
-counterpart of `mgdt_yolo_tpu/ops/nms.py` (`nms_single_fixpoint` and `_blocked_keep`).
+counterpart of `mgdt_yolo_tpu/ops/nms.py` (`nms_single_fixpoint` and
+`_blocked_keep`), with the per-image `nms_single_fixpoint` and the greedy
+scan `nms_single` beside it.
 
 Greedy NMS as a fixpoint: a candidate survives iff no higher-scoring
 survivor of its class overlaps it above the IoU threshold. Candidates are
@@ -115,26 +117,13 @@ def _blocked_keep(ob, valid, iou_thres: float, block: int, max_det: int):
     return torch.cat(keeps, dim=1)
 
 
-def non_max_suppression(prediction: torch.Tensor, conf_thres: float = 0.25,
-                        iou_thres: float = 0.45, agnostic: bool = False,
-                        multi_label: bool = False, max_det: int = 300,
-                        pre_topk: int = 1024, nc: Optional[int] = None,
-                        return_idx: bool = False, block: int = 256):
-    """Batched NMS over the eval-path head output.
-
-    prediction: (B, 4 + nc, A) xywh boxes then class scores; channels past
-    4 + `nc` are ignored (all past 4 are scores when `nc` is None).
-    `agnostic` lets boxes of different classes suppress each other. `block`
-    > 0 resolves candidate pools larger than it block by block (same result).
-    Returns det (B, max_det, 6) [x1, y1, x2, y2, conf, cls] zero-padded and
-    counts (B,) int32, plus the source anchor of each row (B, max_det)
-    int32, -1 for padding, when return_idx.
-    """
-    pred = prediction.transpose(1, 2)  # (B, A, 4+nc)
-    nc = nc or (pred.shape[-1] - 4)
+def _fixpoint_nms(boxes, scores, conf_thres, iou_thres, max_det, pre_topk, multi_label,
+                  agnostic, block):
+    """The fixpoint NMS of a batch: boxes (B, A, 4) xyxy, scores (B, A,
+    nc). Returns det (B, max_det, 6), counts (B,) int32 and the source
+    anchor of each row (B, max_det) int32, -1 for padding."""
     cand_boxes, conf, cls, valid, ob, anchor_idx, k = _candidates(
-        xywh2xyxy(pred[..., :4]), pred[..., 4:4 + nc], conf_thres, pre_topk, multi_label,
-        agnostic)
+        boxes, scores, conf_thres, pre_topk, multi_label, agnostic)
     if block and k > block:
         keep = _blocked_keep(ob, valid, iou_thres, block, max_det)
     else:
@@ -157,5 +146,74 @@ def non_max_suppression(prediction: torch.Tensor, conf_thres: float = 0.25,
         B = det.shape[0]
         det = torch.cat([det, det.new_zeros(B, max_det - k, 6)], dim=1)
         kept = torch.cat([kept, kept.new_full((B, max_det - k), -1)], dim=1)
-    counts = ok.sum(dim=1).to(torch.int32)
+    return det, ok.sum(dim=1).to(torch.int32), kept
+
+
+def nms_single_fixpoint(boxes: torch.Tensor, scores: torch.Tensor, conf_thres: float = 0.25,
+                        iou_thres: float = 0.45, max_det: int = 300, pre_topk: int = 1024,
+                        multi_label: bool = False, agnostic: bool = False, block: int = 0):
+    """The fixpoint NMS of one image (JAX `ops/nms.py:184-241`): boxes (A, 4)
+    xyxy, scores (A, nc). `block` > 0 resolves a candidate pool larger than
+    it block by block (same result). Returns det (max_det, 6) [x1, y1, x2,
+    y2, conf, cls] zero-padded, the count () int32 and the source anchor of
+    each row (max_det,) int32, -1 for padding."""
+    det, n, kept = _fixpoint_nms(boxes[None], scores[None], conf_thres, iou_thres, max_det,
+                                 pre_topk, multi_label, agnostic, block)
+    return det[0], n[0], kept[0]
+
+
+def nms_single(boxes: torch.Tensor, scores: torch.Tensor, conf_thres: float = 0.25,
+               iou_thres: float = 0.45, max_det: int = 300, pre_topk: int = 4096,
+               multi_label: bool = False, agnostic: bool = False):
+    """The greedy scan of one image (JAX `ops/nms.py:61-102`): each step
+    takes the highest surviving candidate (the first of equal scores, as
+    `jnp.argmax`) and suppresses it and every candidate of its class that
+    overlaps it above `iou_thres`, for up to `max_det` steps (the scan
+    stops at the first step with no survivor, where every later step of
+    JAX's loop changes nothing). boxes (A, 4) xyxy, scores (A, nc). Returns
+    det (max_det, 6) zero-padded and the count () int32."""
+    cand_boxes, conf, cls, valid, ob, _, k = (
+        t[0] if torch.is_tensor(t) else t
+        for t in _candidates(boxes[None], scores[None], conf_thres, pre_topk, multi_label,
+                             agnostic))
+    x1, y1, x2, y2 = ob.unbind(-1)
+    areas = (x2 - x1) * (y2 - y1)
+    neg = torch.tensor(-1.0, dtype=conf.dtype, device=conf.device)
+    live = torch.where(valid, conf, neg)
+    out = torch.zeros(max_det, 6, dtype=boxes.dtype, device=boxes.device)
+    slots = torch.arange(k, device=boxes.device)
+    n = 0
+    for step in range(max_det):
+        i = int(torch.argmax(live))
+        if not bool(live[i] > 0.0):
+            break
+        out[step] = torch.cat([cand_boxes[i], conf[i, None], cls[i, None]]).to(out.dtype)
+        n += 1
+        inter = ((torch.minimum(x2[i], x2) - torch.maximum(x1[i], x1)).clamp(min=0) *
+                 (torch.minimum(y2[i], y2) - torch.maximum(y1[i], y1)).clamp(min=0))
+        iou = inter / (areas[i] + areas - inter + 1e-7)
+        live = torch.where((iou > iou_thres) | (slots == i), neg, live)
+    return out, torch.tensor(n, dtype=torch.int32, device=boxes.device)
+
+
+def non_max_suppression(prediction: torch.Tensor, conf_thres: float = 0.25,
+                        iou_thres: float = 0.45, agnostic: bool = False,
+                        multi_label: bool = False, max_det: int = 300,
+                        pre_topk: int = 1024, nc: Optional[int] = None,
+                        return_idx: bool = False, block: int = 256):
+    """Batched NMS over the eval-path head output.
+
+    prediction: (B, 4 + nc, A) xywh boxes then class scores; channels past
+    4 + `nc` are ignored (all past 4 are scores when `nc` is None).
+    `agnostic` lets boxes of different classes suppress each other. `block`
+    > 0 resolves candidate pools larger than it block by block (same result).
+    Returns det (B, max_det, 6) [x1, y1, x2, y2, conf, cls] zero-padded and
+    counts (B,) int32, plus the source anchor of each row (B, max_det)
+    int32, -1 for padding, when return_idx.
+    """
+    pred = prediction.transpose(1, 2)  # (B, A, 4+nc)
+    nc = nc or (pred.shape[-1] - 4)
+    det, counts, kept = _fixpoint_nms(xywh2xyxy(pred[..., :4]), pred[..., 4:4 + nc],
+                                      conf_thres, iou_thres, max_det, pre_topk, multi_label,
+                                      agnostic, block)
     return (det, counts, kept) if return_idx else (det, counts)

@@ -19,29 +19,16 @@ from __future__ import annotations
 
 from functools import partial
 from pathlib import Path
-from types import SimpleNamespace
 
 import numpy as np
 
+from ..utils import IterableSimpleNamespace
 from ..utils.dataset_yaml import yaml_load
 from .bot_sort import BOTSORT
 from .byte_tracker import BYTETracker
 
 TRACKER_MAP = {"bytetrack": BYTETracker, "botsort": BOTSORT}
 FRAMES_KEY = "__frames__"
-
-
-class IterableSimpleNamespace(SimpleNamespace):
-    """A namespace that iterates over its (key, value) pairs and has `get`."""
-
-    def __iter__(self):
-        return iter(vars(self).items())
-
-    def __str__(self):
-        return "\n".join(f"{k}={v}" for k, v in vars(self).items())
-
-    def get(self, key, default=None):
-        return getattr(self, key, default)
 
 
 def check_tracker_yaml(tracker) -> Path:

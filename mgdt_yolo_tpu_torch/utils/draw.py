@@ -5,7 +5,8 @@ first use, `utils/build.py`), bound with ctypes.
 * `line`, `rectangle`, `circle`, `fill_convex_poly`, `polylines`: cv2's
   functions of the same names on a uint8 (h, w, 3) or (h, w) C-contiguous
   image, in place; `line_type` `LINE_8` or `LINE_AA`, `shift` fractional
-  bits, thickness -1 fills.
+  bits, thickness -1 fills. `fill_poly` is cv2's `fillPoly` (any polygon,
+  LINE_8 edges).
 * `put_text` and `get_text_size`: cv2's with `FONT_HERSHEY_SIMPLEX`. cv2 5
   draws that face as anti-aliased outline glyphs at a regular weight
   (thickness 1) or a bold one (above), whatever the line type; the glyphs
@@ -52,6 +53,7 @@ def _lib() -> ctypes.CDLL:
         ("mgdt_rectangle", None, (*img, i64, i64, i64, i64, p, i32, i32, i32)),
         ("mgdt_circle", None, (*img, i64, i64, i64, p, i32, i32, i32)),
         ("mgdt_fill_convex_poly", None, (*img, p, i32, p, i32, i32)),
+        ("mgdt_fill_poly", None, (*img, p, p, i32, p, i32)),
         ("mgdt_polylines", None, (*img, p, i32, i32, p, i32, i32, i32)),
         ("mgdt_put_text", None, (*img, p, i32, i32, i32, p, p, p)),
         ("mgdt_encode_jpeg", p, (p, i32, i32, i32, i32, ctypes.POINTER(i64))),
@@ -113,6 +115,23 @@ def fill_convex_poly(img, pts, color, line_type: int = LINE_8, shift: int = 0):
     col = _color(color, i[3])
     _lib().mgdt_fill_convex_poly(*i, p.ctypes.data, len(p), col.ctypes.data, int(line_type),
                                  int(shift))
+    return img
+
+
+def fill_poly(img, polys, color, line_type: int = LINE_8, shift: int = 0):
+    """cv2.fillPoly: every polygon of `polys` (each (n, 2) integer (x, y)
+    points), convex or not, crossing itself or not, filled by the even-odd
+    rule of cv2's edge-collection scanline, with its edges drawn as 8-connected
+    lines (LINE_8, the only line type taken here)."""
+    if line_type != LINE_8:
+        raise ValueError(f"fill_poly draws LINE_8 edges only, got line_type {line_type}")
+    i = _img(img)
+    pts = [_points(q) for q in polys]
+    flat = np.ascontiguousarray(np.concatenate(pts) if pts else np.zeros((0, 2), np.int64))
+    counts = np.ascontiguousarray([len(q) for q in pts], dtype=np.int32)
+    col = _color(color, i[3])
+    _lib().mgdt_fill_poly(*i, flat.ctypes.data, counts.ctypes.data, len(pts), col.ctypes.data,
+                          int(shift))
     return img
 
 

@@ -17,12 +17,35 @@ import numpy as np
 import torch
 
 from ...cfg.default import TRAIN_DEFAULTS
+from ...data.augment import letterbox
 from ...data.build import DataLoader
 from ...ops.boxes import xywh2xyxy
 from ...utils.metrics import DetMetrics, match_predictions
 from .predict import keep_queries, queries
 
 LOGGER = logging.getLogger(__name__)
+
+
+def square_letterbox(img: np.ndarray, imgsz: int):
+    """The validator's square letterbox of a BGR image (JAX
+    `vit/rtdetr/val.py:18-22`): (RGB float32 in [0, 1], {"ori_shape",
+    "ratio_pad"})."""
+    out, ratio, pad = letterbox(img, (imgsz, imgsz), scaleup=True)
+    return out[..., ::-1].astype(np.float32) / 255.0, \
+        {"ori_shape": img.shape[:2], "ratio_pad": (ratio, pad)}
+
+
+def postprocess_queries(bboxes_norm: np.ndarray, scores: np.ndarray,
+                        conf: float = 0.001) -> np.ndarray:
+    """Rows [x1, y1, x2, y2, score, class] of the queries whose best class
+    score is above `conf`, boxes left normalised (JAX
+    `vit/rtdetr/val.py:25-35`; the validator and predictor scale theirs,
+    `predict.keep_queries`)."""
+    bb = xywh2xyxy(torch.from_numpy(np.asarray(bboxes_norm))).numpy()
+    cls = scores.argmax(-1)
+    val = scores.max(-1)
+    keep = val > conf
+    return np.concatenate([bb[keep], val[keep, None], cls[keep, None].astype(np.float32)], axis=1)
 
 
 class RTDETRValidator:

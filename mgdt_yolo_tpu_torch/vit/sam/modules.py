@@ -350,6 +350,10 @@ class TwoWayAttentionBlock(nn.Module):
         return queries, keys
 
 
+# JAX's name for the block (`vit/sam/modules.py:287`)
+TwoWayBlock = TwoWayAttentionBlock
+
+
 class TwoWayTransformer(nn.Module):
     def __init__(self, depth: int = 2, embedding_dim: int = 256, num_heads: int = 8,
                  mlp_dim: int = 2048):
