@@ -359,6 +359,27 @@ Phases, each of which passes or ends the script with a non-zero exit:
    and at stride 1 without its norm (K1 with its bias). K1 is the only
    kernel on this path (`helpers_launches`). Its lines end with `phase 25
    rows: {json}`.
+26. video sources (the "video sources" path): phase 22's pan written as
+   Motion JPEG by the port's writer (`native.video.VideoWriter`, 25 fps;
+   its ms a frame) to an MP4, and its JPEG bytes to an AVI and an MKV
+   written here: each read back with its frame count, fps, size and every
+   frame's bytes exact; the MP4's frames decoded by nvJPEG in batches of 8
+   (ms a frame, beside phase 15's 1080x1920 JPEG), 4 of them held to
+   `draw.jpeg_reading`'s bound; the committed fixtures
+   (`native/fixtures/video`, `tests/torch_video_fixtures.py`) against
+   their PNG twins: the Motion JPEG clips at phase 15's limits (max 3,
+   mean < 0.1), the GIF bit for bit; `YOLO.track` (ByteTrack, bf16) over
+   the MP4 at b1 and b8, in turns with the same frames decoded into memory
+   (frames/s of each; the tracks bit for bit; K1 once a forward; one
+   tracker keyed by the video's path); `predict(save=True)` over the MP4
+   at b8, its `pan.mp4` read back (frame count, fps, size); a loopback HTTP
+   Motion JPEG server in a thread serving the same frames, read through
+   `LoadStreams` (frames/s; equal to the file's); a directory of jpg, png,
+   bmp and tif scenes through the predictor, bit for bit the detections
+   of the same pixels given as arrays; one probe line: whether
+   `libnvcuvid.so.1` loads and where `nvcuvid.h` / `cuviddec.h` are. K1 is
+   the only kernel on this path (`video_launches`). Its lines end with
+   `phase 26 rows: {json}`.
    Phase 10 runs before phase 8, and phases 8, 9 and 11 run after it,
    because the CPU work leaves the host's threads busy, which slows the
    host-bound steps; phase 13 runs after phase 11, phase 14 after phase
@@ -366,7 +387,8 @@ Phases, each of which passes or ends the script with a non-zero exit:
    phase 16, phase 18 after phase 17, phase 19 after phase 18, phase 20
    after phase 19, phase 21 after phase 20, phase 22 after phase 21, phase
    23 after phase 22, phase 24 after phase 23, phase 25 after phase
-   24, and phase 12, which times kernels only, runs last.
+   24, phase 26 after phase 25, and phase 12, which times kernels only,
+   runs last.
 
 The last lines are the kernel table as JSON, the card's name and power
 limit, and `{"ok": true, "device": {...}}`. Without a CUDA device the script
@@ -3607,9 +3629,9 @@ def phase_plots(root):
     spent = [0.0]
     save = predictor_mod.BasePredictor._save
 
-    def timed_save(self, r):
+    def timed_save(self, r, item=None):
         t = time.perf_counter()
-        save(self, r)
+        save(self, r, item)
         spent[0] += time.perf_counter() - t
     predictor_mod.BasePredictor._save = timed_save
     rows["predict"] = {}
@@ -4283,7 +4305,7 @@ def phase_tracking(root):
     """Multi-object tracking through `YOLO.track` (see the module's text):
     ByteTrack, BoT-SORT (sparse optical flow) and BoT-SORT with ECC over a
     seeded 1080 x 1920 pan. K1 launches once per forward, no other kernel.
-    Returns (launches, rows)."""
+    Returns (launches, rows, the pan's frames)."""
     from mgdt_yolo_tpu_torch import YOLO
     from mgdt_yolo_tpu_torch.data.synthetic import panning_sequence
     log(f"== phase 22: tracking: the flagship over a {TRACK_FRAMES}-frame "
@@ -4390,7 +4412,7 @@ def phase_tracking(root):
     rows["phase_s"] = time.perf_counter() - t_phase
     log(f"phase 22: {rows['phase_s']:.1f} s; launches {total}")
     log(f"phase 22 rows: {json.dumps(rows, default=float)}")
-    return total, rows
+    return total, rows, frames
 
 
 # phase 23: RT-DETR at 640 px and its published widths, seeded init
@@ -5258,13 +5280,285 @@ def phase_helpers(root):
     return total, rows
 
 
+# phase 26: video files, HTTP streams and mixed image formats as sources
+VIDEO_FPS = 25.0
+VIDEO_BATCHES = (1, 8)
+VIDEO_FIXTURES = FIXTURES / "video"
+VIDEO_HOLD = (0, 21, 42, 63)        # the pan's frames held to draw.jpeg_reading
+MIXED_FORMATS = ("jpg", "png", "bmp", "tif")
+
+
+def _riff(cid, body):
+    return cid + len(body).to_bytes(4, "little") + body + b"\0" * (len(body) & 1)
+
+
+def _avi_bytes(jpegs, size, fps):
+    """A Motion JPEG AVI (with `idx1`) of `jpegs` at an integer `fps`."""
+    import struct
+    w, h = size
+    n = len(jpegs)
+    avih = struct.pack("<14I", int(1e6 / fps), 0, 0, 0x10, n, 0, 1, 0, w, h, 0, 0, 0, 0)
+    strh = b"vidsMJPG" + struct.pack("<IHHIIIIIIIIhhhh", 0, 0, 0, 0, 1, int(fps), 0, n, 0,
+                                     0xFFFFFFFF, 0, 0, 0, w, h)
+    strf = struct.pack("<IiiHH4sIiiII", 40, w, h, 1, 24, b"MJPG", w * h * 3, 0, 0, 0, 0)
+    hdrl = _riff(b"LIST", b"hdrl" + _riff(b"avih", avih) + _riff(
+        b"LIST", b"strl" + _riff(b"strh", strh) + _riff(b"strf", strf)))
+    movi, idx, off = [], [], 4
+    for j in jpegs:
+        c = _riff(b"00dc", j)
+        idx.append(b"00dc" + struct.pack("<III", 0x10, off, len(j)))
+        movi.append(c)
+        off += len(c)
+    return _riff(b"RIFF", b"AVI " + hdrl + _riff(b"LIST", b"movi" + b"".join(movi)) +
+                 _riff(b"idx1", b"".join(idx)))
+
+
+def _ebml(eid, body):
+    """A Matroska element: its ID's bytes, an 8-byte size, the body."""
+    if isinstance(body, int):
+        body = body.to_bytes(8, "big").lstrip(b"\0") or b"\0"
+    elif isinstance(body, str):
+        body = body.encode()
+    return eid + b"\x01" + len(body).to_bytes(7, "big") + body
+
+
+def _mkv_bytes(jpegs, size, fps):
+    """A Matroska file of `jpegs` as V_MJPEG SimpleBlocks, one cluster."""
+    e = bytes.fromhex
+    header = _ebml(e("1A45DFA3"), _ebml(e("4286"), 1) + _ebml(e("42F7"), 1) +
+                   _ebml(e("42F2"), 4) + _ebml(e("42F3"), 8) + _ebml(e("4282"), "matroska") +
+                   _ebml(e("4287"), 4) + _ebml(e("4285"), 2))
+    info = _ebml(e("1549A966"), _ebml(e("2AD7B1"), 1000000) + _ebml(e("4D80"), "chip_smoke"))
+    track = _ebml(e("AE"), _ebml(e("D7"), 1) + _ebml(e("73C5"), 1) + _ebml(e("83"), 1) +
+                  _ebml(e("86"), "V_MJPEG") + _ebml(e("23E383"), int(round(1e9 / fps))) +
+                  _ebml(e("E0"), _ebml(e("B0"), size[0]) + _ebml(e("BA"), size[1])))
+    blocks = b"".join(_ebml(e("A3"), b"\x81" + int(round(k * 1000 / fps)).to_bytes(2, "big") +
+                            b"\x80" + j) for k, j in enumerate(jpegs))
+    cluster = _ebml(e("1F43B675"), _ebml(e("E7"), 0) + blocks)
+    return header + _ebml(e("18538067"), info + _ebml(e("1654AE6B"), track) + cluster)
+
+
+@contextlib.contextmanager
+def _mjpeg_server(jpegs):
+    """A loopback HTTP server in a thread serving `jpegs` as one Motion JPEG
+    stream (`multipart/x-mixed-replace`, as an IP camera); yields its URL."""
+    import http.server
+
+    class Camera(http.server.BaseHTTPRequestHandler):
+        def do_GET(self):
+            self.send_response(200)
+            self.send_header("Content-Type", "multipart/x-mixed-replace; boundary=frame")
+            self.end_headers()
+            for j in jpegs:
+                self.wfile.write(b"--frame\r\nContent-Type: image/jpeg\r\nContent-Length: %d"
+                                 b"\r\n\r\n" % len(j) + j + b"\r\n")
+            self.wfile.write(b"--frame--\r\n")
+
+        def log_message(self, *args):
+            pass
+
+    srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Camera)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{srv.server_address[1]}/stream"
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join()
+
+
+def _nvdec_probe():
+    """Whether NVDEC's library loads and its headers are in the toolkit."""
+    try:
+        ctypes.CDLL("libnvcuvid.so.1")
+        lib = "loads"
+    except OSError as e:
+        lib = f"does not load ({e})"
+    cuda = Path(nvcc_path()).resolve().parents[1]
+    dirs = [cuda / "include", *sorted(cuda.glob("targets/*/include")), Path("/usr/include")]
+    headers = {h: [str(d) for d in dirs if (d / h).is_file()] for h in ("nvcuvid.h",
+                                                                         "cuviddec.h")}
+    return {"libnvcuvid.so.1": lib, "headers": headers}
+
+
+def phase_video(root, frames=None, decode_rows=None):
+    """Video files, an HTTP stream and image formats as the predictor's and
+    the tracker's sources (see the module's text). Returns (launches, rows)."""
+    from PIL import Image
+    from mgdt_yolo_tpu_torch import YOLO
+    from mgdt_yolo_tpu_torch.data.loaders import LoadStreams
+    from mgdt_yolo_tpu_torch.data.synthetic import panning_sequence
+    from mgdt_yolo_tpu_torch.native.video import VideoReader, VideoWriter
+    from mgdt_yolo_tpu_torch.utils import draw
+    log(f"== phase 26: video sources: phase 22's {TRACK_FRAMES}-frame {TRACK_SHAPE[0]}x"
+        f"{TRACK_SHAPE[1]} pan written by the port's MP4 writer (and as AVI and MKV), the "
+        "committed fixtures, YOLO.track over the file against the same frames in memory, "
+        "predict(save=True), an HTTP Motion JPEG stream, a directory of jpg/png/bmp/tif")
+    t_phase = time.perf_counter()
+    if frames is None:
+        frames = panning_sequence(TRACK_FRAMES, TRACK_SHAPE, seed=7)[0]
+    n, (H, W) = len(frames), frames[0].shape[:2]
+    total, rows = no_launches(), {}
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    vdir = root / "video"
+    vdir.mkdir()
+    # 1. the port's writer, the same JPEG bytes in AVI and MKV, read back
+    mp4 = vdir / "pan.mp4"
+    t0 = time.perf_counter()
+    writer = VideoWriter(mp4, VIDEO_FPS, (W, H))
+    for f in frames:
+        writer.write(f)
+    writer.release()
+    rows["writer_ms_per_frame"] = (time.perf_counter() - t0) / n * 1e3
+    jpegs = VideoReader(mp4).frame_bytes(range(n))
+    (vdir / "pan.avi").write_bytes(_avi_bytes(jpegs, (W, H), VIDEO_FPS))
+    (vdir / "pan.mkv").write_bytes(_mkv_bytes(jpegs, (W, H), VIDEO_FPS))
+    for ext in ("mp4", "avi", "mkv"):
+        r = VideoReader(vdir / f"pan.{ext}")
+        got = (r.frames, r.fps, r.size)
+        if got != (n, VIDEO_FPS, (W, H)) or r.frame_bytes(range(r.frames)) != jpegs:
+            raise SystemExit(f"pan.{ext} reads back as {got} or with other frames")
+    log(f"writer: {n} frames {W}x{H} at {VIDEO_FPS} fps, {rows['writer_ms_per_frame']:.2f} ms "
+        f"a frame (encode_jpeg + write), {mp4.stat().st_size / 2 ** 20:.1f} MB; MP4, AVI and "
+        "MKV read back: frame count, fps, size and every frame's bytes exact")
+    reader = VideoReader(mp4)
+    reader.read(range(8))  # nvJPEG's handle and buffers
+    t0 = time.perf_counter()
+    decoded = []
+    for s in range(0, n, 8):
+        decoded += reader.read(range(s, min(s + 8, n)))
+    rows["decode_ms_per_frame"] = (time.perf_counter() - t0) / n * 1e3
+    if any(isinstance(d, native.DecodeError) for d in decoded):
+        raise SystemExit("a frame of the port's MP4 did not decode")
+    held = []
+    for k in VIDEO_HOLD:
+        _libjpeg_q95(frames[k], vdir / f"q95_{k}.jpg")
+        held.append(draw.jpeg_reading(decoded[k], frames[k],
+                                      native.decode(vdir / f"q95_{k}.jpg")))
+    rows["jpeg_reading"] = held
+    phase15 = (decode_rows or {}).get("1080x1920", {})
+    log(f"decode (nvJPEG, batches of 8 on 8 threads): {rows['decode_ms_per_frame']:.3f} ms a "
+        f"frame; phase 15's 1080x1920 JPEG: {phase15.get('decode_ms', float('nan')):.3f} ms "
+        f"one image, {phase15.get('decode_batch32_ms_per_image', float('nan')):.3f} ms in a "
+        f"batch of 32; frames {VIDEO_HOLD} against draw.jpeg_reading: " + "; ".join(
+            f"mean {h['mean_diff']:.3f} max {h['max_diff']} gap {h['psnr_gap_db']:.3f} dB"
+            for h in held))
+    if not all(h["holds"] for h in held):
+        raise SystemExit("the port's MP4 frames read back outside draw.jpeg_reading's bound")
+    # 2. the committed fixtures against their twins
+    fixtures = {}
+    for ext in ("avi", "mp4", "mkv", "gif"):
+        r = VideoReader(VIDEO_FIXTURES / f"clip.{ext}")
+        imgs = r.read(range(r.frames))
+        twins = sorted(VIDEO_FIXTURES.glob(("gif" if ext == "gif" else "clip") + "_*.png"))
+        if len(imgs) != len(twins) or any(isinstance(i, native.DecodeError) for i in imgs):
+            raise SystemExit(f"clip.{ext}: {len(imgs)} frames for {len(twins)} twins")
+        d = np.stack([np.abs(i.astype(np.int16) - native.decode(t)) for i, t in zip(imgs, twins)])
+        fixtures[ext] = {"frames": len(imgs), "fps": r.fps, "max_diff": int(d.max()),
+                         "mean_diff": float(d.mean())}
+        log(f"fixture clip.{ext}: {len(imgs)} frames at {r.fps} fps, against its twins max "
+            f"|diff| {d.max()}, mean {d.mean():.4f}")
+        if (ext == "gif" and d.max()) or d.max() > JPEG_MAX_DIFF or d.mean() >= JPEG_MEAN_DIFF:
+            raise SystemExit(f"clip.{ext} is outside its limit (GIF exact; Motion JPEG max "
+                             f"{JPEG_MAX_DIFF}, mean < {JPEG_MEAN_DIFF})")
+    rows["fixtures"] = fixtures
+    # 3. YOLO.track over the file against the same frames in memory, in turns
+    card = YOLO(WEIGHTS, device=DEVICE)
+    rows["track"] = {}
+    for batch in VIDEO_BATCHES:
+        fps, outs = {"file": [], "memory": []}, {}
+        for src in ("file", "memory", "memory", "file"):
+            out, wall, launches = _timed(lambda: card.track(
+                str(mp4) if src == "file" else decoded, imgsz=IMGSZ, tracker="bytetrack.yaml",
+                batch=batch, half=True))
+            _expect(launches, f"track b{batch} from {src}", deform_fwd=-(-n // batch))
+            add(launches)
+            fps[src].append(n / wall)
+            outs.setdefault(src, out)
+        if len(outs["file"]) != n or list(card.predictor.trackers) != [str(mp4)]:
+            raise SystemExit("the file's run did not track every frame on the video's tracker")
+        box, track_rows, ids = _hold_tracks(outs["file"], outs["memory"],
+                                            f"b{batch}: file vs memory", 0.0)
+        rows["track"][f"b{batch}"] = {"file_frames_per_s": fps["file"],
+                                      "memory_frames_per_s": fps["memory"],
+                                      "track_rows": track_rows, "ids": ids}
+        from_file, from_memory = (" / ".join(f"{v:.2f}" for v in fps[k])
+                                  for k in ("file", "memory"))
+        log(f"track b{batch} (ByteTrack, bf16): from the file {from_file} frames/s, from "
+            f"memory {from_memory} (in turns); K1 {-(-n // batch)} a run")
+    # 4. predict(save=True) over the video, its MP4 read back
+    out, wall, launches = _timed(lambda: card.predict(
+        str(mp4), imgsz=IMGSZ, half=True, batch=8, save=True, project=str(vdir / "runs"),
+        name="predict"))
+    _expect(launches, "predict(save=True) b8", deform_fwd=-(-n // 8))
+    add(launches)
+    r = VideoReader(vdir / "runs" / "predict" / "pan.mp4")
+    rows["save"] = {"frames_per_s": n / wall, "frames": r.frames, "fps": r.fps, "size": r.size}
+    log(f"predict(save=True) b8: {n / wall:.2f} frames/s; pan.mp4 read back: {r.frames} frames, "
+        f"{r.fps} fps, {r.size[0]}x{r.size[1]}")
+    if (r.frames, r.fps, r.size) != (n, VIDEO_FPS, (W, H)) or len(out) != n:
+        raise SystemExit("predict(save=True) wrote another video")
+    # 5. the same frames from a loopback HTTP Motion JPEG stream
+    with _mjpeg_server(jpegs) as url:
+        t0 = time.perf_counter()
+        streamed = [it["img"] for it in LoadStreams(url)]
+        wall = time.perf_counter() - t0
+    same = len(streamed) == n and all(np.array_equal(a, b) for a, b in zip(streamed, decoded))
+    rows["stream"] = {"frames": len(streamed), "frames_per_s": len(streamed) / wall,
+                      "equal_to_file": same}
+    log(f"HTTP stream: {len(streamed)} frames at {len(streamed) / wall:.2f} frames/s (read and "
+        f"decoded a frame at a time); equal to the file's frames: {same}")
+    if not same:
+        raise SystemExit("the stream's frames differ from the file's")
+    # 6. a directory of mixed formats against the same pixels as arrays
+    mixed = vdir / "mixed"
+    mixed.mkdir()
+    for i, img in enumerate(_scenes(2 * len(MIXED_FORMATS))):
+        ext = MIXED_FORMATS[i % len(MIXED_FORMATS)]
+        p = mixed / f"im{i:02d}.{ext}"
+        if ext in ("jpg", "png"):
+            draw.imwrite(p, img)
+        else:
+            Image.fromarray(np.ascontiguousarray(img[..., ::-1])).save(p)
+    files = sorted(str(p) for p in mixed.iterdir())
+    arrays = [native.decode(f) for f in files]
+    by_dir, _, launches = _timed(lambda: card.predict(str(mixed), imgsz=IMGSZ, half=True,
+                                                      batch=4))
+    by_arrays, _, launches2 = _timed(lambda: card.predict(arrays, imgsz=IMGSZ, half=True,
+                                                          batch=4))
+    for got in (launches, launches2):
+        _expect(got, "the mixed directory b4", deform_fwd=-(-len(files) // 4))
+        add(got)
+    dets = sum(len(r_) for r_ in by_dir)
+    if [r_.path for r_ in by_dir] != files or dets == 0 or any(
+            not np.array_equal(a.boxes.data, b.boxes.data) for a, b in zip(by_dir, by_arrays)):
+        raise SystemExit("the mixed directory's detections differ from the arrays'")
+    rows["mixed"] = {"files": len(files), "detections": dets}
+    log(f"mixed directory ({', '.join(MIXED_FORMATS)}): {len(files)} files, {dets} detections, "
+        "bit for bit those of the same pixels as arrays")
+    # 7. NVDEC
+    rows["nvdec"] = _nvdec_probe()
+    log(f"NVDEC probe: libnvcuvid.so.1 {rows['nvdec']['libnvcuvid.so.1']}; headers "
+        f"{rows['nvdec']['headers']}")
+    rows["launches"] = total
+    rows["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 26: {rows['phase_s']:.1f} s; launches {total}")
+    log(f"phase 26 rows: {json.dumps(rows, default=float)}")
+    return total, rows
+
+
 # which paths run each kernel (its launches must be counted on each); the
 # first is the kernel's own main path
 KERNEL_PATHS = {"deform_fwd": ("serving", "training", "augmented training",
                                "ablation family", "serving entry points", "from disk",
                                "facade", "reference weights", "host augmentation",
                                "callbacks and drawing", "tracking", "auto_annotate",
-                               "helpers", "K1 variant A/B"),
+                               "helpers", "video sources", "K1 variant A/B"),
                 "deform_bwd": ("training", "augmented training", "ablation family",
                                "from disk", "facade", "reference weights",
                                "host augmentation", "callbacks and drawing"),
@@ -5316,13 +5610,16 @@ def main() -> int:
         torch.cuda.empty_cache()
         zoo, zoo_rows = phase_classify_and_zoo(Path(tmp))
         torch.cuda.empty_cache()
-        tracking, tracking_rows = phase_tracking(Path(tmp))
+        tracking, tracking_rows, pan = phase_tracking(Path(tmp))
         torch.cuda.empty_cache()
         rtdetr, rtdetr_rows = phase_rtdetr()
         torch.cuda.empty_cache()
         sam, annotate, sam_rows = phase_sam(Path(tmp))
         torch.cuda.empty_cache()
         helpers, helper_rows = phase_helpers(Path(tmp))
+        torch.cuda.empty_cache()
+        video, video_rows = phase_video(Path(tmp), pan, disk_rows["decode"])
+        del pan
     torch.cuda.empty_cache()
     ab_launches, ab_rows, hopper_rows, plan_rows = phase_variant_ab()
     paths = {"serving": serving, "training": training, "augmented training": augmented,
@@ -5330,7 +5627,8 @@ def main() -> int:
              "facade": facade, "reference weights": reference, "host augmentation": host,
              "callbacks and drawing": plots, "segment and pose": seg_pose,
              "classify and zoo": zoo, "tracking": tracking, "RT-DETR": rtdetr,
-             "SAM": sam, "auto_annotate": annotate, "helpers": helpers, "DCN A/B": dcn_ab,
+             "SAM": sam, "auto_annotate": annotate, "helpers": helpers,
+             "video sources": video, "DCN A/B": dcn_ab,
              "K3 A/B": k3_ab, "K1 variant A/B": ab_launches}
     for k in kernels:
         k["launches_by_path"] = {p: paths[p][k["name"]] for p in KERNEL_PATHS[k["name"]]}
@@ -5354,6 +5652,8 @@ def main() -> int:
         k["auto_annotate_launches"] = annotate[k["name"]]
         # the helpers' ensemble, counts, profile and trace run K1 only
         k["helpers_launches"] = helpers[k["name"]]
+        # video sources: the flagship's forwards over frames, K1 only
+        k["video_launches"] = video[k["name"]]
         if k["name"] == "fused_augment":
             k["apply_augment_ms"] = aug_ms
         if k["name"] in ("deform_fwd", "deform_bwd"):
@@ -5377,6 +5677,7 @@ def main() -> int:
         if k["name"] == "deform_fwd":
             k["tracking"] = tracking_rows
             k["helpers"] = helper_rows
+            k["video"] = video_rows
         if k["name"] in ALL_VARIANTS:
             k["ab"] = [r for r in ab_rows if r["variant"] == k["name"]]
         if k["name"] in FIRST_DESIGNS:

@@ -51,7 +51,7 @@ class YOLODataset:
     kept, pairs verified and cached, corrupt ones dropped. `single_cls`
     sets every class to 0; `cache` keeps decoded images in memory
     ("ram"/True) or as `.npy` files beside them ("disk"). A file whose
-    format the port does not decode (`bmp`, `tif`, `tiff`, `webp`) raises
+    format the port does not decode (`webp`) raises
     `native.UnsupportedFormat`, naming it. `buffer` holds the train
     loader's last resized items, the mosaic and mixup partners, across
     epochs."""

@@ -8,8 +8,11 @@ without PIL, cv2 or PyYAML.
 Where the JAX package opens an image with PIL to verify it and read its
 EXIF-corrected size, the port reads the header itself (`image_header`):
 JPEG (SOF0-SOF2, the APP1 EXIF orientation), PNG (the IHDR, then every
-chunk's CRC up to IEND, as PIL's `verify` walks them), BMP and GIF (whose
-size JAX reads before it refuses the format). Any other file is corrupt.
+chunk's CRC up to IEND, as PIL's `verify` walks them), BMP, TIFF (the size
+and orientation of the first IFD), WebP (the `RIFF....WEBP` signature, the
+size from the `VP8 `, `VP8L` or `VP8X` chunk, the orientation from an `EXIF`
+chunk) and GIF (whose size JAX reads before it refuses the format). Any
+other file is corrupt.
 
 The label checks, messages, counts (missing, found, empty, corrupt) and
 the `.cache` sidecar (`CACHE_VERSION`, the same hash and record layout)
@@ -32,6 +35,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .. import native
 from ..utils.dataset_yaml import yaml_load
 
 LOGGER = logging.getLogger(__name__)
@@ -134,6 +138,51 @@ def _png_header(f) -> Tuple[int, int]:
             return size
 
 
+def _tiff_header(data: bytes) -> Tuple[int, int, Optional[int]]:
+    """(w, h, orientation or None) of the first IFD of a TIFF's bytes, the
+    size as PIL reports it: transposed for orientations 5-8."""
+    tags = native.tiff_tags(data)
+    if 256 not in tags or 257 not in tags:
+        raise ValueError("TIFF without its size")
+    w, h, orientation = tags[256], tags[257], tags.get(274)
+    return (h, w, orientation) if orientation in (5, 6, 7, 8) else (w, h, orientation)
+
+
+def _webp_header(f) -> Tuple[int, int, Optional[int]]:
+    """(w, h, EXIF orientation or None) of a WebP: the canvas of a `VP8X`
+    chunk, else the frame of a `VP8L` or `VP8 ` chunk."""
+    f.seek(12)
+    size, orientation = None, None
+    while True:
+        head = f.read(8)
+        if len(head) < 8:
+            break
+        cid, length = head[:4], struct.unpack("<I", head[4:])[0]
+        body = f.read(length + (length & 1))[:length]
+        if len(body) < length:
+            raise ValueError("truncated WebP file")
+        if cid == b"VP8X" and length >= 10:
+            size = (1 + int.from_bytes(body[4:7], "little"),
+                    1 + int.from_bytes(body[7:10], "little"))
+        elif cid == b"VP8L" and size is None:
+            if length < 5 or body[0] != 0x2F:
+                raise ValueError("broken VP8L header")
+            bits = struct.unpack("<I", body[1:5])[0]
+            size = ((bits & 0x3FFF) + 1, ((bits >> 14) & 0x3FFF) + 1)
+        elif cid == b"VP8 " and size is None:
+            if length < 10 or body[3:6] != b"\x9d\x01\x2a":
+                raise ValueError("broken VP8 header")
+            w, h = struct.unpack("<HH", body[6:10])
+            size = (w & 0x3FFF, h & 0x3FFF)
+        elif cid == b"EXIF":
+            exif = body[6:] if body[:6] == b"Exif\0\0" else body
+            if exif[:2] in (b"II", b"MM") and len(exif) >= 8:
+                orientation = native.tiff_tags(exif).get(274)
+    if size is None:
+        raise ValueError("WebP without a VP8, VP8L or VP8X chunk")
+    return (*size, orientation)
+
+
 def image_header(path) -> Tuple[str, int, int, Optional[int]]:
     """(format, w, h, EXIF orientation or None) of an image file, from its
     header; raises ValueError for a file that is not a readable image."""
@@ -153,6 +202,11 @@ def image_header(path) -> Tuple[str, int, int, Optional[int]]:
             else:
                 w, h = struct.unpack("<ii", hdr[4:12])
             return "bmp", w, abs(h), None
+        if sig[:4] in (b"II*\0", b"MM\0*"):
+            f.seek(0)
+            return ("tiff", *_tiff_header(f.read()))
+        if sig[:4] == b"RIFF" and sig[8:12] == b"WEBP":
+            return ("webp", *_webp_header(f))
         if sig[:6] in (b"GIF87a", b"GIF89a"):
             w, h = struct.unpack("<HH", sig[6:10])
             return "gif", w, h, None
@@ -190,7 +244,9 @@ def verify_image_label(img_path: str, label_path: str, num_cls: Optional[int] = 
     msg = ""
     try:
         fmt, w, h, orientation = image_header(img_path)
-        if orientation in (6, 8):  # the JAX `exif_size`
+        # the JAX `exif_size` after PIL's `verify`: a TIFF's EXIF is not read
+        # again, its size is PIL's (transposed for orientations 5-8)
+        if orientation in (6, 8) and fmt != "tiff":
             w, h = h, w
         assert h > 9 and w > 9, f"image size {w}x{h} <10 pixels"
         assert fmt in IMG_FORMATS, f"invalid image format {fmt}"

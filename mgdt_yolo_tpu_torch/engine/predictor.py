@@ -14,19 +14,24 @@ in place). The predictor's `save` default is False, as the reference's
 Python API has it.
 
 Sources are the JAX loader's (`data.loaders.load_inference_source`): numpy
-BGR images and lists of them, and image files, directories and globs,
-decoded by the port's decoder (`native`) on the helper thread that
-letterboxes, one batch ahead; `Results.path` is then the file's path. A
-file the decoder cannot read is logged and skipped. Under
+BGR images and lists of them; image and video files, directories and
+globs; HTTP Motion JPEG streams; screenshots. The helper thread that
+letterboxes takes each batch's items from the source as they come and
+decodes them together (`native`: nvJPEG for JPEG images and Motion JPEG
+frames), one batch ahead, so a long video or an endless stream never sits
+in memory whole; `Results.path` is the file's path (`stream_<url>`,
+`screen_<n>`). A file the decoder cannot read is logged and skipped; a
+video ends at its first frame that cannot be read. Under
 `<project>/<name>` (runs/detect/predict by default), `save` writes
-`<stem>.jpg` of `Results.plot()`, `save_txt` `labels/<stem>.txt` and
-`save_crop` `crops/<class>/<stem>.jpg` of every detection
-(`utils.plotting.save_one_box`), as the JAX predictor does. The hooks
-`on_predict_start`, `on_predict_postprocess_end` (each batch, with
-`batch_items` its source items) and `on_predict_end` fire as in JAX. Not
-ported, and refused: video, stream and screenshot sources, so also the
-writing of video, and the `bmp`, `tif`, `tiff` and `webp` formats
-(ROADMAP queue 1, item 4).
+`<stem>.jpg` of `Results.plot()` (for each video, or stream, `<stem>.mp4` of
+its drawn frames at its fps: Motion JPEG where JAX's writes MPEG-4 Part 2,
+each closed at the end of the source or on an exception), `save_txt`
+`labels/<stem>.txt` and `save_crop` `crops/<class>/<stem>.jpg` of every
+detection (`utils.plotting.save_one_box`), as the JAX predictor does. The
+hooks `on_predict_start`, `on_predict_postprocess_end` (each batch, with
+`batch_items` its source items: a video frame's carry `is_video`, `fps`
+and `frame_idx`, which key the trackers) and `on_predict_end` fire as in
+JAX.
 
 `predict` is the fixed-size path beside it: an NHWC RGB batch already at the
 model's size, with the serving settings of the JAX benchmark (`bench.py`).
@@ -35,6 +40,7 @@ from __future__ import annotations
 
 import time
 from concurrent.futures import ThreadPoolExecutor
+from itertools import islice
 from pathlib import Path
 from types import SimpleNamespace
 from typing import Dict, Iterator, List, Optional
@@ -45,8 +51,9 @@ import torch
 from ..cfg import check_cfg_types, check_dict_alignment
 from ..cfg.default import CFG_DEFAULTS
 from ..data.augment import letterbox
-from ..data.loaders import LoadImagesAndVideos, load_inference_source
+from ..data.loaders import load_inference_source
 from ..device import names_device, parse_device
+from ..native.video import VideoWriter
 from ..ops.boxes import scale_boxes
 from ..ops.nms import non_max_suppression
 from ..utils.callbacks import CallbackMixin
@@ -113,32 +120,13 @@ def infer(model, x: torch.Tensor, conf: float, iou: float, max_det: int,
                                agnostic=agnostic)
 
 
-def load_source(source) -> List[Dict]:
-    """A source as a list of {path} and, for images in memory, {img (BGR
-    uint8 HWC)}: numpy images (named `array<i>.jpg`, as the JAX loader
-    names them) are taken as they are, files are listed to be decoded a
-    batch at a time (`decode_items`)."""
-    src = load_inference_source(source)
-    if isinstance(src, LoadImagesAndVideos):
-        return [{"path": f} for f in src.files]
-    out = []
-    for it in src:
-        im = it["img"]
+def check_images(chunk: List[Dict]) -> List[Dict]:
+    """`chunk`, after checking that each image is (h, w, 3) uint8 BGR."""
+    for c in chunk:
+        im = c["img"]
         if im.ndim != 3 or im.shape[2] != 3 or im.dtype != np.uint8:
             raise ValueError(f"an image must be (h, w, 3) uint8 BGR, got {im.shape} {im.dtype}")
-        out.append({"img": im, "path": it["path"]})
-    return out
-
-
-def decode_items(chunk: List[Dict]) -> List[Dict]:
-    """`chunk` with every file decoded (together, on the decoder's
-    threads); a file the decoder cannot read is logged and dropped."""
-    files = [c["path"] for c in chunk if "img" not in c]
-    if not files:
-        return chunk
-    decoded = {it["path"]: it for it in LoadImagesAndVideos.decode_batch(files)}
-    return [c if "img" in c else decoded[c["path"]] for c in chunk
-            if "img" in c or c["path"] in decoded]
+    return chunk
 
 
 class BasePredictor(CallbackMixin):
@@ -177,11 +165,15 @@ class BasePredictor(CallbackMixin):
     def preprocess(self, imgs: List[np.ndarray]):
         return letterbox_batch(imgs, self.args.imgsz)
 
-    def _prepare(self, chunk):
-        """Host side of one batch: decode its files, letterbox, and pinned
-        memory on the GPU so the upload is an asynchronous copy."""
+    def _prepare(self, src, entries, batch: int):
+        """Host side of one batch: the source's next `batch` items decoded,
+        letterboxed, and in pinned memory on the GPU so the upload is an
+        asynchronous copy; None once the source has none left."""
         t0 = time.perf_counter()
-        chunk = decode_items(chunk)
+        chunk = list(islice(entries, batch))
+        if not chunk:
+            return None
+        chunk = check_images(src.decode(chunk))
         if not chunk:
             return chunk, [], None, (time.perf_counter() - t0) * 1e3
         x, meta = self.preprocess([c["img"] for c in chunk])
@@ -199,31 +191,39 @@ class BasePredictor(CallbackMixin):
         if self.model is None:
             raise RuntimeError("call setup_model(model) first")
         a = self.args
-        items = load_source(source)
-        chunks = [items[s:s + batch] for s in range(0, len(items), batch)]
+        src = load_inference_source(source)
+        entries = src.entries()
         self.dataset_bs = batch
+        self._video_writers: Dict[str, VideoWriter] = {}
         self.run_callbacks("on_predict_start")
-        with ThreadPoolExecutor(1, thread_name_prefix="mgdt-letterbox") as pool:
-            pending = pool.submit(self._prepare, chunks[0]) if chunks else None
-            for i in range(len(chunks)):
-                chunk, meta, x, pre_ms = pending.result()
-                if i + 1 < len(chunks):
-                    pending = pool.submit(self._prepare, chunks[i + 1])
-                if not chunk:  # every file of the batch was unreadable
-                    continue
-                t0 = time.perf_counter()
-                dets = self.detect(x.to(self.device, non_blocking=True), chunk, meta)
-                inf_ms = (time.perf_counter() - t0) * 1e3
-                speed = {"preprocess": pre_ms / len(chunk), "inference": inf_ms / len(chunk),
-                         "postprocess": 0.0}
-                self.results = [Results(c["img"], c["path"], self.model.names, det,
-                                        speed=dict(speed)) for c, det in zip(chunk, dets)]
-                self.batch_items = chunk
-                self.run_callbacks("on_predict_postprocess_end")
-                for r in self.results:
-                    if a.save or a.save_txt or a.save_crop:
-                        self._save(r)
-                    yield r
+        try:
+            with ThreadPoolExecutor(1, thread_name_prefix="mgdt-letterbox") as pool:
+                pending = pool.submit(self._prepare, src, entries, batch)
+                while True:
+                    prepared = pending.result()
+                    if prepared is None:
+                        break
+                    chunk, meta, x, pre_ms = prepared
+                    pending = pool.submit(self._prepare, src, entries, batch)
+                    if not chunk:  # every file of the batch was unreadable
+                        continue
+                    t0 = time.perf_counter()
+                    dets = self.detect(x.to(self.device, non_blocking=True), chunk, meta)
+                    inf_ms = (time.perf_counter() - t0) * 1e3
+                    speed = {"preprocess": pre_ms / len(chunk), "inference": inf_ms / len(chunk),
+                             "postprocess": 0.0}
+                    self.results = [Results(c["img"], c["path"], self.model.names, det,
+                                            speed=dict(speed)) for c, det in zip(chunk, dets)]
+                    self.batch_items = chunk
+                    self.run_callbacks("on_predict_postprocess_end")
+                    for r, c in zip(self.results, chunk):
+                        if a.save or a.save_txt or a.save_crop:
+                            self._save(r, c)
+                        yield r
+        finally:
+            for vw in self._video_writers.values():
+                vw.release()
+            self._video_writers = {}
         self.run_callbacks("on_predict_end")
 
     def detect(self, x: torch.Tensor, chunk: List[Dict], meta) -> List[np.ndarray]:
@@ -237,13 +237,21 @@ class BasePredictor(CallbackMixin):
         return [det_to_original(det[j][:int(counts[j])].copy(), a.imgsz, meta[j])
                 for j in range(len(chunk))]
 
-    def _save(self, r: Results):
-        """What `save`, `save_txt` and `save_crop` write of one result."""
+    def _save(self, r: Results, item: Optional[Dict] = None):
+        """What `save`, `save_txt` and `save_crop` write of one result (its
+        source item tells a video's frame: drawn into the video's writer)."""
         a = self.args
         save_dir = Path(a.project or "runs/detect") / (a.name or "predict")
         save_dir.mkdir(parents=True, exist_ok=True)
         stem = Path(r.path).stem
-        if a.save:
+        if a.save and item and item.get("is_video"):
+            vw = self._video_writers.get(r.path)
+            if vw is None:
+                h, w = r.orig_img.shape[:2]
+                vw = self._video_writers[r.path] = VideoWriter(
+                    save_dir / f"{stem}.mp4", item.get("fps", 30), (w, h))
+            vw.write(r.plot())
+        elif a.save:
             draw.imwrite(save_dir / f"{stem}.jpg", r.plot())
         if a.save_txt:
             r.save_txt(save_dir / "labels" / f"{stem}.txt", a.save_conf)

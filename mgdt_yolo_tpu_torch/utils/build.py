@@ -13,9 +13,11 @@ headers and libraries) where a CUDA device is present, else with its PNG
 decoder alone; so are the host augmentation's C++ (`native/src/
 host_augment.cpp`, name `HOST_AUGMENT`, floating point contraction off) and
 the drawing and image writers' (`native/src/host_draw.cpp`, name
-`HOST_DRAW`, with zlib), and the trackers' camera-motion compensation
+`HOST_DRAW`, with zlib), the trackers' camera-motion compensation
 (`native/src/host_gmc.cpp`, name `HOST_GMC`, contraction off, `-mfma` where
-the CPU has the instruction). `build_all` takes all four among the names.
+the CPU has the instruction), and the video demuxers, GIF decoder and MP4
+writer (`native/src/host_video.cpp`, name `HOST_VIDEO`). `build_all` takes
+all five among the names.
 """
 from __future__ import annotations
 
@@ -44,6 +46,8 @@ HOST_DRAW_SRC = PKG_ROOT / "native" / "src" / f"{HOST_DRAW}.cpp"
 HOST_DRAW_FLAGS = (*HOST_FLAGS, "-ffp-contract=off")
 HOST_GMC = "host_gmc"
 HOST_GMC_SRC = PKG_ROOT / "native" / "src" / f"{HOST_GMC}.cpp"
+HOST_VIDEO = "host_video"
+HOST_VIDEO_SRC = PKG_ROOT / "native" / "src" / f"{HOST_VIDEO}.cpp"
 
 
 def cpu_has_fma() -> bool:
@@ -61,7 +65,8 @@ HOST_GMC_FLAGS = (*HOST_FLAGS, "-ffp-contract=off", *(("-mfma",) if cpu_has_fma(
 # the g++-built sources besides the decoder: name -> (source, arguments after it)
 HOST_SOURCES = {HOST_AUGMENT: (HOST_AUGMENT_SRC, HOST_AUGMENT_FLAGS, ()),
                 HOST_DRAW: (HOST_DRAW_SRC, HOST_DRAW_FLAGS, ("-lz",)),
-                HOST_GMC: (HOST_GMC_SRC, HOST_GMC_FLAGS, ("-lpthread",))}
+                HOST_GMC: (HOST_GMC_SRC, HOST_GMC_FLAGS, ("-lpthread",)),
+                HOST_VIDEO: (HOST_VIDEO_SRC, HOST_FLAGS, ())}
 
 
 def nvcc_path() -> str:

@@ -336,8 +336,8 @@ def test_yolo_dataset_items_match_jax(tmp_path, kw):
 
 def test_unsupported_formats_raise(tmp_path):
     img_dir = write_dataset(tmp_path, SIZES[:2])
-    cv2.imwrite(str(img_dir / "x.bmp"), scene(20, 20, 0))
-    with pytest.raises(native.UnsupportedFormat, match="bmp"):
+    cv2.imwrite(str(img_dir / "x.webp"), scene(20, 20, 0))  # bmp and tif are decoded
+    with pytest.raises(native.UnsupportedFormat, match="webp"):
         YOLODataset(str(img_dir))
 
 

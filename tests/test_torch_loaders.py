@@ -121,9 +121,12 @@ def test_decode_errors(tmp_path):
         with pytest.raises(native.DecodeError) as err:
             native.decode(path)
         assert err.value.status == status
-    for suffix in ("bmp", "webp", "tiff"):
-        with pytest.raises(native.UnsupportedFormat, match=suffix):
+    with pytest.raises(native.UnsupportedFormat, match="webp"):
+        native.decode(tmp_path / "x.webp")
+    for suffix in ("bmp", "tif", "tiff"):  # decoded since the video slice
+        with pytest.raises(native.DecodeError) as err:
             native.decode(tmp_path / f"x.{suffix}")
+        assert err.value.status == native.ERR_OPEN
     if not native.has_jpeg():
         with pytest.raises(native.DecodeError, match="CUDA device"):
             native.decode(FIXTURES / "color420.jpg")
@@ -295,7 +298,8 @@ def _image_dir(root: Path, sizes, seed=0) -> Path:
 def test_sources_list_as_jax(tmp_path, caplog):
     """A directory (any depth), a glob and a file list the files the JAX
     loader lists; an unreadable image is skipped with a warning, as JAX
-    skips it; videos, streams, screenshots and undecoded formats raise."""
+    skips it; containers the port does not read, webcams, RTSP streams,
+    screenshots without mss and undecoded formats raise."""
     d = _image_dir(tmp_path, [(40, 50), (60, 30), (35, 35), (20, 20)])
     (d / "broken.png").write_bytes(b"\x89PNG\r\n\x1a\n broken")
     for src in (d, str(d / "*.png"), str(d / "**" / "*.png"), d / "f0.png"):
@@ -308,13 +312,15 @@ def test_sources_list_as_jax(tmp_path, caplog):
     assert any("unreadable image" in r.message for r in caplog.records)
     arrays = load_inference_source([scene(10, 12, 0), scene(8, 9, 1)])
     assert [it["path"] for it in arrays] == ["array0.jpg", "array1.jpg"]
-    (tmp_path / "clip.mp4").write_bytes(b"")
+    (tmp_path / "clip.webm").write_bytes(b"")
     (tmp_path / "x.webp").write_bytes(b"")
-    for src, word in ((tmp_path / "clip.mp4", "video"), ("0", "stream"),
-                      ("rtsp://cam/1", "stream"), ("screen 0", "screenshot"),
-                      (tmp_path / "x.webp", "webp")):
+    for src, word in ((tmp_path / "clip.webm", "webm container"), ("0", "stream"),
+                      ("rtsp://cam/1", "stream"), (tmp_path / "x.webp", "webp")):
         with pytest.raises(NotImplementedError, match=word):
             load_inference_source(src)
+    # screenshots are JAX's loader, which needs mss (not on either machine)
+    with pytest.raises(ImportError, match="mss"):
+        load_inference_source("screen 0")
     with pytest.raises(FileNotFoundError):
         load_inference_source(tmp_path / "missing")
 

@@ -107,6 +107,21 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                 f"{path.relative_to(ROOT)} imports {name}"
 
 
+def test_port_imports_no_pil_and_mss_only_for_screenshots():
+    """The package reads and writes images and videos without PIL, and
+    imports `mss` only where JAX's screenshot loader does, lazily."""
+    files = sorted((ROOT / "mgdt_yolo_tpu_torch").rglob("*.py"))
+    found = {}
+    for path in files:
+        for name in _imports(path):
+            found.setdefault(name.split(".")[0], set()).add(path.relative_to(ROOT).as_posix())
+    assert "PIL" not in found, found.get("PIL")
+    assert found.get("mss") == {"mgdt_yolo_tpu_torch/data/loaders.py"}
+    tree = ast.parse((ROOT / "mgdt_yolo_tpu_torch" / "data" / "loaders.py").read_text())
+    top = {a.name for node in tree.body if isinstance(node, ast.Import) for a in node.names}
+    assert "mss" not in top
+
+
 def test_default_device_is_cuda_and_raises_without_it():
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
