@@ -374,9 +374,16 @@ Phases, each of which passes or ends the script with a non-zero exit:
    tracker keyed by the video's path); `predict(save=True)` over the MP4
    at b8, its `pan.mp4` read back (frame count, fps, size); a loopback HTTP
    Motion JPEG server in a thread serving the same frames, read through
-   `LoadStreams` (frames/s; equal to the file's); a directory of jpg, png,
-   bmp and tif scenes through the predictor, bit for bit the detections
-   of the same pixels given as arrays; one probe line: whether
+   `LoadStreams` (frames/s; equal to the file's); the committed WebP
+   fixtures (`native/fixtures/webp`, `tests/torch_webp_fixtures.py`) each
+   bit for bit cv2's reading (its PNG twin, or for the two full-detail
+   1080x1920 scenes, synthetic scene 7 saved lossy at quality 90 and
+   lossless, the SHA-256 in `digests.json`), and the decode ms of those
+   scenes and of a quality-95 JPEG of the same picture, one image (5
+   calls) and 32 on 8 threads, beside phase 15's JPEG; a directory of jpg,
+   png, bmp and tif scenes and the two WebP scenes through the predictor,
+   bit for bit the detections of the same pixels given as arrays, at least
+   one on each WebP scene; one probe line: whether
    `libnvcuvid.so.1` loads and where `nvcuvid.h` / `cuviddec.h` are. K1 is
    the only kernel on this path (`video_launches`). Its lines end with
    `phase 26 rows: {json}`.
@@ -399,10 +406,12 @@ from __future__ import annotations
 import contextlib
 import copy
 import ctypes
+import hashlib
 import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -3510,7 +3519,6 @@ def phase_plots(root):
     save_crop=True)` at b1 and b32 against the same without `save`, over the
     val JPEGs listed PREDICT_REPEATS times; every JPEG written read back by
     the card's decoder. Returns (launches, rows)."""
-    import hashlib
     from mgdt_yolo_tpu_torch import YOLO
     from mgdt_yolo_tpu_torch.engine import predictor as predictor_mod
     from mgdt_yolo_tpu_torch.utils import callbacks, draw
@@ -5286,6 +5294,10 @@ VIDEO_BATCHES = (1, 8)
 VIDEO_FIXTURES = FIXTURES / "video"
 VIDEO_HOLD = (0, 21, 42, 63)        # the pan's frames held to draw.jpeg_reading
 MIXED_FORMATS = ("jpg", "png", "bmp", "tif")
+WEBP_FIXTURES = FIXTURES / "webp"
+WEBP_SCENES = ("scene_lossy", "scene_lossless")  # 1080x1920, timed and predicted over
+WEBP_SCENE = 7  # their picture: synthetic_scene(7, 1920)[:1080] (tests/torch_webp_fixtures.py)
+WEBP_DIGESTS = WEBP_FIXTURES / "digests.json"   # cv2's reading of the scenes (no PNG twin)
 
 
 def _riff(cid, body):
@@ -5394,7 +5406,8 @@ def phase_video(root, frames=None, decode_rows=None):
     log(f"== phase 26: video sources: phase 22's {TRACK_FRAMES}-frame {TRACK_SHAPE[0]}x"
         f"{TRACK_SHAPE[1]} pan written by the port's MP4 writer (and as AVI and MKV), the "
         "committed fixtures, YOLO.track over the file against the same frames in memory, "
-        "predict(save=True), an HTTP Motion JPEG stream, a directory of jpg/png/bmp/tif")
+        "predict(save=True), an HTTP Motion JPEG stream, the WebP fixtures, a directory of "
+        "jpg/png/bmp/tif/webp")
     t_phase = time.perf_counter()
     if frames is None:
         frames = panning_sequence(TRACK_FRAMES, TRACK_SHAPE, seed=7)[0]
@@ -5515,7 +5528,38 @@ def phase_video(root, frames=None, decode_rows=None):
         f"decoded a frame at a time); equal to the file's frames: {same}")
     if not same:
         raise SystemExit("the stream's frames differ from the file's")
-    # 6. a directory of mixed formats against the same pixels as arrays
+    # 6. the WebP fixtures against cv2's reading, and the decode of 1080p WebP
+    webp, digests, scene_px = {}, json.loads(WEBP_DIGESTS.read_text()), {}
+    for f in sorted(WEBP_FIXTURES.glob("*.webp")):
+        got = native.decode(f)
+        if f.stem in digests:
+            scene_px[f.stem] = got
+            equal = digests[f.stem] == {"shape": list(got.shape),
+                                        "sha256": hashlib.sha256(got.tobytes()).hexdigest()}
+        else:
+            want = native.decode(f.with_suffix(".png"))
+            equal = got.shape == want.shape and np.array_equal(got, want)
+        webp[f.stem] = {"shape": list(got.shape), "equal": bool(equal)}
+    bad = [k for k, v in webp.items() if not v["equal"]]
+    log(f"WebP fixtures: {len(webp)} files, each bit for bit cv2's reading (its PNG twin or "
+        f"its digest): {not bad}")
+    if bad or len(webp) < 2 or sorted(scene_px) != sorted(WEBP_SCENES):
+        raise SystemExit(f"WebP fixtures differ from cv2's reading: {bad}")
+    rows["webp_fixtures"] = webp
+    # the same picture as a quality-95 JPEG (as phase 15 writes its dataset), timed beside them
+    picture = np.ascontiguousarray(synthetic_scene(WEBP_SCENE, 1920, seed=7)[:1080])
+    if not np.array_equal(scene_px["scene_lossless"], picture):
+        raise SystemExit(f"the lossless WebP scene is not synthetic scene {WEBP_SCENE}")
+    jpg = vdir / "scene_q95.jpg"
+    Image.fromarray(np.ascontiguousarray(picture[..., ::-1])).save(jpg, quality=95)
+    rows["webp_decode"] = _decode_ms({**{k: WEBP_FIXTURES / f"{k}.webp" for k in WEBP_SCENES},
+                                      "scene_q95_jpeg": jpg})
+    log("1080x1920 decode of one picture (host, ms a picture): " + "; ".join(
+        f"{k} {v['decode_ms']:.3f} one image, {v['decode_batch32_ms_per_image']:.3f} in a batch "
+        f"of 32" for k, v in rows["webp_decode"].items()) +
+        f"; phase 15's JPEG {phase15.get('decode_ms', float('nan')):.3f} / "
+        f"{phase15.get('decode_batch32_ms_per_image', float('nan')):.3f}")
+    # 7. a directory of mixed formats against the same pixels as arrays
     mixed = vdir / "mixed"
     mixed.mkdir()
     for i, img in enumerate(_scenes(2 * len(MIXED_FORMATS))):
@@ -5525,8 +5569,12 @@ def phase_video(root, frames=None, decode_rows=None):
             draw.imwrite(p, img)
         else:
             Image.fromarray(np.ascontiguousarray(img[..., ::-1])).save(p)
+    for k in WEBP_SCENES:
+        shutil.copyfile(WEBP_FIXTURES / f"{k}.webp", mixed / f"{k}.webp")
     files = sorted(str(p) for p in mixed.iterdir())
-    arrays = [native.decode(f) for f in files]
+    # a WebP's pixels are cv2's reading (its digest held above), the others' the port's
+    arrays = [scene_px[Path(f).stem] if f.endswith(".webp") else native.decode(f)
+              for f in files]
     by_dir, _, launches = _timed(lambda: card.predict(str(mixed), imgsz=IMGSZ, half=True,
                                                       batch=4))
     by_arrays, _, launches2 = _timed(lambda: card.predict(arrays, imgsz=IMGSZ, half=True,
@@ -5538,10 +5586,13 @@ def phase_video(root, frames=None, decode_rows=None):
     if [r_.path for r_ in by_dir] != files or dets == 0 or any(
             not np.array_equal(a.boxes.data, b.boxes.data) for a, b in zip(by_dir, by_arrays)):
         raise SystemExit("the mixed directory's detections differ from the arrays'")
-    rows["mixed"] = {"files": len(files), "detections": dets}
-    log(f"mixed directory ({', '.join(MIXED_FORMATS)}): {len(files)} files, {dets} detections, "
-        "bit for bit those of the same pixels as arrays")
-    # 7. NVDEC
+    webp_dets = {Path(r_.path).stem: len(r_) for r_ in by_dir if r_.path.endswith(".webp")}
+    if 0 in webp_dets.values():
+        raise SystemExit(f"a WebP scene gave no detection to hold: {webp_dets}")
+    rows["mixed"] = {"files": len(files), "detections": dets, "webp_detections": webp_dets}
+    log(f"mixed directory ({', '.join(MIXED_FORMATS)}, webp): {len(files)} files, {dets} "
+        f"detections ({webp_dets} on the WebPs), bit for bit those of the same pixels as arrays")
+    # 8. NVDEC
     rows["nvdec"] = _nvdec_probe()
     log(f"NVDEC probe: libnvcuvid.so.1 {rows['nvdec']['libnvcuvid.so.1']}; headers "
         f"{rows['nvdec']['headers']}")

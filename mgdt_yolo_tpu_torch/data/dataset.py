@@ -50,9 +50,9 @@ class YOLODataset:
     `YOLODataset` takes them: files sorted, the first `fraction` of them
     kept, pairs verified and cached, corrupt ones dropped. `single_cls`
     sets every class to 0; `cache` keeps decoded images in memory
-    ("ram"/True) or as `.npy` files beside them ("disk"). A file whose
-    format the port does not decode (`webp`) raises
-    `native.UnsupportedFormat`, naming it. `buffer` holds the train
+    ("ram"/True) or as `.npy` files beside them ("disk"); every suffix of
+    `IMG_FORMATS` (jpg, jpeg, png, bmp, tif, tiff, webp) is decoded.
+    `buffer` holds the train
     loader's last resized items, the mosaic and mixup partners, across
     epochs."""
 
@@ -66,8 +66,6 @@ class YOLODataset:
             files = files[:max(1, int(len(files) * fraction))]
         if not files:
             raise FileNotFoundError(f"no images found under {img_dir}")
-        for f in files:
-            native.check_format(f)
         label_files = [img2label_path(f) for f in files]
         cache_path = Path(label_files[0]).parent.with_suffix(".cache")
         records = scan_labels(files, label_files, cache_path, num_cls=nc, workers=workers)

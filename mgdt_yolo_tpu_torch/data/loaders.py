@@ -10,8 +10,9 @@ together (`decode(entries)`): the predictor decodes a batch at a time, so a
 long video never sits in memory whole; iterating a source does the same,
 8 items at a time.
 
-* Images are decoded by the port's decoder (`native`); one it cannot read
-  is logged and skipped, as JAX skips it. WebP raises `UnsupportedFormat`.
+* Images (jpg, jpeg, png, bmp, tif, tiff, webp) are decoded by the port's
+  decoder (`native`); one it cannot read is logged and skipped, as JAX
+  skips it.
 * Videos (`native.video`): Motion JPEG in AVI, MP4/MOV/M4V and Matroska,
   and GIF. JAX's `vid_stride` rule: each item is the last of `vid_stride`
   frames grabbed, so at stride 3 the first is frame 2; `frame_idx` counts
@@ -97,8 +98,6 @@ class LoadImagesAndVideos(Source):
                     self.readers[f] = VideoReader(f)
                 except native.DecodeError as e:
                     self._unreadable[f] = str(e)
-            else:
-                native.check_format(f)
         self.vid_stride = vid_stride
         self._ended: Dict[str, int] = {}
 

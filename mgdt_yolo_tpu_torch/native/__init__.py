@@ -1,7 +1,8 @@
 """The image decoder of the port's data pipeline, bound with ctypes.
 
 A counterpart of the JAX package's `mgdt_yolo_tpu/native`: `src/host_loader.cpp`
-decodes JPEG with nvJPEG on the card and PNG (zlib), BMP and TIFF on the host, and
+decodes JPEG with nvJPEG on the card and PNG (zlib), BMP and TIFF on the host
+(WebP by `src/host_webp.cpp`, built into the same library), and
 keeps the JAX loader's long-side bilinear resize, its paste into the
 114-filled RGB canvas, its status codes and its thread pool. It is built
 at first use into `_build/` (`utils/build.py`); a build that fails raises
@@ -9,8 +10,8 @@ with the compiler's message, and nothing falls back to another decoder.
 
 * `load_batch(paths, imgsz)`: the JAX `load_batch`: canvases, pasted sizes
   and a status per image (`OK`, or a code for the caller to redo through
-  the Python path: `ERR_EXIF` for a JPEG with an EXIF orientation, as JAX
-  declines it).
+  the Python path: `ERR_EXIF` for a JPEG with an EXIF orientation and
+  `ERR_FORMAT` for a WebP, as JAX declines them).
 * `decode(path)` / `decode_batch(paths)`: the full-size BGR image
   `cv2.imread` gives, EXIF orientation applied.
 
@@ -21,13 +22,15 @@ same way and bound by `data/imgproc.py`.
   bytes in memory (a video's JPEG frames, `native/video.py`); JPEG frames
   without Huffman tables get the standard ones (`jpeg_standard_dht`).
 
-Formats: JPEG (where the machine has a CUDA device), PNG, BMP and TIFF, each
-to `cv2.imread`'s bits (JPEG within nvJPEG's IDCT). WebP, the last suffix of
-`IMG_FORMATS`, raises `UnsupportedFormat`, naming it, and so does a TIFF
-whose compression or colour model the decoder does not take (JPEG-in-TIFF,
-CMYK, YCbCr, floating point), naming that; `decode` raises `DecodeError`
-for a file it cannot read. Videos the port does not read raise
-`UnsupportedVideo` (`native/video.py`).
+Formats: every suffix of `IMG_FORMATS`: JPEG (where the machine has a CUDA
+device), PNG, BMP, TIFF and WebP (lossy, lossless, extended, animated: the
+first frame), each to `cv2.imread`'s bits (JPEG within nvJPEG's IDCT), a
+WebP's EXIF orientation applied as cv2 applies it. A TIFF whose compression
+or colour model the decoder does not take (JPEG-in-TIFF, CMYK, YCbCr,
+floating point) raises `UnsupportedFormat`, naming that, and so does a path
+of another suffix; `decode` raises `DecodeError` for a file it cannot read
+(a WebP cv2 refuses, truncated or corrupt, among them). Videos the port
+does not read raise `UnsupportedVideo` (`native/video.py`).
 """
 from __future__ import annotations
 
@@ -48,11 +51,11 @@ ERR_COLORSPACE = -5
 ERR_NO_JPEG = -6
 ERR_UNSUPPORTED = -7
 STATUS = {OK: "ok", ERR_OPEN: "cannot open", ERR_EXIF: "EXIF-rotated JPEG",
-          ERR_DECODE: "cannot decode", ERR_FORMAT: "neither JPEG, PNG, BMP nor TIFF",
+          ERR_DECODE: "cannot decode", ERR_FORMAT: "neither JPEG, PNG, BMP, TIFF nor WebP",
           ERR_COLORSPACE: "CMYK JPEG", ERR_NO_JPEG: "a JPEG, and JPEG decoding (nvJPEG) "
                                                     "needs a CUDA device",
           ERR_UNSUPPORTED: "a TIFF compression or colour model the decoder does not take"}
-DECODED_SUFFIXES = ("jpg", "jpeg", "png", "bmp", "tif", "tiff")
+DECODED_SUFFIXES = ("jpg", "jpeg", "png", "bmp", "tif", "tiff", "webp")
 # the TIFF compressions and photometric interpretations the decoder takes,
 # and the names of some it does not (for the message)
 TIFF_COMPRESSIONS = {1: "none", 5: "LZW", 8: "Deflate", 32946: "Deflate", 32773: "PackBits"}
@@ -72,7 +75,8 @@ class DecodeError(RuntimeError):
 
 
 class UnsupportedFormat(NotImplementedError):
-    """An image format the port does not decode (ROADMAP queue 1)."""
+    """A suffix outside `IMG_FORMATS`, or a TIFF variant, the decoder does
+    not take."""
 
 
 class UnsupportedVideo(NotImplementedError):
@@ -87,8 +91,7 @@ def check_format(path) -> None:
     suffix = Path(str(path)).suffix[1:].lower()
     if suffix not in DECODED_SUFFIXES:
         raise UnsupportedFormat(f"{path}: the port decodes {', '.join(DECODED_SUFFIXES)} only; "
-                                f"{suffix or 'a file without a suffix'} is not decoded "
-                                "(ROADMAP queue 1)")
+                                f"{suffix or 'a file without a suffix'} is not decoded")
 
 
 def tiff_tags(data: bytes) -> dict:

@@ -22,15 +22,20 @@
 //   premultiplied as libtiff does; orientations 2-4 flipped, 5-8 refused
 //   as cv2 5.0 refuses them). Any other TIFF compression or photometric
 //   gives MGDT_ERR_UNSUPPORTED.
+// * WebP (lossy, lossless, extended, animated) is decoded by
+//   `host_webp.cpp`, compiled beside this file, to the bits cv2 reads
+//   through libwebp; a VP8X file's EXIF orientation is applied as a JPEG's.
 // * The long-side bilinear `resize_into`, the paste into the 114-filled
 //   RGB canvas, the per-image status codes and the thread pool are the JAX
 //   loader's, unchanged: `mgdt_load_batch` gives its bits on PNG.
 // * `mgdt_decode` / `mgdt_decode_batch` are the full-size decode to BGR
-//   that `cv2.imread` gives, with a JPEG's EXIF orientation applied as cv2
-//   applies it; `mgdt_load_one` declines such a JPEG (MGDT_ERR_EXIF), as
-//   the JAX loader does, so its caller redoes it through the Python path.
+//   that `cv2.imread` gives, with a JPEG's or a WebP's EXIF orientation
+//   applied as cv2 applies it; `mgdt_load_one` declines an EXIF-rotated
+//   JPEG (MGDT_ERR_EXIF) and every WebP (MGDT_ERR_FORMAT), as the JAX
+//   loader does, so its caller redoes them through the Python path (cv2's
+//   resize, where this one resizes in float).
 //
-// Build: g++ -O3 -shared -fPIC -std=c++17 host_loader.cpp -lz -lpthread
+// Build: g++ -O3 -shared -fPIC -std=c++17 host_loader.cpp host_webp.cpp -lz -lpthread
 //        [-DMGDT_NVJPEG -I<cuda>/include -L<cuda>/lib64 -lnvjpeg -lcudart]
 //        (see mgdt_yolo_tpu_torch/utils/build.py, which builds it at first use).
 
@@ -59,13 +64,13 @@ enum {
   MGDT_ERR_OPEN = -1,
   MGDT_ERR_EXIF = -2,     // EXIF orientation != 1: the canvas path declines it
   MGDT_ERR_DECODE = -3,
-  MGDT_ERR_FORMAT = -4,   // not a JPEG, PNG, BMP or TIFF
+  MGDT_ERR_FORMAT = -4,   // not a JPEG, PNG, BMP, TIFF or WebP
   MGDT_ERR_COLORSPACE = -5,
   MGDT_ERR_NO_JPEG = -6,  // a JPEG, and this build has no JPEG decoder
   MGDT_ERR_UNSUPPORTED = -7,  // a TIFF whose compression or colour model is not decoded
 };
 
-int mgdt_version(void) { return 105; }
+int mgdt_version(void) { return 106; }
 
 int mgdt_has_jpeg(void) {
 #ifdef MGDT_NVJPEG
@@ -81,11 +86,10 @@ int mgdt_has_jpeg(void) {
 // EXIF orientation (JPEG APP1), as the JAX loader reads it.
 // ---------------------------------------------------------------------------
 
-static int exif_orientation(const uint8_t* data, unsigned len) {
-  // data: APP1 payload (after the 2-byte length), starts with "Exif\0\0".
-  if (len < 14 || memcmp(data, "Exif\0\0", 6) != 0) return 1;
-  const uint8_t* tiff = data + 6;
-  unsigned tlen = len - 6;
+// The orientation (tag 0x0112) of the first IFD of a TIFF header, as a
+// JPEG's EXIF or a WebP's EXIF chunk holds it; 1 where there is none.
+static int tiff_orientation(const uint8_t* tiff, size_t tlen) {
+  if (tlen < 8) return 1;
   bool be;
   if (tiff[0] == 'I' && tiff[1] == 'I') be = false;
   else if (tiff[0] == 'M' && tiff[1] == 'M') be = true;
@@ -101,11 +105,11 @@ static int exif_orientation(const uint8_t* data, unsigned len) {
               : (tiff[off + 3] << 24) | (tiff[off + 2] << 16) | (tiff[off + 1] << 8) | tiff[off];
   };
   if (rd16(2) != 42) return 1;
-  unsigned ifd = rd32(4);
+  size_t ifd = rd32(4);
   if (ifd == 0 || ifd + 2 > tlen) return 1;
   unsigned n = rd16(ifd);
   for (unsigned i = 0; i < n; i++) {
-    unsigned e = ifd + 2 + i * 12;
+    size_t e = ifd + 2 + (size_t)i * 12;
     if (e + 12 > tlen) break;
     if (rd16(e) == 0x0112) {  // Orientation tag, SHORT
       unsigned v = rd16(e + 8);
@@ -113,6 +117,12 @@ static int exif_orientation(const uint8_t* data, unsigned len) {
     }
   }
   return 1;
+}
+
+static int exif_orientation(const uint8_t* data, unsigned len) {
+  // data: APP1 payload (after the 2-byte length), starts with "Exif\0\0".
+  if (len < 14 || memcmp(data, "Exif\0\0", 6) != 0) return 1;
+  return tiff_orientation(data + 6, len - 6);
 }
 
 // The orientation of the first APP1 segment before the frame header, 1 if
@@ -1093,7 +1103,13 @@ static int decode_tiff(const std::vector<uint8_t>& file, std::vector<uint8_t>& r
 // Whole-file decode and EXIF orientation
 // ---------------------------------------------------------------------------
 
-static int read_file(const char* path, std::vector<uint8_t>& buf) {
+static bool is_webp(const uint8_t* d, size_t n) {
+  return n >= 12 && !memcmp(d, "RIFF", 4) && !memcmp(d + 8, "WEBP", 4);
+}
+
+// The whole file into `buf`; with `decline_webp`, a WebP gives
+// MGDT_ERR_FORMAT from its first 12 bytes, before the rest is read.
+static int read_file(const char* path, std::vector<uint8_t>& buf, bool decline_webp = false) {
   FILE* f = fopen(path, "rb");
   if (!f) return MGDT_ERR_OPEN;
   if (fseek(f, 0, SEEK_END) != 0) {
@@ -1107,13 +1123,25 @@ static int read_file(const char* path, std::vector<uint8_t>& buf) {
     return MGDT_ERR_OPEN;
   }
   buf.resize((size_t)n);
-  size_t got = n ? fread(buf.data(), 1, (size_t)n, f) : 0;
+  const size_t head = std::min((size_t)n, (size_t)12);
+  size_t got = fread(buf.data(), 1, head, f);
+  if (decline_webp && got == head && is_webp(buf.data(), head)) {
+    fclose(f);
+    return MGDT_ERR_FORMAT;
+  }
+  if (got == head && (size_t)n > head) got += fread(buf.data() + head, 1, (size_t)n - head, f);
   fclose(f);
   return got == (size_t)n ? MGDT_OK : MGDT_ERR_OPEN;
 }
 
-// Decode a file's bytes to RGB rows; `orientation` receives a JPEG's EXIF
-// orientation (1 for the other formats: a TIFF's is applied in its decoder).
+// host_webp.cpp: a WebP file's bytes to RGB rows, and its EXIF chunk
+// (nullptr where cv2 applies none)
+int mgdt_decode_webp(const uint8_t* d, size_t n, std::vector<uint8_t>& rgb, int& w, int& h,
+                     const uint8_t*& exif, size_t& exif_n);
+
+// Decode a file's bytes to RGB rows; `orientation` receives a JPEG's or a
+// WebP's EXIF orientation (1 for the other formats: a TIFF's is applied in
+// its decoder).
 static int decode_rgb(const std::vector<uint8_t>& file, std::vector<uint8_t>& rgb, int& w,
                       int& h, int& orientation) {
   orientation = 1;
@@ -1129,6 +1157,11 @@ static int decode_rgb(const std::vector<uint8_t>& file, std::vector<uint8_t>& rg
   } else if (file.size() >= 4 && ((file[0] == 'I' && file[1] == 'I' && file[2] == 42 && file[3] == 0) ||
                                   (file[0] == 'M' && file[1] == 'M' && file[2] == 0 && file[3] == 42))) {
     rc = decode_tiff(file, rgb, w, h);
+  } else if (is_webp(file.data(), file.size())) {
+    const uint8_t* exif;
+    size_t exif_n;
+    rc = mgdt_decode_webp(file.data(), file.size(), rgb, w, h, exif, exif_n);
+    if (exif) orientation = tiff_orientation(exif, exif_n);
   } else {
     rc = MGDT_ERR_FORMAT;
   }
@@ -1213,7 +1246,7 @@ extern "C" {
 int mgdt_load_one(const char* path, int imgsz, unsigned char* out,
                   float* out_hw) {
   std::vector<uint8_t> file, rgb;
-  int rc = read_file(path, file);
+  int rc = read_file(path, file, true);  // the JAX loader's cv2 path takes WebP
   if (rc != MGDT_OK) return rc;
   int w = 0, h = 0, orientation = 1;
   rc = decode_rgb(file, rgb, w, h, orientation);

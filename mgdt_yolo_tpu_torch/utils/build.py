@@ -7,8 +7,9 @@ so an edited source or header is rebuilt and an unchanged one is loaded as
 it is. `build_all` starts one nvcc per source
 together and waits for all of them.
 
-The image decoder, `native/src/host_loader.cpp` (name `HOST_LOADER`), is
-built the same way by g++: with nvJPEG (`-DMGDT_NVJPEG`, the toolkit's
+The image decoder, `native/src/host_loader.cpp` with the WebP decoder
+`native/src/host_webp.cpp` (name `HOST_LOADER`; its digest covers every
+source in `HOST_LOADER_SOURCES`), is built the same way by g++: with nvJPEG (`-DMGDT_NVJPEG`, the toolkit's
 headers and libraries) where a CUDA device is present, else with its PNG
 decoder alone; so are the host augmentation's C++ (`native/src/
 host_augment.cpp`, name `HOST_AUGMENT`, floating point contraction off) and
@@ -36,7 +37,8 @@ BUILD_DIR = PKG_ROOT / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 HOST_LOADER = "host_loader"
-HOST_SRC = PKG_ROOT / "native" / "src" / f"{HOST_LOADER}.cpp"
+HOST_LOADER_SOURCES = tuple(PKG_ROOT / "native" / "src" / f for f in ("host_loader.cpp",
+                                                                     "host_webp.cpp"))
 HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 HOST_AUGMENT = "host_augment"
 HOST_AUGMENT_SRC = PKG_ROOT / "native" / "src" / f"{HOST_AUGMENT}.cpp"
@@ -86,7 +88,7 @@ def host_command() -> tuple:
     """g++'s arguments for the decoder, after the output's: nvJPEG where a
     CUDA device is present (its toolkit is then required), else PNG only."""
     import torch
-    args = [*HOST_FLAGS, str(HOST_SRC)]
+    args = [*HOST_FLAGS, *map(str, HOST_LOADER_SOURCES)]
     if torch.cuda.is_available():
         cuda = Path(nvcc_path()).resolve().parents[1]  # the toolkit's root
         lib = next((d for d in (cuda / "lib64", cuda / "targets/x86_64-linux/lib")
@@ -100,7 +102,9 @@ def library_path(name: str) -> Path:
     """Where `csrc/<name>.cu` (or the decoder) is built to, keyed by the
     source, every shared header of `csrc/` and the flags."""
     if name == HOST_LOADER:
-        h = hashlib.sha256(HOST_SRC.read_bytes())
+        h = hashlib.sha256()
+        for src in HOST_LOADER_SOURCES:
+            h.update(src.read_bytes())
         h.update(" ".join(host_command()).encode())
         return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
     if name in HOST_SOURCES:

@@ -335,10 +335,13 @@ def test_yolo_dataset_items_match_jax(tmp_path, kw):
 
 
 def test_unsupported_formats_raise(tmp_path):
+    """No suffix of `IMG_FORMATS` is refused any more: a WebP among the PNGs
+    (bmp and tif are decoded too) is read as JAX reads it."""
     img_dir = write_dataset(tmp_path, SIZES[:2])
-    cv2.imwrite(str(img_dir / "x.webp"), scene(20, 20, 0))  # bmp and tif are decoded
-    with pytest.raises(native.UnsupportedFormat, match="webp"):
-        YOLODataset(str(img_dir))
+    cv2.imwrite(str(img_dir / "x.webp"), scene(20, 20, 0))
+    ours, theirs = YOLODataset(str(img_dir)), JaxYOLODataset(str(img_dir), imgsz=64)
+    assert ours.im_files == theirs.im_files and ours.im_files[-1].endswith("x.webp")
+    _items_equal(ours[2], theirs[2])
 
 
 def _close_pixels(got, want, what):

@@ -468,11 +468,16 @@ def test_ycbcr_and_cmyk_tiffs_raise_naming_them(tmp_path):
 
 
 def test_webp_alone_is_refused_by_name(tmp_path):
+    """WebP, the last suffix of `IMG_FORMATS`, is decoded to cv2's bits
+    (`tests/test_torch_webp.py` holds the decoder whole): the decoder now
+    takes every suffix, and refuses another by name."""
     from PIL import Image
     Image.fromarray(scene(20, 20, 0)).save(tmp_path / "a.webp")
-    with pytest.raises(native.UnsupportedFormat, match="webp"):
-        native.decode(tmp_path / "a.webp")
-    assert set(native.DECODED_SUFFIXES) == PU.IMG_FORMATS - {"webp"}
+    np.testing.assert_array_equal(native.decode(tmp_path / "a.webp"),
+                                  cv2.imread(str(tmp_path / "a.webp")))
+    assert set(native.DECODED_SUFFIXES) == PU.IMG_FORMATS
+    with pytest.raises(native.UnsupportedFormat, match="gif"):
+        native.decode(tmp_path / "a.gif")
 
 
 # ---------------------------------------------------------------------------

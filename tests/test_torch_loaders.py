@@ -34,6 +34,7 @@ from mgdt_yolo_tpu.engine.predictor import DetectionPredictor as JaxPredictor
 from mgdt_yolo_tpu_torch import native
 from mgdt_yolo_tpu_torch.data.loaders import LoadImagesAndVideos, load_inference_source
 from mgdt_yolo_tpu_torch.engine.predictor import DetectionPredictor
+from mgdt_yolo_tpu_torch.utils import build
 from test_torch_dataset import scene
 from test_torch_predict import ATOL_BOX, CONF, IMGSZ, _same_results, flagship  # noqa: F401
 from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
@@ -112,18 +113,19 @@ def test_png_decode_matches_cv2(tmp_path, kind):
 
 
 def test_decode_errors(tmp_path):
-    """A missing or unreadable file raises `DecodeError` with its status; a
-    format the port does not decode raises `UnsupportedFormat` naming it;
-    on a machine without nvJPEG a JPEG raises, naming what it needs."""
+    """A missing or unreadable file raises `DecodeError` with its status (a
+    missing WebP too, a format decoded since the WebP slice); a suffix the
+    port does not decode raises `UnsupportedFormat` naming it; on a machine
+    without nvJPEG a JPEG raises, naming what it needs."""
     bad = tmp_path / "bad.png"
     bad.write_bytes(b"\x89PNG\r\n\x1a\n nonsense")
     for path, status in ((tmp_path / "nope.png", native.ERR_OPEN), (bad, native.ERR_DECODE)):
         with pytest.raises(native.DecodeError) as err:
             native.decode(path)
         assert err.value.status == status
-    with pytest.raises(native.UnsupportedFormat, match="webp"):
-        native.decode(tmp_path / "x.webp")
-    for suffix in ("bmp", "tif", "tiff"):  # decoded since the video slice
+    with pytest.raises(native.UnsupportedFormat, match="gif"):
+        native.decode(tmp_path / "x.gif")
+    for suffix in ("bmp", "tif", "tiff", "webp"):  # decoded since the video and WebP slices
         with pytest.raises(native.DecodeError) as err:
             native.decode(tmp_path / f"x.{suffix}")
         assert err.value.status == native.ERR_OPEN
@@ -217,7 +219,8 @@ def planes_to_bgr(tmp_path_factory):
     src = Path(native.__file__).parent / "src"
     so = d / "harness.so"
     proc = subprocess.run(["g++", "-O2", "-shared", "-fPIC", "-std=c++17", f"-I{src}",
-                           str(d / "harness.cpp"), "-o", str(so), "-ljpeg", "-lz",
+                           str(d / "harness.cpp"), *map(str, build.HOST_LOADER_SOURCES[1:]),
+                           "-o", str(so), "-ljpeg", "-lz",
                            "-lpthread"], capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
     lib = ctypes.CDLL(str(so))
@@ -313,9 +316,8 @@ def test_sources_list_as_jax(tmp_path, caplog):
     arrays = load_inference_source([scene(10, 12, 0), scene(8, 9, 1)])
     assert [it["path"] for it in arrays] == ["array0.jpg", "array1.jpg"]
     (tmp_path / "clip.webm").write_bytes(b"")
-    (tmp_path / "x.webp").write_bytes(b"")
     for src, word in ((tmp_path / "clip.webm", "webm container"), ("0", "stream"),
-                      ("rtsp://cam/1", "stream"), (tmp_path / "x.webp", "webp")):
+                      ("rtsp://cam/1", "stream")):
         with pytest.raises(NotImplementedError, match=word):
             load_inference_source(src)
     # screenshots are JAX's loader, which needs mss (not on either machine)
