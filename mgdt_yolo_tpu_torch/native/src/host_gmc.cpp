@@ -32,9 +32,13 @@
 // is kept per row or per point and combined in order, so the results do
 // not depend on the number of threads.
 //
-// Build: g++ -O3 -shared -fPIC -std=c++17 -ffp-contract=off [-mfma] host_gmc.cpp -lpthread
-//        (see mgdt_yolo_tpu_torch/utils/build.py, which builds it at first use,
-//        with -mfma where the CPU has the instruction: the same bits, faster).
+// The ORB and SIFT features and their matcher are host_features.cpp, built
+// into the same library.
+//
+// Build: g++ -O3 -shared -fPIC -std=c++17 -ffp-contract=off [-mfma] host_gmc.cpp
+//        host_features.cpp -lpthread (see mgdt_yolo_tpu_torch/utils/build.py,
+//        which builds it at first use, with -mfma where the CPU has the
+//        instruction: the same bits, faster).
 
 #include <algorithm>
 #include <condition_variable>
@@ -191,6 +195,11 @@ void sobel3(const uint8_t* src, int H, int W, float scale, float* dx, float* dy)
 }
 
 }  // namespace
+
+// `parallel_for` for the other source of this library (host_features.cpp)
+namespace mgdt_gmc {
+void parallel_chunks(int n, const std::function<void(int, int)>& fn) { parallel_for(n, fn); }
+}  // namespace mgdt_gmc
 
 extern "C" {
 

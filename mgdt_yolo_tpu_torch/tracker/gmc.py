@@ -8,8 +8,9 @@ weights, then cv2's INTER_LINEAR resize to (W // downscale, H //
 downscale)), with its translation scaled back to full resolution. The
 first frame returns the identity; every call stores its frame.
 
-Methods, the JAX GMC's cv2 calls computed by `native/src/host_gmc.cpp`
-(built by g++ at first use) by cv2's own arithmetic:
+Methods, the JAX GMC's cv2 calls computed by `native/src/host_gmc.cpp` and
+`native/src/host_features.cpp` (built by g++ at first use) by cv2's own
+arithmetic:
 
 * `sparseOptFlow` (the default): Shi-Tomasi corners of the previous frame
   (`good_features`: goodFeaturesToTrack, 1000 corners, quality 0.01,
@@ -24,11 +25,26 @@ Methods, the JAX GMC's cv2 calls computed by `native/src/host_gmc.cpp`
   5 Gaussian pre-filter); where cv2 raises (a NaN correlation, or a step
   that would lower it), H stays the identity, as JAX's `except cv2.error`
   leaves it.
+* `orb`: ORB features of the previous and this frame (`orb_features`:
+  ORB_create().detectAndCompute, 500 features over 8 levels of factor
+  1.2, FAST threshold 20, Harris scores, the 256 rotated tests of cv2's
+  point pairs), each of the previous frame's matched to its nearest in
+  this frame by Hamming distance (`match`: BFMatcher(NORM_HAMMING).match),
+  and the partial affine of the matched points (`affine_partial`). cv2's
+  own bits: keypoints, descriptors and matches.
+* `sift`: the same with SIFT features (`sift_features`: SIFT_create().
+  detectAndCompute, 3 layers an octave on the doubled image) and L2
+  matching (BFMatcher(NORM_L2)). The keypoints and their order are cv2's;
+  positions, sizes and descriptors are those of cv2's AVX2/AVX-512 code
+  bit for bit, the orientations within 1e-4 degrees (cv2 there calls
+  IPP's exp, whose last bit the port does not follow). cv2's own two
+  paths (`cv2.setUseOptimized(False)` against the default) lie up to 1e-2
+  px apart on 1080p frames.
 * `none` (or None): the identity.
 
-`orb` and `sift` raise `NotImplementedError` (ROADMAP queue 1, the rest
-of item 9): cv2's ORB descriptors come from its learned sampling table,
-which the port cannot reproduce, and SIFT is a detector of its own.
+For `orb` and `sift` each frame's features are computed once, for it and
+for the next frame; fewer than 4 keypoints on either frame, or fewer than
+4 matches, leave H the identity, as JAX's.
 """
 from __future__ import annotations
 
@@ -41,8 +57,7 @@ import numpy as np
 
 from ..data.augment import resize_linear
 
-METHODS = ("sparseOptFlow", "ecc", "none")
-NOT_PORTED = ("orb", "sift")
+METHODS = ("sparseOptFlow", "ecc", "orb", "sift", "none")
 # cv2's defaults in the calls of JAX's GMC
 MAX_CORNERS, QUALITY = 1000, 0.01  # and minDistance 1, blockSize 3
 LK_WIN, LK_LEVELS, LK_ITERS, LK_EPS, LK_MIN_EIG = 21, 3, 30, 0.01, 1e-4
@@ -61,8 +76,8 @@ def cpu_threads() -> int:
 
 @lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    """Build (first use) and load `native/src/host_gmc.cpp`, its loops on
-    up to 8 of the process's CPUs."""
+    """Build (first use) and load `native/src/host_gmc.cpp` with
+    `host_features.cpp`, their loops on up to 8 of the process's CPUs."""
     from ..utils.build import HOST_GMC, load_library
     p, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     lib = load_library(HOST_GMC, (
@@ -74,6 +89,20 @@ def _lib() -> ctypes.CDLL:
         ("mgdt_gmc_pyramid_level", i32, (p, i32, i32, i32, i32, p, p)),
         ("mgdt_gmc_affine_partial", i32, (p, p, i32, f64, i32, f64, i32, p, p)),
         ("mgdt_gmc_ecc", i32, (p, p, i32, i32, p, i32, f64)),
+        ("mgdt_feat_orb", p, (p, i32, i32, i32)),
+        ("mgdt_feat_sift", p, (p, i32, i32)),
+        ("mgdt_feat_count", i32, (p,)),
+        ("mgdt_feat_get", None, (p, p, p)),
+        ("mgdt_feat_free", None, (p,)),
+        ("mgdt_feat_match", None, (p, i32, p, i32, i32, p, p)),
+        ("mgdt_feat_resize_exact", None, (p, i32, i32, p, i32, i32)),
+        ("mgdt_feat_orb_blur", None, (p, i32, i32, p)),
+        ("mgdt_feat_fast", i32, (p, i32, i32, i32, p, i32)),
+        ("mgdt_feat_fast_atan2", ctypes.c_float, (ctypes.c_float, ctypes.c_float)),
+        ("mgdt_feat_phase", None, (p, p, i32, p)),
+        ("mgdt_feat_exp", None, (p, i32, p)),
+        ("mgdt_feat_gauss_f32", None, (p, i32, i32, f64, p)),
+        ("mgdt_feat_sift_base", None, (p, i32, i32, p)),
     ))
     lib.mgdt_gmc_set_threads(cpu_threads())
     return lib
@@ -165,22 +194,75 @@ def ecc(template: np.ndarray, frame: np.ndarray) -> Optional[np.ndarray]:
     return None if failed else warp
 
 
+ORB_FEATURES = 500  # ORB_create()'s nfeatures
+ORB_DESC, SIFT_DESC = (32, np.uint8), (128, np.float32)
+# the matcher's norm by descriptor: 0 Hamming (ORB), 1 L2 (SIFT)
+NORMS = {(ORB_DESC[0], np.dtype(ORB_DESC[1])): 0, (SIFT_DESC[0], np.dtype(SIFT_DESC[1])): 1}
+
+
+def _features(handle, desc) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    lib = _lib()
+    try:
+        n = lib.mgdt_feat_count(handle)
+        kps = np.empty((n, 7), np.float64)
+        d = np.empty((n, desc[0]), desc[1])
+        lib.mgdt_feat_get(handle, kps.ctypes.data, d.ctypes.data)
+    finally:
+        lib.mgdt_feat_free(handle)
+    return kps, (d if n else None)
+
+
+def orb_features(gray: np.ndarray) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """`cv2.ORB_create().detectAndCompute(gray, None)`: keypoints (n, 7)
+    float64 (x, y, size, angle, response, octave, class_id) in cv2's order,
+    and descriptors (n, 32) uint8, None where there are no keypoints."""
+    g = _gray(gray)
+    return _features(_lib().mgdt_feat_orb(g.ctypes.data, g.shape[0], g.shape[1], ORB_FEATURES),
+                     ORB_DESC)
+
+
+def sift_features(gray: np.ndarray) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """`cv2.SIFT_create().detectAndCompute(gray, None)`: keypoints (n, 7)
+    float64 as `orb_features`' (the octave word packs octave, layer and
+    sub-layer as cv2's) in cv2's order, and descriptors (n, 128) float32,
+    None where there are no keypoints."""
+    g = _gray(gray)
+    return _features(_lib().mgdt_feat_sift(g.ctypes.data, g.shape[0], g.shape[1]), SIFT_DESC)
+
+
+def match(query: np.ndarray, train: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """`cv2.BFMatcher(norm).match(query, train)`, NORM_HAMMING for uint8
+    (n, 32) descriptors and NORM_L2 for float32 (n, 128): (queryIdx,
+    trainIdx, distance) of the nearest train row of every query row, in
+    query order, the lowest index among equals; none without train rows."""
+    q, t = np.ascontiguousarray(query), np.ascontiguousarray(train)
+    kind = NORMS.get((q.shape[-1], q.dtype)) if q.ndim == 2 else None
+    if kind is None or t.ndim != 2 or (t.shape[1], t.dtype) != (q.shape[1], q.dtype):
+        raise ValueError(f"ORB (n, 32) uint8 or SIFT (n, 128) float32 descriptors are needed, "
+                         f"got {q.shape} {q.dtype} and {t.shape} {t.dtype}")
+    n = len(q) if len(t) else 0
+    idx, dist = np.empty(n, np.int32), np.empty(n, np.float32)
+    if n:
+        _lib().mgdt_feat_match(q.ctypes.data, n, t.ctypes.data, len(t), kind,
+                               idx.ctypes.data, dist.ctypes.data)
+    return np.arange(n, dtype=np.int32), idx, dist
+
+
 class GMC:
     """The camera-motion estimator of one stream; see the module's text."""
 
     def __init__(self, method: Optional[str] = "sparseOptFlow", downscale: int = 2):
-        if method in NOT_PORTED:
-            raise NotImplementedError(
-                f"gmc_method {method!r} is not ported: cv2's ORB and SIFT features are "
-                f"ROADMAP queue 1, the rest of item 9; use {', '.join(METHODS)}")
         if method not in (*METHODS, None):
-            raise ValueError(f"unknown gmc_method {method!r}; choose from "
-                             f"{', '.join(METHODS + NOT_PORTED)}")
+            raise ValueError(f"unknown gmc_method {method!r}; choose from {', '.join(METHODS)}")
         self.method = method
         self.downscale = max(1, downscale)
         self.prev_frame = None
         self.prev_kpts = None
+        self.prev_features = None  # orb / sift: the stored frame's (keypoints, descriptors)
         self.initialized = False
+
+    def _features(self, gray: np.ndarray):
+        return (orb_features if self.method == "orb" else sift_features)(gray)
 
     def _prep(self, img: np.ndarray) -> np.ndarray:
         h, w = img.shape[:2]
@@ -201,6 +283,8 @@ class GMC:
             self.prev_frame = frame.copy()
             if self.method == "sparseOptFlow":
                 self.prev_kpts = good_features(frame)
+            elif self.method in ("orb", "sift"):
+                self.prev_features = self._features(frame)
             self.initialized = True
             return H
         if self.method == "sparseOptFlow":
@@ -214,6 +298,16 @@ class GMC:
                     if M is not None:
                         H = M
             self.prev_kpts = good_features(frame)
+        elif self.method in ("orb", "sift"):
+            (k1, d1), (k2, d2) = self.prev_features, self._features(frame)
+            self.prev_features = (k2, d2)
+            if d1 is not None and d2 is not None and len(k1) >= 4 and len(k2) >= 4:
+                q, t, _ = match(d1, d2)
+                if len(q) >= 4:
+                    M, _ = affine_partial(k1[q, :2].astype(np.float32),
+                                          k2[t, :2].astype(np.float32))
+                    if M is not None:
+                        H = M
         else:  # ecc
             warp = ecc(self.prev_frame, frame)
             if warp is not None:

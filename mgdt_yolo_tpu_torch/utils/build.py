@@ -15,8 +15,9 @@ decoder alone; so are the host augmentation's C++ (`native/src/
 host_augment.cpp`, name `HOST_AUGMENT`, floating point contraction off) and
 the drawing and image writers' (`native/src/host_draw.cpp`, name
 `HOST_DRAW`, with zlib), the trackers' camera-motion compensation
-(`native/src/host_gmc.cpp`, name `HOST_GMC`, contraction off, `-mfma` where
-the CPU has the instruction), and the video demuxers, GIF decoder and MP4
+(`native/src/host_gmc.cpp` with the ORB and SIFT features of
+`native/src/host_features.cpp` and its `orb_pattern.inc`, name `HOST_GMC`,
+contraction off, `-mfma` where the CPU has the instruction), and the video demuxers, GIF decoder and MP4
 writer (`native/src/host_video.cpp`, name `HOST_VIDEO`). `build_all` takes
 all five among the names.
 """
@@ -47,7 +48,9 @@ HOST_DRAW = "host_draw"
 HOST_DRAW_SRC = PKG_ROOT / "native" / "src" / f"{HOST_DRAW}.cpp"
 HOST_DRAW_FLAGS = (*HOST_FLAGS, "-ffp-contract=off")
 HOST_GMC = "host_gmc"
-HOST_GMC_SRC = PKG_ROOT / "native" / "src" / f"{HOST_GMC}.cpp"
+# the GMC library's sources, and the table host_features.cpp includes
+HOST_GMC_SOURCES = tuple(PKG_ROOT / "native" / "src" / f for f in (
+    "host_gmc.cpp", "host_features.cpp", "orb_pattern.inc"))
 HOST_VIDEO = "host_video"
 HOST_VIDEO_SRC = PKG_ROOT / "native" / "src" / f"{HOST_VIDEO}.cpp"
 
@@ -64,11 +67,12 @@ def cpu_has_fma() -> bool:
 
 
 HOST_GMC_FLAGS = (*HOST_FLAGS, "-ffp-contract=off", *(("-mfma",) if cpu_has_fma() else ()))
-# the g++-built sources besides the decoder: name -> (source, arguments after it)
-HOST_SOURCES = {HOST_AUGMENT: (HOST_AUGMENT_SRC, HOST_AUGMENT_FLAGS, ()),
-                HOST_DRAW: (HOST_DRAW_SRC, HOST_DRAW_FLAGS, ("-lz",)),
-                HOST_GMC: (HOST_GMC_SRC, HOST_GMC_FLAGS, ("-lpthread",)),
-                HOST_VIDEO: (HOST_VIDEO_SRC, HOST_FLAGS, ())}
+# the g++-built sources besides the decoder: name -> (sources, flags, arguments
+# after them); a source that is not a .cpp is included by one and only hashed
+HOST_SOURCES = {HOST_AUGMENT: ((HOST_AUGMENT_SRC,), HOST_AUGMENT_FLAGS, ()),
+                HOST_DRAW: ((HOST_DRAW_SRC,), HOST_DRAW_FLAGS, ("-lz",)),
+                HOST_GMC: (HOST_GMC_SOURCES, HOST_GMC_FLAGS, ("-lpthread",)),
+                HOST_VIDEO: ((HOST_VIDEO_SRC,), HOST_FLAGS, ())}
 
 
 def nvcc_path() -> str:
@@ -108,8 +112,10 @@ def library_path(name: str) -> Path:
         h.update(" ".join(host_command()).encode())
         return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
     if name in HOST_SOURCES:
-        src, flags, libs = HOST_SOURCES[name]
-        h = hashlib.sha256(src.read_bytes())
+        srcs, flags, libs = HOST_SOURCES[name]
+        h = hashlib.sha256()
+        for src in srcs:
+            h.update(src.read_bytes())
         h.update(" ".join((*flags, *libs)).encode())
         return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
@@ -130,8 +136,9 @@ def _start_build(name: str):
     if name == HOST_LOADER:
         cmd = ["g++", "-o", str(tmp), *host_command()]
     elif name in HOST_SOURCES:
-        src, flags, libs = HOST_SOURCES[name]
-        cmd = ["g++", "-o", str(tmp), *flags, str(src), *libs]
+        srcs, flags, libs = HOST_SOURCES[name]
+        cmd = ["g++", "-o", str(tmp), *flags, *(str(s) for s in srcs if s.suffix == ".cpp"),
+               *libs]
     else:
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     try:

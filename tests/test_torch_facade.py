@@ -187,13 +187,18 @@ def test_refused_sources_tasks_and_modes_raise(tmp_path):
         YOLO("yolov8n.yaml", task="classify", device="cpu")
     assert YOLO("yolov8n-seg.yaml", device="cpu").task == "segment"
     y = YOLO("yolov8n.yaml", device="cpu")
-    # tracking runs; of its options, the ORB and SIFT camera-motion methods are refused
+    # tracking runs, with every camera-motion method: ORB on a blank frame
+    # finds no feature and leaves the track in place
     orb = tmp_path / "orb.yaml"
     orb.write_text("tracker_type: botsort\ntrack_high_thresh: 0.5\ntrack_low_thresh: 0.1\n"
                    "new_track_thresh: 0.6\ntrack_buffer: 30\nmatch_thresh: 0.8\n"
                    "gmc_method: orb\nproximity_thresh: 0.5\nappearance_thresh: 0.25\n")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        y.track(np.zeros((64, 64, 3), np.uint8), imgsz=64, tracker=str(orb))
+    out = y.track([np.zeros((64, 64, 3), np.uint8)] * 2, imgsz=64, tracker=str(orb))
+    assert len(out) == 2 and y.predictor.trackers["__frames__"].gmc.method == "orb"
+    unknown = tmp_path / "optflow.yaml"
+    unknown.write_text(orb.read_text().replace("gmc_method: orb", "gmc_method: optflow"))
+    with pytest.raises(ValueError, match="unknown gmc_method"):
+        y.track(np.zeros((64, 64, 3), np.uint8), imgsz=64, tracker=str(unknown))
     # JAX's default space is no longer refused: each trial trains with it
     calls = []
     y.train = lambda **kw: calls.append(kw) or {"fitness": 0.0}

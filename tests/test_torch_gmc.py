@@ -204,15 +204,18 @@ def test_too_few_features_gives_the_identity_as_jax():
 
 
 def test_methods_not_ported_raise_and_none_is_the_identity():
-    for method in ("orb", "sift"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            G.GMC(method)
-    with pytest.raises(ValueError, match="unknown gmc_method"):
+    """Every method of JAX's GMC is ported (`orb` and `sift` are held in
+    `tests/test_torch_gmc_features.py`); an unknown one raises, naming all
+    five, and `none` is the identity."""
+    with pytest.raises(ValueError, match="unknown gmc_method 'optflow'; choose from "
+                                         "sparseOptFlow, ecc, orb, sift, none"):
         G.GMC("optflow")
     img = synthetic_scene(0, 64)
     for method in ("none", None):
         gmc = G.GMC(method)
         assert all(np.array_equal(gmc.apply(img), np.eye(2, 3)) for _ in range(2))
+    for method in ("orb", "sift"):  # the first frame is the identity, as JAX's
+        assert np.array_equal(G.GMC(method).apply(img), JaxGMC(method).apply(img))
 
 
 @pytest.fixture(scope="module")

@@ -52,6 +52,7 @@ JAX = SimpleNamespace(K=JK, M=JM, T=JT, B=JB, TR=JTR, Results=JaxResults)
 PORT = SimpleNamespace(K=PK, M=PM, T=PT, B=PB, TR=PTR, Results=Results)
 SIDES = [PORT, JAX]
 FRAMES, TRACK_IMGSZ, TRACK_SHAPE = 8, 320, (240, 320)
+GMC_IMGSZ = 160  # `orb` and `sift` through the facade
 
 
 # ---------------------------------------------------------------------------
@@ -476,14 +477,27 @@ def test_batched_frames_reach_one_tracker_in_order(frames):
     assert _same_track_results(got, single) >= FRAMES
 
 
-def test_not_ported_gmc_methods_raise_through_track(frames, tmp_path):
+def test_not_ported_gmc_methods_raise_through_track(frames, frame_dir, tmp_path, caplog):
+    """The `orb` and `sift` GMC, once refused, now track: `YOLO.track` with
+    a BoT-SORT YAML naming each matches JAX's facade frame by frame, and
+    `yolo track` runs with the `orb` one."""
+    caplog.set_level(logging.INFO)
     y = port_model.YOLO(NPZ, device="cpu")
-    for method in ("orb", "sift"):
-        cfg = tmp_path / f"{method}.yaml"
-        cfg.write_text(PTR.check_tracker_yaml("botsort.yaml").read_text().replace(
-            "gmc_method: sparseOptFlow", f"gmc_method: {method}"))
-        with pytest.raises(NotImplementedError, match="item 9"):
-            y.track(frames[:2], imgsz=64, tracker=str(cfg))
+    with pytest.MonkeyPatch.context() as mp:  # JAX's predictor may save into runs/
+        mp.chdir(tmp_path)
+        jax_y = jax_model.YOLO(str(NPZ))
+        for method in ("orb", "sift"):
+            cfg = tmp_path / f"{method}.yaml"
+            cfg.write_text(PTR.check_tracker_yaml("botsort.yaml").read_text().replace(
+                "gmc_method: sparseOptFlow", f"gmc_method: {method}"))
+            got = y.track(list(frames[:4]), imgsz=GMC_IMGSZ, tracker=str(cfg))
+            assert y.predictor.trackers["__frames__"].gmc.method == method
+            want = jax_y.track(list(frames[:4]), imgsz=GMC_IMGSZ, tracker=str(cfg))
+            assert _same_track_results(got, want) >= 8  # two objects tracked over 4 frames
+    out = port_cfg.entrypoint(["track", f"model={NPZ}", f"source={frame_dir}",
+                               f"tracker={tmp_path / 'orb.yaml'}", f"imgsz={GMC_IMGSZ}",
+                               "device=cpu"])
+    assert len(out) == FRAMES and f"{out[-1].path}: " in caplog.text
 
 
 TRACK_CASES = [
