@@ -5,8 +5,11 @@
 
 Phases, each of which passes or ends the script with a non-zero exit:
 
-1. environment: torch, CUDA, the card's name and power limit, numpy and
-   scipy, nvcc, triton;
+1. environment: torch, CUDA, the card's name and power limit, every name
+   of every port package's `__all__` (the JAX package's package-level
+   names, lazily re-exported) with `load_source` and
+   `data.dataset.SyntheticDetectionDataset`, imported and counted; numpy
+   and scipy, nvcc, triton;
 2. build: nvcc builds every `mgdt_yolo_tpu_torch/csrc/*.cu` (one process per
    source, all started together: K1, K2 and their SIMT baselines, the K1
    variants on the CUDA cores, the Hopper V2 and V3 `deform_fwd_slab.cu`, the
@@ -317,13 +320,19 @@ Phases, each of which passes or ends the script with a non-zero exit:
    (TF32 off) of one scene against the CPU's float64 (each of the card's
    top 100 queries within 1e-3, or 4x the CPU's own float32 distance where
    that is larger, of a CPU query on box and scores: near-tied queries may
-   swap); `RTDETRTrainer` for 4 b8 steps of fresh scenes (bf16 autocast,
+   swap); the calibrated model written as a reference `.pt`
+   (`tools/reference_pt.py`, fp16) and read back through `vit.RTDETR(pt)`
+   on the card (write and read seconds; no key missed, the state the
+   source's through fp16 bit for bit, the b1 float32 forward, TF32 off, bit
+   for bit that of a live model carrying the same rounded state, no kernel
+   launched); `RTDETRTrainer` for 4 b8 steps of fresh scenes (bf16 autocast,
    mosaic 0, an update each step; finite losses; each step and its 7
    matcher calls timed, the device's idle share), then one validation on
    the EMA weights (`RTDETRValidator`); `rtdetr-x`, `yolov8n-rtdetr` and
    `models.vocab.VOCABULARY` (every item-17 type) card against CPU. No
    hand kernel is on this path: every count must stay 0
-   (`rtdetr_launches`). Its lines end with `phase 23 rows: {json}`.
+   (`rtdetr_launches`). The phase's seconds are logged by step
+   (`steps_s`); its lines end with `phase 23 rows: {json}`.
 24. SAM: `vit.sam.SAM("sam_b")` at 1024 px and its published widths (768
    wide, 12 blocks, 12 heads, global attention in blocks 2, 5, 8 and 11,
    14-windows elsewhere, 64x64 tokens) from the port's seeded init (no
@@ -501,6 +510,10 @@ TRACK_SIFT_PX, TRACK_SIFT_LINEAR = 0.25, 2e-3  # SIFT's H where its matches are 
 # every variant kernel: the five variants (by their Hopper designs) and
 # their first designs, each (wrapper, plain version)
 ALL_VARIANTS = {**VARIANTS, **{simt: (fn, plain) for simt, fn, plain in FIRST_DESIGNS.values()}}
+# the port's packages whose `__all__` phase 1 imports: every package the
+# JAX package re-exports names from (`tests/test_torch_package_names.py`)
+PORT_PACKAGES = ("", "cfg", "data", "engine", "native", "nn", "nn.modules", "ops", "tracker",
+                 "utils", "vit", "vit.rtdetr", "vit.sam")
 # each kernel's launch counter (the dict that holds it, its key), set to 0
 # just before a path: a module's globals for K1-K3, the variants' dict
 COUNTERS = {"deform_fwd": (vars(cuda_deform), "launches"),
@@ -558,10 +571,33 @@ def log(msg=""):
     print(msg, flush=True)
 
 
+def _package_names():
+    """Every name of every port package's `__all__` (the JAX package's
+    package-level names, re-exported lazily), each imported, with
+    `engine.predictor.load_source` and `data.dataset.SyntheticDetectionDataset`.
+    Returns (packages, names)."""
+    import importlib
+    count = 0
+    for pkg in PORT_PACKAGES:
+        mod = importlib.import_module("mgdt_yolo_tpu_torch" + (f".{pkg}" if pkg else ""))
+        for name in mod.__all__:
+            getattr(mod, name)  # an import that fails ends the script
+        count += len(mod.__all__)
+    for pkg, name in (("engine.predictor", "load_source"),
+                      ("data.dataset", "SyntheticDetectionDataset")):
+        getattr(importlib.import_module(f"mgdt_yolo_tpu_torch.{pkg}"), name)
+        count += 1
+    return len(PORT_PACKAGES), count
+
+
 def phase_environment():
     log("== phase 1: environment")
     log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
         f"cuda {torch.version.cuda}  devices {torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    packages, names = _package_names()
+    log(f"package names: {names} names of {packages} packages imported "
+        f"({time.perf_counter() - t0:.2f} s)")
     log(f"gpu: {gpu_name_and_power()}")
     import scipy
     log(f"numpy {np.__version__}  scipy {scipy.__version__}")
@@ -4768,9 +4804,64 @@ def _rtdetr_training(state):
     return row
 
 
-def phase_rtdetr():
+def _rtdetr_pt_hold(state, root):
+    """rtdetr-l with `state` written as a reference `.pt`
+    (`tools/reference_pt.py`) and read back through `vit.RTDETR(pt)` on the
+    card: no key missed, its state bit for bit `state` rounded through fp16,
+    its b1 float32 forward (TF32 off) bit for bit that of a live model
+    carrying the same rounded state; no kernel launched. Returns its row."""
+    from mgdt_yolo_tpu_torch.nn.tasks import RTDETRDetectionModel
+    from mgdt_yolo_tpu_torch.tools.reference_pt import write_reference_pt
+    from mgdt_yolo_tpu_torch.vit import RTDETR
+    before = read_counts()
+    t_hold = time.perf_counter()
+    src = RTDETRDetectionModel("rtdetr-l.yaml", device=DEVICE)
+    src.load_state_dict(state)
+    t0 = time.perf_counter()
+    path = write_reference_pt(src, root / "rtdetr" / "rtdetr-l.pt")
+    write_s = time.perf_counter() - t0
+    del src
+    t0 = time.perf_counter()
+    y = RTDETR(str(path), device=DEVICE)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    report = y.model.import_report
+    if report["shape_missed"] or report["name_missed"]:
+        raise SystemExit(f"rtdetr-l .pt: missed {report['shape_missed'][:3]} "
+                         f"{report['name_missed'][:3]}")
+    rounded = {k: v.half().float() if v.is_floating_point() else v for k, v in state.items()}
+    got = {k: v.cpu() for k, v in y.model.state_dict().items()}
+    differ = [k for k, v in rounded.items() if v.is_floating_point() and not torch.equal(got[k], v)]
+    if set(got) != set(rounded) or differ:
+        raise SystemExit(f"rtdetr-l .pt: the state is not the source's through fp16: {differ[:5]}")
+    live = RTDETRDetectionModel("rtdetr-l.yaml", device=DEVICE)
+    live.load_state_dict(rounded)
+    x = torch.from_numpy(synthetic_batch(1, IMGSZ)).to(DEVICE).float() / 255.0
+    with torch.no_grad(), float32_exact():
+        a, b = y.model(x), live(x)
+    torch.cuda.synchronize()
+    same = all(torch.equal(p, q) for p, q in zip(a[:4], b[:4]))
+    launches = {k: v - before[k] for k, v in read_counts().items()}
+    row = {"bytes": path.stat().st_size, "write_s": write_s, "read_s": read_s,
+           "hold_s": time.perf_counter() - t_hold, "matched": report["matched"],
+           "forward_bitwise": same, "launches": launches}
+    log(f"rtdetr-l .pt ({row['bytes'] / 1e6:.1f} MB, fp16): written in {write_s:.2f} s, read "
+        f"through RTDETR(pt) onto the card in {read_s:.2f} s; {report['matched']} keys "
+        f"matched, 0 missed; the state the source's through fp16 bit for bit; the b1 float32 "
+        f"forward {'bit for bit' if same else 'NOT bit for bit'} the live model's on that "
+        f"state; {sum(launches.values())} kernel launches; the hold {row['hold_s']:.1f} s (two "
+        f"more models built on the card)")
+    if not same:
+        raise SystemExit("rtdetr-l .pt: the forward differs from the live model's")
+    _expect(launches, "the RT-DETR .pt hold")
+    del y, live
+    return row
+
+
+def phase_rtdetr(root):
     """RT-DETR (see the module's text): rtdetr-l served through `RTDETR`
     in bf16 at b1, b8 and b32, held in float32 against the CPU's float64,
+    written as a reference `.pt` and read back through `RTDETR(pt)`,
     trained through `RTDETRTrainer` and validated on its EMA weights;
     rtdetr-x, yolov8n-rtdetr and the vocabulary config card against CPU. No
     hand kernel is on this path: every count must stay 0. Returns
@@ -4779,13 +4870,27 @@ def phase_rtdetr():
     from mgdt_yolo_tpu_torch.vit import RTDETR
     log(f"== phase 23: RT-DETR: rtdetr-l at {IMGSZ} px (hd 256, nq 300, 6 decoder layers, "
         f"3 levels, AIFI on 20x20) served bf16 at b1/b8/b32, float32 card vs CPU float64, "
-        f"{RTDETR_STEPS} b{RTDETR_TRAIN} training steps + EMA validation; "
+        f"a reference .pt through RTDETR(pt), {RTDETR_STEPS} b{RTDETR_TRAIN} training steps + "
+        f"EMA validation; "
         f"{', '.join(RTDETR_OTHERS)} and the vocabulary config card vs CPU")
     t_phase = time.perf_counter()
     reset_counts()
-    rows = {}
+    rows = {"steps_s": {}}
+    t_step = [t_phase]
+
+    def step(name):  # the seconds since the last step, by name
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        rows["steps_s"][name] = now - t_step[0]
+        t_step[0] = now
+
     state = _bn_calibrated(RTDETRDetectionModel("rtdetr-l.yaml", device=DEVICE))
+    step("calibrate")
     rows["card_vs_cpu"] = {"rtdetr-l.yaml": _rtdetr_card_vs_cpu("rtdetr-l.yaml", state)}
+    step("card_vs_cpu")
+    rows["pt"] = _rtdetr_pt_hold(state, root)
+    torch.cuda.empty_cache()
+    step("pt_hold")
     y = RTDETR("rtdetr-l.yaml", device=DEVICE)
     y.model.load_state_dict(state)
     dec = getattr(y.model, f"model_{y.model.specs[-1].i}")
@@ -4832,19 +4937,23 @@ def phase_rtdetr():
         f"{rows['serving']['b8_device_idle_share']:.1%} under b8 (profiled)")
     del y
     torch.cuda.empty_cache()
+    step("serving")
     rows["training"] = _rtdetr_training(state)
     torch.cuda.empty_cache()
+    step("training")
     for name in RTDETR_OTHERS:
         other = _bn_calibrated(RTDETRDetectionModel(name, device=DEVICE))
         rows["card_vs_cpu"][name] = _rtdetr_card_vs_cpu(name, other)
         torch.cuda.empty_cache()
+        step(name)
     rows["card_vs_cpu"]["vocabulary"] = _vocab_card_vs_cpu()
-    torch.cuda.synchronize()
+    step("vocabulary")
     total = read_counts()
     _expect(total, "the RT-DETR path")
     rows["launches"] = total
     rows["phase_s"] = time.perf_counter() - t_phase
-    log(f"phase 23: {rows['phase_s']:.1f} s; launches {total}")
+    log(f"phase 23: {rows['phase_s']:.1f} s (" +
+        ", ".join(f"{k} {v:.1f}" for k, v in rows["steps_s"].items()) + f"); launches {total}")
     log(f"phase 23 rows: {json.dumps(rows, default=float)}")
     return total, rows
 
@@ -5777,7 +5886,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         tracking, tracking_rows, pan = phase_tracking(Path(tmp))
         torch.cuda.empty_cache()
-        rtdetr, rtdetr_rows = phase_rtdetr()
+        rtdetr, rtdetr_rows = phase_rtdetr(Path(tmp))
         torch.cuda.empty_cache()
         sam, annotate, sam_rows = phase_sam(Path(tmp))
         torch.cuda.empty_cache()

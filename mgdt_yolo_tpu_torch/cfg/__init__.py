@@ -22,10 +22,13 @@ from pathlib import Path
 from types import SimpleNamespace
 from typing import Dict, Mapping, Union
 
+from .. import _lazy
 from .default import (CFG_BOOL_KEYS, CFG_DEFAULTS, CFG_FLOAT_KEYS, CFG_FRACTION_KEYS,
                       CFG_INT_KEYS)
 
-LOGGER = logging.getLogger(__name__)
+# the package's logger (`utils.settings.LOGGER`), as JAX's `cfg` logs
+# through its `utils.LOGGER`
+LOGGER = logging.getLogger("mgdt_yolo_tpu_torch")
 TASKS = ("detect", "segment", "classify", "pose")
 MODES = ("train", "val", "predict", "export", "track", "benchmark")
 
@@ -265,3 +268,12 @@ def entrypoint(argv=None):
     elif isinstance(out, dict):
         LOGGER.info(str(out))
     return out
+
+
+# the JAX package's `cfg` names kept in `utils` (its `from ..utils import`),
+# each imported at first use: `utils` imports `cfg.default`
+_LAZY = {**dict.fromkeys(("DEFAULT_CFG_DICT", "DEFAULT_CFG_KEYS", "IterableSimpleNamespace",
+                          "colorstr"), "..utils"),
+         "yaml_load": "..utils.dataset_yaml"}
+__getattr__, __dir__, __all__ = _lazy.lazy_exports(__name__, _LAZY,
+                                                   own=_lazy.own_names(globals()))

@@ -6,6 +6,8 @@ them under `labels/` (`images/a/b.jpg` -> `labels/a/b.txt`, one `class cx
 cy w h` row per object, normalized). The scan is verified and cached as the
 JAX package's is (`data.utils.scan_labels`); items are decoded by the
 port's decoder (`native.decode`, BGR as `cv2.imread` gives them).
+`SyntheticDetectionDataset` (`data/synthetic.py`) is importable from here
+too, where the JAX package defines it.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from .. import native
+from .synthetic import SyntheticDetectionDataset  # noqa: F401  (JAX's place for it)
 from .utils import IMG_FORMATS, scan_labels
 
 LOGGER = logging.getLogger(__name__)

@@ -35,6 +35,8 @@ JAX.
 
 `predict` is the fixed-size path beside it: an NHWC RGB batch already at the
 model's size, with the serving settings of the JAX benchmark (`bench.py`).
+`load_source(source)` reads a whole source into a list of its items, as
+JAX's does.
 """
 from __future__ import annotations
 
@@ -104,6 +106,15 @@ def det_to_original(det: np.ndarray, imgsz: int, meta) -> np.ndarray:
     if len(det):
         det[:, :4] = scale_boxes((imgsz, imgsz), det[:, :4], ori_shape, ratio_pad)
     return det
+
+
+def load_source(source) -> List[Dict]:
+    """Every item of a predict source, read: a list of {img (BGR), path,
+    frame_idx, is_video} dicts (a video frame's with its `fps`), as the JAX
+    package's `load_source` lists its loader's items
+    (`data.loaders.load_inference_source`: arrays, images, videos, streams,
+    screenshots). A file the decoder cannot read is logged and skipped."""
+    return list(load_inference_source(source))
 
 
 def infer(model, x: torch.Tensor, conf: float, iou: float, max_det: int,

@@ -41,6 +41,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import _lazy
+
 # status codes (keep in sync with host_loader.cpp)
 OK = 0
 ERR_OPEN = -1
@@ -293,3 +295,9 @@ def jpeg_standard_dht(data: bytes) -> Optional[bytes]:
         return ctypes.string_at(ptr, n.value)
     finally:
         lib.mgdt_free(ptr)
+
+
+# the package's logger, as the JAX package's `native` imports `utils.LOGGER`
+_LAZY = {"LOGGER": "..utils.settings"}
+__getattr__, __dir__, __all__ = _lazy.lazy_exports(__name__, _LAZY,
+                                                   own=_lazy.own_names(globals()))

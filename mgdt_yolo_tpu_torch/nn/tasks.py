@@ -358,20 +358,21 @@ class BaseModel(nn.Module):
         return model.to(dev)
 
     @classmethod
-    def from_pt(cls, path, device=None):
+    def from_pt(cls, path, device=None, strict: bool = False):
         """(model, checkpoint) of a reference `.pt` (its path, or the file
         `utils.torch_import.read_torch_pt` read): the config `train_args["model"]` names (JAX's
         `yolov8n.yaml` where it names none) with the pickled model's class
-        count and names where it has them, filled non-strict from the EMA
-        weights (float32), the import's report in `model.import_report`, and
-        pinned to exact deform semantics: reference weights were trained
-        with mmcv's unbounded DCNv2."""
+        count and names where it has them, filled from the EMA weights
+        (float32; non-strict unless `strict`, as
+        `utils.torch_import.load_torch_state_dict`), the import's report in
+        `model.import_report`, and pinned to exact deform semantics:
+        reference weights were trained with mmcv's unbounded DCNv2."""
         from ..utils.torch_import import PtCheckpoint, load_torch_state_dict, read_torch_pt
         dev = resolve_device(device)
         pt = path if isinstance(path, PtCheckpoint) else read_torch_pt(path)
         model = cls(pt.train_args.get("model") or "yolov8n.yaml", nc=pt.nc, device="cpu")
         model.set_deform_semantics("exact")
-        model.import_report = load_torch_state_dict(model, pt.state_dict)
+        model.import_report = load_torch_state_dict(model, pt.state_dict, strict=strict)
         if pt.names and len(pt.names) == model.nc:
             model.names = dict(pt.names)
         return model.to(dev), pt
@@ -579,7 +580,16 @@ class RTDETRDetectionModel(BaseModel):
     model's first output (`nn.modules.transformer.RTDETRDecoder`): in
     `eval()` mode the last layer's normalised xywh boxes (1, b, nq, 4) and
     sigmoid scores (1, b, nq, nc); in `train()` mode every decoder layer's,
-    with the denoising group of `dn` where given."""
+    with the denoising group of `dn` where given.
+
+    `from_pt(path, device=None)` reads a reference `.pt` as
+    `DetectionModel.from_pt` does: the config its `train_args` name (a file
+    that names none, or names no RT-DETR config, is refused), the pickled
+    class count and names, the EMA weights in float32, the import's report
+    in `import_report`. It reads strictly: a file with a key the import
+    cannot place, or one that leaves a tensor of the model at its init,
+    raises KeyError naming them (JAX's `YOLO(pt)` serves no RT-DETR, so
+    no file should load in part)."""
 
     default_cfg = "rtdetr-l.yaml"
     task = "detect"
@@ -594,6 +604,10 @@ class RTDETRDetectionModel(BaseModel):
         self._init_params()
         self.to(resolve_device(device))
         self.eval()
+
+    @classmethod
+    def from_pt(cls, path, device=None):
+        return super().from_pt(path, device, strict=True)
 
     def forward(self, x: torch.Tensor, dn=None):
         return self._run(x, {"dn": dn} if dn is not None else None)

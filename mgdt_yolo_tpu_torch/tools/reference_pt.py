@@ -13,6 +13,17 @@ port. Its state-dict names are the reference's: `reference_key` inverts
 `torch_import.translate_key`, and every name written is checked to
 translate back to the flax path and the value it came from.
 
+An RT-DETR model is written as a pickled `RTDETRDetectionModel` in the
+JAX importer's layout: its HGNetV2 blocks, `RepC3`, `DWConv`, `AIFI` and
+`RTDETRDecoder` under the reference's modules, the decoder's inner modules
+as the reference's own (`ultralytics.nn.modules.transformer`) and torch's
+layers, an attention's q/k/v packed into `nn.MultiheadAttention`'s
+`in_proj_weight` and `in_proj_bias`. AIFI's encoder layer and each
+`DWConv`'s convolution keep the nesting both importers read, one level
+down (`model.11.enc.*`, `model.2.conv.conv.weight`); a file that names
+them otherwise is name-missed by both, and refused by the port's
+`RTDETRDetectionModel.from_pt`.
+
 Nothing of the port's entry points reaches this module.
 """
 from __future__ import annotations
@@ -34,12 +45,15 @@ from ..weights import export_variables
 
 _BN_LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
 _INDEXED = ("m", "convs", "bottleneck", "share_conv", "tr")
+_TRANSFORMER = "ultralytics.nn.modules.transformer"
 # where the reference keeps each layer type's class
 _LAYER_MODULES = {"Conv": "conv", "Concat": "conv", "C2f": "block", "MSPA_C2f": "block",
                   "C2": "block", "C3": "block", "SPP": "block", "Bottleneck": "block",
                   "SPPF": "block", "SimFusion_4in": "block", "SimFusion_3in": "block",
                   "IFM": "block", "InjectionMultiSum_Auto_pool": "block", "Detect": "head",
-                  "TOODHead": "head", "Segment": "head", "Pose": "head", "Classify": "head"}
+                  "TOODHead": "head", "Segment": "head", "Pose": "head", "Classify": "head",
+                  "HGStem": "block", "HGBlock": "block", "RepC3": "block", "DWConv": "conv",
+                  "AIFI": "transformer", "RTDETRDecoder": "head"}
 # graph rows that are torch's own modules in the reference
 _TORCH_LAYERS = {"nn.Upsample": torch.nn.Upsample, "nn.MaxPool2d": torch.nn.MaxPool2d,
                  "nn.ZeroPad2d": torch.nn.ZeroPad2d,
@@ -86,6 +100,13 @@ def reference_key(flax_key: str, value: np.ndarray) -> Tuple[str, np.ndarray]:
             p, value = p[:-1] + ["weight"], _t(value)
     elif len(p) >= 3 and p[-3:-1] == ["norm", "bn"]:
         p = p[:-3] + ["bn", _BN_LEAF[leaf]]
+    elif len(p) >= 3 and re.fullmatch(r"input_proj_bn_\d+", p[-3]) and p[-2] == "bn":
+        # RTDETRDecoder's input projection: Sequential(Conv2d, BatchNorm2d)
+        p = p[:-3] + [p[-3].replace("input_proj_bn_", "input_proj_"), "1", _BN_LEAF[leaf]]
+    elif re.fullmatch(r"norm\d+|enc_output_norm", p[-2]) and leaf == "scale":
+        p = p[:-1] + ["weight"]  # a LayerNorm's
+    elif leaf in ("denoising_class_embed", "tgt_embed"):
+        p = p + ["weight"]  # an nn.Embedding's
     elif p[-2] in ("upsample", "conv_transpose") and leaf == "kernel":
         # flax ConvTranspose -> torch (in, out, kh, kw), the taps flipped
         p, value = p[:-1] + ["weight"], np.ascontiguousarray(
@@ -109,7 +130,36 @@ def reference_key(flax_key: str, value: np.ndarray) -> Tuple[str, np.ndarray]:
     k = re.sub(r"\bconv_in\.", "conv.0.", k)
     k = re.sub(r"\bconv_out\.", "conv.4.", k)
     k = re.sub(r"\bblock_(\d+)\.", lambda m: f"conv.{int(m.group(1)) + 1}.", k)
+    # RTDETRDecoder's module lists (`torch_import.translate_key` inverted)
+    k = re.sub(r"\bdecoder_layer_(\d+)\.", r"decoder.layers.\1.", k)
+    k = re.sub(r"\b(dec_score_head|dec_bbox_head)_(\d+)\.", r"\1.\2.", k)
+    k = re.sub(r"\blayers_(\d+)\.", r"layers.\1.", k)
+    k = re.sub(r"\binput_proj_(\d+)\.(weight|1\.)", lambda m: f"input_proj.{m.group(1)}."
+               + ("0.weight" if m.group(2) == "weight" else "1."), k)
+    k = k.replace("enc_output_dense.", "enc_output.0.").replace("enc_output_norm.", "enc_output.1.")
     return k, value
+
+
+def _in_proj(variables: Mapping[str, np.ndarray], module: str, leaf: str
+             ) -> Tuple[str, np.ndarray]:
+    """An attention's q/k/v projections (`module`'s `q_proj`, `k_proj`,
+    `v_proj`, flax `leaf` kernel or bias) packed as `nn.MultiheadAttention`
+    keeps them, `in_proj_weight` (3 E, E) or `in_proj_bias` (3 E), checked
+    to split back, as the import splits it (thirds), to the three flax
+    values."""
+    parts = [variables[f"params.{module}.{x}_proj.{leaf}"] for x in "qkv"]
+    value = np.concatenate([_t(a) if leaf == "kernel" else a for a in parts])
+    base = reference_key(f"params.{module}.out_proj.bias", parts[0])[0].rsplit(".", 2)[0]
+    name = f"{base}.in_proj_{'weight' if leaf == 'kernel' else 'bias'}"
+    ma_path = translate_key(f"{base}.out_proj.weight")[0][:-2]
+    third = len(value) // 3
+    for i, x in enumerate("qkv"):
+        back = value[i * third:(i + 1) * third]
+        back = _t(back) if leaf == "kernel" else back
+        if ".".join(("params", *ma_path, f"{x}_proj", leaf)) != f"params.{module}.{x}_proj.{leaf}" \
+                or not np.array_equal(back, parts[i]):
+            raise KeyError(f"{name!r} does not split back to params.{module}.{x}_proj.{leaf}")
+    return name, value
 
 
 def reference_state(model: torch.nn.Module, params: Optional[Mapping] = None
@@ -117,12 +167,20 @@ def reference_state(model: torch.nn.Module, params: Optional[Mapping] = None
     """`model`'s state (with `params` replacing parameter values, as for an
     EMA) as the reference's float32 state dict, with what the reference
     keeps beside it that the import skips: BatchNorm's step counters, the
-    DFL's fixed projection and the TOOD head's unused Scale modules. Every
-    name is checked to translate back (`translate_key`) to its flax path and
-    its value."""
+    DFL's fixed projection and the TOOD head's unused Scale modules. An
+    attention's q/k/v projections are packed into `nn.MultiheadAttention`'s
+    `in_proj_*` (`_in_proj`). Every name is checked to translate back
+    (`translate_key`) to its flax path and its value."""
     out = OrderedDict()
     repeated = {s.i for s in model.specs if s.n > 1}
-    for key, a in export_variables(model, params).items():
+    variables = export_variables(model, params)
+    for key, a in variables.items():
+        qkv = re.fullmatch(r"params\.(.+)\.([qkv])_proj\.(kernel|bias)", key)
+        if qkv and f"params.{qkv.group(1)}.out_proj.kernel" in variables:
+            if qkv.group(2) == "q":
+                name, value = _in_proj(variables, qkv.group(1), qkv.group(3))
+                out[name] = value
+            continue
         name, value = reference_key(key, a)
         m_rep = re.match(r"^model\.(\d+)\.(\d+)\.(.*)$", name)
         if int(name.split(".")[1]) in repeated and not m_rep:
@@ -145,7 +203,7 @@ def reference_state(model: torch.nn.Module, params: Optional[Mapping] = None
         if back.shape != a.shape or not np.array_equal(back, a):
             raise ValueError(f"{name!r} does not read back to the values of {key!r}")
         out[name] = value
-        if name.endswith(".bn.running_var"):
+        if name.endswith("running_var"):
             out[name[:-len("running_var")] + "num_batches_tracked"] = np.array(0, np.int64)
     head_i = model.specs[-1].i
     if getattr(model, "reg_max", 0) > 1:
@@ -193,9 +251,45 @@ class _Classes:
             sys.modules.update(held)
 
 
+def _transformer_node(classes: _Classes, path) -> type:
+    """The class of the node at `path` inside an AIFI or RTDETRDecoder
+    layer: the reference's own (`ultralytics.nn.modules.transformer`) or
+    torch's (the attentions, linears, norms, lists, the projections'
+    convolution and BatchNorm, the class embedding)."""
+    name, parent, grand = path[-1], path[-2], path[-3]
+    if name == "decoder":
+        return classes.get(_TRANSFORMER, "DeformableTransformerDecoder")
+    if parent == "layers" and grand == "decoder":
+        return classes.get(_TRANSFORMER, "DeformableTransformerDecoderLayer")
+    if name == "cross_attn":
+        return classes.get(_TRANSFORMER, "MSDeformAttn")
+    if name == "enc":  # AIFI's encoder layer, at the JAX package's nesting
+        return classes.get(_TRANSFORMER, "TransformerEncoderLayer")
+    if name in ("query_pos_head", "enc_bbox_head") or parent == "dec_bbox_head":
+        return classes.get(_TRANSFORMER, "MLP")
+    if name in ("self_attn", "ma"):
+        return torch.nn.MultiheadAttention
+    if name == "out_proj":
+        return torch.nn.modules.linear.NonDynamicallyQuantizableLinear
+    if name in ("layers", "input_proj", "dec_score_head", "dec_bbox_head"):
+        return torch.nn.ModuleList
+    if name == "enc_output" or parent == "input_proj":
+        return torch.nn.Sequential
+    if grand == "input_proj":
+        return torch.nn.Conv2d if name == "0" else torch.nn.BatchNorm2d
+    if re.fullmatch(r"norm\d+", name) or (parent == "enc_output" and name == "1"):
+        return torch.nn.LayerNorm
+    if name == "denoising_class_embed":
+        return torch.nn.Embedding
+    return torch.nn.Linear  # the feed-forwards, projections, heads and MLP layers
+
+
 def _node_class(classes: _Classes, path, name: str, layer_types: Dict[str, str],
                 repeated=frozenset()) -> type:
     """The class of the graph node at `path` (its attribute `name`)."""
+    if len(path) > 2 and path[0] == "model" and \
+            layer_types[path[1]] in ("AIFI", "RTDETRDecoder"):
+        return _transformer_node(classes, path)
     if len(path) in (2, 3) and path[0] == "model":
         kind = layer_types[path[1]]
         if len(path) == 2 and path[1] in repeated:
@@ -280,7 +374,8 @@ def write_reference_pt(model, path, model_params: Optional[Mapping] = None,
              "save": list(model.save), "args": {"model": model.model_yaml}}
     layer_types = {str(s.i): s.name for s in model.specs}
     repeated = frozenset(str(s.i) for s in model.specs if s.n > 1)
-    root = "ClassificationModel" if model.task == "classify" else "DetectionModel"
+    root = "ClassificationModel" if model.task == "classify" else \
+        "RTDETRDetectionModel" if model.specs[-1].name == "RTDETRDecoder" else "DetectionModel"
     classes = _Classes()
     raw = _graph(classes, tensors(model_params) if model_params is not None else ema_state,
                  layer_types, attrs, root, repeated)

@@ -10,6 +10,7 @@ import os
 from pathlib import Path
 from types import SimpleNamespace
 
+from .. import _lazy
 from ..cfg.default import CFG_DEFAULTS
 
 PKG_ROOT = Path(__file__).resolve().parents[1]
@@ -48,3 +49,11 @@ class IterableSimpleNamespace(SimpleNamespace):
 DEFAULT_CFG_DICT = dict(CFG_DEFAULTS)
 DEFAULT_CFG_KEYS = DEFAULT_CFG_DICT.keys()
 DEFAULT_CFG = IterableSimpleNamespace(**DEFAULT_CFG_DICT)
+
+# the JAX package's `utils` functions, kept in the port's own modules, each
+# imported at first use (`settings` imports this package's `dataset_yaml`)
+_LAZY = {**dict.fromkeys(("LOGGER", "set_logging", "yaml_save", "yaml_print", "get_settings",
+                          "set_settings", "increment_path"), ".settings"),
+         "yaml_load": ".dataset_yaml", "SimpleClass": "..engine.results"}
+__getattr__, __dir__, __all__ = _lazy.lazy_exports(__name__, _LAZY,
+                                                   own=_lazy.own_names(globals()))

@@ -220,14 +220,16 @@ def flax_shapes(model: torch.nn.Module) -> Dict[str, Tuple[str, Tuple[int, ...]]
 
 
 def load_torch_state_dict(model: torch.nn.Module, state_dict: Mapping[str, np.ndarray],
-                          verbose: bool = True) -> Dict:
+                          verbose: bool = True, strict: bool = False) -> Dict:
     """Merge a reference state dict into `model` in place, non-strict, as
     the JAX `load_torch_state_dict` merges it into flax variables: each key
     through `translate_key` (with its retries one level down under `detect`
     and into the `model_N_repR` copies of a repeated block), then through
     `weights.translate` onto the port's parameter. Returns the JAX report:
     {"matched": n, "shape_missed": [(key, shape, model's shape)],
-    "name_missed": [key]}, the shapes in flax's layouts."""
+    "name_missed": [key]}, the shapes in flax's layouts. With `strict`, a
+    file that misses a key or leaves a tensor of the model unset raises
+    KeyError, naming them, before the model is touched."""
     dst = flax_shapes(model)
     prefixes = {".".join(k.split(".")[:i]) for k in dst for i in range(2, k.count(".") + 1)}
 
@@ -298,6 +300,12 @@ def load_torch_state_dict(model: torch.nn.Module, state_dict: Mapping[str, np.nd
             raise ValueError(f"{tkey!r} fits the module {key!r} of the model, not a tensor")
         values[key] = val
         matched.append(tkey)
+    unset = sorted(set(dst) - set(values))
+    if strict and (shape_miss or name_miss or unset):
+        raise KeyError(
+            f"the state dict does not fill the model: {len(name_miss)} keys name-missed "
+            f"{name_miss[:8]}, {len(shape_miss)} shape-missed {shape_miss[:4]}, {len(unset)} "
+            f"of the model's tensors unset {unset[:8]}")
     params = dict(model.named_parameters())
     buffers = dict(model.named_buffers())
     repeated = repeated_layers(dst)

@@ -2,9 +2,12 @@
 
 `RTDETR(model="yolov8-rtdetr.yaml", task="detect", device=None)` builds an
 `RTDETRDetectionModel` from a config's YAML file name (`rtdetr-l.yaml`,
-`rtdetr-x.yaml`, `yolov8n-rtdetr.yaml` ...; the port's seeded init) or
+`rtdetr-x.yaml`, `yolov8n-rtdetr.yaml` ...; the port's seeded init),
 loads an `.npz` with its `<stem>_metadata.json` (an `RTDETRTrainer`
-checkpoint), on `device` (CUDA by default). `predict(source, **kwargs)`
+checkpoint) or a reference `.pt` (`RTDETRDetectionModel.from_pt`, the file
+kept as `ckpt`), on `device` (CUDA by default). A `.pt` is the file JAX's
+`YOLO(pt)` builds into its `DetectionModel`; the port's `YOLO` refuses it,
+and `RTDETR` serves it. `predict(source, **kwargs)`
 runs an `RTDETRPredictor` over a folded copy of the model, rebuilt when
 keywords are given; `batch=` sets the images a forward (1 by default).
 """
@@ -26,9 +29,13 @@ class RTDETR:
         self.task = task
         self.device = parse_device(device)
         self.predictor: Optional[RTDETRPredictor] = None
+        self.ckpt = None
         model = str(model)
         if model.endswith(".npz"):
             self.model = RTDETRDetectionModel.from_npz(model, device=self.device)
+        elif model.endswith(".pt"):
+            self.model, pt = RTDETRDetectionModel.from_pt(model, device=self.device)
+            self.ckpt = pt.ckpt
         else:
             self.model = RTDETRDetectionModel(model, device=self.device)
         self.overrides = {"model": model, "task": task}

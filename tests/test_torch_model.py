@@ -222,10 +222,13 @@ def test_fused_matches_unfused_and_jax_fused(flagship):
     _compare(dec_f, feats_f, want_dec, want_feats)
 
 
-def test_flagship_matches_jax_at_training_size(flagship):
-    """320 px (the weights' training size, a 40x40 DCN map), float32."""
+@pytest.mark.parametrize("imgsz,batch", [(320, 2), (640, 1)], ids=["320px-b2", "640px-b1"])
+def test_flagship_matches_jax_at_training_size(flagship, imgsz, batch):
+    """320 px (the weights' training size, a 40x40 DCN map) at b2 and 640
+    px (the main path's size, an 80x80 DCN map) at b1, float32, at the
+    file's limits (raw maps `ATOL_RAW`, decoded `ATOL_DECODED`)."""
     jm, predict, pm, _ = flagship
-    x = synthetic_batch(2, 320).astype(np.float32) / 255.0
+    x = synthetic_batch(batch, imgsz).astype(np.float32) / 255.0
     want_dec, want_feats = predict(jm.variables, jnp.asarray(x))
     with torch.no_grad():
         decoded, feats = pm(torch.from_numpy(x))
