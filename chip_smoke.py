@@ -238,8 +238,8 @@ Phases, each of which passes or ends the script with a non-zero exit:
    bf16; whether `torch.utils.tensorboard` imports; `.val()` in float32 and
    with `half=True`, each mAP50-95 logged and their detections told apart;
    `.predict(save=True, save_crop=True)` at b1 and b32 against the same
-   without `save`, in turns, over the 16 val JPEGs listed 4 times (64
-   images: 2 full batches at b32; images/s, the share of the wall time in
+   without `save`, in turns, over phase 15's val JPEGs listed 2 times
+   (4 times until PR 26's depth cut; whole batches at b32; images/s, the share of the wall time in
    drawing and encoding); every JPEG it wrote read back through the card's
    decoder and held as the CPU tests hold cv2's reading
    (`draw.jpeg_reading`: within a mean of 1 grey level of
@@ -391,7 +391,15 @@ Phases, each of which passes or ends the script with a non-zero exit:
    the MP4 at b1 and b8, in turns with the same frames decoded into memory
    (frames/s of each; the tracks bit for bit; K1 once a forward; one
    tracker keyed by the video's path); `predict(save=True)` over the MP4
-   at b8, its `pan.mp4` read back (frame count, fps, size); a loopback HTTP
+   at b8, its `pan.mp4` read back (frame count, fps, size); the committed
+   MPEG-4 Part 2 and VP8 clips (`pan1080.mp4`, `mp4v`; `pan1080.webm`, VP8;
+   `mpeg4_4mv.avi`, 4MV and video packets; three small libvpx variants)
+   decoded by the port's own host
+   decoders, every frame's SHA-256 cv2's (`codecs.json`), each decoded
+   twice (ms a frame, one thread, beside the Motion JPEG frame's), then
+   `YOLO.track` over the mp4v clip in turns with its frames in memory as
+   above and `predict(save=True)` over it at b8 (frames/s, its video read
+   back); a loopback HTTP
    Motion JPEG server in a thread serving the same frames, read through
    `LoadStreams` (frames/s; equal to the file's); the committed WebP
    fixtures (`native/fixtures/webp`, `tests/torch_webp_fixtures.py`) each
@@ -3545,8 +3553,9 @@ TRAIN_HOOK_ORDER = ["on_pretrain_routine_start", "on_pretrain_routine_end", "on_
                     "on_train_epoch_start", "on_train_batch_end", "on_train_epoch_end",
                     "on_model_save", "on_fit_epoch_end", "on_train_end"]
 # the predictor is timed over the val JPEGs listed this many times (links
-# under other names): 128 images, so b32 runs 4 full batches a window
-PREDICT_REPEATS = 4
+# under other names), so b32 runs whole batches a window; 4 until PR 26, cut
+# to 2 to pay for phase 26's MPEG-4 Part 2 and VP8 work
+PREDICT_REPEATS = 2
 PREDICT_BATCHES = (1, 32)
 
 
@@ -5521,6 +5530,12 @@ WEBP_FIXTURES = FIXTURES / "webp"
 WEBP_SCENES = ("scene_lossy", "scene_lossless")  # 1080x1920, timed and predicted over
 WEBP_SCENE = 7  # their picture: synthetic_scene(7, 1920)[:1080] (tests/torch_webp_fixtures.py)
 WEBP_DIGESTS = WEBP_FIXTURES / "digests.json"   # cv2's reading of the scenes (no PNG twin)
+# MPEG-4 Part 2 and VP8 (tests/torch_video_fixtures.py): cv2's fps, size and
+# frame digests in codecs.json; the mp4v clip is also tracked and predicted over
+VIDEO_CODECS = VIDEO_FIXTURES / "codecs.json"
+VIDEO_CODEC_CLIPS = ("pan1080.mp4", "pan1080.webm", "mpeg4_4mv.avi", "vp8_v1_sharp.webm",
+                     "vp8_v3.webm", "vp8_resilient.webm")
+VIDEO_MP4V = VIDEO_FIXTURES / "pan1080.mp4"
 
 
 def _riff(cid, body):
@@ -5617,6 +5632,83 @@ def _nvdec_probe():
     return {"libnvcuvid.so.1": lib, "headers": headers}
 
 
+def _track_in_turns(card, path, frames, what, add):
+    """`YOLO.track` (ByteTrack, bf16) over the video file `path` and over
+    its `frames` in memory at each of VIDEO_BATCHES, in turns (file, memory,
+    memory, file): frames/s of each, the tracks bit for bit, K1 once a
+    forward, one tracker keyed by the file's path. Returns rows by batch."""
+    n, out_rows = len(frames), {}
+    for batch in VIDEO_BATCHES:
+        fps, outs = {"file": [], "memory": []}, {}
+        for src in ("file", "memory", "memory", "file"):
+            out, wall, launches = _timed(lambda: card.track(
+                str(path) if src == "file" else frames, imgsz=IMGSZ, tracker="bytetrack.yaml",
+                batch=batch, half=True))
+            _expect(launches, f"{what} track b{batch} from {src}", deform_fwd=-(-n // batch))
+            add(launches)
+            fps[src].append(n / wall)
+            outs.setdefault(src, out)
+        if len(outs["file"]) != n or list(card.predictor.trackers) != [str(path)]:
+            raise SystemExit(f"the {what} file's run did not track every frame on the video's "
+                             "tracker")
+        box, track_rows, ids = _hold_tracks(outs["file"], outs["memory"],
+                                            f"{what} b{batch}: file vs memory", 0.0)
+        out_rows[f"b{batch}"] = {"file_frames_per_s": fps["file"],
+                                 "memory_frames_per_s": fps["memory"],
+                                 "track_rows": track_rows, "ids": ids}
+        from_file, from_memory = (" / ".join(f"{v:.2f}" for v in fps[k])
+                                  for k in ("file", "memory"))
+        log(f"{what} track b{batch} (ByteTrack, bf16, {n} frames): from the file {from_file} "
+            f"frames/s, from memory {from_memory} (in turns); K1 {-(-n // batch)} a run")
+    return out_rows
+
+
+def _codec_clips(card, vdir, mjpeg_ms, add):
+    """The committed MPEG-4 Part 2 and VP8 clips on the card's host: every
+    frame's SHA-256 cv2's (`codecs.json`), with cv2's fps and size; the ms a
+    frame of two decodes of each (a new reader each, one thread, YUV to BGR
+    included) beside the Motion JPEG frame's; `YOLO.track` over the mp4v
+    clip against its frames in memory; `predict(save=True)` over it at b8,
+    its video read back. Returns rows."""
+    from mgdt_yolo_tpu_torch.native.video import VideoReader
+    codecs, rows, clip = json.loads(VIDEO_CODECS.read_text()), {}, {}
+    for name in VIDEO_CODEC_CLIPS:
+        fx, times = codecs[name], []
+        for _ in range(2):
+            r = VideoReader(VIDEO_FIXTURES / name)
+            t0 = time.perf_counter()
+            imgs = r.read(range(r.frames))
+            times.append((time.perf_counter() - t0) / max(r.frames, 1) * 1e3)
+        digests = [None if isinstance(i, native.DecodeError) else _sha256(i) for i in imgs]
+        equal = digests == fx["sha256"] and (r.fps, list(r.size)) == (fx["fps"], fx["size"])
+        rows[name] = {"frames": r.frames, "fps": r.fps, "size": list(r.size),
+                      "decode_ms_per_frame": times, "equal_to_cv2": equal}
+        log(f"{name} ({r.size[0]}x{r.size[1]}, {r.frames} frames at {r.fps} fps): every frame "
+            f"cv2's by SHA-256: {equal}; decode {' / '.join(f'{t:.3f}' for t in times)} ms a "
+            f"frame (host, one thread, to BGR), beside this run's Motion JPEG frame's "
+            f"{mjpeg_ms:.3f} (nvJPEG, batches of 8)")
+        if not equal:
+            raise SystemExit(f"{name}: the port's frames are not cv2's reading")
+        clip[name] = imgs
+    frames = clip[VIDEO_MP4V.name]
+    n = len(frames)
+    rows["track"] = _track_in_turns(card, VIDEO_MP4V, frames, "mp4v", add)
+    out, wall, launches = _timed(lambda: card.predict(
+        str(VIDEO_MP4V), imgsz=IMGSZ, half=True, batch=8, save=True,
+        project=str(vdir / "runs"), name="predict_mp4v"))
+    _expect(launches, "mp4v predict(save=True) b8", deform_fwd=-(-n // 8))
+    add(launches)
+    r = VideoReader(vdir / "runs" / "predict_mp4v" / VIDEO_MP4V.name)
+    rows["save"] = {"frames_per_s": n / wall, "frames": r.frames, "fps": r.fps, "size": r.size,
+                    "detections": sum(len(x) for x in out)}
+    log(f"mp4v predict(save=True) b8: {n / wall:.2f} frames/s, {rows['save']['detections']} "
+        f"detections; its video read back: {r.frames} frames, {r.fps} fps, "
+        f"{r.size[0]}x{r.size[1]}")
+    if (r.frames, r.fps, r.size) != (n, VIDEO_FPS, (1920, 1080)) or len(out) != n:
+        raise SystemExit("mp4v predict(save=True) wrote another video")
+    return rows
+
+
 def phase_video(root, frames=None, decode_rows=None):
     """Video files, an HTTP stream and image formats as the predictor's and
     the tracker's sources (see the module's text). Returns (launches, rows)."""
@@ -5629,8 +5721,9 @@ def phase_video(root, frames=None, decode_rows=None):
     log(f"== phase 26: video sources: phase 22's {TRACK_FRAMES}-frame {TRACK_SHAPE[0]}x"
         f"{TRACK_SHAPE[1]} pan written by the port's MP4 writer (and as AVI and MKV), the "
         "committed fixtures, YOLO.track over the file against the same frames in memory, "
-        "predict(save=True), an HTTP Motion JPEG stream, the WebP fixtures, a directory of "
-        "jpg/png/bmp/tif/webp")
+        "predict(save=True), the MPEG-4 Part 2 and VP8 clips (cv2's digests, decode ms, "
+        "YOLO.track and predict(save=True) over the mp4v one), an HTTP Motion JPEG stream, "
+        "the WebP fixtures, a directory of jpg/png/bmp/tif/webp")
     t_phase = time.perf_counter()
     if frames is None:
         frames = panning_sequence(TRACK_FRAMES, TRACK_SHAPE, seed=7)[0]
@@ -5705,28 +5798,7 @@ def phase_video(root, frames=None, decode_rows=None):
     rows["fixtures"] = fixtures
     # 3. YOLO.track over the file against the same frames in memory, in turns
     card = YOLO(WEIGHTS, device=DEVICE)
-    rows["track"] = {}
-    for batch in VIDEO_BATCHES:
-        fps, outs = {"file": [], "memory": []}, {}
-        for src in ("file", "memory", "memory", "file"):
-            out, wall, launches = _timed(lambda: card.track(
-                str(mp4) if src == "file" else decoded, imgsz=IMGSZ, tracker="bytetrack.yaml",
-                batch=batch, half=True))
-            _expect(launches, f"track b{batch} from {src}", deform_fwd=-(-n // batch))
-            add(launches)
-            fps[src].append(n / wall)
-            outs.setdefault(src, out)
-        if len(outs["file"]) != n or list(card.predictor.trackers) != [str(mp4)]:
-            raise SystemExit("the file's run did not track every frame on the video's tracker")
-        box, track_rows, ids = _hold_tracks(outs["file"], outs["memory"],
-                                            f"b{batch}: file vs memory", 0.0)
-        rows["track"][f"b{batch}"] = {"file_frames_per_s": fps["file"],
-                                      "memory_frames_per_s": fps["memory"],
-                                      "track_rows": track_rows, "ids": ids}
-        from_file, from_memory = (" / ".join(f"{v:.2f}" for v in fps[k])
-                                  for k in ("file", "memory"))
-        log(f"track b{batch} (ByteTrack, bf16): from the file {from_file} frames/s, from "
-            f"memory {from_memory} (in turns); K1 {-(-n // batch)} a run")
+    rows["track"] = _track_in_turns(card, mp4, decoded, "Motion JPEG", add)
     # 4. predict(save=True) over the video, its MP4 read back
     out, wall, launches = _timed(lambda: card.predict(
         str(mp4), imgsz=IMGSZ, half=True, batch=8, save=True, project=str(vdir / "runs"),
@@ -5739,6 +5811,10 @@ def phase_video(root, frames=None, decode_rows=None):
         f"{r.fps} fps, {r.size[0]}x{r.size[1]}")
     if (r.frames, r.fps, r.size) != (n, VIDEO_FPS, (W, H)) or len(out) != n:
         raise SystemExit("predict(save=True) wrote another video")
+    # 4b. MPEG-4 Part 2 and VP8: the committed clips held to cv2's digests,
+    # their decode on the host (one video, one thread), YOLO.track over the
+    # mp4v clip against its frames in memory and predict(save=True) over it
+    rows["codecs"] = _codec_clips(card, vdir, rows["decode_ms_per_frame"], add)
     # 5. the same frames from a loopback HTTP Motion JPEG stream
     with _mjpeg_server(jpegs) as url:
         t0 = time.perf_counter()

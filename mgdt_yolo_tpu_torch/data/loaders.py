@@ -13,13 +13,18 @@ long video never sits in memory whole; iterating a source does the same,
 * Images (jpg, jpeg, png, bmp, tif, tiff, webp) are decoded by the port's
   decoder (`native`); one it cannot read is logged and skipped, as JAX
   skips it.
-* Videos (`native.video`): Motion JPEG in AVI, MP4/MOV/M4V and Matroska,
-  and GIF. JAX's `vid_stride` rule: each item is the last of `vid_stride`
-  frames grabbed, so at stride 3 the first is frame 2; `frame_idx` counts
-  the items. A video ends, with a warning, at the first frame that cannot
-  be read, as JAX's ends where `retrieve` fails; on a machine without a
-  CUDA device that is its first JPEG frame. Other codecs and containers
-  raise `UnsupportedVideo`, naming them.
+* Videos (`native.video`): Motion JPEG in AVI, MP4/MOV/M4V and Matroska;
+  GIF; MPEG-4 Part 2 (the `mp4v` of cv2's writer and the JAX package's
+  `save=True`, Xvid/DivX/ffmpeg AVIs, Matroska); VP8 in WebM and Matroska.
+  JAX's `vid_stride` rule: each item is the last of `vid_stride` frames
+  grabbed, so at stride 3 the first is frame 2; `frame_idx` counts the
+  items. The predictor decodes a batch of frames on its helper thread while
+  the batch before runs (`decode`); an inter-coded video's reader decodes
+  forward from where it stopped. A video ends, with a warning, at the first
+  frame that cannot be read, as JAX's ends where `retrieve` fails; on a
+  machine without a CUDA device that is a Motion JPEG video's first frame.
+  Other codecs, coding tools and containers raise `UnsupportedVideo`,
+  naming them and why.
 * Streams: `http://` and `https://` Motion JPEG (`multipart/x-mixed-replace`,
   as IP cameras serve it), read with `http.client`, at the fps cv2 reports
   for them (25); webcams (digits) and `rtsp://`/`rtmp://` raise
@@ -171,14 +176,14 @@ class LoadStreams(Source):
         self._ended = False
         if isinstance(self.source, int):
             raise NotImplementedError(
-                f"the webcam stream {self.source} needs a V4L2 device and a video decoder, "
-                "which the card's host does not have (ROADMAP queue 1, Blocked)")
+                f"the webcam stream {self.source} needs a V4L2 device, which the card's host "
+                "does not have (ROADMAP queue 1, Blocked)")
         scheme = urlsplit(str(self.source)).scheme.lower()
         if scheme not in ("http", "https"):
             raise NotImplementedError(
-                f"the {scheme} stream {self.source!r} needs RTP and an H.264 decoder (NVDEC's "
-                "headers), which the port does not have; HTTP Motion JPEG streams are read "
-                "(ROADMAP queue 1, Blocked)")
+                f"the {scheme} stream {self.source!r} needs RTP and an H.264 decoder, which the "
+                "port does not have (ROADMAP queue 1, Blocked: no encoder on either machine "
+                "writes an H.264 stream to hold a decoder to); HTTP Motion JPEG streams are read")
 
     def _parts(self) -> Iterator[bytes]:
         """Each JPEG of the stream, as the server sends it."""

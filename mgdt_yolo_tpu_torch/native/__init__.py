@@ -82,9 +82,11 @@ class UnsupportedFormat(NotImplementedError):
 
 
 class UnsupportedVideo(NotImplementedError):
-    """A video container, codec or source the port does not read: the
-    message names the file, the container, the codec's fourcc and the
-    ROADMAP item (queue 1, "Blocked")."""
+    """A video container, codec, coding tool or source the port does not
+    read: the message names the file, the container, the codec and why
+    (`native.video.reason`: H.264 and HEVC are ROADMAP queue 1's "Blocked",
+    for want of an encoder that writes a stream to hold a decoder to; the
+    rest are its next video items)."""
 
 
 def check_format(path) -> None:

@@ -1,20 +1,29 @@
 // Video files for the port's inference sources: demuxers that give each
-// Motion JPEG frame's place in its file, a GIF decoder, and a Motion JPEG
-// MP4 writer. The JAX package reads and writes videos through
-// cv2.VideoCapture / cv2.VideoWriter (ffmpeg); the card's host has neither,
-// so this library does the container work on the host and the frames'
-// JPEG goes to the decoder's nvJPEG path (host_loader.cpp).
+// frame's sample and place in its file, a GIF decoder, the inter-coded
+// videos' decoding (MPEG-4 Part 2 by `host_mpeg4.cpp`, VP8 by `host_vp8.h`,
+// each frame to BGR by `host_yuv.h`), and a Motion JPEG MP4 writer. The
+// JAX package reads and writes videos through cv2.VideoCapture /
+// cv2.VideoWriter (ffmpeg); the card's host has neither, so this library
+// does the container work and these codecs on the host, and a Motion JPEG
+// frame's JPEG goes to the decoder's nvJPEG path (host_loader.cpp).
 //
 // * AVI (RIFF `AVI ` and OpenDML `AVIX`): the first video stream's `##dc`
-//   and `##db` chunks, from `idx1` or, where there is none, a scan of the
-//   `movi` lists; fps is `strh`'s dwRate / dwScale.
+//   and `##db` chunks, from `idx1` (with its key-frame flags) or, where
+//   there is none, a scan of the `movi` lists; fps is `strh`'s dwRate /
+//   dwScale. Motion JPEG by its fourccs, MPEG-4 Part 2 under `XVID`,
+//   `XVIX`, `DIVX`, `DX50`, `FMP4`, `MP4V`, `MP4S` and `M4S2` (any case),
+//   `strf`'s bytes past its header the decoder configuration.
 // * ISO BMFF (`mov`, `mp4`, `m4v`): the first video track's samples, from
 //   `stsz`, `stsc` and `stco`/`co64`, cut by the edit list as ffmpeg cuts
-//   it; fps is ffmpeg's: samples x `mdhd` timescale / `stts` duration.
-//   Sample entries `jpeg`, `mjpa`, and `mp4v` whose `esds` object type is
-//   0x6C (what ffmpeg writes for Motion JPEG in an .mp4).
-// * Matroska: the first video track's SimpleBlocks and Blocks; fps from
-//   its DefaultDuration as ffmpeg reduces it.
+//   it, their sync flags from `stss`; fps is ffmpeg's: samples x `mdhd`
+//   timescale / `stts` duration. Sample entries `jpeg`, `mjpa`, and `mp4v`
+//   whose `esds` object type is 0x6C (Motion JPEG) or 0x20 (MPEG-4 Part 2,
+//   its DecoderSpecificInfo the configuration).
+// * Matroska and WebM: the first video track's SimpleBlocks and Blocks
+//   (key frames by the SimpleBlock flag, or a Block without a
+//   ReferenceBlock); fps from its DefaultDuration as ffmpeg reduces it.
+//   `V_MJPEG`, `V_MPEG4/ISO/{SP,ASP,AP}` (CodecPrivate the configuration)
+//   and `V_VP8`.
 // * GIF: LZW, global and local palettes, interlace, transparency and
 //   disposal methods 0-3 composed on a canvas as ffmpeg's decoder composes
 //   it (and cv2 drops its alpha); fps as cv2 reports it through ffmpeg:
@@ -22,13 +31,18 @@
 //   ffmpeg's GIF parser joins an image without a graphic control extension
 //   to the frame before it in some cases (such files are rare: encoders of
 //   animations write the extension before every image).
-// * Everything else in these containers (H.264, HEVC, MPEG-4 Part 2, ...,
-//   fragmented MP4, interlaced two-field Motion JPEG, laced Matroska
+// * MPEG-4 Part 2 and VP8: at open, each sample's header says whether it
+//   gives a frame (cv2 counts a coded VOP, a shown VP8 frame) and whether a
+//   decoder can start there (an I-VOP or key frame the container marks),
+//   and refuses a B- or S-VOP; a read decodes forward from the decoder's
+//   last sample, or from the key frame at or before the frame asked for.
+// * Everything else in these containers (H.264, HEVC, VP9, AV1, MPEG-1/2,
+//   ..., fragmented MP4, interlaced two-field Motion JPEG, laced Matroska
 //   blocks) gives MGDT_V_UNSUPPORTED with the container and codec named.
 // * The writer: `ftyp`, `mdat`, `moov` with one `jpeg` track, its frames
 //   given as JPEG bytes, fps as cv2's writer turns it into a rational.
 //
-// Build: g++ -O3 -shared -fPIC -std=c++17 host_video.cpp
+// Build: g++ -O3 -shared -fPIC -std=c++17 host_video.cpp host_mpeg4.cpp
 //        (see mgdt_yolo_tpu_torch/utils/build.py, which builds it at first use).
 
 #include <algorithm>
@@ -37,10 +51,17 @@
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <memory>
 #include <string>
 #include <vector>
 
+#include "host_codecs.h"
+#include "host_vp8.h"
+#include "host_yuv.h"
+
 namespace {
+
+using namespace mgdt_codec;
 
 enum { V_OK = 0, V_ERR_OPEN = -1, V_ERR_PARSE = -3, V_UNSUPPORTED = -7, V_END = -8 };
 
@@ -114,12 +135,32 @@ void av_reduce(int64_t& rn, int64_t& rd, int64_t num, int64_t den, int64_t max) 
   rd = a1d;
 }
 
+enum { K_MJPEG = 0, K_GIF = 1, K_MPEG4 = 2, K_VP8 = 3 };
+
 struct Video {
   std::string container, codec, message;
-  int kind = 0;  // 0 Motion JPEG, 1 GIF
+  int kind = K_MJPEG;
   int w = 0, h = 0;
   double fps = 0;
   std::vector<int64_t> offsets, sizes;
+  // inter-coded video (MPEG-4 Part 2, VP8): the container's fourcc and
+  // decoder configuration (MPEG-4: the container's, else the first sample
+  // that holds a VOL), its key-frame flags (empty: none given), each frame's
+  // sample and which samples a decoder can start from; the file and the
+  // decoder are opened at the first read, so an open reader holds neither
+  std::string path, tag;
+  std::vector<uint8_t> extradata, keys;
+  std::vector<int64_t> display;
+  std::vector<uint8_t> sync;
+  std::unique_ptr<File> file;
+  Mpeg4Decoder* m4 = nullptr;
+  std::unique_ptr<vp8::VP8Decoder> vp8;
+  int64_t next_sample = 0;  // the decoder's next sample
+  bool broken = true;       // the decoder must restart at a sync sample
+  std::vector<uint8_t> sample, bgr;
+  ~Video() {
+    if (m4) mpeg4_free(m4);
+  }
   // GIF
   std::vector<uint8_t> gif;
   std::vector<size_t> gif_frames;  // each frame's first block (extensions included)
@@ -142,19 +183,29 @@ int unsupported(Video& v, const std::string& container, const std::string& codec
 
 static const char* kMjpegAviTags[] = {"MJPG", "AVRN", "AVDJ", "DMB1", "JPGL", "ACDV", "QIVG",
                                       "SLMJ", "CJPG", "IJPG", "MVJP", "AVI1", "JPEG", nullptr};
+// MPEG-4 Part 2 (Xvid, DivX 4/5, ffmpeg's own)
+static const char* kMpeg4AviTags[] = {"XVID", "XVIX", "DIVX", "DX50", "FMP4", "MP4V", "MP4S",
+                                      "M4S2", nullptr};
 
-bool mjpeg_avi_tag(const std::string& t) {
+std::string upper4(const std::string& t) {
   std::string u(t);
   for (auto& c : u) c = (char)toupper(c);
-  for (int i = 0; kMjpegAviTags[i]; i++)
-    if (u == kMjpegAviTags[i]) return true;
+  return u;
+}
+
+bool avi_tag_in(const std::string& t, const char* const* tags) {
+  const std::string u = upper4(t);
+  for (int i = 0; tags[i]; i++)
+    if (u == tags[i]) return true;
   return false;
 }
+bool mjpeg_avi_tag(const std::string& t) { return avi_tag_in(t, kMjpegAviTags); }
 
 // ---------------------------------------------------------------- AVI
 
 int avi_scan(const File& f, int64_t off, int64_t end, const std::string& want, Video& v) {
   uint8_t hd[12];
+  v.keys.clear();  // a scan has no key-frame flags
   while (off + 8 <= end && f.read(off, hd, 8)) {
     const uint32_t sz = le32(hd + 4);
     const std::string id = fourcc(hd);
@@ -204,6 +255,7 @@ int open_avi(const File& f, Video& v) {
               std::string type, handler, comp;
               uint32_t s_scale = 0, s_rate = 0;
               int bw = 0, bh = 0;
+              std::vector<uint8_t> extra;
               while (r + 8 <= body.size()) {
                 const uint32_t cs = le32(&body[r + 4]);
                 const std::string cid = fourcc(&body[r]);
@@ -216,14 +268,30 @@ int open_avi(const File& f, Video& v) {
                   bw = (int32_t)le32(&body[r + 8 + 4]);
                   bh = (int32_t)le32(&body[r + 8 + 8]);
                   comp = fourcc(&body[r + 8 + 16]);
+                  if (cs > 40 && r + 8 + cs <= body.size())
+                    extra.assign(body.begin() + r + 8 + 40, body.begin() + r + 8 + cs);
                 }
                 r += 8 + cs + (cs & 1);
               }
               if (type == "vids" && vids < 0) {
                 vids = n;
                 v.codec = (comp.empty() || comp == "????") ? handler : comp;
-                if (!mjpeg_avi_tag(v.codec) && !mjpeg_avi_tag(handler))
-                  return unsupported(v, "AVI", v.codec, "a codec other than Motion JPEG");
+                if (avi_tag_in(v.codec, kMpeg4AviTags) ||
+                    (!mjpeg_avi_tag(v.codec) && avi_tag_in(handler, kMpeg4AviTags))) {
+                  v.kind = K_MPEG4;
+                  v.tag = upper4(v.codec);
+                  v.extradata = extra;
+                } else if (!mjpeg_avi_tag(v.codec) && !mjpeg_avi_tag(handler)) {
+                  std::string what = v.codec;
+                  const std::string u = upper4(v.codec);
+                  if (u == "H264" || u == "AVC1" || u == "X264") what += " (H.264)";
+                  else if (u == "HEVC" || u == "H265" || u == "HVC1") what += " (HEVC)";
+                  else if (u == "VP80") what += " (VP8 in AVI)";
+                  else if (u == "DIV3" || u == "DIV4" || u == "MP43" || u == "MP42")
+                    what += " (MS MPEG-4)";
+                  return unsupported(v, "AVI", what,
+                                     "a codec other than Motion JPEG and MPEG-4 Part 2");
+                }
                 v.w = bw;
                 v.h = std::abs(bh);
                 scale = s_scale;
@@ -275,11 +343,13 @@ int open_avi(const File& f, Video& v) {
         if (!sz) continue;
         v.offsets.push_back(base + le32(&idx[k + 8]) + 8);
         v.sizes.push_back(sz);
+        v.keys.push_back((le32(&idx[k + 4]) & 0x10) != 0);  // AVIIF_KEYFRAME
       }
     }
   }
   if (!indexed) avi_scan(f, movi + 4, std::min(movi_end, f.size), want, v);
   for (auto& a : avix) avi_scan(f, a.first, a.second, want, v);
+  if (v.keys.size() != v.offsets.size()) v.keys.clear();
   v.fps = scale > 0 ? rate / scale : 0;
   return V_OK;
 }
@@ -321,8 +391,9 @@ bool find_child(const File& f, const Box& parent, const char* type, Box& out, in
   return false;
 }
 
-// the objectTypeIndication of an esds box's DecoderConfigDescriptor, -1 if none
-int esds_object_type(const std::vector<uint8_t>& e) {
+// the objectTypeIndication of an esds box's DecoderConfigDescriptor, -1 if
+// none; `dsi` receives its DecoderSpecificInfo
+int esds_object_type(const std::vector<uint8_t>& e, std::vector<uint8_t>* dsi = nullptr) {
   size_t p = 4;  // version and flags
   auto tag = [&](int want, size_t& len) -> bool {
     if (p >= e.size() || e[p] != want) return false;
@@ -344,7 +415,10 @@ int esds_object_type(const std::vector<uint8_t>& e) {
   if (flags & 0x40) { if (p >= e.size()) return -1; p += 1 + e[p]; }
   if (flags & 0x20) p += 2;
   if (!tag(0x04, len) || p >= e.size()) return -1;
-  return e[p];
+  const int oti = e[p];
+  p += 13;  // objectTypeIndication, streamType, buffer size, bit rates
+  if (dsi && tag(0x05, len) && p + len <= e.size()) dsi->assign(e.begin() + p, e.begin() + p + len);
+  return oti;
 }
 
 int open_mp4(const File& f, Video& v) {
@@ -400,13 +474,18 @@ int open_mp4(const File& f, Video& v) {
   if (fmt == "mp4v") {
     Box esds;
     const int oti = find_child(f, sub, "esds", esds)
-                        ? esds_object_type(f.bytes(esds.body, (size_t)(esds.end - esds.body)))
+                        ? esds_object_type(f.bytes(esds.body, (size_t)(esds.end - esds.body)),
+                                           &v.extradata)
                         : -1;
-    if (oti != 0x6C) {
+    if (oti == 0x20) {
+      v.kind = K_MPEG4;
+    } else if (oti != 0x6C) {
       char buf[64];
-      snprintf(buf, sizeof buf, "mp4v (object type 0x%02X%s)", oti & 0xFF,
-               oti == 0x20 ? ": MPEG-4 Part 2" : "");
-      return unsupported(v, "MP4/MOV", buf, "MPEG-4 Part 2 and other mp4v codecs");
+      const char* name = (oti >= 0x60 && oti <= 0x65) ? ": MPEG-2" : oti == 0x6A ? ": MPEG-1"
+                                                                                : "";
+      snprintf(buf, sizeof buf, "mp4v (object type 0x%02X%s)", oti & 0xFF, name);
+      return unsupported(v, "MP4/MOV", buf,
+                         "an mp4v codec other than MPEG-4 Part 2 and Motion JPEG");
     }
   } else if (fmt != "jpeg" && fmt != "mjpa") {
     std::string what = fmt;
@@ -414,7 +493,7 @@ int open_mp4(const File& f, Video& v) {
     else if (fmt == "hvc1" || fmt == "hev1") what += " (HEVC)";
     else if (fmt == "av01") what += " (AV1)";
     else if (fmt == "vp09") what += " (VP9)";
-    return unsupported(v, "MP4/MOV", what, "a codec other than Motion JPEG");
+    return unsupported(v, "MP4/MOV", what, "a codec other than Motion JPEG and MPEG-4 Part 2");
   }
   Box fiel;
   if (find_child(f, sub, "fiel", fiel)) {
@@ -494,13 +573,27 @@ int open_mp4(const File& f, Video& v) {
       if (!any) order.clear();
     }
   }
+  // sync samples: `stss`, or every sample where it is absent
+  std::vector<uint8_t> keys_all(off_all.size(), 1);
+  Box stss;
+  if (find_child(f, stbl, "stss", stss)) {
+    auto ss = f.bytes(stss.body, (size_t)(stss.end - stss.body));
+    std::fill(keys_all.begin(), keys_all.end(), 0);
+    const uint32_t n = ss.size() >= 8 ? be32(&ss[4]) : 0;
+    for (uint32_t e = 0; e < n && 8 + 4 * (size_t)e + 4 <= ss.size(); e++) {
+      const uint32_t k = be32(&ss[8 + 4 * e]);
+      if (k >= 1 && k <= keys_all.size()) keys_all[k - 1] = 1;
+    }
+  }
   if (order.empty()) {
     v.offsets = off_all;
     v.sizes = size_all;
+    v.keys = keys_all;
   } else {
     for (size_t k : order) {
       v.offsets.push_back(off_all[k]);
       v.sizes.push_back(size_all[k]);
+      v.keys.push_back(keys_all[k]);
     }
   }
   return V_OK;
@@ -565,8 +658,9 @@ int open_mkv(const File& f, Video& v) {
       off += (int64_t)size;
     }
   }
-  if (doctype != "matroska")
+  if (doctype != "matroska" && doctype != "webm")
     return unsupported(v, "Matroska (" + doctype + ")", "", "the " + doctype + " container");
+  if (doctype == "webm") v.container = "WebM";
   if (seg_body < 0) return V_ERR_PARSE;
   uint64_t track = 0, default_duration = 0;
   bool have_track = false;
@@ -584,6 +678,7 @@ int open_mkv(const File& f, Video& v) {
         if (tid == 0xAE) {  // TrackEntry
           uint64_t number = 0, type = 0, dd = 0;
           std::string codec;
+          std::vector<uint8_t> priv;
           bool encoded = false, interlaced = false;
           int w = 0, h = 0;
           int64_t q = p;
@@ -596,6 +691,8 @@ int open_mkv(const File& f, Video& v) {
               auto s = f.bytes(q, (size_t)cs);
               codec.assign(s.begin(), s.end());
               codec = codec.c_str();
+            } else if (cid == 0x63A2) {
+              priv = f.bytes(q, (size_t)std::min<uint64_t>(cs, 1 << 20));
             } else if (cid == 0x6D80) encoded = true;
             else if (cid == 0xE0) {
               int64_t r = q;
@@ -611,13 +708,26 @@ int open_mkv(const File& f, Video& v) {
             q += (int64_t)cs;
           }
           if (type == 1 && !have_track) {
-            if (codec != "V_MJPEG")
-              return unsupported(v, "Matroska", codec, "a codec other than Motion JPEG");
+            if (codec == "V_MPEG4/ISO/SP" || codec == "V_MPEG4/ISO/ASP" ||
+                codec == "V_MPEG4/ISO/AP") {
+              v.kind = K_MPEG4;
+              v.extradata = priv;
+            } else if (codec == "V_VP8") {
+              v.kind = K_VP8;
+            } else if (codec != "V_MJPEG") {
+              std::string what = codec;
+              if (codec == "V_VP9") what += " (VP9)";
+              else if (codec == "V_AV1") what += " (AV1)";
+              else if (codec == "V_MPEG4/ISO/AVC") what += " (H.264)";
+              else if (codec == "V_MPEGH/ISO/HEVC") what += " (HEVC)";
+              return unsupported(v, v.container, what,
+                                 "a codec other than Motion JPEG, MPEG-4 Part 2 and VP8");
+            }
             if (encoded)
-              return unsupported(v, "Matroska", codec + " (content encoding)",
+              return unsupported(v, v.container, codec + " (content encoding)",
                                  "compressed or encrypted track content");
-            if (interlaced)
-              return unsupported(v, "Matroska", codec + " (interlaced)",
+            if (interlaced && v.kind == K_MJPEG)
+              return unsupported(v, v.container, codec + " (interlaced)",
                                  "interlaced two-field Motion JPEG");
             have_track = true;
             track = number;
@@ -642,15 +752,19 @@ int open_mkv(const File& f, Video& v) {
           break;
         }
         int64_t block = -1, bend = -1;
+        bool key = false;
         if (cid == 0xA3) {
           block = p;
           bend = p + (int64_t)cs;
+          key = true;  // SimpleBlock: its keyframe flag, below
         } else if (cid == 0xA0) {
           int64_t q = p;
           uint64_t gid, gs;
+          key = true;  // a Block is a key frame unless it names a ReferenceBlock
           while (q < p + (int64_t)cs && ebml_vint(f, q, p + (int64_t)cs, gid, true) &&
                  ebml_vint(f, q, p + (int64_t)cs, gs, false)) {
             if (gid == 0xA1) { block = q; bend = q + (int64_t)gs; }
+            if (gid == 0xFB) key = false;
             q += (int64_t)gs;
           }
         }
@@ -660,9 +774,10 @@ int open_mkv(const File& f, Video& v) {
           uint8_t hd[3];
           if (ebml_vint(f, q, bend, tn, false) && tn == track && f.read(q, hd, 3)) {
             if ((hd[2] >> 1) & 3)
-              return unsupported(v, "Matroska", v.codec + " (laced blocks)", "laced blocks");
+              return unsupported(v, v.container, v.codec + " (laced blocks)", "laced blocks");
             v.offsets.push_back(q + 3);
             v.sizes.push_back(bend - q - 3);
+            v.keys.push_back(cid == 0xA3 ? (hd[2] & 0x80) != 0 : key);
           }
         }
         p += (int64_t)cs;
@@ -1074,6 +1189,167 @@ std::vector<uint8_t> moov(const Writer& wr) {
   return o;
 }
 
+// ---------------------------------------------------------------- inter-coded video
+
+// Index an MPEG-4 Part 2 or VP8 video's samples: which give a frame (cv2
+// counts those), which a decoder can start from (a key frame by the
+// container's flag and the codec's own header), and the stream's refusals.
+int prepare_inter(const char* path, Video& v) {
+  v.path = path;
+  const File f(path);
+  for (size_t i = 0; i < v.offsets.size(); i++)
+    if (v.offsets[i] < 0 || v.offsets[i] + v.sizes[i] > f.size) {
+      v.offsets.resize(i);  // a sample past the file's end ends the video there
+      v.sizes.resize(i);
+      break;
+    }
+  const size_t n = v.offsets.size();
+  if (v.keys.size() < n) v.keys.assign(n, 1);
+  v.sync.assign(n, 0);
+  std::string why;
+  const std::string codec = v.codec + (v.kind == K_MPEG4 ? " (MPEG-4 Part 2)" : " (VP8)");
+  if (v.kind == K_MPEG4) {
+    v.m4 = mpeg4_new(v.tag);
+    bool have_vol = false;
+    if (!v.extradata.empty()) {
+      const int rc = mpeg4_config(v.m4, v.extradata.data(), v.extradata.size(), why);
+      if (rc == C_UNSUPPORTED) return unsupported(v, v.container, codec, why);
+      have_vol = rc == C_OK && mpeg4_width(v.m4) > 0;
+    }
+    for (size_t i = 0; i < n; i++) {
+      const auto head = f.bytes(v.offsets[i], (size_t)std::min<int64_t>(v.sizes[i], 1024));
+      bool vol = false;
+      for (size_t k = 0; k + 4 <= head.size() && !vol; k++)
+        vol = !head[k] && !head[k + 1] && head[k + 2] == 1 && (head[k + 3] & 0xF0) == 0x20;
+      if (vol || (!have_vol && i == 0)) {
+        const int rc = mpeg4_config(v.m4, head.data(), head.size(), why);
+        if (rc == C_UNSUPPORTED) return unsupported(v, v.container, codec, why);
+        if (rc == C_OK && mpeg4_width(v.m4) > 0 && !have_vol) {
+          have_vol = true;
+          v.extradata = head;
+        }
+      }
+      int type = 0;
+      const int coded = mpeg4_sample_kind(head.data(), head.size(), mpeg4_time_bits(v.m4), type);
+      if (coded == 1 && type == 2) return unsupported(v, v.container, codec, "B-VOPs");
+      if (coded == 1 && type == 3) return unsupported(v, v.container, codec, "S(GMC)-VOPs");
+      if (coded == 1 || (coded < 0 && (int64_t)head.size() < v.sizes[i])) {
+        v.display.push_back((int64_t)i);
+        v.sync[i] = coded == 1 && type == 0 && v.keys[i];
+      }
+    }
+    if (!have_vol) return V_ERR_PARSE;
+    v.w = mpeg4_width(v.m4);
+    v.h = mpeg4_height(v.m4);
+    mpeg4_free(v.m4);
+    v.m4 = nullptr;
+  } else {
+    bool sized = false;
+    for (size_t i = 0; i < n; i++) {
+      const auto head = f.bytes(v.offsets[i], (size_t)std::min<int64_t>(v.sizes[i], 10));
+      if (head.size() < 3) continue;
+      const bool key = !(head[0] & 1), show = (head[0] >> 4) & 1;
+      if ((head[0] >> 1 & 7) > 3) return unsupported(v, v.container, codec,
+                                                      "a VP8 version above 3");
+      if (key && head.size() == 10 && !sized) {
+        v.w = le16(&head[6]) & 0x3fff;
+        v.h = le16(&head[8]) & 0x3fff;
+        sized = true;
+      }
+      if (show) v.display.push_back((int64_t)i);
+      v.sync[i] = key;
+    }
+    if (!sized) return V_ERR_PARSE;
+  }
+  v.broken = true;
+  return V_OK;
+}
+
+// One VP8 frame: C_OK and its picture, C_NO_FRAME for a frame not shown
+// (show_frame 0), or C_ERR.
+int decode_vp8(vp8::VP8Decoder& dec, const uint8_t* data, size_t n, Picture& out,
+               std::string& why) {
+  if (dec.decode_frame(data, n) != vp8::OK) {
+    why = "a VP8 frame that cannot be decoded";
+    return C_ERR;
+  }
+  if (!dec.show) return C_NO_FRAME;
+  out.w = dec.width;
+  out.h = dec.height;
+  out.stride = dec.ys;
+  out.cstride = dec.uvs;
+  out.y = dec.cur->Y.data();
+  out.u = dec.cur->U.data();
+  out.v = dec.cur->V.data();
+  return C_OK;
+}
+
+// Decode the video's frame `index` into v.bgr (its size in w, h): from the
+// decoder's next sample where the frame lies ahead with no key frame
+// between, else from the last key frame at or before it.
+int read_inter(Video& v, int64_t index, int& w, int& h) {
+  if (index < 0 || index >= (int64_t)v.display.size()) return V_END;
+  const int64_t target = v.display[(size_t)index];
+  int64_t start = -1;
+  for (int64_t s = target; s >= 0; s--)
+    if (v.sync[(size_t)s]) {
+      start = s;
+      break;
+    }
+  if (v.broken || target < v.next_sample || start > v.next_sample) {
+    if (start < 0) {
+      v.message = "no key frame at or before the frame";
+      return V_ERR_PARSE;
+    }
+    if (!v.file) {  // the first read
+      v.file.reset(new File(v.path.c_str()));
+      if (v.kind == K_MPEG4) {
+        std::string why;
+        v.m4 = mpeg4_new(v.tag);
+        mpeg4_config(v.m4, v.extradata.data(), v.extradata.size(), why);
+      } else {
+        v.vp8.reset(new vp8::VP8Decoder());
+        v.vp8->webp = false;
+      }
+    }
+    v.next_sample = start;
+    v.broken = false;
+  }
+  while (v.next_sample <= target) {
+    const int64_t s = v.next_sample++;
+    v.sample.resize((size_t)v.sizes[(size_t)s]);
+    Picture pic;
+    std::string why;
+    int rc;
+    if (!v.file->read(v.offsets[(size_t)s], v.sample.data(), v.sample.size())) {
+      rc = C_ERR;
+      why = "a sample that cannot be read from the file";
+    } else if (v.kind == K_MPEG4) {
+      rc = mpeg4_decode(v.m4, v.sample.data(), v.sample.size(), pic, why);
+    } else {
+      rc = decode_vp8(*v.vp8, v.sample.data(), v.sample.size(), pic, why);
+    }
+    if (rc == C_UNSUPPORTED || rc == C_ERR) {
+      v.broken = true;
+      v.message = why;
+      return rc == C_ERR ? V_ERR_PARSE : V_UNSUPPORTED;
+    }
+    if (s == target) {
+      if (rc != C_OK) {
+        v.broken = true;
+        v.message = "a frame that gives no picture";
+        return V_ERR_PARSE;
+      }
+      w = pic.w;
+      h = pic.h;
+      v.bgr.resize((size_t)w * h * 3);
+      yuv420_to_bgr(pic, v.bgr.data());
+      return V_OK;
+    }
+  }
+  return V_ERR_PARSE;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1107,7 +1383,8 @@ void* mgdt_video_open(const char* path, int* status) {
              : unsupported(*v, "unknown", "", "a container other than AVI, MP4/MOV, Matroska "
                                               "and GIF");
   }
-  if (rc == V_OK && v->kind == 0) {
+  if (rc == V_OK && (v->kind == K_MPEG4 || v->kind == K_VP8)) rc = prepare_inter(path, *v);
+  if (rc == V_OK && v->kind == K_MJPEG) {
     // interlaced Motion JPEG: two fields (two JPEG images) in a frame
     if (!v->sizes.empty()) {
       auto fr = f.bytes(v->offsets[0], (size_t)std::min<int64_t>(v->sizes[0], 1 << 24));
@@ -1138,11 +1415,14 @@ void mgdt_video_describe(void* p, char* container, char* codec, char* message, i
   snprintf(message, cap, "%s", v->message.c_str());
 }
 
-// kind (0 Motion JPEG, 1 GIF), frames, fps, width and height
+// kind (0 Motion JPEG, 1 GIF, 2 MPEG-4 Part 2, 3 VP8), frames, fps, width
+// and height
 void mgdt_video_info(void* p, int* kind, int64_t* frames, double* fps, int* w, int* h) {
   Video* v = (Video*)p;
   *kind = v->kind;
-  *frames = v->kind ? (int64_t)v->gif_frames.size() : (int64_t)v->offsets.size();
+  *frames = v->kind == K_GIF     ? (int64_t)v->gif_frames.size()
+            : v->kind == K_MJPEG ? (int64_t)v->offsets.size()
+                                 : (int64_t)v->display.size();
   *fps = v->fps;
   *w = v->w;
   *h = v->h;
@@ -1158,6 +1438,20 @@ void mgdt_video_index(void* p, int64_t* offsets, int64_t* sizes) {
 // the GIF's next composed frame, (h, w, 3) BGR; 0, or -8 after the last,
 // or -3 for a frame that cannot be read
 int mgdt_video_gif_next(void* p, uint8_t* bgr) { return gif_next(*(Video*)p, bgr); }
+
+// Decode frame `index` of an MPEG-4 Part 2 or VP8 video: 0 and its size
+// (mgdt_video_copy then gives its BGR), -3 where it cannot be read or -7
+// where it uses what the port does not decode (mgdt_video_describe's
+// message says what), -8 past the last frame.
+int mgdt_video_read(void* p, int64_t index, int* w, int* h) {
+  return read_inter(*(Video*)p, index, *w, *h);
+}
+
+// The BGR (h, w, 3) of the frame mgdt_video_read decoded.
+void mgdt_video_copy(void* p, uint8_t* bgr) {
+  Video* v = (Video*)p;
+  std::copy(v->bgr.begin(), v->bgr.end(), bgr);
+}
 
 void mgdt_video_close(void* p) { delete (Video*)p; }
 

@@ -9,7 +9,8 @@ together and waits for all of them.
 
 The image decoder, `native/src/host_loader.cpp` with the WebP decoder
 `native/src/host_webp.cpp` (name `HOST_LOADER`; its digest covers every
-source in `HOST_LOADER_SOURCES`), is built the same way by g++: with nvJPEG (`-DMGDT_NVJPEG`, the toolkit's
+source in `HOST_LOADER_SOURCES` and the VP8 decoder the WebP decoder
+includes, `HOST_LOADER_HEADERS`), is built the same way by g++: with nvJPEG (`-DMGDT_NVJPEG`, the toolkit's
 headers and libraries) where a CUDA device is present, else with its PNG
 decoder alone; so are the host augmentation's C++ (`native/src/
 host_augment.cpp`, name `HOST_AUGMENT`, floating point contraction off) and
@@ -17,9 +18,11 @@ the drawing and image writers' (`native/src/host_draw.cpp`, name
 `HOST_DRAW`, with zlib), the trackers' camera-motion compensation
 (`native/src/host_gmc.cpp` with the ORB and SIFT features of
 `native/src/host_features.cpp` and its `orb_pattern.inc`, name `HOST_GMC`,
-contraction off, `-mfma` where the CPU has the instruction), and the video demuxers, GIF decoder and MP4
-writer (`native/src/host_video.cpp`, name `HOST_VIDEO`). `build_all` takes
-all five among the names.
+contraction off, `-mfma` where the CPU has the instruction), and the video demuxers, GIF decoder, MP4
+writer and video decoders (`native/src/host_video.cpp` with the MPEG-4 Part 2
+decoder `host_mpeg4.cpp` and the headers it and `host_vp8.h` share, name
+`HOST_VIDEO`). `build_all` takes all five among the names. A source that is
+not a .cpp is included by one and only hashed.
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 HOST_LOADER = "host_loader"
 HOST_LOADER_SOURCES = tuple(PKG_ROOT / "native" / "src" / f for f in ("host_loader.cpp",
                                                                      "host_webp.cpp"))
+HOST_LOADER_HEADERS = (PKG_ROOT / "native" / "src" / "host_vp8.h",)
 HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 HOST_AUGMENT = "host_augment"
 HOST_AUGMENT_SRC = PKG_ROOT / "native" / "src" / f"{HOST_AUGMENT}.cpp"
@@ -52,7 +56,8 @@ HOST_GMC = "host_gmc"
 HOST_GMC_SOURCES = tuple(PKG_ROOT / "native" / "src" / f for f in (
     "host_gmc.cpp", "host_features.cpp", "orb_pattern.inc"))
 HOST_VIDEO = "host_video"
-HOST_VIDEO_SRC = PKG_ROOT / "native" / "src" / f"{HOST_VIDEO}.cpp"
+HOST_VIDEO_SOURCES = tuple(PKG_ROOT / "native" / "src" / f for f in (
+    "host_video.cpp", "host_mpeg4.cpp", "host_codecs.h", "host_vp8.h", "host_yuv.h"))
 
 
 def cpu_has_fma() -> bool:
@@ -72,7 +77,7 @@ HOST_GMC_FLAGS = (*HOST_FLAGS, "-ffp-contract=off", *(("-mfma",) if cpu_has_fma(
 HOST_SOURCES = {HOST_AUGMENT: ((HOST_AUGMENT_SRC,), HOST_AUGMENT_FLAGS, ()),
                 HOST_DRAW: ((HOST_DRAW_SRC,), HOST_DRAW_FLAGS, ("-lz",)),
                 HOST_GMC: (HOST_GMC_SOURCES, HOST_GMC_FLAGS, ("-lpthread",)),
-                HOST_VIDEO: ((HOST_VIDEO_SRC,), HOST_FLAGS, ())}
+                HOST_VIDEO: (HOST_VIDEO_SOURCES, HOST_FLAGS, ())}
 
 
 def nvcc_path() -> str:
@@ -107,7 +112,7 @@ def library_path(name: str) -> Path:
     source, every shared header of `csrc/` and the flags."""
     if name == HOST_LOADER:
         h = hashlib.sha256()
-        for src in HOST_LOADER_SOURCES:
+        for src in (*HOST_LOADER_SOURCES, *HOST_LOADER_HEADERS):
             h.update(src.read_bytes())
         h.update(" ".join(host_command()).encode())
         return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"

@@ -315,8 +315,8 @@ def test_sources_list_as_jax(tmp_path, caplog):
     assert any("unreadable image" in r.message for r in caplog.records)
     arrays = load_inference_source([scene(10, 12, 0), scene(8, 9, 1)])
     assert [it["path"] for it in arrays] == ["array0.jpg", "array1.jpg"]
-    (tmp_path / "clip.webm").write_bytes(b"")
-    for src, word in ((tmp_path / "clip.webm", "webm container"), ("0", "stream"),
+    (tmp_path / "clip.wmv").write_bytes(b"")
+    for src, word in ((tmp_path / "clip.wmv", "wmv container"), ("0", "stream"),
                       ("rtsp://cam/1", "stream")):
         with pytest.raises(NotImplementedError, match=word):
             load_inference_source(src)

@@ -376,17 +376,21 @@ def _mp4_with_entry(data: bytes, fourcc: bytes) -> bytes:
     return data.replace(b"mp4v", fourcc, 1)
 
 
-@pytest.mark.parametrize("case", ["mp4v-mpeg4-part2", "avc1", "hvc1", "fragmented", "webm",
-                                  "avi-xvid", "mkv-h264", "interlaced"])
+@pytest.mark.parametrize("case", ["mpeg4-bvop", "avc1", "hvc1", "fragmented", "vp9-webm",
+                                  "avi-h264", "mkv-h264", "interlaced"])
 def test_unported_videos_raise_naming_the_codec(clips, tmp_path, case):
     data = clips["cv2-mp4"].read_bytes()
-    if case == "mp4v-mpeg4-part2":
+    if case == "mpeg4-bvop":  # cv2's mp4v with its second VOP made a B-VOP
         p = tmp_path / "a.mp4"
         vw = cv2.VideoWriter(str(p), cv2.VideoWriter_fourcc(*"mp4v"), 25, (64, 48))
         for i in range(3):
             vw.write(scene(48, 64, i))
         vw.release()
-        word = "mp4v"
+        b = bytearray(p.read_bytes())
+        k = b.index(b"\0\0\1\xb6", b.index(b"\0\0\1\xb6") + 4) + 4
+        b[k] = (b[k] & 0x3F) | 0x80
+        p.write_bytes(bytes(b))
+        word = "B-VOPs"
     elif case in ("avc1", "hvc1"):
         p = tmp_path / "a.mp4"
         p.write_bytes(_mp4_with_entry(data, case.encode()))
@@ -395,14 +399,17 @@ def test_unported_videos_raise_naming_the_codec(clips, tmp_path, case):
         p = tmp_path / "a.mp4"
         p.write_bytes(data + struct.pack(">I", 8) + b"moof")
         word = "fragmented"
-    elif case == "webm":
+    elif case == "vp9-webm":
         p = tmp_path / "a.webm"
-        p.write_bytes(clips["cv2-mkv"].read_bytes())
-        word = "webm"
-    elif case == "avi-xvid":
+        vw = cv2.VideoWriter(str(p), cv2.VideoWriter_fourcc(*"VP90"), 25, (64, 48))
+        for i in range(3):
+            vw.write(scene(48, 64, i))
+        vw.release()
+        word = "V_VP9"
+    elif case == "avi-h264":
         p = tmp_path / "a.avi"
-        p.write_bytes(clips["cv2-avi"].read_bytes().replace(b"MJPG", b"XVID"))
-        word = "XVID"
+        p.write_bytes(clips["cv2-avi"].read_bytes().replace(b"MJPG", b"H264"))
+        word = "H264"
     elif case == "mkv-h264":
         p = tmp_path / "a.mkv"
         p.write_bytes(clips["cv2-mkv"].read_bytes().replace(b"V_MJPEG", b"V_MPEGH"))

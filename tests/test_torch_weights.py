@@ -122,6 +122,34 @@ def test_port_imports_no_pil_and_mss_only_for_screenshots():
     assert "mss" not in top
 
 
+def test_port_names_no_ffmpeg_library():
+    """No file of the port (its Python, C++ and CUDA sources and
+    `chip_smoke.py`) names a library of ffmpeg's to load or link, as cv2
+    bundles them (`libavcodec-<hash>.so`, `libswscale*`, `-lavcodec`,
+    `opencv_python.libs`): its video decoders are its own
+    (`native/src/host_mpeg4.cpp`, `host_vp8.h`), and the built video library
+    links none. (The MPEG-4 decoder reads an old ffmpeg's user data, which
+    spells "libavcodec build: N", as ffmpeg's decoder does.)"""
+    import re
+    import subprocess
+    from mgdt_yolo_tpu_torch.native import video
+    from mgdt_yolo_tpu_torch.utils import build
+    files = [p for p in sorted((ROOT / "mgdt_yolo_tpu_torch").rglob("*"))
+             if p.suffix in (".py", ".cpp", ".h", ".inc", ".cu", ".cuh")]
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 40
+    names = re.compile(r"lib(avcodec|avformat|avutil|avdevice|avfilter|swscale|swresample)"
+                       r"[-.*_0-9]|-l(avcodec|avformat|avutil|swscale)\b|opencv_python\.libs")
+    for path in files:
+        found = names.search(path.read_text(errors="replace"))
+        assert not found, f"{path.relative_to(ROOT)} names {found.group()}"
+    video._lib()
+    out = subprocess.run(["ldd", str(build.library_path(build.HOST_VIDEO))],
+                         capture_output=True, text=True)
+    assert out.returncode == 0 and not any(k in out.stdout for k in ("libav", "swscale",
+                                                                     "opencv")), out.stdout
+
+
 def test_default_device_is_cuda_and_raises_without_it():
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
